@@ -16,13 +16,23 @@ Phases, each printed as one JSON line:
   with the ``gcn`` aggregator, the path of the ``sum`` kind;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (K1 exact, K2 within 1e-6
-  of the output's scale, the atomicAdd backwards within 1e-5), timed with
+  of the output's scale, the atomic backwards within 1e-5), timed with
   CUDA events (L2 flushed between launches) beside its plain version, one
   PyTorch library call where one computes the same function, and its
-  device-memory bound;
+  device-memory bound.  The backwards -- the fused block backward
+  (``block_gather_bwd``) and its two single-half uses (``scatter_add_rows``,
+  ``gather_reduce_bwd``) -- get two yardsticks: ``library_ms``, the
+  ``index_add_`` calls alone into a buffer that is never zeroed, with the
+  division and expansion done outside the timed call; and
+  ``library_same_fn_ms``, the same function from the same inputs (a zeroed
+  table, the division and expansion, the ``index_add_`` calls);
+* ``timing_floor``: the same timing around no work, and around the block
+  backward's memset alone;
 * ``step_parity``: one train step from the same parameters and batch,
   through the kernels and through the plain versions: loss and every
-  gradient within 1e-5 relative (atomic summation order);
+  gradient within 1e-5 relative (atomic summation order), 6 kernel
+  launches (the assembly, two row gathers, two fused reductions, one fused
+  block backward);
 * ``breakdown``: where the epoch's time goes — an epoch of the loader alone
   (host sampling, miss gather, pinned H2D), and one train step alone on a
   shipped batch (host enqueue time, wall time, device time).
@@ -161,8 +171,8 @@ def main() -> None:
     epochs = [tr.run_epoch(e) for e in range(2)]
     torch.cuda.synchronize()
     launches = gk.launch_counts()
-    main_keys = ("gather_rows", "assemble_from_map", "scatter_add_rows",
-                 "gather_reduce_mean", "gather_reduce_bwd_mean")
+    main_keys = ("gather_rows", "assemble_from_map", "gather_reduce_mean",
+                 "block_gather_bwd_mean")
     train_out = {
         "graph": {"vertices": ds.num_nodes, "edges": ds.graph.num_edges},
         "caps": list(tr.sampler.caps), "cache_capacity": tr.cache.capacity,
@@ -190,7 +200,7 @@ def main() -> None:
     for k in main_keys:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
-    for k in ("gather_reduce_sum", "gather_reduce_bwd_sum"):
+    for k in ("gather_reduce_sum", "block_gather_bwd_sum"):
         if gcn_launches[k] <= 0:
             fail(f"kernel {k} was not launched by the gcn-aggregator run")
     losses = [m.mean_loss for m in epochs] + [gcn_epoch.mean_loss]
@@ -250,17 +260,43 @@ def main() -> None:
         kernel=lambda: gk.assemble_from_map(cv, cmap, mb.input_nids, miss_slot, miss_feats),
         plain=lambda: gk.assemble_from_map_plain(cv, cmap, mb.input_nids, miss_slot, miss_feats),
         library=None, nbytes=3 * 4 * n0 + 2 * rows_bytes(n0, d0)))
-    sbuf = torch.zeros_like(h1)
+    # -- the backwards: the fused block backward and its single-half uses ----
+    s1, d1 = h1.shape
+    n1, f1 = b1.neigh_pos.shape
+    g1n = torch.randn(n1, d1, generator=gen, device=dev)
     ids1_l = b1.self_pos.long()
+    flat1, _, _ = reduce_inputs(b1.neigh_pos, b1.neigh_mask)
+    rows1 = b1.neigh_mask.nonzero(as_tuple=True)[0]
+    cnt1 = b1.neigh_mask.sum(1, keepdim=True).clamp(min=1).float()
+
+    def expanded(g, kind):
+        """The index_add_ yardstick's input: the per-row division and the
+        expansion over valid slots, done outside the timed call."""
+        return (g / cnt1 if kind == "mean" else g)[rows1].contiguous()
+
+    def same_fn(g_self, g_neigh, kind):
+        """The backward from the kernel's own inputs in PyTorch calls: a
+        zeroed table, the division and expansion, the index_add_ calls."""
+        out = torch.zeros(s1, d1, device=dev)
+        if g_self is not None:
+            out.index_add_(0, b1.self_pos, g_self)
+        if g_neigh is not None:
+            m = b1.neigh_mask
+            g = g_neigh / m.sum(1, keepdim=True).clamp(min=1) if kind == "mean" else g_neigh
+            out.index_add_(0, b1.neigh_pos.view(-1),
+                           (g[:, None, :] * m[..., None]).view(-1, d1))
+        return out
+
+    sbuf = torch.zeros_like(h1)
     cases.append(dict(
         name="scatter_add_rows[block1 self bwd]", key="scatter_add_rows",
         replaces=f"{PALLAS}:58 gather_rows_pallas (backward; JAX: autodiff of jnp.take)",
-        shape=f"grad_out {list(g1.shape)} -> [{h1.shape[0]}, {h1.shape[1]}]",
-        tol="atomic",
-        kernel=lambda: gk.scatter_add_rows(g1, b1.self_pos, h1.shape[0]),
-        plain=lambda: gk.scatter_add_rows_plain(g1, b1.self_pos, h1.shape[0]),
+        shape=f"grad_out {list(g1.shape)} -> [{s1}, {d1}]", tol="atomic",
+        kernel=lambda: gk.scatter_add_rows(g1, b1.self_pos, s1),
+        plain=lambda: gk.scatter_add_rows_plain(g1, b1.self_pos, s1),
         library=lambda: sbuf.index_add_(0, ids1_l, g1),
-        nbytes=4 * g1.shape[0] + rows_bytes(*g1.shape) + rows_bytes(*h1.shape)))
+        same_fn=lambda: same_fn(g1, None, "sum"),
+        nbytes=4 * n1 + rows_bytes(n1, d1) + rows_bytes(s1, d1)))
     for rk in ("mean", "sum"):
         for label, src, blk in (("block0", feats, b0), ("block1", h1, b1)):
             flat, offs, valid = reduce_inputs(blk.neigh_pos, blk.neigh_mask)
@@ -275,21 +311,33 @@ def main() -> None:
                 library=lambda s=src, fl=flat, of=offs, k=rk: torch.nn.functional.embedding_bag(
                     fl, s, of, mode=k),
                 nbytes=5 * n * f + rows_bytes(valid, d) + rows_bytes(n, d)))
-        flat, offs, valid = reduce_inputs(b1.neigh_pos, b1.neigh_mask)
-        rows = b1.neigh_mask.nonzero(as_tuple=True)[0]
-        cnt = b1.neigh_mask.sum(1, keepdim=True).clamp(min=1).float()
-        expanded = (g1 / cnt if rk == "mean" else g1)[rows].contiguous()
         bbuf = torch.zeros_like(h1)
-        n, f = b1.neigh_pos.shape
         cases.append(dict(
             name=f"gather_reduce_bwd_{rk}[block1]", key=f"gather_reduce_bwd_{rk}",
             replaces=f"{PALLAS}:132 gather_mean_pallas (backward; JAX: autodiff of jnp.take)",
-            shape=f"grad_out {list(g1.shape)} pos/mask [{n}, {f}] -> {list(h1.shape)}",
+            shape=f"grad_out {list(g1.shape)} pos/mask [{n1}, {f1}] -> {list(h1.shape)}",
             tol="atomic",
-            kernel=lambda k=rk: gk.gather_reduce_bwd(g1, b1.neigh_pos, b1.neigh_mask, h1.shape[0], k),
-            plain=lambda k=rk: gk.gather_reduce_bwd_plain(g1, b1.neigh_pos, b1.neigh_mask, h1.shape[0], k),
-            library=lambda fl=flat, ex=expanded, bb=bbuf: bb.index_add_(0, fl, ex),
-            nbytes=5 * n * f + rows_bytes(*g1.shape) + rows_bytes(*h1.shape)))
+            kernel=lambda k=rk: gk.gather_reduce_bwd(g1, b1.neigh_pos, b1.neigh_mask, s1, k),
+            plain=lambda k=rk: gk.gather_reduce_bwd_plain(g1, b1.neigh_pos, b1.neigh_mask, s1, k),
+            library=lambda ex=expanded(g1, rk), bb=bbuf: bb.index_add_(0, flat1, ex),
+            same_fn=lambda k=rk: same_fn(None, g1, k),
+            nbytes=5 * n1 * f1 + rows_bytes(n1, d1) + rows_bytes(s1, d1)))
+        fbuf_s, fbuf_n = torch.zeros_like(h1), torch.zeros_like(h1)
+        cases.append(dict(
+            name=f"block_gather_bwd_{rk}[block1]", key=f"block_gather_bwd_{rk}",
+            replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas "
+                     "(backward of both; JAX: autodiff of jnp.take)",
+            shape=f"g_self {list(g1.shape)} self_pos [{n1}], g_neigh {list(g1n.shape)} "
+                  f"pos/mask [{n1}, {f1}] -> {list(h1.shape)}",
+            tol="atomic",
+            kernel=lambda k=rk: gk.block_gather_bwd(g1, b1.self_pos, g1n, b1.neigh_pos,
+                                                    b1.neigh_mask, s1, k),
+            plain=lambda k=rk: gk.block_gather_bwd_plain(g1, b1.self_pos, g1n, b1.neigh_pos,
+                                                         b1.neigh_mask, s1, k),
+            library=lambda ex=expanded(g1n, rk), bs=fbuf_s, bn=fbuf_n: (
+                bs.index_add_(0, ids1_l, g1), bn.index_add_(0, flat1, ex)),
+            same_fn=lambda k=rk: same_fn(g1, g1n, k),
+            nbytes=4 * n1 + 5 * n1 * f1 + 2 * rows_bytes(n1, d1) + rows_bytes(s1, d1)))
 
     tolerances = {"exact": 0.0, "reduce": 1e-6, "atomic": 1e-5}
     entries, bad = [], []
@@ -301,8 +349,8 @@ def main() -> None:
         ok = err <= tolerances[c["tol"]] * scale
         entry = {
             "name": c["name"], "route": "cuda", "source": SOURCE,
-            "replaces": c["replaces"], "launches": launches[c["key"]]
-            if c["key"] in main_keys else gcn_launches[c["key"]],
+            "replaces": c["replaces"],
+            "launches": (gcn_launches if c["key"].endswith("_sum") else launches)[c["key"]],
             "max_abs_err": err, "tolerance": f"{c['tol']}: |err| <= "
             f"{tolerances[c['tol']]} * max|plain| ({scale:.6g})",
             "ms": time_ms(torch, c["kernel"], flush),
@@ -312,12 +360,25 @@ def main() -> None:
             "library_ms": time_ms(torch, c["library"], flush) if c["library"] else None,
             "shape": c["shape"],
         }
+        if "same_fn" in c:
+            entry["library_same_fn_ms"] = time_ms(torch, c["same_fn"], flush)
+            entry["library_same_fn_max_abs_err"] = (c["same_fn"]() - out_p).abs().max().item()
         entries.append(entry)
         if not ok:
             bad.append(f"{c['name']}: max_abs_err {err} ({c['tol']})")
     print(json.dumps({"kernels": entries}), flush=True)
     if bad:
         fail("kernels disagree with their plain versions: " + "; ".join(bad))
+    # what the times above cannot go below: the event pair around no work,
+    # and the block backward's memset of its table alone (its C entry point
+    # with both halves absent)
+    table = torch.empty_like(h1)
+    emit("timing_floor", {
+        "empty_event_pair_ms": time_ms(torch, lambda: None, flush),
+        "block_bwd_memset_ms": time_ms(torch, lambda: gk._lib().pg_block_gather_bwd(
+            None, None, 0, None, None, None, 0, 0, table.data_ptr(), s1, d1, 0, 1,
+            torch.cuda.current_stream(dev).cuda_stream), flush),
+        "memset_shape": [s1, d1]})
 
     # -- step parity ------------------------------------------------------------
     def fresh_state():
@@ -346,8 +407,8 @@ def main() -> None:
     worst = max([parity["loss_rel_err"], *parity["grads"].values()])
     if not worst <= 1e-5:
         fail(f"step parity: worst relative error {worst} > 1e-5")
-    if step_launches != 7:
-        fail(f"the kernel step launched {step_launches} kernels, expected 7")
+    if step_launches != 6:
+        fail(f"the kernel step launched {step_launches} kernels, expected 6")
 
     # -- breakdown: host pipeline alone vs device step alone -----------------
     t0 = time.perf_counter()

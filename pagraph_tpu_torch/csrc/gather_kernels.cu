@@ -1,5 +1,5 @@
 // Row-gather and fused gather + masked fan-out reduction kernels for Hopper
-// (sm_90a), with the scatter-add kernels that are their backwards.
+// (sm_90a), with the one scatter-add kernel that is the backward of both.
 //
 // What they replace (the two Pallas TPU kernels of the JAX package):
 //   * pg_gather_rows, pg_assemble_from_map  <- gather_rows_pallas
@@ -10,28 +10,44 @@
 //   * pg_gather_reduce                      <- gather_mean_pallas
 //     (pagraph_tpu/ops/pallas_gather.py:132, body _gather_sum_kernel :86),
 //     with a 'sum' kind beside 'mean'.
-//   * pg_scatter_add_rows, pg_gather_reduce_bwd: the backwards.  The Pallas
-//     kernels are forward-only (JAX differentiates jnp.take); the port trains
-//     through these kernels, so their gradients are kernels too.
+//   * pg_block_gather_bwd: the backward of both.  The Pallas kernels are
+//     forward-only (JAX differentiates jnp.take); the port trains through
+//     these kernels, so their gradient is a kernel too.  A GraphSAGE block
+//     gathers the same source table twice (its self rows and its neighbor
+//     mean), so one launch takes both incoming gradients and writes the one
+//     gradient table; either half may be absent, which makes it the
+//     backward of one gather alone.
 //
 // What bounds them: device-memory bytes, not FLOPs.  A row gather does no
 // arithmetic; the reduction does fanout adds per output element.  The least
 // traffic is the index bytes + the gathered-row bytes + the output bytes,
-// each once (for the backwards: indices + incoming gradient + the gradient
-// table written once).  That is what chip_smoke.py's bound_ms counts.
+// each once.  For the block backward: the indices, both incoming gradients
+// and the gradient table written once -- for block 1 of the main path
+// (6000 rows, fan-out 2, D = 32, a [14592, 32] table) about 3.5 MB, about
+// 1.0 us at 3.35 TB/s.  That is what chip_smoke.py's bound_ms counts.
 //
 // What the design does about it:
-//   * one warp per output row, so the 32 lanes read one source row together:
-//     with D % 4 == 0 and 16-byte-aligned tables every lane moves a float4,
-//     i.e. each row is read in coalesced 16-byte transactions (D = 100 is 25
-//     float4s, D = 32 is 8); otherwise a scalar loop over the row;
+//   * forwards: one warp per output row, so the 32 lanes read one source
+//     row together: with D % 4 == 0 and 16-byte-aligned tables every lane
+//     moves a float4, i.e. each row is read in coalesced 16-byte
+//     transactions (D = 100 is 25 float4s, D = 32 is 8); otherwise a scalar
+//     loop over the row;
 //   * masked fan-out slots are never loaded (as in the Pallas kernel, where
 //     invalid slots start no DMA), and the fan-out loop is unrolled with
 //     the fan-out as a template parameter;
 //   * the two-source assembly reads each output row from exactly one table,
 //     in one launch, instead of gathering both and selecting;
-//   * backwards use f32 atomicAdd into a zeroed gradient table; a warp's
-//     atomics hit consecutive addresses of one row.
+//   * the block backward is small (a ~2 MB table that stays in the 50 MB
+//     L2) and so bound by issue and launches, not by device memory: it
+//     zeroes the table with cudaMemsetAsync and runs one kernel, in one C
+//     call on the caller's stream (no fill kernel, no second scatter
+//     kernel, no add of two gradient tables); a group of G lanes serves one
+//     row (G the smallest power of two >= D/4, at most 32: at D = 32, 4 rows
+//     a warp), loads the row's indices once, reads the incoming gradients
+//     as float4 and adds them with 16-byte vector reductions
+//     (atomicAdd(float4*), red.global.add.v4.f32 on sm_90) when D % 4 == 0
+//     and the tables are 16-byte aligned, else with scalar f32 reductions;
+//     the mean's division is one reciprocal per row.
 //
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
 // sizes are int64_t / int.  Kernels run on the caller's stream, allocate
@@ -115,19 +131,6 @@ assemble_kernel(const float* __restrict__ cache_values,
   }
 }
 
-// K1 backward: grad_src[ids[r]] += grad_out[r]
-__global__ void __launch_bounds__(kThreads)
-scatter_add_rows_kernel(const float* __restrict__ grad_out,
-                        const int32_t* __restrict__ ids,
-                        float* __restrict__ grad_src, int64_t n, int d) {
-  const int64_t row = warp_row();
-  if (row >= n) return;
-  const int lane = threadIdx.x % kWarp;
-  const float* g = grad_out + row * d;
-  float* dst = grad_src + static_cast<int64_t>(ids[row]) * d;
-  for (int i = lane; i < d; i += kWarp) atomicAdd(dst + i, __ldg(g + i));
-}
-
 // K2: out[r] = sum_k mask[r,k] * src[pos[r,k]]  (divided by max(count, 1)
 // for MEAN).  FANOUT == 0 means the fan-out is the runtime value.
 template <int FANOUT, bool MEAN, bool VEC>
@@ -173,32 +176,87 @@ gather_reduce_kernel(const float* __restrict__ src, const int32_t* __restrict__ 
   }
 }
 
-// K2 backward: for each valid slot, grad_src[pos[r,k]] += grad_out[r]
-// (divided by max(count, 1) for MEAN).
-template <int FANOUT, bool MEAN>
+// 16-byte vector reduction to global memory.  sm_90 declares atomicAdd for
+// float4 (global memory only); with the result unused it compiles to a
+// reduction (RED), not a fetch-and-add.
+__device__ __forceinline__ void red4(float* dst, const float4& v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  v.x *= s; v.y *= s; v.z *= s; v.w *= s;
+  return v;
+}
+
+// Backward of a block's two gathers of one source table, into grad_src that
+// the caller zeroed:
+//   grad_src[self_pos[r]]  += g_self[r]                      r < n_self
+//   grad_src[pos[r, k]]    += g_neigh[r] / max(count_r, 1)   r < n_neigh, mask[r, k]
+// (undivided for !MEAN).  A group of 1 << lg lanes serves one row; a unit is
+// a float4 when VEC, else a float.  Every load of a row (its indices, mask
+// and both gradient units) is issued before its first reduction, so a row
+// costs one round of memory latency, not one per dependent load.  Padded
+// rows need no test: they carry a zero gradient (self_pos 0) and no valid
+// slot.  With FANOUT == 0 (a fan-out with no instantiation of its own) the
+// row's slots are re-read from memory instead of held in registers.
+template <int FANOUT, bool MEAN, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-gather_reduce_bwd_kernel(const float* __restrict__ grad_out,
-                         const int32_t* __restrict__ pos,
-                         const uint8_t* __restrict__ mask,
-                         float* __restrict__ grad_src,
-                         int64_t n, int fanout_rt, int d) {
-  const int64_t row = warp_row();
-  if (row >= n) return;
-  const int lane = threadIdx.x % kWarp;
+block_gather_bwd_kernel(const float* __restrict__ g_self,
+                        const int32_t* __restrict__ self_pos, int64_t n_self,
+                        const float* __restrict__ g_neigh,
+                        const int32_t* __restrict__ pos,
+                        const uint8_t* __restrict__ mask, int64_t n_neigh,
+                        int fanout_rt, float* __restrict__ grad_src, int d, int lg) {
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
+  const bool has_self = row < n_self, has_neigh = row < n_neigh;
+  if (!has_self && !has_neigh) return;
+  const int group = 1 << lg;
+  const int sub = threadIdx.x & (group - 1);
+  const int units = VEC ? d / 4 : d;
   const int F = FANOUT > 0 ? FANOUT : fanout_rt;
   const int32_t* p = pos + row * F;
   const uint8_t* m = mask + row * F;
+  constexpr int kSlots = FANOUT > 0 ? FANOUT : 1;
+  int32_t p_reg[kSlots];
+  bool m_reg[kSlots];
+  float* dst_self = grad_src;
   int count = 0;
+  if (has_self) dst_self += static_cast<int64_t>(self_pos[row]) * d;
 #pragma unroll
-  for (int k = 0; k < F; ++k) count += m[k] ? 1 : 0;
-  if (count == 0) return;
-  const float denom = static_cast<float>(count);
-  const float* g = grad_out + row * d;
-  for (int i = lane; i < d; i += kWarp) {
-    const float v = MEAN ? __ldg(g + i) / denom : __ldg(g + i);
+  for (int k = 0; k < F; ++k) {
+    const bool on = has_neigh && m[k] != 0;
+    if (FANOUT > 0) {
+      p_reg[k] = has_neigh ? p[k] : 0;
+      m_reg[k] = on;
+    }
+    count += on ? 1 : 0;
+  }
+  const float s = MEAN && count > 0 ? 1.f / static_cast<float>(count) : 1.f;
+  const float* gs = g_self + row * d;
+  const float* gn = g_neigh + row * d;
+  for (int i = sub; i < units; i += group) {
+    if (VEC) {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 vs = has_self ? __ldg(reinterpret_cast<const float4*>(gs) + i) : zero;
+      float4 vn = has_neigh ? __ldg(reinterpret_cast<const float4*>(gn) + i) : zero;
+      if (has_self) red4(dst_self + 4 * i, vs);
+      if (MEAN) vn = scale4(vn, s);
 #pragma unroll
-    for (int k = 0; k < F; ++k) {
-      if (m[k]) atomicAdd(grad_src + static_cast<int64_t>(p[k]) * d + i, v);
+      for (int k = 0; k < F; ++k) {
+        const bool on = FANOUT > 0 ? m_reg[k] : has_neigh && m[k] != 0;
+        const int32_t pk = FANOUT > 0 ? p_reg[k] : p[k];
+        if (on) red4(grad_src + static_cast<int64_t>(pk) * d + 4 * i, vn);
+      }
+    } else {
+      const float vs = has_self ? __ldg(gs + i) : 0.f;
+      const float vn = has_neigh ? __ldg(gn + i) * s : 0.f;
+      if (has_self) atomicAdd(dst_self + i, vs);
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        const bool on = FANOUT > 0 ? m_reg[k] : has_neigh && m[k] != 0;
+        const int32_t pk = FANOUT > 0 ? p_reg[k] : p[k];
+        if (on) atomicAdd(grad_src + static_cast<int64_t>(pk) * d + i, vn);
+      }
     }
   }
 }
@@ -223,15 +281,43 @@ void launch_reduce(const float* src, const int32_t* pos, const uint8_t* mask,
   }
 }
 
+struct BlockBwdArgs {
+  const float* g_self;
+  const int32_t* self_pos;
+  int64_t n_self;
+  const float* g_neigh;
+  const int32_t* pos;
+  const uint8_t* mask;
+  int64_t n_neigh;
+  int fanout;
+  float* grad_src;
+  int d;
+};
+
+template <int FANOUT, bool MEAN, bool VEC>
+void launch_block_bwd_as(const BlockBwdArgs& a, cudaStream_t st) {
+  // lanes per row: the smallest power of two covering the row's units
+  const int units = VEC ? a.d / 4 : a.d;
+  int lg = 0;
+  while ((1 << lg) < units && (1 << lg) < kWarp) ++lg;
+  const int64_t rows = a.n_self > a.n_neigh ? a.n_self : a.n_neigh;
+  const int64_t per_block = kThreads >> lg;
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
+  block_gather_bwd_kernel<FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
+      a.g_self, a.self_pos, a.n_self, a.g_neigh, a.pos, a.mask, a.n_neigh,
+      a.fanout, a.grad_src, a.d, lg);
+}
+
 template <int FANOUT>
-void launch_reduce_bwd(const float* grad_out, const int32_t* pos, const uint8_t* mask,
-                       float* grad_src, int64_t n, int fanout, int d, bool mean,
-                       cudaStream_t st) {
-  const dim3 grid = grid_for(n);
-  if (mean) {
-    gather_reduce_bwd_kernel<FANOUT, true><<<grid, kThreads, 0, st>>>(grad_out, pos, mask, grad_src, n, fanout, d);
+void launch_block_bwd(const BlockBwdArgs& a, bool mean, bool vec, cudaStream_t st) {
+  if (mean && vec) {
+    launch_block_bwd_as<FANOUT, true, true>(a, st);
+  } else if (mean) {
+    launch_block_bwd_as<FANOUT, true, false>(a, st);
+  } else if (vec) {
+    launch_block_bwd_as<FANOUT, false, true>(a, st);
   } else {
-    gather_reduce_bwd_kernel<FANOUT, false><<<grid, kThreads, 0, st>>>(grad_out, pos, mask, grad_src, n, fanout, d);
+    launch_block_bwd_as<FANOUT, false, false>(a, st);
   }
 }
 
@@ -290,15 +376,6 @@ int pg_assemble_from_map(const void* cache_values, const void* cache_map,
   return static_cast<int>(cudaGetLastError());
 }
 
-int pg_scatter_add_rows(const void* grad_out, const void* ids, void* grad_src,
-                        int64_t n, int d, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  scatter_add_rows_kernel<<<grid_for(n), kThreads, 0, st>>>(
-      static_cast<const float*>(grad_out), static_cast<const int32_t*>(ids),
-      static_cast<float*>(grad_src), n, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int pg_gather_reduce(const void* src, const void* pos, const void* mask, void* out,
                      int64_t n, int fanout, int d, int mean, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -312,17 +389,29 @@ int pg_gather_reduce(const void* src, const void* pos, const void* mask, void* o
   return static_cast<int>(cudaGetLastError());
 }
 
-int pg_gather_reduce_bwd(const void* grad_out, const void* pos, const void* mask,
-                         void* grad_src, int64_t n, int fanout, int d, int mean,
-                         void* stream) {
+// Zero grad_src [num_src, d] and add both halves of a block's backward into
+// it, in one memset and one launch on the caller's stream.  An absent half
+// has null pointers and 0 rows (the self half: g_self, self_pos, n_self; the
+// neighbor half: g_neigh, pos, mask, n_neigh, and then fanout is ignored).
+int pg_block_gather_bwd(const void* g_self, const void* self_pos, int64_t n_self,
+                        const void* g_neigh, const void* pos, const void* mask,
+                        int64_t n_neigh, int fanout, void* grad_src,
+                        int64_t num_src, int d, int mean, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(grad_out);
-  const int32_t* p = static_cast<const int32_t*>(pos);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* gs = static_cast<float*>(grad_src);
-#define PG_LAUNCH_REDUCE_BWD(F) launch_reduce_bwd<F>(g, p, m, gs, n, fanout, d, mean != 0, st)
-  PG_FANOUT_SWITCH(fanout, PG_LAUNCH_REDUCE_BWD)
-#undef PG_LAUNCH_REDUCE_BWD
+  const cudaError_t rc = cudaMemsetAsync(
+      grad_src, 0, static_cast<size_t>(num_src) * d * sizeof(float), st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if ((n_self == 0 && n_neigh == 0) || d == 0) return static_cast<int>(cudaGetLastError());
+  const BlockBwdArgs a{static_cast<const float*>(g_self),
+                       static_cast<const int32_t*>(self_pos), n_self,
+                       static_cast<const float*>(g_neigh),
+                       static_cast<const int32_t*>(pos),
+                       static_cast<const uint8_t*>(mask), n_neigh,
+                       n_neigh > 0 ? fanout : 0,
+                       static_cast<float*>(grad_src), d};
+#define PG_LAUNCH_BLOCK_BWD(F) launch_block_bwd<F>(a, mean != 0, vec != 0, st)
+  PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_BWD)
+#undef PG_LAUNCH_BLOCK_BWD
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,9 @@ Per layer: ``fc_self(h_dst) + fc_neigh(agg(h_neighbors))`` with
 Xavier-uniform (relu gain) weights; the last hidden layer applies the
 width-doubling ``cat((h, relu(h)))`` skip.  Layer i+1 of a minibatch is
 reachable from layer i through ``self_pos``, so each model layer costs one
-block: one K2 launch for the aggregation and one K1 launch for the self rows.
+block: one K2 launch for the aggregation and one K1 launch for the self rows,
+and (where the block's source needs a gradient) one fused backward launch
+for both (``ops.aggregate.block_gather``).
 
 Aggregators: ``mean`` and ``gcn`` (sum).  ``pool``, ``lstm`` and
 ``preprocess`` are not ported yet (ROADMAP queue 1).
@@ -18,7 +20,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.aggregate import block_aggregate, block_self
+from ..ops.aggregate import block_gather
 from ..sampling.block import MiniBatch
 from .common import Linear, concat_skip, dropout
 
@@ -69,8 +71,7 @@ class GraphSAGE(nn.Module):
         h = feats
         for bi, (block, upd) in enumerate(zip(mb.blocks, self.updates)):
             h = dropout(h, cfg.dropout, generator, self.training)
-            h_neigh = block_aggregate(h, block, kind)
-            h_self = block_self(h, block)
+            h_self, h_neigh = block_gather(h, block, kind)
             out = upd["self"](h_self) + upd["neigh"](h_neigh)
             if bi == cfg.n_layers - 1 and cfg.skip_connection:
                 h = concat_skip(out, torch.relu)

@@ -34,9 +34,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gather_kernels": {
         "pg_gather_rows": (_P, _P, _P, _I64, _I, _I, _P),
         "pg_assemble_from_map": (_P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _P),
-        "pg_scatter_add_rows": (_P, _P, _P, _I64, _I, _P),
         "pg_gather_reduce": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
-        "pg_gather_reduce_bwd": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
+        "pg_block_gather_bwd": (_P, _P, _I64, _P, _P, _P, _I64, _I, _P, _I64,
+                                _I, _I, _I, _P),
     },
 }
 

@@ -3,17 +3,32 @@
 Blocks are fixed-shape ``(cap_dst, fanout)`` index matrices, so
 "copy_src + segment-reduce" is a gather followed by a masked reduction over
 the fan-out axis.  On host-sampled blocks both run fused in one CUDA kernel
-(``gather_kernels.GatherReduce``), and the destination's own row is a CUDA
-row gather (``gather_kernels.GatherRows``); both train through their
-scatter-add backward kernels.  Prefix-layout blocks need no gather: their
-neighbor messages are a contiguous slice.
+(``gather_kernels.gather_reduce``), and the destination's own row is a CUDA
+row gather (``gather_kernels.gather_rows``).  :func:`block_gather` does both
+for one block, and its backward adds both gradients into the source table in
+one CUDA launch (``gather_kernels.BlockGather``); :func:`block_self` and
+:func:`block_aggregate`, the counterparts of the JAX functions, do one each.
+Prefix-layout blocks need no gather: their neighbor messages are a
+contiguous slice.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from ..sampling.block import Block
-from .gather_kernels import GatherReduce, GatherRows, reduce_msgs_plain
+from .gather_kernels import (BlockGather, GatherReduce, GatherRows,
+                             reduce_msgs_plain)
+
+
+def _check_kind(kind: str) -> None:
+    if kind == "max":
+        raise NotImplementedError(
+            "the 'max' kind (pool aggregator) is not ported yet: it needs "
+            "K2's max kind with an argmax backward (ROADMAP queue 1)")
+    if kind not in ("mean", "sum"):
+        raise ValueError(f"unknown aggregation kind {kind!r}")
 
 
 def block_self(h_src: torch.Tensor, block: Block) -> torch.Tensor:
@@ -38,13 +53,19 @@ def block_aggregate(h_src: torch.Tensor, block: Block,
     vector (DGL's empty-mailbox default).  'max' waits for the pool
     aggregator's kernel.
     """
-    if kind == "max":
-        raise NotImplementedError(
-            "the 'max' kind (pool aggregator) is not ported yet: it needs "
-            "K2's max kind with an argmax backward (ROADMAP queue 1)")
-    if kind not in ("mean", "sum"):
-        raise ValueError(f"unknown aggregation kind {kind!r}")
+    _check_kind(kind)
     if block.prefix_layout:
         return reduce_msgs_plain(_neigh_msgs(h_src, block), block.neigh_mask, kind)
     return GatherReduce.apply(h_src.contiguous(), block.neigh_pos,
                               block.neigh_mask, kind)
+
+
+def block_gather(h_src: torch.Tensor, block: Block,
+                 kind: str = "mean") -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(block_self(h_src, block), block_aggregate(h_src, block, kind))``,
+    with one fused backward on host-sampled blocks."""
+    _check_kind(kind)
+    if block.prefix_layout:          # slices, no gather: nothing to fuse
+        return block_self(h_src, block), block_aggregate(h_src, block, kind)
+    return BlockGather.apply(h_src.contiguous(), block.self_pos, block.neigh_pos,
+                             block.neigh_mask, kind)

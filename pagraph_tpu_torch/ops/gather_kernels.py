@@ -10,10 +10,16 @@ wrapper                computes                                         replaces
 ``assemble_from_map``  ``cache_values[pos]`` if ``pos = cache_map        ``gather_rows_pallas`` (K1)
                        [nids[r]] >= 0``, else ``miss_feats               + ``assemble_features_from_map``
                        [miss_slot[r]]``
-``scatter_add_rows``   ``grad_src[ids[r]] += grad_out[r]``              backward of K1
 ``gather_reduce``      masked ``mean``/``sum`` of ``src[pos[n, k]]``    ``gather_mean_pallas`` (K2)
+``block_gather_bwd``   both halves below into one table                 backward of K1 + K2
+``scatter_add_rows``   ``grad_src[ids[r]] += grad_out[r]``              backward of K1
 ``gather_reduce_bwd``  ``grad_src[pos[n,k]] += grad_out[n] (/count)``   backward of K2
 =====================  ===============================================  ==========================
+
+The three backwards are one kernel, ``pg_block_gather_bwd``: a memset of the
+gradient table and one launch, in one C call.  ``block_gather_bwd`` runs it
+with both halves (the backward of :class:`BlockGather`, the main path's),
+``scatter_add_rows`` and ``gather_reduce_bwd`` with one half absent.
 
 Dispatch is by the device of the tensors and nothing else: on CUDA tensors a
 wrapper launches its kernel (``csrc/gather_kernels.cu``, built at first use by
@@ -44,6 +50,8 @@ LAUNCHES: Dict[str, int] = {
     "gather_reduce_sum": 0,
     "gather_reduce_bwd_mean": 0,
     "gather_reduce_bwd_sum": 0,
+    "block_gather_bwd_mean": 0,
+    "block_gather_bwd_sum": 0,
 }
 
 _PLAIN_ON_CUDA = contextvars.ContextVar("pagraph_plain_on_cuda", default=False)
@@ -87,12 +95,6 @@ def assemble_from_map_plain(cache_values, cache_map, nids, miss_slot,
     return torch.where(hit, hits, miss_feats[miss_slot.long()])
 
 
-def scatter_add_rows_plain(grad_out: torch.Tensor, ids: torch.Tensor,
-                           num_src: int) -> torch.Tensor:
-    out = grad_out.new_zeros((num_src, grad_out.shape[1]))
-    return out.index_add_(0, ids.long(), grad_out)
-
-
 def _count(mask: torch.Tensor, dtype) -> torch.Tensor:
     return mask.sum(dim=1, keepdim=True).clamp(min=1).to(dtype)
 
@@ -109,12 +111,30 @@ def gather_reduce_plain(src, pos, mask, kind: str) -> torch.Tensor:
     return reduce_msgs_plain(src[pos.long()], mask, kind)
 
 
+def block_gather_bwd_plain(g_self, self_pos, g_neigh, pos, mask, num_src: int,
+                           kind: str) -> torch.Tensor:
+    """``scatter_add_rows_plain(g_self, self_pos) + gather_reduce_bwd_plain(
+    g_neigh, pos, mask)``, added into one zeroed table; a ``None`` gradient
+    is an absent half."""
+    ref = g_self if g_self is not None else g_neigh
+    out = ref.new_zeros((num_src, ref.shape[1]))
+    if g_self is not None:
+        out.index_add_(0, self_pos.long(), g_self)
+    if g_neigh is not None:
+        g = g_neigh / _count(mask, g_neigh.dtype) if kind == "mean" else g_neigh
+        rows, slots = mask.nonzero(as_tuple=True)
+        out.index_add_(0, pos[rows, slots].long(), g[rows])
+    return out
+
+
+def scatter_add_rows_plain(grad_out: torch.Tensor, ids: torch.Tensor,
+                           num_src: int) -> torch.Tensor:
+    return block_gather_bwd_plain(grad_out, ids, None, None, None, num_src, "sum")
+
+
 def gather_reduce_bwd_plain(grad_out, pos, mask, num_src: int,
                             kind: str) -> torch.Tensor:
-    g = grad_out / _count(mask, grad_out.dtype) if kind == "mean" else grad_out
-    rows, slots = mask.nonzero(as_tuple=True)
-    out = grad_out.new_zeros((num_src, grad_out.shape[1]))
-    return out.index_add_(0, pos[rows, slots].long(), g[rows])
+    return block_gather_bwd_plain(None, None, grad_out, pos, mask, num_src, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -209,29 +229,13 @@ def assemble_from_map(cache_values: torch.Tensor, cache_map: torch.Tensor,
     return out
 
 
-def scatter_add_rows(grad_out: torch.Tensor, ids: torch.Tensor,
-                     num_src: int) -> torch.Tensor:
-    """Backward of :func:`gather_rows`: a zeroed ``[num_src, D]`` table with
-    ``grad_out[r]`` added at row ``ids[r]`` (f32 atomics on the card)."""
-    if not _use_kernel(grad_out, ids):
-        return scatter_add_rows_plain(grad_out, ids, num_src)
-    _check(grad_out, "grad_out", torch.float32, 2)
-    _check(ids, "ids", torch.int32, 1)
-    n, d = grad_out.shape
-    if ids.shape[0] != n:
-        raise ValueError(f"ids has {ids.shape[0]} rows, grad_out {n}")
-    out = torch.zeros((num_src, d), dtype=torch.float32, device=grad_out.device)
-    if n and d:
-        _raise_on(_lib().pg_scatter_add_rows(
-            grad_out.data_ptr(), ids.data_ptr(), out.data_ptr(), n, d,
-            _stream(out.device)), "pg_scatter_add_rows")
-        LAUNCHES["scatter_add_rows"] += 1
-    return out
+def _check_kind(kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"gather_reduce kind must be one of {KINDS}, got {kind!r}")
 
 
 def _check_reduce(pos, mask, kind):
-    if kind not in KINDS:
-        raise ValueError(f"gather_reduce kind must be one of {KINDS}, got {kind!r}")
+    _check_kind(kind)
     _check(pos, "pos", torch.int32, 2)
     _check(mask, "mask", torch.bool, 2)
     if pos.shape != mask.shape:
@@ -245,8 +249,7 @@ def gather_reduce(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
     never loaded.  ``src`` f32 ``[S, D]``; ``pos`` int32 and ``mask`` bool
     ``[N, fanout]``."""
     if not _use_kernel(src, pos, mask):
-        if kind not in KINDS:
-            raise ValueError(f"gather_reduce kind must be one of {KINDS}, got {kind!r}")
+        _check_kind(kind)
         return gather_reduce_plain(src, pos, mask, kind)
     _check(src, "src", torch.float32, 2)
     _check_reduce(pos, mask, kind)
@@ -261,30 +264,87 @@ def gather_reduce(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
     return out
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _block_bwd_kernel(key: str, g_self, self_pos, g_neigh, pos, mask,
+                      num_src: int, kind: str) -> torch.Tensor:
+    """Check the halves that are present, allocate the table with
+    ``torch.empty`` and run ``pg_block_gather_bwd`` (memset + one launch),
+    counted under ``LAUNCHES[key]``."""
+    tables = [t for t in (g_self, g_neigh) if t is not None]
+    n_self = n_neigh = fanout = 0
+    if g_self is not None:
+        _check(g_self, "g_self", torch.float32, 2)
+        _check(self_pos, "self_pos", torch.int32, 1)
+        n_self = self_pos.shape[0]
+        if g_self.shape[0] != n_self:
+            raise ValueError(f"g_self has {g_self.shape[0]} rows, self_pos {n_self}")
+    if g_neigh is not None:
+        _check(g_neigh, "g_neigh", torch.float32, 2)
+        _check_reduce(pos, mask, kind)
+        n_neigh, fanout = pos.shape
+        if g_neigh.shape[0] != n_neigh:
+            raise ValueError(f"g_neigh has {g_neigh.shape[0]} rows, pos {n_neigh}")
+    d = tables[0].shape[1]
+    if any(t.shape[1] != d for t in tables):
+        raise ValueError(f"incoming gradients of widths {[t.shape[1] for t in tables]}")
+    dev = tables[0].device
+    if not (n_self or n_neigh) or not d:
+        return torch.zeros((num_src, d), dtype=torch.float32, device=dev)
+    out = torch.empty((num_src, d), dtype=torch.float32, device=dev)
+    _raise_on(_lib().pg_block_gather_bwd(
+        _ptr(g_self), _ptr(self_pos), n_self, _ptr(g_neigh), _ptr(pos), _ptr(mask),
+        n_neigh, fanout, out.data_ptr(), num_src, d, int(kind == "mean"),
+        _vec(d, *tables, out), _stream(dev)), "pg_block_gather_bwd")
+    LAUNCHES[key] += 1
+    return out
+
+
+def block_gather_bwd(g_self, self_pos, g_neigh, pos, mask, num_src: int,
+                     kind: str = "mean") -> torch.Tensor:
+    """Backward of :class:`BlockGather` w.r.t. its source table: a
+    ``[num_src, D]`` table with ``g_self[r]`` added at row ``self_pos[r]`` and,
+    for each valid slot, ``g_neigh[r]`` (divided by the row's count for
+    ``mean``) at row ``pos[r, k]``.  A ``None`` gradient is an absent half,
+    whose indices are not read.  On the card: one memset and one launch
+    (16-byte vector reductions when D % 4 == 0)."""
+    _check_kind(kind)
+    if g_self is None and g_neigh is None:
+        raise ValueError("block_gather_bwd needs at least one incoming gradient")
+    present = ([g_self, self_pos] if g_self is not None else []) + (
+        [g_neigh, pos, mask] if g_neigh is not None else [])
+    if not _use_kernel(*present):
+        return block_gather_bwd_plain(g_self, self_pos, g_neigh, pos, mask,
+                                      num_src, kind)
+    return _block_bwd_kernel("block_gather_bwd_" + kind, g_self, self_pos,
+                             g_neigh, pos, mask, num_src, kind)
+
+
+def scatter_add_rows(grad_out: torch.Tensor, ids: torch.Tensor,
+                     num_src: int) -> torch.Tensor:
+    """Backward of :func:`gather_rows`: a zeroed ``[num_src, D]`` table with
+    ``grad_out[r]`` added at row ``ids[r]`` (on the card, the block backward
+    kernel with its neighbor half absent)."""
+    if not _use_kernel(grad_out, ids):
+        return scatter_add_rows_plain(grad_out, ids, num_src)
+    return _block_bwd_kernel("scatter_add_rows", grad_out, ids, None, None, None,
+                             num_src, "sum")
+
+
 def gather_reduce_bwd(grad_out: torch.Tensor, pos: torch.Tensor,
                       mask: torch.Tensor, num_src: int,
                       kind: str = "mean") -> torch.Tensor:
     """Backward of :func:`gather_reduce`: for each valid slot,
     ``grad_src[pos[n,k]] += grad_out[n]`` (divided by the row's count for
-    ``mean``), into a zeroed ``[num_src, D]`` table (f32 atomics on the
-    card)."""
+    ``mean``), into a zeroed ``[num_src, D]`` table (on the card, the block
+    backward kernel with its self half absent)."""
+    _check_kind(kind)
     if not _use_kernel(grad_out, pos, mask):
-        if kind not in KINDS:
-            raise ValueError(f"gather_reduce kind must be one of {KINDS}, got {kind!r}")
         return gather_reduce_bwd_plain(grad_out, pos, mask, num_src, kind)
-    _check(grad_out, "grad_out", torch.float32, 2)
-    _check_reduce(pos, mask, kind)
-    (n, fanout), d = pos.shape, grad_out.shape[1]
-    if grad_out.shape[0] != n:
-        raise ValueError(f"grad_out has {grad_out.shape[0]} rows, pos {n}")
-    out = torch.zeros((num_src, d), dtype=torch.float32, device=grad_out.device)
-    if n and d:
-        _raise_on(_lib().pg_gather_reduce_bwd(
-            grad_out.data_ptr(), pos.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            n, fanout, d, int(kind == "mean"), _stream(out.device)),
-            "pg_gather_reduce_bwd")
-        LAUNCHES["gather_reduce_bwd_" + kind] += 1
-    return out
+    return _block_bwd_kernel("gather_reduce_bwd_" + kind, None, None, grad_out,
+                             pos, mask, num_src, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -339,3 +399,32 @@ class GatherReduce(torch.autograd.Function):
                 grad_src = gather_reduce_bwd(grad_out.contiguous(), pos, mask,
                                              ctx.num_src, ctx.kind)
         return grad_src, None, None, None
+
+
+class BlockGather(torch.autograd.Function):
+    """A block's two gathers of one source table, ``(src[self_pos],
+    gather_reduce(src, pos, mask, kind))``, whose gradient w.r.t. ``src`` is
+    one :func:`block_gather_bwd`: one memset and one kernel launch on the
+    card, where the two Functions above take two of each and an add."""
+
+    @staticmethod
+    def forward(ctx, src, self_pos, pos, mask, kind):
+        ctx.save_for_backward(self_pos, pos, mask)
+        ctx.num_src = src.shape[0]
+        ctx.kind = kind
+        ctx.plain = _PLAIN_ON_CUDA.get()
+        # an output that nothing uses arrives as None: its half is absent
+        ctx.set_materialize_grads(False)
+        return gather_rows(src, self_pos), gather_reduce(src, pos, mask, kind)
+
+    @staticmethod
+    def backward(ctx, g_self, g_neigh):
+        self_pos, pos, mask = ctx.saved_tensors
+        grad_src = None
+        if ctx.needs_input_grad[0] and (g_self is not None or g_neigh is not None):
+            with _mode(ctx.plain):
+                grad_src = block_gather_bwd(
+                    None if g_self is None else g_self.contiguous(), self_pos,
+                    None if g_neigh is None else g_neigh.contiguous(), pos, mask,
+                    ctx.num_src, ctx.kind)
+        return grad_src, None, None, None, None

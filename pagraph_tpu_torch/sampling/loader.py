@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..storage.cache import FeatureCache
+from ..utils.device import resolve_device
 from .block import MiniBatch, _ship
 from .sampler import NeighborSampler
 
@@ -32,14 +33,15 @@ Item = Tuple[MiniBatch, torch.Tensor, torch.Tensor]   # (mb, miss_feats, miss_sl
 
 
 class PrefetchLoader:
-    """Iterates ``(device MiniBatch, miss_feats, miss_slot)`` for one epoch."""
+    """Iterates ``(device MiniBatch, miss_feats, miss_slot)`` for one epoch.
+    ``device=None`` is the GPU (``RuntimeError`` without one)."""
 
     def __init__(self, sampler: NeighborSampler, cache: FeatureCache, *,
-                 prefetch: int = 2, device="cpu", workers: int = 2):
+                 prefetch: int = 2, device=None, workers: int = 2):
         self.sampler = sampler
         self.cache = cache
         self.prefetch = max(1, prefetch)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.workers = max(1, workers)
         # per-epoch accounting: valid sampled edges, loaded vertices, and the
         # bytes shipped host -> device

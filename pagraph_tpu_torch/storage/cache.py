@@ -24,6 +24,7 @@ import torch
 
 from ..graph import CSRGraph
 from ..ops.gather_kernels import assemble_from_map
+from ..utils.device import resolve_device
 from .feature_store import FeatureStore
 
 
@@ -73,7 +74,7 @@ class FeatureCache:
         local_graph: CSRGraph,
         local2full: Optional[np.ndarray] = None,
         *,
-        device="cpu",
+        device=None,                 # None: the GPU (RuntimeError without one)
         dtype: str = "float32",
     ):
         if dtype != "float32":
@@ -88,7 +89,7 @@ class FeatureCache:
             if local2full is not None
             else np.arange(local_graph.num_nodes, dtype=np.int64)
         )
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.total_dim = store.total_dim(self.field_names)
         self.field_offsets = store.field_offsets(self.field_names)
         n = local_graph.num_nodes

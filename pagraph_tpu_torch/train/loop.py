@@ -34,6 +34,7 @@ from ..sampling.loader import PrefetchLoader
 from ..sampling.sampler import NeighborSampler
 from ..storage.cache import FeatureCache
 from ..storage.feature_store import FeatureStore
+from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
 from .state import create_state, train_step
 
@@ -50,17 +51,6 @@ class EpochMetrics:
     vertices: int = 0       # valid vertices loaded this epoch
     val_acc: Optional[float] = None
     h2d_bytes: int = 0      # batch bytes shipped host -> device this epoch
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the GPU; without one that is an error, not the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pagraph_tpu_torch trains on a GPU; pass "
-                "device='cpu' explicitly to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class Trainer:

@@ -3,8 +3,8 @@
 
 One step: assemble the layer-0 features from the device cache and the
 shipped miss rows (one K1 launch), run GraphSAGE forward (K2 + K1 per
-block), the masked cross-entropy, backward (the K2 and K1 scatter-add
-kernels for the block whose source needs a gradient) and Adam.  Nothing in a
+block), the masked cross-entropy, backward (one fused scatter-add launch for
+each block whose source needs a gradient) and Adam.  Nothing in a
 step waits for the device: loss and accuracy come back as device tensors.
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ from ..config import Config
 from ..models import get_model
 from ..sampling.block import MiniBatch
 from ..storage.cache import assemble_features_from_map
+from ..utils.device import resolve_device
 from .objective import masked_accuracy, masked_cross_entropy
 
 
@@ -39,13 +40,14 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
     return torch.optim.Adam(params, lr=t.lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def create_state(cfg: Config, seed: int = 0, device="cpu") -> TrainState:
+def create_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
     """Parameters are drawn on the CPU from ``seed`` and then moved, so a
-    seed gives the same initial model on every device."""
+    seed gives the same initial model on every device.  ``device=None`` is
+    the GPU (``RuntimeError`` without one)."""
     if cfg.train.dtype != "float32":
         raise NotImplementedError(
             f"train.dtype {cfg.train.dtype!r} is not ported yet (ROADMAP queue 1)")
-    device = torch.device(device)
+    device = resolve_device(device)
     model = get_model(cfg.model, generator=torch.Generator().manual_seed(seed))
     model.to(device).train()
     gen = torch.Generator(device=device).manual_seed(seed ^ 0x5EED)

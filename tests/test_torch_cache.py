@@ -44,7 +44,7 @@ def test_bucket_size_matches(n):
 def test_rank_vertices_match(pair, rank_by):
     ds, jstore, tstore = pair
     jc = jcache.FeatureCache(jstore, ["features"], ds.graph)
-    tc = tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph))
+    tc = tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), device="cpu")
     np.testing.assert_array_equal(tc.rank_vertices(rank_by), jc.rank_vertices(rank_by))
 
 
@@ -85,8 +85,10 @@ def test_fill_plan_and_assembly_match(pair, frac):
 def test_unported_tiers_raise(pair):
     ds, _, tstore = pair
     with pytest.raises(NotImplementedError):
-        tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), dtype="bfloat16")
+        tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), device="cpu",
+                            dtype="bfloat16")
     with pytest.raises(NotImplementedError):
         TStore({"features": ds.features.astype(np.int8)})
     with pytest.raises(ValueError):      # capacity=None sizes from GPU memory
-        tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph)).fill(None)
+        tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph),
+                            device="cpu").fill(None)

@@ -159,14 +159,122 @@ def test_backward_scatter_adds_match_vjp(kind):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["mean", "sum"])
+@pytest.mark.parametrize("bi", [0, 1])
+def test_block_gather_matches_jax(sampled, kind, bi):
+    """block_gather's two outputs and its one fused backward against
+    jax.value_and_grad of block_aggregate + block_self on a host-sampled
+    block.  rtol 1e-5 / atol 1e-6: float32 sums run in another order."""
+    jb = jax.tree.map(np.asarray, sampled.blocks[bi])
+    n_src = sampled.layer_nids[bi].shape[0]
+    rng = np.random.default_rng(10 + bi)
+    h = rng.normal(size=(n_src, 24)).astype(np.float32)
+    w_agg = rng.normal(size=(jb.neigh_pos.shape[0], 24)).astype(np.float32)
+    w_self = rng.normal(size=(jb.neigh_pos.shape[0], 24)).astype(np.float32)
+
+    def jloss(hh):
+        a = jagg.block_aggregate(hh, jb, kind)
+        s = jagg.block_self(hh, jb)
+        return jnp.sum(a * w_agg) + jnp.sum(s * w_self), (a, s)
+
+    (_, (ja, js)), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(h))
+    th = _t(h).requires_grad_(True)
+    ts, ta = tagg.block_gather(th, _tblock(jb), kind)
+    ((ta * _t(w_agg)).sum() + (ts * _t(w_self)).sum()).backward()
+    np.testing.assert_allclose(ta.detach().numpy(), np.asarray(ja), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(ts.detach().numpy(), np.asarray(js))
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
+
+
+def _bwd_case(seed: int):
+    """Self and neighbor positions that overlap and repeat, and 10 padded
+    rows at the end (self_pos 0, no valid slot, zero gradient)."""
+    rng = np.random.default_rng(seed)
+    n_src, n, f, d = 60, 120, 3, 20
+    self_pos = rng.integers(0, n_src, size=n).astype(np.int32)
+    pos = rng.integers(0, n_src, size=(n, f)).astype(np.int32)
+    pos[::2, 0] = self_pos[::2]                  # a row's neighbor is its self row
+    mask = rng.random((n, f)) > 0.3
+    g_self = rng.normal(size=(n, d)).astype(np.float32)
+    g_neigh = rng.normal(size=(n, d)).astype(np.float32)
+    self_pos[-10:], pos[-10:], mask[-10:] = 0, 0, False
+    g_self[-10:], g_neigh[-10:] = 0.0, 0.0
+    return n_src, d, self_pos, pos, mask, g_self, g_neigh
+
+
+@pytest.mark.parametrize("kind", ["mean", "sum"])
+@pytest.mark.parametrize("halves", ["both", "self", "neigh"])
+def test_block_gather_bwd_plain_matches_vjp(kind, halves):
+    """block_gather_bwd (the plain version on the CPU) against jax.vjp of
+    (jnp.take, block_aggregate) with the absent half's cotangent zero, and
+    BlockGather's backward when only the present half's output is used.
+    rtol 1e-5: scatter-adds sum repeated indices in another order."""
+    n_src, d, self_pos, pos, mask, g_self, g_neigh = _bwd_case(3)
+    src = np.random.default_rng(4).normal(size=(n_src, d)).astype(np.float32)
+    jb = JBlock(neigh_pos=pos, neigh_mask=mask, self_pos=self_pos)
+    use_self, use_neigh = halves in ("both", "self"), halves in ("both", "neigh")
+    _, vjp = jax.vjp(lambda s: (jagg.block_self(s, jb), jagg.block_aggregate(s, jb, kind)),
+                     jnp.asarray(src))
+    want = np.asarray(vjp((jnp.asarray(g_self if use_self else 0 * g_self),
+                           jnp.asarray(g_neigh if use_neigh else 0 * g_neigh)))[0])
+    gs, gn = (_t(g_self) if use_self else None), (_t(g_neigh) if use_neigh else None)
+    for got in (gk.block_gather_bwd(gs, _t(self_pos), gn, _t(pos), _t(mask), n_src, kind),
+                gk.block_gather_bwd_plain(gs, _t(self_pos), gn, _t(pos), _t(mask), n_src,
+                                          kind)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    ts = _t(src).requires_grad_(True)
+    h_self, h_neigh = gk.BlockGather.apply(ts, _t(self_pos), _t(pos), _t(mask), kind)
+    loss = (h_self * gs).sum() if use_self else 0.0
+    loss = loss + ((h_neigh * gn).sum() if use_neigh else 0.0)
+    loss.backward()
+    np.testing.assert_allclose(ts.grad.numpy(), want, rtol=1e-5, atol=1e-6)
+    if halves == "self":
+        np.testing.assert_allclose(gk.scatter_add_rows(gs, _t(self_pos), n_src).numpy(),
+                                   want, rtol=1e-5, atol=1e-6)
+    if halves == "neigh":
+        np.testing.assert_allclose(
+            gk.gather_reduce_bwd(gn, _t(pos), _t(mask), n_src, kind).numpy(),
+            want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["mean", "sum"])
+def test_block_gather_prefix_layout_matches_jax(kind):
+    """Prefix layout through block_gather: contiguous slices, values and
+    gradient against the JAX functions."""
+    rng = np.random.default_rng(12)
+    n, f, d = 40, 3, 16
+    h = rng.normal(size=(n + n * f, d)).astype(np.float32)
+    mask = rng.random((n, f)) > 0.3
+    w = rng.normal(size=(2, n, d)).astype(np.float32)
+    jb = JBlock(neigh_pos=(n + np.arange(n * f, dtype=np.int32)).reshape(n, f),
+                neigh_mask=mask, self_pos=np.arange(n, dtype=np.int32),
+                prefix_layout=True)
+
+    def jloss(hh):
+        s, a = jagg.block_self(hh, jb), jagg.block_aggregate(hh, jb, kind)
+        return jnp.sum(s * w[0]) + jnp.sum(a * w[1]), (s, a)
+
+    (_, (js, ja)), jg = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(h))
+    th = _t(h).requires_grad_(True)
+    ts, ta = tagg.block_gather(th, _tblock(jb), kind)
+    ((ts * _t(w[0])).sum() + (ta * _t(w[1])).sum()).backward()
+    np.testing.assert_array_equal(ts.detach().numpy(), np.asarray(js))
+    np.testing.assert_allclose(ta.detach().numpy(), np.asarray(ja), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
+
+
 def test_wrappers_refuse_bad_input():
     src = torch.zeros(10, 4)
     pos = torch.zeros(3, 2, dtype=torch.int32)
     mask = torch.ones(3, 2, dtype=torch.bool)
     with pytest.raises(NotImplementedError):
         tagg.block_aggregate(src, TBlock(pos, mask, pos[:, 0].contiguous()), "max")
+    with pytest.raises(NotImplementedError):
+        tagg.block_gather(src, TBlock(pos, mask, pos[:, 0].contiguous()), "max")
     with pytest.raises(ValueError):
         gk.gather_reduce(src, pos, mask, "median")
+    with pytest.raises(ValueError):     # no incoming gradient at all
+        gk.block_gather_bwd(None, None, None, None, None, 10, "mean")
     # neither CPU nor CUDA: no plain version, no kernel
     with pytest.raises(ValueError):
         gk.gather_rows(src.to("meta"), pos[:, 0].to("meta"))

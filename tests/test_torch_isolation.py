@@ -11,7 +11,10 @@ import torch
 
 import pagraph_tpu_torch as pt
 from pagraph_tpu_torch.data.synthetic import synthetic_dataset
+from pagraph_tpu_torch.sampling.loader import PrefetchLoader
+from pagraph_tpu_torch.storage.cache import FeatureCache
 from pagraph_tpu_torch.train.loop import Trainer
+from pagraph_tpu_torch.train.state import create_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "pagraph_tpu_torch")
@@ -63,11 +66,24 @@ def _tiny_cfg():
 
 
 def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    """Every public constructor of the port takes ``device=None`` as the GPU:
+    without one it raises, and ``device="cpu"`` is the explicit CPU."""
     ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
+    cfg = _tiny_cfg()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Trainer.from_dataset(_tiny_cfg(), ds)
-    assert Trainer.from_dataset(_tiny_cfg(), ds, device="cpu").device.type == "cpu"
+        Trainer.from_dataset(cfg, ds)
+    tr = Trainer.from_dataset(cfg, ds, device="cpu")
+    assert tr.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_state(cfg, seed=0)
+    assert next(create_state(cfg, seed=0, device="cpu").model.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FeatureCache(tr.store, ["features"], ds.graph)
+    assert FeatureCache(tr.store, ["features"], ds.graph, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PrefetchLoader(tr.sampler, tr.cache)
+    assert PrefetchLoader(tr.sampler, tr.cache, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("train_kw", [dict(on_device_sampling=True),
