@@ -15,24 +15,38 @@ Phases, each printed as one JSON line:
   ``Trainer.from_dataset``, with each kernel's launch count; then one epoch
   with the ``gcn`` aggregator, the path of the ``sum`` kind;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
-  against its plain PyTorch version on the card (K1 exact, K2 within 1e-6
-  of the output's scale, the atomic backwards within 1e-5), timed with
-  CUDA events (L2 flushed between launches) beside its plain version, one
-  PyTorch library call where one computes the same function, and its
-  device-memory bound.  The backwards -- the fused block backward
-  (``block_gather_bwd``) and its two single-half uses (``scatter_add_rows``,
-  ``gather_reduce_bwd``) -- get two yardsticks: ``library_ms``, the
-  ``index_add_`` calls alone into a buffer that is never zeroed, with the
-  division and expansion done outside the timed call; and
-  ``library_same_fn_ms``, the same function from the same inputs (a zeroed
-  table, the division and expansion, the ``index_add_`` calls);
-* ``timing_floor``: the same timing around no work, and around the block
-  backward's memset alone;
+  against its plain PyTorch version on the card (gathered rows exact,
+  reductions within 1e-6 of the output's scale, the atomic backwards within
+  1e-5), timed with CUDA events (L2 flushed between launches) beside its
+  plain version, one PyTorch library call where one computes the same
+  function, and its device-memory bound.  The fused block forward
+  (``block_gather_fwd``, both outputs) and its single-half uses
+  (``gather_rows``, ``gather_reduce``) are one kernel, as are the fused
+  block backward (``block_gather_bwd``) and its single-half uses
+  (``scatter_add_rows``, ``gather_reduce_bwd``).  No one PyTorch call
+  computes a fused case: its ``library_ms`` times the calls that compute
+  each output from pre-flattened inputs (for the forward ``index_select`` +
+  ``embedding_bag``; for the backwards the ``index_add_`` calls into a
+  buffer that is never zeroed, with the division and expansion done outside
+  the timed call).  The fused cases, the single-half backwards and the
+  assembly (``library_ms`` null) also get ``library_same_fn_ms``: the same
+  function in PyTorch calls from the kernel's own inputs.  A bound counts
+  each index and each output once and each distinct source row a launch
+  reads once (a row that repeats, or is both a self and a neighbor row, is
+  one read);
+* ``fwd_branches``: the block forward and backward on the card at the
+  branches the main path does not take -- D = 30 (scalar rows), a table
+  4 bytes off alignment, fan-out 7 (no unrolled instantiation), each half
+  absent -- against their plain versions;
+* ``timing_floor``: the same timing around no work, around the block
+  backward's memset alone, and around a contiguous device copy that moves
+  the block-0 forward's bound bytes (half read, half written): what the
+  card streams for those bytes with no gather;
 * ``step_parity``: one train step from the same parameters and batch,
   through the kernels and through the plain versions: loss and every
-  gradient within 1e-5 relative (atomic summation order), 6 kernel
-  launches (the assembly, two row gathers, two fused reductions, one fused
-  block backward);
+  gradient within 1e-5 relative (atomic summation order), 4 kernel
+  launches (the assembly, two fused block forwards, one fused block
+  backward);
 * ``breakdown``: where the epoch's time goes — an epoch of the loader alone
   (host sampling, miss gather, pinned H2D), and one train step alone on a
   shipped batch (host enqueue time, wall time, device time).
@@ -84,6 +98,70 @@ def time_ms(torch, fn, flush_buf, iters: int = 50, warmup: int = 5) -> float:
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+TOLERANCES = {"exact": 0.0, "reduce": 1e-6, "atomic": 1e-5}
+
+
+def compare(torch, out_k, out_p, tol):
+    """(max abs error, within tolerance, text) of a kernel's output(s)
+    against the plain version's; ``tol`` names a TOLERANCES entry, or one
+    per output when the outputs are a tuple.  Each output is held to its
+    tolerance times its own scale, max|plain|."""
+    torch.cuda.synchronize()
+    if not isinstance(out_k, tuple):
+        out_k, out_p, tol = (out_k,), (out_p,), (tol,)
+    err, ok, text = 0.0, True, []
+    for k, p, t in zip(out_k, out_p, tol):
+        e = (k - p).abs().max().item() if p.numel() else 0.0
+        scale = max(p.abs().max().item() if p.numel() else 0.0, 1e-30)
+        err, ok = max(err, e), ok and e <= TOLERANCES[t] * scale
+        text.append(f"{t}: |err| <= {TOLERANCES[t]} * max|plain| ({scale:.6g})")
+    return err, ok, "; ".join(text)
+
+
+def fwd_branches(torch, gk, dev):
+    """The block forward and backward against their plain versions where the
+    main path does not go: D = 30 (scalar rows), a source table and
+    incoming gradients 4 bytes off 16-byte alignment (scalar rows at
+    D = 32), fan-out 7 (the runtime-fan-out instantiation), each with both
+    halves, the self half alone and the neighbor half alone, both kinds.
+    Positions repeat and overlap; 10 rows have no valid slot."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n_src, n = 3000, 2000
+    out = []
+    for label, d, f, off in (("D=30", 30, 2, 0), ("offset table", 32, 2, 1),
+                             ("fan-out 7", 32, 7, 0), ("D=30 fan-out 7", 30, 7, 0)):
+        def table(rows):
+            flat = torch.randn(rows * d + off, generator=gen, device=dev)
+            return flat[off:].view(rows, d)
+        src, g_self, g_neigh = table(n_src), table(n), table(n)
+        self_pos = torch.randint(0, n_src, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        pos = torch.randint(0, n_src, (n, f), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos[::2, 0] = self_pos[::2]
+        mask = torch.rand(n, f, generator=gen, device=dev) > 0.3
+        mask[:10] = False
+        for kind in gk.KINDS:
+            for halves in ("both", "self", "neigh"):
+                sp = self_pos if halves != "neigh" else None
+                p, m = (pos, mask) if halves != "self" else (None, None)
+                gs = g_self if sp is not None else None
+                gn = g_neigh if p is not None else None
+                fwd_k = gk.block_gather_fwd(src, sp, p, m, kind)
+                fwd_p = gk.block_gather_fwd_plain(src, sp, p, m, kind)
+                tols = tuple(t for t, h in zip(("exact", "reduce"), fwd_k) if h is not None)
+                fwd_k = tuple(h for h in fwd_k if h is not None)
+                fwd_p = tuple(h for h in fwd_p if h is not None)
+                for what, got, want, tol in (
+                        ("fwd", fwd_k, fwd_p, tols),
+                        ("bwd", gk.block_gather_bwd(gs, sp, gn, p, m, n_src, kind),
+                         gk.block_gather_bwd_plain(gs, sp, gn, p, m, n_src, kind), "atomic")):
+                    err, ok, text = compare(torch, got, want, tol)
+                    out.append({"case": f"{what} {kind} {label} {halves}",
+                                "max_abs_err": err, "ok": ok, "tolerance": text})
+    return out
 
 
 def build_dataset(np, synthetic, Dataset, CSRGraph):
@@ -171,8 +249,7 @@ def main() -> None:
     epochs = [tr.run_epoch(e) for e in range(2)]
     torch.cuda.synchronize()
     launches = gk.launch_counts()
-    main_keys = ("gather_rows", "assemble_from_map", "gather_reduce_mean",
-                 "block_gather_bwd_mean")
+    main_keys = ("assemble_from_map", "block_gather_fwd_mean", "block_gather_bwd_mean")
     train_out = {
         "graph": {"vertices": ds.num_nodes, "edges": ds.graph.num_edges},
         "caps": list(tr.sampler.caps), "cache_capacity": tr.cache.capacity,
@@ -200,7 +277,7 @@ def main() -> None:
     for k in main_keys:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
-    for k in ("gather_reduce_sum", "block_gather_bwd_sum"):
+    for k in ("block_gather_fwd_sum", "block_gather_bwd_sum"):
         if gcn_launches[k] <= 0:
             fail(f"kernel {k} was not launched by the gcn-aggregator run")
     losses = [m.mean_loss for m in epochs] + [gcn_epoch.mean_loss]
@@ -227,6 +304,11 @@ def main() -> None:
     def rows_bytes(n, d):
         return 4 * n * d
 
+    def distinct(*idx):
+        """Distinct source rows that one launch reads through these
+        indices: each is read from memory once."""
+        return int(torch.unique(torch.cat([i.reshape(-1) for i in idx])).numel())
+
     def reduce_inputs(pos, mask):
         """embedding_bag's flat valid positions and bag offsets."""
         counts = mask.sum(1)
@@ -246,7 +328,15 @@ def main() -> None:
             kernel=lambda: gk.gather_rows(src, ids),
             plain=lambda: gk.gather_rows_plain(src, ids),
             library=lambda: torch.index_select(src, 0, ids_l),
-            nbytes=4 * n + 2 * rows_bytes(n, d)))
+            nbytes=4 * n + rows_bytes(distinct(ids), d) + rows_bytes(n, d)))
+
+    def assemble_same_fn():
+        """The assembly in PyTorch calls: the cache_map lookup, a row
+        gather from each table and the selection."""
+        pos = torch.index_select(cmap, 0, mb.input_nids)
+        hits = torch.index_select(cv, 0, pos.clamp(min=0))
+        return torch.where((pos >= 0)[:, None], hits,
+                           torch.index_select(miss_feats, 0, miss_slot))
 
     gather_case("block0 self", feats, b0.self_pos)
     gather_case("block1 self", h1, b1.self_pos)
@@ -259,7 +349,8 @@ def main() -> None:
         tol="exact",
         kernel=lambda: gk.assemble_from_map(cv, cmap, mb.input_nids, miss_slot, miss_feats),
         plain=lambda: gk.assemble_from_map_plain(cv, cmap, mb.input_nids, miss_slot, miss_feats),
-        library=None, nbytes=3 * 4 * n0 + 2 * rows_bytes(n0, d0)))
+        library=None, same_fn=assemble_same_fn,
+        nbytes=3 * 4 * n0 + 2 * rows_bytes(n0, d0)))
     # -- the backwards: the fused block backward and its single-half uses ----
     s1, d1 = h1.shape
     n1, f1 = b1.neigh_pos.shape
@@ -287,6 +378,17 @@ def main() -> None:
                            (g[:, None, :] * m[..., None]).view(-1, d1))
         return out
 
+    def fwd_same_fn(src, blk, kind):
+        """The block forward from the kernel's own inputs in PyTorch calls:
+        a row gather, and a mask-weighted embedding_bag sum (divided by
+        the count for mean)."""
+        w = blk.neigh_mask.to(src.dtype)
+        agg = torch.nn.functional.embedding_bag(blk.neigh_pos, src,
+                                                per_sample_weights=w, mode="sum")
+        if kind == "mean":
+            agg = agg / w.sum(1, keepdim=True).clamp(min=1)
+        return torch.index_select(src, 0, blk.self_pos), agg
+
     sbuf = torch.zeros_like(h1)
     cases.append(dict(
         name="scatter_add_rows[block1 self bwd]", key="scatter_add_rows",
@@ -299,9 +401,10 @@ def main() -> None:
         nbytes=4 * n1 + rows_bytes(n1, d1) + rows_bytes(s1, d1)))
     for rk in ("mean", "sum"):
         for label, src, blk in (("block0", feats, b0), ("block1", h1, b1)):
-            flat, offs, valid = reduce_inputs(blk.neigh_pos, blk.neigh_mask)
+            flat, offs, _ = reduce_inputs(blk.neigh_pos, blk.neigh_mask)
             n, f = blk.neigh_pos.shape
             d = src.shape[1]
+            neigh_rows = blk.neigh_pos[blk.neigh_mask]
             cases.append(dict(
                 name=f"gather_reduce_{rk}[{label}]", key=f"gather_reduce_{rk}",
                 replaces=f"{PALLAS}:132 gather_mean_pallas",
@@ -310,7 +413,23 @@ def main() -> None:
                 plain=lambda s=src, b=blk, k=rk: gk.gather_reduce_plain(s, b.neigh_pos, b.neigh_mask, k),
                 library=lambda s=src, fl=flat, of=offs, k=rk: torch.nn.functional.embedding_bag(
                     fl, s, of, mode=k),
-                nbytes=5 * n * f + rows_bytes(valid, d) + rows_bytes(n, d)))
+                nbytes=5 * n * f + rows_bytes(distinct(neigh_rows), d) + rows_bytes(n, d)))
+            n_s = blk.self_pos.shape[0]
+            cases.append(dict(
+                name=f"block_gather_fwd_{rk}[{label}]", key=f"block_gather_fwd_{rk}",
+                replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas",
+                shape=f"src {list(src.shape)} self_pos [{n_s}] pos/mask [{n}, {f}]",
+                tol=("exact", "reduce"),
+                kernel=lambda s=src, b=blk, k=rk: gk.block_gather_fwd(
+                    s, b.self_pos, b.neigh_pos, b.neigh_mask, k),
+                plain=lambda s=src, b=blk, k=rk: gk.block_gather_fwd_plain(
+                    s, b.self_pos, b.neigh_pos, b.neigh_mask, k),
+                library=lambda s=src, ids=blk.self_pos.long(), fl=flat, of=offs, k=rk: (
+                    torch.index_select(s, 0, ids),
+                    torch.nn.functional.embedding_bag(fl, s, of, mode=k)),
+                same_fn=lambda s=src, b=blk, k=rk: fwd_same_fn(s, b, k),
+                nbytes=4 * n_s + 5 * n * f + rows_bytes(distinct(blk.self_pos, neigh_rows), d)
+                + rows_bytes(n_s, d) + rows_bytes(n, d)))
         bbuf = torch.zeros_like(h1)
         cases.append(dict(
             name=f"gather_reduce_bwd_{rk}[block1]", key=f"gather_reduce_bwd_{rk}",
@@ -339,20 +458,14 @@ def main() -> None:
             same_fn=lambda k=rk: same_fn(g1, g1n, k),
             nbytes=4 * n1 + 5 * n1 * f1 + 2 * rows_bytes(n1, d1) + rows_bytes(s1, d1)))
 
-    tolerances = {"exact": 0.0, "reduce": 1e-6, "atomic": 1e-5}
     entries, bad = [], []
     for c in cases:
-        out_k, out_p = c["kernel"](), c["plain"]()
-        torch.cuda.synchronize()
-        err = (out_k - out_p).abs().max().item()
-        scale = max(out_p.abs().max().item(), 1e-30)
-        ok = err <= tolerances[c["tol"]] * scale
+        err, ok, tol_text = compare(torch, c["kernel"](), c["plain"](), c["tol"])
         entry = {
             "name": c["name"], "route": "cuda", "source": SOURCE,
             "replaces": c["replaces"],
             "launches": (gcn_launches if c["key"].endswith("_sum") else launches)[c["key"]],
-            "max_abs_err": err, "tolerance": f"{c['tol']}: |err| <= "
-            f"{tolerances[c['tol']]} * max|plain| ({scale:.6g})",
+            "max_abs_err": err, "tolerance": tol_text,
             "ms": time_ms(torch, c["kernel"], flush),
             "plain_ms": time_ms(torch, c["plain"], flush),
             "bound_ms": c["nbytes"] / bw * 1e3, "bound_by": "bytes",
@@ -362,23 +475,38 @@ def main() -> None:
         }
         if "same_fn" in c:
             entry["library_same_fn_ms"] = time_ms(torch, c["same_fn"], flush)
-            entry["library_same_fn_max_abs_err"] = (c["same_fn"]() - out_p).abs().max().item()
+            entry["library_same_fn_max_abs_err"] = compare(
+                torch, c["same_fn"](), c["plain"](), c["tol"])[0]
         entries.append(entry)
         if not ok:
-            bad.append(f"{c['name']}: max_abs_err {err} ({c['tol']})")
+            bad.append(f"{c['name']}: max_abs_err {err} ({tol_text})")
     print(json.dumps({"kernels": entries}), flush=True)
     if bad:
         fail("kernels disagree with their plain versions: " + "; ".join(bad))
+
+    # -- the block forward's other branches, and the backward's ----------------
+    branches = fwd_branches(torch, gk, dev)
+    emit("fwd_branches", branches)
+    bad = [f"{b['case']}: {b['max_abs_err']} ({b['tolerance']})"
+           for b in branches if not b["ok"]]
+    if bad:
+        fail("block gather branches disagree with their plain versions: " + "; ".join(bad))
+
     # what the times above cannot go below: the event pair around no work,
-    # and the block backward's memset of its table alone (its C entry point
-    # with both halves absent)
+    # the block backward's memset of its table alone (its C entry point with
+    # both halves absent), and a streamed copy of the block-0 forward's bytes
     table = torch.empty_like(h1)
+    fwd0_bytes = next(c["nbytes"] for c in cases if c["name"] == "block_gather_fwd_mean[block0]")
+    copy_src = torch.empty(fwd0_bytes // 2, dtype=torch.uint8, device=dev)
+    copy_dst = torch.empty_like(copy_src)
     emit("timing_floor", {
         "empty_event_pair_ms": time_ms(torch, lambda: None, flush),
         "block_bwd_memset_ms": time_ms(torch, lambda: gk._lib().pg_block_gather_bwd(
             None, None, 0, None, None, None, 0, 0, table.data_ptr(), s1, d1, 0, 1,
             torch.cuda.current_stream(dev).cuda_stream), flush),
-        "memset_shape": [s1, d1]})
+        "memset_shape": [s1, d1],
+        "copy_block0_fwd_bytes_ms": time_ms(torch, lambda: copy_dst.copy_(copy_src), flush),
+        "copy_bytes_moved": 2 * copy_src.numel()})
 
     # -- step parity ------------------------------------------------------------
     def fresh_state():
@@ -407,8 +535,8 @@ def main() -> None:
     worst = max([parity["loss_rel_err"], *parity["grads"].values()])
     if not worst <= 1e-5:
         fail(f"step parity: worst relative error {worst} > 1e-5")
-    if step_launches != 6:
-        fail(f"the kernel step launched {step_launches} kernels, expected 6")
+    if step_launches != 4:
+        fail(f"the kernel step launched {step_launches} kernels, expected 4")
 
     # -- breakdown: host pipeline alone vs device step alone -----------------
     t0 = time.perf_counter()

@@ -1,53 +1,58 @@
-// Row-gather and fused gather + masked fan-out reduction kernels for Hopper
-// (sm_90a), with the one scatter-add kernel that is the backward of both.
+// The gather kernels of a GraphSAGE block for Hopper (sm_90a): one fused
+// forward and one fused backward of a block's two gathers of one source
+// table, and the two-source layer-0 assembly.
 //
 // What they replace (the two Pallas TPU kernels of the JAX package):
-//   * pg_gather_rows, pg_assemble_from_map  <- gather_rows_pallas
-//     (pagraph_tpu/ops/pallas_gather.py:58, body _gather_rows_kernel :29).
-//     pg_assemble_from_map also folds in the two-source cache hit/miss
-//     selection that pagraph_tpu/storage/cache.py assemble_features_from_map
-//     leaves to XLA.
-//   * pg_gather_reduce                      <- gather_mean_pallas
-//     (pagraph_tpu/ops/pallas_gather.py:132, body _gather_sum_kernel :86),
-//     with a 'sum' kind beside 'mean'.
-//   * pg_block_gather_bwd: the backward of both.  The Pallas kernels are
-//     forward-only (JAX differentiates jnp.take); the port trains through
-//     these kernels, so their gradient is a kernel too.  A GraphSAGE block
-//     gathers the same source table twice (its self rows and its neighbor
-//     mean), so one launch takes both incoming gradients and writes the one
-//     gradient table; either half may be absent, which makes it the
-//     backward of one gather alone.
+//   * pg_block_gather_fwd <- gather_rows_pallas (pagraph_tpu/ops/pallas_gather.py:58,
+//     body _gather_rows_kernel :29) and gather_mean_pallas (:132, body
+//     _gather_sum_kernel :86), with a 'sum' kind beside 'mean'.  A GraphSAGE
+//     block gathers the same source table twice, for its self rows and for
+//     its neighbor mean, so one launch writes both outputs; either half may
+//     be absent, which makes it the forward of one gather alone.
+//   * pg_assemble_from_map <- gather_rows_pallas, folding in the two-source
+//     cache hit/miss selection that pagraph_tpu/storage/cache.py
+//     assemble_features_from_map leaves to XLA.
+//   * pg_block_gather_bwd: the backward of both halves.  The Pallas kernels
+//     are forward-only (JAX differentiates jnp.take); the port trains through
+//     these kernels, so their gradient is a kernel too: one launch takes both
+//     incoming gradients and writes the one gradient table.
 //
-// What bounds them: device-memory bytes, not FLOPs.  A row gather does no
-// arithmetic; the reduction does fanout adds per output element.  The least
-// traffic is the index bytes + the gathered-row bytes + the output bytes,
-// each once.  For the block backward: the indices, both incoming gradients
-// and the gradient table written once -- for block 1 of the main path
-// (6000 rows, fan-out 2, D = 32, a [14592, 32] table) about 3.5 MB, about
-// 1.0 us at 3.35 TB/s.  That is what chip_smoke.py's bound_ms counts.
+// What bounds them: device-memory bytes and latency, not FLOPs.  A row gather
+// does no arithmetic; the reduction does fanout adds per output element.  The
+// least traffic is the index bytes, the bytes of each distinct source row a
+// launch reads, and the output bytes, each once; chip_smoke.py's bound_ms
+// counts that at the main path's blocks (PERF.md).  Rows are 128-400 bytes, so each row is a few independent loads whose
+// latency (not the bytes) sets the time unless enough rows are in flight;
+// at block 1 the launch's fixed cost is most of it.
 //
 // What the design does about it:
-//   * forwards: one warp per output row, so the 32 lanes read one source
-//     row together: with D % 4 == 0 and 16-byte-aligned tables every lane
-//     moves a float4, i.e. each row is read in coalesced 16-byte
-//     transactions (D = 100 is 25 float4s, D = 32 is 8); otherwise a scalar
-//     loop over the row;
-//   * masked fan-out slots are never loaded (as in the Pallas kernel, where
-//     invalid slots start no DMA), and the fan-out loop is unrolled with
-//     the fan-out as a template parameter;
+//   * one launch a block for both gathers (the forward and the backward),
+//     so each block pays the launch and the first memory round trip once;
+//   * a group of G lanes serves one row, G the smallest power of two >= the
+//     row's units (at most 32); a unit is a float4 when D % 4 == 0 and every
+//     table is 16-byte aligned, else a float.  At D = 32 that is 8 lanes, 4
+//     rows a warp, where one warp a row left 24 lanes idle; at D = 100, one
+//     warp of 25 active lanes.  Rows move in coalesced 16-byte transactions;
+//   * a row's indices (its self position, its fan-out positions and mask
+//     bytes) are loaded once and held in registers, with the fan-out a
+//     template parameter so the slot loops unroll; fan-outs with no
+//     instantiation of their own (FANOUT = 0) re-read the slots from memory;
+//   * every data load of a row (the self unit and every valid neighbor unit)
+//     is issued before its first add or store, so a row waits for memory
+//     once; masked slots issue no load, as in the Pallas kernel, where
+//     invalid slots start no DMA;
+//   * the mean is one reciprocal a row, not a division per element;
+//   * the forward's grid is one row per group of lanes.  A grid capped at
+//     the blocks the card holds resident, each group walking rows with a
+//     stride and loading the next row's indices first (the counterpart of
+//     Pallas's scalar prefetch), measured no faster at the main path's
+//     blocks (PERF.md) and was removed;
 //   * the two-source assembly reads each output row from exactly one table,
 //     in one launch, instead of gathering both and selecting;
-//   * the block backward is small (a ~2 MB table that stays in the 50 MB
-//     L2) and so bound by issue and launches, not by device memory: it
-//     zeroes the table with cudaMemsetAsync and runs one kernel, in one C
-//     call on the caller's stream (no fill kernel, no second scatter
-//     kernel, no add of two gradient tables); a group of G lanes serves one
-//     row (G the smallest power of two >= D/4, at most 32: at D = 32, 4 rows
-//     a warp), loads the row's indices once, reads the incoming gradients
-//     as float4 and adds them with 16-byte vector reductions
-//     (atomicAdd(float4*), red.global.add.v4.f32 on sm_90) when D % 4 == 0
-//     and the tables are 16-byte aligned, else with scalar f32 reductions;
-//     the mean's division is one reciprocal per row.
+//   * the backward's table (~2 MB, in the 50 MB L2) is zeroed with
+//     cudaMemsetAsync and filled by one kernel in the same C call, with
+//     16-byte vector reductions (atomicAdd(float4*), red.global.add.v4.f32
+//     on sm_90) on the float4 path, else scalar f32 reductions.
 //
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
 // sizes are int64_t / int.  Kernels run on the caller's stream, allocate
@@ -69,46 +74,201 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }
 
-__device__ __forceinline__ int64_t warp_row() {
-  return static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  v.x *= s; v.y *= s; v.z *= s; v.w *= s;
+  return v;
 }
+
+__device__ __forceinline__ float4 ldg4(const float* row, int i) {
+  return __ldg(reinterpret_cast<const float4*>(row) + i);
+}
+
+__device__ __forceinline__ void st4(float* row, int i, const float4& v) {
+  reinterpret_cast<float4*>(row)[i] = v;
+}
+
+// log2 of the lanes that serve one row: the smallest power of two covering
+// the row's units, at most a warp.
+inline int lanes_lg(int units) {
+  int lg = 0;
+  while ((1 << lg) < units && (1 << lg) < kWarp) ++lg;
+  return lg;
+}
+
+inline int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// A row's indices, held in registers (FANOUT > 0) or, for the runtime
+// fan-out (FANOUT == 0), only its self position.  Rows past a half's end
+// load nothing: position 0 and every slot masked.
+template <int FANOUT>
+struct RowIdx {
+  static constexpr int kSlots = FANOUT > 0 ? FANOUT : 1;
+  int32_t self;
+  int32_t p[kSlots];
+  bool m[kSlots];
+};
+
+template <int FANOUT>
+__device__ __forceinline__ RowIdx<FANOUT> load_idx(
+    int64_t row, const int32_t* __restrict__ self_pos, int64_t n_self,
+    const int32_t* __restrict__ pos, const uint8_t* __restrict__ mask,
+    int64_t n_neigh) {
+  RowIdx<FANOUT> x;
+  x.self = row < n_self ? __ldg(self_pos + row) : 0;
+  const bool has_neigh = row < n_neigh;
+#pragma unroll
+  for (int k = 0; k < RowIdx<FANOUT>::kSlots; ++k) {
+    x.p[k] = FANOUT > 0 && has_neigh ? __ldg(pos + row * FANOUT + k) : 0;
+    x.m[k] = FANOUT > 0 && has_neigh && __ldg(mask + row * FANOUT + k) != 0;
+  }
+  return x;
+}
+
+// One row of both outputs:
+//   out_self[row]  = src[x.self]                                   row < n_self
+//   out_neigh[row] = sum_k mask[row,k] * src[pos[row,k]]  (* 1/max(count,1) for MEAN)
+template <int FANOUT, bool MEAN, bool VEC>
+__device__ __forceinline__ void block_fwd_row(
+    const RowIdx<FANOUT>& x, int64_t row, const float* __restrict__ src,
+    int64_t n_self, const int32_t* __restrict__ pos,
+    const uint8_t* __restrict__ mask, int64_t n_neigh, int fanout_rt,
+    float* __restrict__ out_self, float* __restrict__ out_neigh, int d,
+    int group, int sub) {
+  constexpr int kSlots = RowIdx<FANOUT>::kSlots;
+  const bool has_self = row < n_self, has_neigh = row < n_neigh;
+  const int F = FANOUT > 0 ? FANOUT : fanout_rt;
+  const int32_t* p = pos + row * F;        // read only for FANOUT == 0
+  const uint8_t* m = mask + row * F;
+  int count = 0;
+  if (FANOUT > 0) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) count += x.m[k] ? 1 : 0;
+  } else if (has_neigh) {
+    for (int k = 0; k < F; ++k) count += m[k] ? 1 : 0;
+  }
+  const float s = MEAN && count > 0 ? 1.f / static_cast<float>(count) : 1.f;
+  const float* src_self = src + static_cast<int64_t>(x.self) * d;
+  float* os = has_self ? out_self + row * d : nullptr;
+  float* on = has_neigh ? out_neigh + row * d : nullptr;
+  const int units = VEC ? d / 4 : d;
+  for (int i = sub; i < units; i += group) {
+    if (VEC) {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 vs = has_self ? ldg4(src_self, i) : zero;
+      float4 acc = zero;
+      if (FANOUT > 0) {
+        float4 v[kSlots];
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k)
+          v[k] = x.m[k] ? ldg4(src + static_cast<int64_t>(x.p[k]) * d, i) : zero;
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k)
+          if (x.m[k]) add4(acc, v[k]);
+      } else if (has_neigh) {
+        for (int k = 0; k < F; ++k)
+          if (m[k]) add4(acc, ldg4(src + static_cast<int64_t>(p[k]) * d, i));
+      }
+      if (has_self) st4(os, i, vs);
+      if (has_neigh) st4(on, i, MEAN ? scale4(acc, s) : acc);
+    } else {
+      const float vs = has_self ? __ldg(src_self + i) : 0.f;
+      float acc = 0.f;
+      if (FANOUT > 0) {
+        float v[kSlots];
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k)
+          v[k] = x.m[k] ? __ldg(src + static_cast<int64_t>(x.p[k]) * d + i) : 0.f;
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k)
+          if (x.m[k]) acc += v[k];
+      } else if (has_neigh) {
+        for (int k = 0; k < F; ++k)
+          if (m[k]) acc += __ldg(src + static_cast<int64_t>(p[k]) * d + i);
+      }
+      if (has_self) os[i] = vs;
+      if (has_neigh) on[i] = MEAN ? acc * s : acc;
+    }
+  }
+}
+
+// Forward of a block's two gathers of one source table.  A group of
+// 1 << lg lanes serves one row.
+template <int FANOUT, bool MEAN, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+block_gather_fwd_kernel(const float* __restrict__ src,
+                        const int32_t* __restrict__ self_pos, int64_t n_self,
+                        const int32_t* __restrict__ pos,
+                        const uint8_t* __restrict__ mask, int64_t n_neigh,
+                        int fanout_rt, float* __restrict__ out_self,
+                        float* __restrict__ out_neigh, int d, int lg) {
+  const int64_t rows = n_self > n_neigh ? n_self : n_neigh;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
+  if (row >= rows) return;
+  const int group = 1 << lg;
+  const int sub = threadIdx.x & (group - 1);
+  const RowIdx<FANOUT> x = load_idx<FANOUT>(row, self_pos, n_self, pos, mask, n_neigh);
+  block_fwd_row<FANOUT, MEAN, VEC>(x, row, src, n_self, pos, mask, n_neigh,
+                                   fanout_rt, out_self, out_neigh, d, group, sub);
+}
+
+struct BlockFwdArgs {
+  const float* src;
+  const int32_t* self_pos;
+  int64_t n_self;
+  const int32_t* pos;
+  const uint8_t* mask;
+  int64_t n_neigh;
+  int fanout;
+  float* out_self;
+  float* out_neigh;
+  int d;
+};
+
+template <int FANOUT, bool MEAN, bool VEC>
+void launch_block_fwd_as(const BlockFwdArgs& a, cudaStream_t st) {
+  const int lg = lanes_lg(VEC ? a.d / 4 : a.d);
+  const int64_t rows = a.n_self > a.n_neigh ? a.n_self : a.n_neigh;
+  const dim3 grid(static_cast<unsigned>(ceil_div(rows, kThreads >> lg)));
+  block_gather_fwd_kernel<FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
+      a.src, a.self_pos, a.n_self, a.pos, a.mask, a.n_neigh, a.fanout,
+      a.out_self, a.out_neigh, a.d, lg);
+}
+
+template <int FANOUT>
+void launch_block_fwd(const BlockFwdArgs& a, bool mean, bool vec, cudaStream_t st) {
+  if (mean && vec) {
+    launch_block_fwd_as<FANOUT, true, true>(a, st);
+  } else if (mean) {
+    launch_block_fwd_as<FANOUT, true, false>(a, st);
+  } else if (vec) {
+    launch_block_fwd_as<FANOUT, false, true>(a, st);
+  } else {
+    launch_block_fwd_as<FANOUT, false, false>(a, st);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// layer-0 assembly
+// ---------------------------------------------------------------------------
 
 template <bool VEC>
 __device__ __forceinline__ void copy_row(const float* __restrict__ s,
                                          float* __restrict__ o, int d, int lane) {
   if (VEC) {
-    const float4* s4 = reinterpret_cast<const float4*>(s);
-    float4* o4 = reinterpret_cast<float4*>(o);
-    for (int i = lane; i < d / 4; i += kWarp) o4[i] = __ldg(s4 + i);
+    for (int i = lane; i < d / 4; i += kWarp) st4(o, i, ldg4(s, i));
   } else {
     for (int i = lane; i < d; i += kWarp) o[i] = __ldg(s + i);
   }
 }
 
-template <bool VEC>
-__device__ __forceinline__ void zero_row(float* __restrict__ o, int d, int lane) {
-  if (VEC) {
-    float4* o4 = reinterpret_cast<float4*>(o);
-    for (int i = lane; i < d / 4; i += kWarp) o4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  } else {
-    for (int i = lane; i < d; i += kWarp) o[i] = 0.f;
-  }
-}
-
-// K1: out[r] = src[ids[r]]
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const float* __restrict__ src, const int32_t* __restrict__ ids,
-                   float* __restrict__ out, int64_t n, int d) {
-  const int64_t row = warp_row();
-  if (row >= n) return;
-  const int lane = threadIdx.x % kWarp;
-  copy_row<VEC>(src + static_cast<int64_t>(ids[row]) * d, out + row * d, d, lane);
-}
-
-// K1, two sources: pos = cache_map[nids[r]];
+// pos = cache_map[nids[r]];
 // out[r] = pos >= 0 ? cache_values[pos] : miss_feats[miss_slot[r]]
 // (zeros when there are no miss rows at all: only padded rows get there).
+// One warp a row.
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
 assemble_kernel(const float* __restrict__ cache_values,
@@ -117,7 +277,7 @@ assemble_kernel(const float* __restrict__ cache_values,
                 const int32_t* __restrict__ miss_slot,
                 const float* __restrict__ miss_feats,
                 float* __restrict__ out, int64_t n, int d, int64_t n_miss_rows) {
-  const int64_t row = warp_row();
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= n) return;
   const int lane = threadIdx.x % kWarp;
   const int32_t pos = cache_map[nids[row]];
@@ -126,55 +286,16 @@ assemble_kernel(const float* __restrict__ cache_values,
     copy_row<VEC>(cache_values + static_cast<int64_t>(pos) * d, o, d, lane);
   } else if (n_miss_rows > 0) {
     copy_row<VEC>(miss_feats + static_cast<int64_t>(miss_slot[row]) * d, o, d, lane);
+  } else if (VEC) {
+    for (int i = lane; i < d / 4; i += kWarp) st4(o, i, make_float4(0.f, 0.f, 0.f, 0.f));
   } else {
-    zero_row<VEC>(o, d, lane);
+    for (int i = lane; i < d; i += kWarp) o[i] = 0.f;
   }
 }
 
-// K2: out[r] = sum_k mask[r,k] * src[pos[r,k]]  (divided by max(count, 1)
-// for MEAN).  FANOUT == 0 means the fan-out is the runtime value.
-template <int FANOUT, bool MEAN, bool VEC>
-__global__ void __launch_bounds__(kThreads)
-gather_reduce_kernel(const float* __restrict__ src, const int32_t* __restrict__ pos,
-                     const uint8_t* __restrict__ mask, float* __restrict__ out,
-                     int64_t n, int fanout_rt, int d) {
-  const int64_t row = warp_row();
-  if (row >= n) return;
-  const int lane = threadIdx.x % kWarp;
-  const int F = FANOUT > 0 ? FANOUT : fanout_rt;
-  const int32_t* p = pos + row * F;
-  const uint8_t* m = mask + row * F;
-  int count = 0;
-#pragma unroll
-  for (int k = 0; k < F; ++k) count += m[k] ? 1 : 0;
-  const float denom = static_cast<float>(count > 1 ? count : 1);
-  float* o = out + row * d;
-  if (VEC) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* o4 = reinterpret_cast<float4*>(o);
-    const int d4 = d / 4;
-    for (int i = lane; i < d4; i += kWarp) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int k = 0; k < F; ++k) {
-        if (m[k]) add4(acc, __ldg(s4 + static_cast<int64_t>(p[k]) * d4 + i));
-      }
-      if (MEAN) {
-        acc.x /= denom; acc.y /= denom; acc.z /= denom; acc.w /= denom;
-      }
-      o4[i] = acc;
-    }
-  } else {
-    for (int i = lane; i < d; i += kWarp) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < F; ++k) {
-        if (m[k]) acc += __ldg(src + static_cast<int64_t>(p[k]) * d + i);
-      }
-      o[i] = MEAN ? acc / denom : acc;
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
 
 // 16-byte vector reduction to global memory.  sm_90 declares atomicAdd for
 // float4 (global memory only); with the result unused it compiles to a
@@ -183,22 +304,14 @@ __device__ __forceinline__ void red4(float* dst, const float4& v) {
   atomicAdd(reinterpret_cast<float4*>(dst), v);
 }
 
-__device__ __forceinline__ float4 scale4(float4 v, float s) {
-  v.x *= s; v.y *= s; v.z *= s; v.w *= s;
-  return v;
-}
-
 // Backward of a block's two gathers of one source table, into grad_src that
 // the caller zeroed:
 //   grad_src[self_pos[r]]  += g_self[r]                      r < n_self
 //   grad_src[pos[r, k]]    += g_neigh[r] / max(count_r, 1)   r < n_neigh, mask[r, k]
-// (undivided for !MEAN).  A group of 1 << lg lanes serves one row; a unit is
-// a float4 when VEC, else a float.  Every load of a row (its indices, mask
-// and both gradient units) is issued before its first reduction, so a row
-// costs one round of memory latency, not one per dependent load.  Padded
-// rows need no test: they carry a zero gradient (self_pos 0) and no valid
-// slot.  With FANOUT == 0 (a fan-out with no instantiation of its own) the
-// row's slots are re-read from memory instead of held in registers.
+// (undivided for !MEAN).  A group of 1 << lg lanes serves one row.  Every
+// load of a row (its indices, mask and both gradient units) is issued before
+// its first reduction.  Padded rows need no test: they carry a zero gradient
+// (self_pos 0) and no valid slot.
 template <int FANOUT, bool MEAN, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 block_gather_bwd_kernel(const float* __restrict__ g_self,
@@ -237,8 +350,8 @@ block_gather_bwd_kernel(const float* __restrict__ g_self,
   for (int i = sub; i < units; i += group) {
     if (VEC) {
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 vs = has_self ? __ldg(reinterpret_cast<const float4*>(gs) + i) : zero;
-      float4 vn = has_neigh ? __ldg(reinterpret_cast<const float4*>(gn) + i) : zero;
+      const float4 vs = has_self ? ldg4(gs, i) : zero;
+      float4 vn = has_neigh ? ldg4(gn, i) : zero;
       if (has_self) red4(dst_self + 4 * i, vs);
       if (MEAN) vn = scale4(vn, s);
 #pragma unroll
@@ -261,26 +374,6 @@ block_gather_bwd_kernel(const float* __restrict__ g_self,
   }
 }
 
-inline dim3 grid_for(int64_t n) {
-  return dim3(static_cast<unsigned>((n + kWarpsPerBlock - 1) / kWarpsPerBlock));
-}
-
-template <int FANOUT>
-void launch_reduce(const float* src, const int32_t* pos, const uint8_t* mask,
-                   float* out, int64_t n, int fanout, int d, bool mean, bool vec,
-                   cudaStream_t st) {
-  const dim3 grid = grid_for(n);
-  if (mean && vec) {
-    gather_reduce_kernel<FANOUT, true, true><<<grid, kThreads, 0, st>>>(src, pos, mask, out, n, fanout, d);
-  } else if (mean) {
-    gather_reduce_kernel<FANOUT, true, false><<<grid, kThreads, 0, st>>>(src, pos, mask, out, n, fanout, d);
-  } else if (vec) {
-    gather_reduce_kernel<FANOUT, false, true><<<grid, kThreads, 0, st>>>(src, pos, mask, out, n, fanout, d);
-  } else {
-    gather_reduce_kernel<FANOUT, false, false><<<grid, kThreads, 0, st>>>(src, pos, mask, out, n, fanout, d);
-  }
-}
-
 struct BlockBwdArgs {
   const float* g_self;
   const int32_t* self_pos;
@@ -296,13 +389,9 @@ struct BlockBwdArgs {
 
 template <int FANOUT, bool MEAN, bool VEC>
 void launch_block_bwd_as(const BlockBwdArgs& a, cudaStream_t st) {
-  // lanes per row: the smallest power of two covering the row's units
-  const int units = VEC ? a.d / 4 : a.d;
-  int lg = 0;
-  while ((1 << lg) < units && (1 << lg) < kWarp) ++lg;
+  const int lg = lanes_lg(VEC ? a.d / 4 : a.d);
   const int64_t rows = a.n_self > a.n_neigh ? a.n_self : a.n_neigh;
-  const int64_t per_block = kThreads >> lg;
-  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block));
+  const dim3 grid(static_cast<unsigned>(ceil_div(rows, kThreads >> lg)));
   block_gather_bwd_kernel<FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
       a.g_self, a.self_pos, a.n_self, a.g_neigh, a.pos, a.mask, a.n_neigh,
       a.fanout, a.grad_src, a.d, lg);
@@ -343,17 +432,27 @@ void launch_block_bwd(const BlockBwdArgs& a, bool mean, bool vec, cudaStream_t s
 
 extern "C" {
 
-int pg_gather_rows(const void* src, const void* ids, void* out, int64_t n, int d,
-                   int vec, void* stream) {
+// Both outputs of a block's forward in one launch on the caller's stream:
+// out_self [n_self, d] = src[self_pos] and out_neigh [n_neigh, d] = the
+// masked sum (mean != 0: mean) of src over pos/mask [n_neigh, fanout].  An
+// absent half has null pointers and 0 rows (the self half: self_pos,
+// out_self, n_self; the neighbor half: pos, mask, out_neigh, n_neigh, and
+// then fanout is ignored).
+int pg_block_gather_fwd(const void* src, const void* self_pos, int64_t n_self,
+                        const void* pos, const void* mask, int64_t n_neigh,
+                        int fanout, void* out_self, void* out_neigh, int d,
+                        int mean, int vec, void* stream) {
+  if ((n_self == 0 && n_neigh == 0) || d == 0) return static_cast<int>(cudaGetLastError());
+  const BlockFwdArgs a{static_cast<const float*>(src),
+                       static_cast<const int32_t*>(self_pos), n_self,
+                       static_cast<const int32_t*>(pos),
+                       static_cast<const uint8_t*>(mask), n_neigh,
+                       n_neigh > 0 ? fanout : 0,
+                       static_cast<float*>(out_self), static_cast<float*>(out_neigh), d};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(src);
-  const int32_t* i = static_cast<const int32_t*>(ids);
-  float* o = static_cast<float*>(out);
-  if (vec) {
-    gather_rows_kernel<true><<<grid_for(n), kThreads, 0, st>>>(s, i, o, n, d);
-  } else {
-    gather_rows_kernel<false><<<grid_for(n), kThreads, 0, st>>>(s, i, o, n, d);
-  }
+#define PG_LAUNCH_BLOCK_FWD(F) launch_block_fwd<F>(a, mean != 0, vec != 0, st)
+  PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_FWD)
+#undef PG_LAUNCH_BLOCK_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,24 +467,12 @@ int pg_assemble_from_map(const void* cache_values, const void* cache_map,
   const int32_t* ms = static_cast<const int32_t*>(miss_slot);
   const float* mf = static_cast<const float*>(miss_feats);
   float* o = static_cast<float*>(out);
+  const dim3 grid(static_cast<unsigned>(ceil_div(n, kWarpsPerBlock)));
   if (vec) {
-    assemble_kernel<true><<<grid_for(n), kThreads, 0, st>>>(cv, cm, ni, ms, mf, o, n, d, n_miss_rows);
+    assemble_kernel<true><<<grid, kThreads, 0, st>>>(cv, cm, ni, ms, mf, o, n, d, n_miss_rows);
   } else {
-    assemble_kernel<false><<<grid_for(n), kThreads, 0, st>>>(cv, cm, ni, ms, mf, o, n, d, n_miss_rows);
+    assemble_kernel<false><<<grid, kThreads, 0, st>>>(cv, cm, ni, ms, mf, o, n, d, n_miss_rows);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int pg_gather_reduce(const void* src, const void* pos, const void* mask, void* out,
-                     int64_t n, int fanout, int d, int mean, int vec, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(src);
-  const int32_t* p = static_cast<const int32_t*>(pos);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* o = static_cast<float*>(out);
-#define PG_LAUNCH_REDUCE(F) launch_reduce<F>(s, p, m, o, n, fanout, d, mean != 0, vec != 0, st)
-  PG_FANOUT_SWITCH(fanout, PG_LAUNCH_REDUCE)
-#undef PG_LAUNCH_REDUCE
   return static_cast<int>(cudaGetLastError());
 }
 

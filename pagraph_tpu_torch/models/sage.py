@@ -5,9 +5,9 @@ Per layer: ``fc_self(h_dst) + fc_neigh(agg(h_neighbors))`` with
 Xavier-uniform (relu gain) weights; the last hidden layer applies the
 width-doubling ``cat((h, relu(h)))`` skip.  Layer i+1 of a minibatch is
 reachable from layer i through ``self_pos``, so each model layer costs one
-block: one K2 launch for the aggregation and one K1 launch for the self rows,
-and (where the block's source needs a gradient) one fused backward launch
-for both (``ops.aggregate.block_gather``).
+block: one fused forward launch for its self rows and its aggregation, and
+(where the block's source needs a gradient) one fused backward launch for
+both (``ops.aggregate.block_gather``).
 
 Aggregators: ``mean`` and ``gcn`` (sum).  ``pool``, ``lstm`` and
 ``preprocess`` are not ported yet (ROADMAP queue 1).

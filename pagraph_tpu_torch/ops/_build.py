@@ -32,9 +32,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C signature of every entry point, by library.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gather_kernels": {
-        "pg_gather_rows": (_P, _P, _P, _I64, _I, _I, _P),
+        "pg_block_gather_fwd": (_P, _P, _I64, _P, _P, _I64, _I, _P, _P, _I,
+                                _I, _I, _P),
         "pg_assemble_from_map": (_P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _P),
-        "pg_gather_reduce": (_P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
         "pg_block_gather_bwd": (_P, _P, _I64, _P, _P, _P, _I64, _I, _P, _I64,
                                 _I, _I, _I, _P),
     },

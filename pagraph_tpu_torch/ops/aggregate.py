@@ -2,12 +2,12 @@
 
 Blocks are fixed-shape ``(cap_dst, fanout)`` index matrices, so
 "copy_src + segment-reduce" is a gather followed by a masked reduction over
-the fan-out axis.  On host-sampled blocks both run fused in one CUDA kernel
-(``gather_kernels.gather_reduce``), and the destination's own row is a CUDA
-row gather (``gather_kernels.gather_rows``).  :func:`block_gather` does both
-for one block, and its backward adds both gradients into the source table in
-one CUDA launch (``gather_kernels.BlockGather``); :func:`block_self` and
-:func:`block_aggregate`, the counterparts of the JAX functions, do one each.
+the fan-out axis.  On host-sampled blocks :func:`block_gather` gathers a
+block's self rows and reduces its neighbor rows in one CUDA launch, and its
+backward adds both gradients into the source table in one more
+(``gather_kernels.BlockGather``); :func:`block_self` and
+:func:`block_aggregate`, the counterparts of the JAX functions, do one half
+each (the same forward kernel with the other half absent).
 Prefix-layout blocks need no gather: their neighbor messages are a
 contiguous slice.
 """

@@ -6,20 +6,26 @@ The port's counterpart of ``pagraph_tpu/ops/pallas_gather.py``:
 =====================  ===============================================  ==========================
 wrapper                computes                                         replaces
 =====================  ===============================================  ==========================
+``block_gather_fwd``   both halves below from one table                 K1 + K2
 ``gather_rows``        ``out[r] = src[ids[r]]``                         ``gather_rows_pallas`` (K1)
+``gather_reduce``      masked ``mean``/``sum`` of ``src[pos[n, k]]``    ``gather_mean_pallas`` (K2)
 ``assemble_from_map``  ``cache_values[pos]`` if ``pos = cache_map        ``gather_rows_pallas`` (K1)
                        [nids[r]] >= 0``, else ``miss_feats               + ``assemble_features_from_map``
                        [miss_slot[r]]``
-``gather_reduce``      masked ``mean``/``sum`` of ``src[pos[n, k]]``    ``gather_mean_pallas`` (K2)
 ``block_gather_bwd``   both halves below into one table                 backward of K1 + K2
 ``scatter_add_rows``   ``grad_src[ids[r]] += grad_out[r]``              backward of K1
 ``gather_reduce_bwd``  ``grad_src[pos[n,k]] += grad_out[n] (/count)``   backward of K2
 =====================  ===============================================  ==========================
 
-The three backwards are one kernel, ``pg_block_gather_bwd``: a memset of the
-gradient table and one launch, in one C call.  ``block_gather_bwd`` runs it
-with both halves (the backward of :class:`BlockGather`, the main path's),
-``scatter_add_rows`` and ``gather_reduce_bwd`` with one half absent.
+The three forwards of a block's gathers are one kernel, ``pg_block_gather_fwd``:
+``block_gather_fwd`` runs it with both halves (the forward of
+:class:`BlockGather`, the main path's), ``gather_rows`` and ``gather_reduce``
+with one half absent.  The three backwards are one kernel,
+``pg_block_gather_bwd`` (a memset of the gradient table and one launch, in
+one C call), run the same way by ``block_gather_bwd``, ``scatter_add_rows``
+and ``gather_reduce_bwd``.  A train step launches 4 kernels: the assembly,
+one block forward for each block, and one block backward for block 1 (the
+layer-0 features need no gradient).
 
 Dispatch is by the device of the tensors and nothing else: on CUDA tensors a
 wrapper launches its kernel (``csrc/gather_kernels.cu``, built at first use by
@@ -43,6 +49,8 @@ import torch
 KINDS = ("mean", "sum")
 
 LAUNCHES: Dict[str, int] = {
+    "block_gather_fwd_mean": 0,
+    "block_gather_fwd_sum": 0,
     "gather_rows": 0,
     "assemble_from_map": 0,
     "scatter_add_rows": 0,
@@ -109,6 +117,14 @@ def reduce_msgs_plain(msgs: torch.Tensor, mask: torch.Tensor,
 
 def gather_reduce_plain(src, pos, mask, kind: str) -> torch.Tensor:
     return reduce_msgs_plain(src[pos.long()], mask, kind)
+
+
+def block_gather_fwd_plain(src, self_pos, pos, mask, kind: str):
+    """``(gather_rows_plain(src, self_pos), gather_reduce_plain(src, pos,
+    mask, kind))``; a ``None`` index is an absent half, whose output is
+    ``None``."""
+    return (None if self_pos is None else gather_rows_plain(src, self_pos),
+            None if pos is None else gather_reduce_plain(src, pos, mask, kind))
 
 
 def block_gather_bwd_plain(g_self, self_pos, g_neigh, pos, mask, num_src: int,
@@ -183,20 +199,73 @@ def _raise_on(rc: int, fn: str) -> None:
         raise RuntimeError(f"{fn}: CUDA launch failed with cudaError {rc}")
 
 
+def _check_kind(kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"gather_reduce kind must be one of {KINDS}, got {kind!r}")
+
+
+def _check_reduce(pos, mask, kind):
+    _check_kind(kind)
+    _check(pos, "pos", torch.int32, 2)
+    _check(mask, "mask", torch.bool, 2)
+    if pos.shape != mask.shape:
+        raise ValueError(f"pos {tuple(pos.shape)} and mask {tuple(mask.shape)} differ")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _block_fwd_kernel(key: str, src, self_pos, pos, mask, kind: str):
+    """Check the halves that are present, allocate their outputs with
+    ``torch.empty`` and run ``pg_block_gather_fwd`` (one launch), counted
+    under ``LAUNCHES[key]``; an absent half (``None`` index) returns
+    ``None``."""
+    _check(src, "src", torch.float32, 2)
+    d = src.shape[1]
+    n_self = n_neigh = fanout = 0
+    out_self = out_neigh = None
+    if self_pos is not None:
+        _check(self_pos, "self_pos", torch.int32, 1)
+        n_self = self_pos.shape[0]
+        out_self = torch.empty((n_self, d), dtype=torch.float32, device=src.device)
+    if pos is not None:
+        _check_reduce(pos, mask, kind)
+        n_neigh, fanout = pos.shape
+        out_neigh = torch.empty((n_neigh, d), dtype=torch.float32, device=src.device)
+    outs = [t for t in (out_self, out_neigh) if t is not None]
+    if (n_self or n_neigh) and d:
+        _raise_on(_lib().pg_block_gather_fwd(
+            src.data_ptr(), _ptr(self_pos), n_self, _ptr(pos), _ptr(mask), n_neigh,
+            fanout, _ptr(out_self), _ptr(out_neigh), d, int(kind == "mean"),
+            _vec(d, src, *outs), _stream(src.device)), "pg_block_gather_fwd")
+        LAUNCHES[key] += 1
+    return out_self, out_neigh
+
+
+def block_gather_fwd(src: torch.Tensor, self_pos, pos, mask,
+                     kind: str = "mean"):
+    """Both gathers of a block from one source table ``src`` f32 ``[S, D]``:
+    ``(src[self_pos], gather_reduce(src, pos, mask, kind))`` for
+    ``self_pos`` int32 ``[N_self]``, ``pos`` int32 and ``mask`` bool
+    ``[N, fanout]``.  A ``None`` index is an absent half, whose output is
+    ``None``.  On the card: one launch for both."""
+    _check_kind(kind)
+    if self_pos is None and pos is None:
+        raise ValueError("block_gather_fwd needs at least one half")
+    present = [src] + ([self_pos] if self_pos is not None else []) + (
+        [pos, mask] if pos is not None else [])
+    if not _use_kernel(*present):
+        return block_gather_fwd_plain(src, self_pos, pos, mask, kind)
+    return _block_fwd_kernel("block_gather_fwd_" + kind, src, self_pos, pos, mask, kind)
+
+
 def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """``src[ids]`` for ``src`` f32 ``[S, D]`` and ``ids`` int32 ``[N]``."""
+    """``src[ids]`` for ``src`` f32 ``[S, D]`` and ``ids`` int32 ``[N]`` (on
+    the card, the block forward kernel with its neighbor half absent)."""
     if not _use_kernel(src, ids):
         return gather_rows_plain(src, ids)
-    _check(src, "src", torch.float32, 2)
-    _check(ids, "ids", torch.int32, 1)
-    n, d = ids.shape[0], src.shape[1]
-    out = torch.empty((n, d), dtype=src.dtype, device=src.device)
-    if n and d:
-        _raise_on(_lib().pg_gather_rows(
-            src.data_ptr(), ids.data_ptr(), out.data_ptr(), n, d,
-            _vec(d, src, out), _stream(src.device)), "pg_gather_rows")
-        LAUNCHES["gather_rows"] += 1
-    return out
+    return _block_fwd_kernel("gather_rows", src, ids, None, None, "sum")[0]
 
 
 def assemble_from_map(cache_values: torch.Tensor, cache_map: torch.Tensor,
@@ -229,43 +298,17 @@ def assemble_from_map(cache_values: torch.Tensor, cache_map: torch.Tensor,
     return out
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in KINDS:
-        raise ValueError(f"gather_reduce kind must be one of {KINDS}, got {kind!r}")
-
-
-def _check_reduce(pos, mask, kind):
-    _check_kind(kind)
-    _check(pos, "pos", torch.int32, 2)
-    _check(mask, "mask", torch.bool, 2)
-    if pos.shape != mask.shape:
-        raise ValueError(f"pos {tuple(pos.shape)} and mask {tuple(mask.shape)} differ")
-
-
 def gather_reduce(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
                   kind: str = "mean") -> torch.Tensor:
     """``out[n] = sum_k mask[n,k] * src[pos[n,k]]``, divided by
     ``max(sum_k mask[n,k], 1)`` for ``kind="mean"``.  Masked slots are
     never loaded.  ``src`` f32 ``[S, D]``; ``pos`` int32 and ``mask`` bool
-    ``[N, fanout]``."""
+    ``[N, fanout]`` (on the card, the block forward kernel with its self half
+    absent)."""
+    _check_kind(kind)
     if not _use_kernel(src, pos, mask):
-        _check_kind(kind)
         return gather_reduce_plain(src, pos, mask, kind)
-    _check(src, "src", torch.float32, 2)
-    _check_reduce(pos, mask, kind)
-    (n, fanout), d = pos.shape, src.shape[1]
-    out = torch.empty((n, d), dtype=torch.float32, device=src.device)
-    if n and d:
-        _raise_on(_lib().pg_gather_reduce(
-            src.data_ptr(), pos.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            n, fanout, d, int(kind == "mean"), _vec(d, src, out),
-            _stream(out.device)), "pg_gather_reduce")
-        LAUNCHES["gather_reduce_" + kind] += 1
-    return out
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
+    return _block_fwd_kernel("gather_reduce_" + kind, src, None, pos, mask, kind)[1]
 
 
 def _block_bwd_kernel(key: str, g_self, self_pos, g_neigh, pos, mask,
@@ -403,9 +446,11 @@ class GatherReduce(torch.autograd.Function):
 
 class BlockGather(torch.autograd.Function):
     """A block's two gathers of one source table, ``(src[self_pos],
-    gather_reduce(src, pos, mask, kind))``, whose gradient w.r.t. ``src`` is
-    one :func:`block_gather_bwd`: one memset and one kernel launch on the
-    card, where the two Functions above take two of each and an add."""
+    gather_reduce(src, pos, mask, kind))``, in one :func:`block_gather_fwd`
+    launch on the card, whose gradient w.r.t. ``src`` is one
+    :func:`block_gather_bwd`: one memset and one kernel launch, where the two
+    Functions above take two launches forward, and two memsets, two launches
+    and an add backward."""
 
     @staticmethod
     def forward(ctx, src, self_pos, pos, mask, kind):
@@ -415,7 +460,7 @@ class BlockGather(torch.autograd.Function):
         ctx.plain = _PLAIN_ON_CUDA.get()
         # an output that nothing uses arrives as None: its half is absent
         ctx.set_materialize_grads(False)
-        return gather_rows(src, self_pos), gather_reduce(src, pos, mask, kind)
+        return block_gather_fwd(src, self_pos, pos, mask, kind)
 
     @staticmethod
     def backward(ctx, g_self, g_neigh):

@@ -2,9 +2,10 @@
 ``pagraph_tpu/train/state.py``).
 
 One step: assemble the layer-0 features from the device cache and the
-shipped miss rows (one K1 launch), run GraphSAGE forward (K2 + K1 per
-block), the masked cross-entropy, backward (one fused scatter-add launch for
-each block whose source needs a gradient) and Adam.  Nothing in a
+shipped miss rows (one launch), run GraphSAGE forward (one fused gather
+launch per block), the masked cross-entropy, backward (one fused scatter-add
+launch for each block whose source needs a gradient) and Adam: 4 kernel
+launches for the 2-layer model.  Nothing in a
 step waits for the device: loss and accuracy come back as device tensors.
 """
 from __future__ import annotations

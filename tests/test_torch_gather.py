@@ -14,13 +14,16 @@ import pytest
 import torch
 
 import pagraph_tpu as pg
+import pagraph_tpu_torch as pt
 from pagraph_tpu.ops import aggregate as jagg
 from pagraph_tpu.ops.pallas_gather import gather_mean_pallas, gather_rows_pallas
 from pagraph_tpu.sampling.block import Block as JBlock
 from pagraph_tpu.sampling.sampler import NeighborSampler as JSampler
+from pagraph_tpu_torch.models import get_model
 from pagraph_tpu_torch.ops import aggregate as tagg
 from pagraph_tpu_torch.ops import gather_kernels as gk
 from pagraph_tpu_torch.sampling.block import Block as TBlock
+from pagraph_tpu_torch.sampling.block import MiniBatch as TMiniBatch
 
 
 def _t(x):
@@ -186,11 +189,11 @@ def test_block_gather_matches_jax(sampled, kind, bi):
     np.testing.assert_allclose(th.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-6)
 
 
-def _bwd_case(seed: int):
+def _bwd_case(seed: int, d: int = 20, f: int = 3):
     """Self and neighbor positions that overlap and repeat, and 10 padded
     rows at the end (self_pos 0, no valid slot, zero gradient)."""
     rng = np.random.default_rng(seed)
-    n_src, n, f, d = 60, 120, 3, 20
+    n_src, n = 60, 120
     self_pos = rng.integers(0, n_src, size=n).astype(np.int32)
     pos = rng.integers(0, n_src, size=(n, f)).astype(np.int32)
     pos[::2, 0] = self_pos[::2]                  # a row's neighbor is its self row
@@ -238,6 +241,81 @@ def test_block_gather_bwd_plain_matches_vjp(kind, halves):
 
 
 @pytest.mark.parametrize("kind", ["mean", "sum"])
+@pytest.mark.parametrize("halves", ["both", "self", "neigh"])
+@pytest.mark.parametrize("d,fanout", [(100, 2), (32, 2), (30, 7)])
+def test_block_gather_fwd_matches_jax(kind, halves, d, fanout):
+    """block_gather_fwd against jnp.take and block_aggregate (on CPU
+    tensors it runs its plain version, block_gather_fwd_plain), on
+    overlapping and repeated positions, 10 padded rows and other rows with no
+    valid slot; an absent half gives None.  The main path's widths (D = 100
+    and 32 at fan-out 2), and D = 30 at fan-out 7 (the kernel's scalar and
+    runtime-fan-out branches).  Self rows exact; neighbor rows rtol 1e-6 /
+    atol 1e-6 (float32 sums of at most 7 terms in another order)."""
+    n_src, _, self_pos, pos, mask, _, _ = _bwd_case(13, d, fanout)
+    mask[20:25] = False
+    src = np.random.default_rng(14).normal(size=(n_src, d)).astype(np.float32)
+    jb = JBlock(neigh_pos=pos, neigh_mask=mask, self_pos=self_pos)
+    want_self = np.asarray(jnp.take(jnp.asarray(src), self_pos, axis=0))
+    want_neigh = np.asarray(jagg.block_aggregate(jnp.asarray(src), jb, kind))
+    use_self, use_neigh = halves in ("both", "self"), halves in ("both", "neigh")
+    sp = _t(self_pos) if use_self else None
+    p, m = (_t(pos), _t(mask)) if use_neigh else (None, None)
+    h_self, h_neigh = gk.block_gather_fwd(_t(src), sp, p, m, kind)
+    if use_self:
+        np.testing.assert_array_equal(h_self.numpy(), want_self)
+    else:
+        assert h_self is None
+    if use_neigh:
+        np.testing.assert_allclose(h_neigh.numpy(), want_neigh, rtol=1e-6, atol=1e-6)
+        assert not h_neigh.numpy()[20:25].any()
+    else:
+        assert h_neigh is None
+
+
+def test_block_gather_forward_is_one_block_gather_fwd_a_block(sampled, monkeypatch):
+    """GraphSAGE's forward runs each block's two gathers through one
+    block_gather_fwd call (one launch on the card), not gather_rows and
+    gather_reduce."""
+    calls = []
+    real = gk.block_gather_fwd
+
+    def counting(*args, **kwargs):
+        calls.append(args[1].shape[0])
+        return real(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a single-half gather ran on the main path")
+
+    monkeypatch.setattr(gk, "block_gather_fwd", counting)
+    monkeypatch.setattr(gk, "gather_rows", refuse)
+    monkeypatch.setattr(gk, "gather_reduce", refuse)
+    mb = jax.tree.map(np.asarray, sampled)
+    tmb = TMiniBatch(layer_nids=tuple(mb.layer_nids), layer_mask=tuple(mb.layer_mask),
+                     blocks=tuple(_tblock(b) for b in mb.blocks),
+                     labels=mb.labels).to("cpu")
+    model = get_model(pt.ModelConfig(arch="graphsage", n_layers=1, hidden=8,
+                                     feat_dim=24, n_classes=5, dropout=0.0))
+    feats = _t(np.random.default_rng(0).normal(
+        size=(mb.layer_nids[0].shape[0], 24)).astype(np.float32)).requires_grad_(True)
+    model(tmb, feats).sum().backward()
+    assert calls == [b.self_pos.shape[0] for b in mb.blocks]
+    assert feats.grad is not None
+
+
+def test_launch_counters_have_the_fused_forward():
+    """The fused forward's keys sit beside every earlier key, and
+    reset_launch_counts zeroes them all."""
+    keys = {"block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
+            "assemble_from_map", "scatter_add_rows", "gather_reduce_mean",
+            "gather_reduce_sum", "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
+            "block_gather_bwd_mean", "block_gather_bwd_sum"}
+    assert set(gk.LAUNCHES) == keys
+    gk.LAUNCHES["block_gather_fwd_mean"] += 1
+    gk.reset_launch_counts()
+    assert set(gk.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("kind", ["mean", "sum"])
 def test_block_gather_prefix_layout_matches_jax(kind):
     """Prefix layout through block_gather: contiguous slices, values and
     gradient against the JAX functions."""
@@ -275,6 +353,8 @@ def test_wrappers_refuse_bad_input():
         gk.gather_reduce(src, pos, mask, "median")
     with pytest.raises(ValueError):     # no incoming gradient at all
         gk.block_gather_bwd(None, None, None, None, None, 10, "mean")
+    with pytest.raises(ValueError):     # no half to gather
+        gk.block_gather_fwd(src, None, None, None, "mean")
     # neither CPU nor CUDA: no plain version, no kernel
     with pytest.raises(ValueError):
         gk.gather_rows(src.to("meta"), pos[:, 0].to("meta"))
