@@ -14,6 +14,11 @@ Phases, each printed as one JSON line:
   ~16.08M edges) with the cache at 40% capacity, 2 epochs through
   ``Trainer.from_dataset``, with each kernel's launch count; then one epoch
   with the ``gcn`` aggregator, the path of the ``sum`` kind;
+* ``tiers``: one epoch of the same configuration at each cache tier
+  (``cache.dtype`` float32, bfloat16, int8), each a fresh ``Trainer``
+  (seed 0) at 40% capacity: epoch time, edges/s, miss rate (equal to the
+  f32 run's epoch 0: the same batches), bytes shipped host -> device, the
+  cache's device bytes and each kernel's launches (4 a step);
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -23,7 +28,9 @@ Phases, each printed as one JSON line:
   (``block_gather_fwd``, both outputs) and its single-half uses
   (``gather_rows``, ``gather_reduce``) are one kernel, as are the fused
   block backward (``block_gather_bwd``) and its single-half uses
-  (``scatter_add_rows``, ``gather_reduce_bwd``).  No one PyTorch call
+  (``scatter_add_rows``, ``gather_reduce_bwd``).  The assembly
+  (``assemble``) is one kernel for the three cache tiers, each timed on
+  that tier's cache and plan of the batch.  No one PyTorch call
   computes a fused case: its ``library_ms`` times the calls that compute
   each output from pre-flattened inputs (for the forward ``index_select`` +
   ``embedding_bag``; for the backwards the ``index_add_`` calls into a
@@ -38,15 +45,19 @@ Phases, each printed as one JSON line:
   branches the main path does not take -- D = 30 (scalar rows), a table
   4 bytes off alignment, fan-out 7 (no unrolled instantiation), each half
   absent -- against their plain versions;
+* ``assemble_branches``: the assembly at each tier where the main path
+  does not go -- D = 30 (scalar units), a table one element off its unit's
+  alignment, D = 600 (several units a lane), no miss rows, every row a
+  miss, every row a hit -- exact against its plain version;
 * ``timing_floor``: the same timing around no work, around the block
   backward's memset alone, and around a contiguous device copy that moves
   the block-0 forward's bound bytes (half read, half written): what the
   card streams for those bytes with no gather;
-* ``step_parity``: one train step from the same parameters and batch,
-  through the kernels and through the plain versions: loss and every
-  gradient within 1e-5 relative (atomic summation order), 4 kernel
-  launches (the assembly, two fused block forwards, one fused block
-  backward);
+* ``step_parity``: one train step from the same parameters and batch at
+  each cache tier, through the kernels and through the plain versions:
+  loss and every gradient within 1e-5 relative (atomic summation order),
+  4 kernel launches (the assembly, two fused block forwards, one fused
+  block backward);
 * ``breakdown``: where the epoch's time goes — an epoch of the loader alone
   (host sampling, miss gather, pinned H2D), and one train step alone on a
   shipped batch (host enqueue time, wall time, device time).
@@ -70,6 +81,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
 PALLAS = "pagraph_tpu/ops/pallas_gather.py"
 SOURCE = "pagraph_tpu_torch/csrc/gather_kernels.cu"
+# the cache tiers (cache.dtype) and their tags in the kernel names and counters
+TIERS = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}
 
 
 def fail(msg: str) -> None:
@@ -164,6 +177,46 @@ def fwd_branches(torch, gk, dev):
     return out
 
 
+def assemble_branches(torch, gk, dev):
+    """The assembly against its plain version, exact, at each tier where the
+    main path does not go: D = 30 (scalar units), tables one element off
+    their unit's alignment (scalar units at D = 100), D = 600 (several units
+    a lane), no miss rows, every row a miss, every row a hit."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, cap = 2000, 3000
+    out = []
+    for label, d, off, n_miss in (("D=30", 30, 0, 1024), ("offset tables", 100, 1, 1024),
+                                  ("D=600", 600, 0, 1024), ("no miss rows", 100, 0, 0),
+                                  ("all misses", 100, 0, 2048), ("all hits", 100, 0, 1024)):
+        for dtype, tag in TIERS.items():
+            row_dtype = getattr(torch, dtype)
+
+            def table(rows):
+                if row_dtype == torch.int8:
+                    flat = torch.randint(-127, 128, (rows * d + off,), generator=gen,
+                                         device=dev, dtype=torch.int32).to(torch.int8)
+                else:
+                    flat = torch.randn(rows * d + off, generator=gen, device=dev).to(row_dtype)
+                return flat[off:].view(rows, d)
+            cv, mf = table(cap), table(n_miss)
+            hit = torch.rand(n, generator=gen, device=dev) < 0.6
+            if label == "all misses":
+                hit[:] = False
+            elif label in ("all hits", "no miss rows"):
+                hit[:] = True
+            src_row = torch.where(
+                hit, torch.randint(0, cap, (n,), generator=gen, device=dev),
+                -1 - torch.randint(0, max(n_miss, 1), (n,), generator=gen, device=dev)
+            ).to(torch.int32)
+            scale = (torch.rand(d, generator=gen, device=dev) / 127 + 1e-3
+                     if row_dtype == torch.int8 else None)
+            err, ok, text = compare(torch, gk.assemble(cv, src_row, mf, scale),
+                                    gk.assemble_plain(cv, src_row, mf, scale), "exact")
+            out.append({"case": f"assemble[{tag}] {label}", "max_abs_err": err, "ok": ok,
+                        "tolerance": text})
+    return out
+
+
 def build_dataset(np, synthetic, Dataset, CSRGraph):
     """The bench.py graph: RMAT scale 20, edge factor 16, seed 42; 100-dim
     uniform features and 47-class labels argmax(feats @ proj) (seed 7);
@@ -227,14 +280,15 @@ def main() -> None:
     ds = build_dataset(np, synthetic, Dataset, CSRGraph)
     data_s = time.perf_counter() - t0
 
-    def config(aggregator: str):
+    def config(aggregator: str, cache_dtype: str = "float32"):
         return pt.Config(
             model=pt.ModelConfig(arch="graphsage", n_layers=1, hidden=16,
                                  feat_dim=100, n_classes=47,
                                  aggregator=aggregator, dropout=0.2),
             sampler=pt.SamplerConfig(batch_size=6000, fanout=2, num_hops=2,
                                      seed=0, prefetch=3),
-            cache=pt.CacheConfig(enabled=True, capacity=int(ds.num_nodes * 0.4)),
+            cache=pt.CacheConfig(enabled=True, capacity=int(ds.num_nodes * 0.4),
+                                 dtype=cache_dtype),
             train=pt.TrainConfig(lr=1e-2, warmup_epochs=1),
         )
 
@@ -249,7 +303,7 @@ def main() -> None:
     epochs = [tr.run_epoch(e) for e in range(2)]
     torch.cuda.synchronize()
     launches = gk.launch_counts()
-    main_keys = ("assemble_from_map", "block_gather_fwd_mean", "block_gather_bwd_mean")
+    main_keys = ("assemble_f32", "block_gather_fwd_mean", "block_gather_bwd_mean")
     train_out = {
         "graph": {"vertices": ds.num_nodes, "edges": ds.graph.num_edges},
         "caps": list(tr.sampler.caps), "cache_capacity": tr.cache.capacity,
@@ -286,17 +340,56 @@ def main() -> None:
     if not epochs[1].mean_loss < epochs[0].mean_loss:
         fail(f"loss did not fall: {epochs[0].mean_loss} -> {epochs[1].mean_loss}")
 
+    # -- tiers: one epoch at each cache tier, each a fresh Trainer -------------
+    tier_tr, tier_launches, tiers_out = {}, {}, {}
+    for dtype, tag in TIERS.items():
+        t_tr = Trainer.from_dataset(config("mean", dtype), ds, seed=0)
+        t_tr._maybe_fill_cache()
+        torch.cuda.synchronize()
+        gk.reset_launch_counts()
+        m = t_tr.run_epoch(0)
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+        cv_t = t_tr.cache.cache_values
+        tier_tr[dtype], tier_launches[dtype] = t_tr, counts
+        tiers_out[dtype] = {
+            "time_s": m.time_s, "edges": m.edges, "edges_per_s": m.edges / m.time_s,
+            "miss_rate": m.miss_rate, "mean_loss": m.mean_loss, "batches": m.num_batches,
+            "h2d_bytes": m.h2d_bytes, "cache_dtype": str(cv_t.dtype),
+            "cache_bytes": cv_t.numel() * cv_t.element_size(),
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_per_step": sum(counts.values()) / max(m.num_batches, 1)}
+    emit("tiers", tiers_out)
+    for dtype, tag in TIERS.items():
+        t, counts = tiers_out[dtype], tier_launches[dtype]
+        if t["miss_rate"] != epochs[0].miss_rate:
+            fail(f"{dtype} tier: miss rate {t['miss_rate']} != the f32 run's "
+                 f"{epochs[0].miss_rate} on the same batches")
+        if not math.isfinite(t["mean_loss"]):
+            fail(f"{dtype} tier: non-finite loss {t['mean_loss']}")
+        if sum(counts.values()) != 4 * t["batches"] or counts[f"assemble_{tag}"] != t["batches"]:
+            fail(f"{dtype} tier: launches {t['launches']} over {t['batches']} steps, "
+                 "expected 4 a step with one assemble_" + tag)
+
     # -- kernels: one batch of the run, at its shapes ------------------------
     seeds = tr.sampler.train_nids[:cfg.sampler.batch_size]
     mb_h = tr.sampler.sample(seeds)
-    plan = tr.cache.fetch_plan(mb_h.input_nids, mb_h.input_mask, track=False)
     mb = mb_h.to(dev)
-    miss_feats = torch.from_numpy(plan.miss_feats).to(dev)
-    miss_slot = torch.from_numpy(plan.miss_slot).to(dev)
-    cv, cmap = tr.cache.cache_values, tr.cache.cache_map_dev
+
+    def tier_inputs(cache):
+        """The assembly's inputs for this batch at a cache's tier: cache
+        rows, the plan's index a row and miss rows, the int8 scale."""
+        plan = cache.fetch_plan(mb_h.input_nids, mb_h.input_mask, track=False)
+        return (cache.cache_values, torch.from_numpy(plan.src_row).to(dev),
+                plan.miss_feats.to(dev), cache.dequant_scale_dev)
+
+    # f32: the main path's own cache; the others from the tiers phase
+    tier_in = {dtype: tier_inputs(tr.cache if dtype == "float32" else tier_tr[dtype].cache)
+               for dtype in TIERS}
+    cv, src_row, miss_feats, _ = tier_in["float32"]
     b0, b1 = mb.blocks
     gen = torch.Generator(device=dev).manual_seed(1)
-    feats = gk.assemble_from_map(cv, cmap, mb.input_nids, miss_slot, miss_feats)
+    feats = gk.assemble(cv, src_row, miss_feats)
     h1 = torch.randn(b0.cap_dst, 2 * cfg.model.hidden, generator=gen, device=dev)
     g1 = torch.randn(b1.cap_dst, 2 * cfg.model.hidden, generator=gen, device=dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -330,27 +423,34 @@ def main() -> None:
             library=lambda: torch.index_select(src, 0, ids_l),
             nbytes=4 * n + rows_bytes(distinct(ids), d) + rows_bytes(n, d)))
 
-    def assemble_same_fn():
-        """The assembly in PyTorch calls: the cache_map lookup, a row
-        gather from each table and the selection."""
-        pos = torch.index_select(cmap, 0, mb.input_nids)
-        hits = torch.index_select(cv, 0, pos.clamp(min=0))
-        return torch.where((pos >= 0)[:, None], hits,
-                           torch.index_select(miss_feats, 0, miss_slot))
+    def assemble_same_fn(cv_t, sr_t, mf_t, sc_t):
+        """The assembly in PyTorch calls from the kernel's own inputs: a row
+        gather from each table, the selection, the cast (and the scale)."""
+        rows = torch.where((sr_t >= 0)[:, None],
+                           torch.index_select(cv_t, 0, sr_t.clamp(min=0)),
+                           torch.index_select(mf_t, 0, (-1 - sr_t).clamp(min=0))).float()
+        return rows if sc_t is None else rows * sc_t
 
     gather_case("block0 self", feats, b0.self_pos)
     gather_case("block1 self", h1, b1.self_pos)
-    n0, d0 = mb.input_nids.shape[0], cv.shape[1]
-    cases.append(dict(
-        name="assemble_from_map[layer0]", key="assemble_from_map",
-        replaces=f"{PALLAS}:58 gather_rows_pallas (+ storage/cache.py:112 "
-                 "assemble_features_from_map)",
-        shape=f"cache {list(cv.shape)} miss {list(miss_feats.shape)} nids [{n0}]",
-        tol="exact",
-        kernel=lambda: gk.assemble_from_map(cv, cmap, mb.input_nids, miss_slot, miss_feats),
-        plain=lambda: gk.assemble_from_map_plain(cv, cmap, mb.input_nids, miss_slot, miss_feats),
-        library=None, same_fn=assemble_same_fn,
-        nbytes=3 * 4 * n0 + 2 * rows_bytes(n0, d0)))
+    n0, d0 = src_row.shape[0], cv.shape[1]
+    for dtype, tag in TIERS.items():
+        # the bound: 4 index bytes a row, each distinct source row read once
+        # at the tier's width, the f32 rows written, the int8 scale read
+        cv_t, sr_t, mf_t, sc_t = tier_in[dtype]
+        cases.append(dict(
+            name=f"assemble[{tag}]", key=f"assemble_{tag}",
+            launches=(launches if dtype == "float32" else tier_launches[dtype])[f"assemble_{tag}"],
+            replaces=f"{PALLAS}:58 gather_rows_pallas (+ storage/cache.py:103 "
+                     "assemble_features, :69 dequantize_fused)",
+            shape=f"cache {list(cv_t.shape)} {cv_t.dtype} miss {list(mf_t.shape)} "
+                  f"src_row [{n0}]",
+            tol="exact",
+            kernel=lambda a=tier_in[dtype]: gk.assemble(*a),
+            plain=lambda a=tier_in[dtype]: gk.assemble_plain(*a),
+            library=None, same_fn=lambda a=tier_in[dtype]: assemble_same_fn(*a),
+            nbytes=4 * n0 + distinct(sr_t) * d0 * cv_t.element_size() + rows_bytes(n0, d0)
+            + (0 if sc_t is None else 4 * d0)))
     # -- the backwards: the fused block backward and its single-half uses ----
     s1, d1 = h1.shape
     n1, f1 = b1.neigh_pos.shape
@@ -464,7 +564,8 @@ def main() -> None:
         entry = {
             "name": c["name"], "route": "cuda", "source": SOURCE,
             "replaces": c["replaces"],
-            "launches": (gcn_launches if c["key"].endswith("_sum") else launches)[c["key"]],
+            "launches": c.get("launches", (gcn_launches if c["key"].endswith("_sum")
+                                           else launches)[c["key"]]),
             "max_abs_err": err, "tolerance": tol_text,
             "ms": time_ms(torch, c["kernel"], flush),
             "plain_ms": time_ms(torch, c["plain"], flush),
@@ -477,6 +578,7 @@ def main() -> None:
             entry["library_same_fn_ms"] = time_ms(torch, c["same_fn"], flush)
             entry["library_same_fn_max_abs_err"] = compare(
                 torch, c["same_fn"](), c["plain"](), c["tol"])[0]
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entries.append(entry)
         if not ok:
             bad.append(f"{c['name']}: max_abs_err {err} ({tol_text})")
@@ -491,6 +593,11 @@ def main() -> None:
            for b in branches if not b["ok"]]
     if bad:
         fail("block gather branches disagree with their plain versions: " + "; ".join(bad))
+    branches = assemble_branches(torch, gk, dev)
+    emit("assemble_branches", branches)
+    bad = [f"{b['case']}: {b['max_abs_err']}" for b in branches if not b["ok"]]
+    if bad:
+        fail("assembly branches disagree with their plain versions: " + "; ".join(bad))
 
     # what the times above cannot go below: the event pair around no work,
     # the block backward's memset of its table alone (its C entry point with
@@ -516,27 +623,34 @@ def main() -> None:
         return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
                           generator=g)
 
-    s_kernel, s_plain = fresh_state(), fresh_state()
-    gk.reset_launch_counts()
-    m_kernel = train_step(s_kernel, mb, miss_feats, miss_slot, cv, cmap)
-    with gk.plain_versions():
-        m_plain = train_step(s_plain, mb, miss_feats, miss_slot, cv, cmap)
-    torch.cuda.synchronize()
-    step_launches = sum(gk.launch_counts().values())
-    l_k, l_p = m_kernel["loss"].item(), m_plain["loss"].item()
-    parity = {"loss_kernel": l_k, "loss_plain": l_p,
-              "loss_rel_err": abs(l_k - l_p) / max(abs(l_p), 1e-30),
-              "kernel_launches": step_launches, "grads": {}}
-    for (name, pk), (_, pp) in zip(s_kernel.model.named_parameters(),
-                                   s_plain.model.named_parameters()):
-        err = (pk.grad - pp.grad).abs().max().item()
-        parity["grads"][name] = err / max(pp.grad.abs().max().item(), 1e-30)
-    emit("step_parity", parity)
-    worst = max([parity["loss_rel_err"], *parity["grads"].values()])
-    if not worst <= 1e-5:
-        fail(f"step parity: worst relative error {worst} > 1e-5")
-    if step_launches != 4:
-        fail(f"the kernel step launched {step_launches} kernels, expected 4")
+    parities = {}
+    for dtype, tag in TIERS.items():
+        cv_t, sr_t, mf_t, sc_t = tier_in[dtype]
+        s_kernel, s_plain = fresh_state(), fresh_state()
+        gk.reset_launch_counts()
+        m_kernel = train_step(s_kernel, mb, mf_t, sr_t, cv_t, sc_t)
+        with gk.plain_versions():
+            m_plain = train_step(s_plain, mb, mf_t, sr_t, cv_t, sc_t)
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+        l_k, l_p = m_kernel["loss"].item(), m_plain["loss"].item()
+        parity = {"loss_kernel": l_k, "loss_plain": l_p,
+                  "loss_rel_err": abs(l_k - l_p) / max(abs(l_p), 1e-30),
+                  "kernel_launches": sum(counts.values()),
+                  "assemble_launches": counts[f"assemble_{tag}"], "grads": {}}
+        for (name, pk), (_, pp) in zip(s_kernel.model.named_parameters(),
+                                       s_plain.model.named_parameters()):
+            err = (pk.grad - pp.grad).abs().max().item()
+            parity["grads"][name] = err / max(pp.grad.abs().max().item(), 1e-30)
+        parities[dtype] = parity
+    emit("step_parity", parities)
+    for dtype, parity in parities.items():
+        worst = max([parity["loss_rel_err"], *parity["grads"].values()])
+        if not worst <= 1e-5:
+            fail(f"step parity ({dtype} cache): worst relative error {worst} > 1e-5")
+        if parity["kernel_launches"] != 4 or parity["assemble_launches"] != 1:
+            fail(f"the kernel step ({dtype} cache) launched {parity['kernel_launches']} "
+                 "kernels, expected 4 with one assembly of its tier")
 
     # -- breakdown: host pipeline alone vs device step alone -----------------
     t0 = time.perf_counter()
@@ -544,12 +658,12 @@ def main() -> None:
     torch.cuda.synchronize()
     loader_s = time.perf_counter() - t0
     s_bench = fresh_state()
-    train_step(s_bench, mb, miss_feats, miss_slot, cv, cmap)
+    train_step(s_bench, mb, miss_feats, src_row, cv)
     torch.cuda.synchronize()
     reps = 20                            # host: enqueue, then wall to the sync
     t0 = time.perf_counter()
     for _ in range(reps):
-        train_step(s_bench, mb, miss_feats, miss_slot, cv, cmap)
+        train_step(s_bench, mb, miss_feats, src_row, cv)
     enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
@@ -562,7 +676,7 @@ def main() -> None:
     ev[1].record()
     t0 = time.perf_counter()
     for _ in range(dev_reps):
-        train_step(s_bench, mb, miss_feats, miss_slot, cv, cmap)
+        train_step(s_bench, mb, miss_feats, src_row, cv)
     ev[2].record()
     dev_enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()

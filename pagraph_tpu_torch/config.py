@@ -98,7 +98,7 @@ class CacheConfig:
     hbm_reserve_bytes: int = 1 << 30  # headroom kept free
     rank_by: str = "out_degree"       # out_degree | in_degree | access_freq
     track_stats: bool = True
-    dtype: str = "float32"            # float32 | bfloat16 | int8 (port: float32 only)
+    dtype: str = "float32"            # cache row tier: float32 | bfloat16 | int8
 
 
 @dataclasses.dataclass

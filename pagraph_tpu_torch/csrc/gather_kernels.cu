@@ -9,9 +9,10 @@
 //     block gathers the same source table twice, for its self rows and for
 //     its neighbor mean, so one launch writes both outputs; either half may
 //     be absent, which makes it the forward of one gather alone.
-//   * pg_assemble_from_map <- gather_rows_pallas, folding in the two-source
-//     cache hit/miss selection that pagraph_tpu/storage/cache.py
-//     assemble_features_from_map leaves to XLA.
+//   * pg_assemble <- gather_rows_pallas, folding in the two-source cache
+//     hit/miss selection of pagraph_tpu/storage/cache.py assemble_features
+//     and the f32 promotion (int8: times a per-column scale) of its
+//     dequantize_fused, both of which the JAX package leaves to XLA.
 //   * pg_block_gather_bwd: the backward of both halves.  The Pallas kernels
 //     are forward-only (JAX differentiates jnp.take); the port trains through
 //     these kernels, so their gradient is a kernel too: one launch takes both
@@ -48,7 +49,14 @@
 //     Pallas's scalar prefetch), measured no faster at the main path's
 //     blocks (PERF.md) and was removed;
 //   * the two-source assembly reads each output row from exactly one table,
-//     in one launch, instead of gathering both and selecting;
+//     in one launch, instead of gathering both and selecting.  The host plan
+//     gives one signed index a row (the cache row, or -1 - the miss row), so
+//     a row is one dependent trip to memory for its index, then its data;
+//     a group of lanes serves 4 rows, loading their 4 indices at once and
+//     issuing all 4 rows' loads before the first store; the rows are read at
+//     the tier's own width (4, 2 or 1 byte a value, 4-column units of 16, 8
+//     or 4 bytes) and widened in registers, so the bf16 and int8 tiers move
+//     a half and a quarter of the f32 row bytes;
 //   * the backward's table (~2 MB, in the 50 MB L2) is zeroed with
 //     cudaMemsetAsync and filled by one kernel in the same C call, with
 //     16-byte vector reductions (atomicAdd(float4*), red.global.add.v4.f32
@@ -63,6 +71,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -255,41 +265,137 @@ void launch_block_fwd(const BlockFwdArgs& a, bool mean, bool vec, cudaStream_t s
 // layer-0 assembly
 // ---------------------------------------------------------------------------
 
-template <bool VEC>
-__device__ __forceinline__ void copy_row(const float* __restrict__ s,
-                                         float* __restrict__ o, int d, int lane) {
-  if (VEC) {
-    for (int i = lane; i < d / 4; i += kWarp) st4(o, i, ldg4(s, i));
+// The cache tiers.  A unit is 4 columns at every tier: a float4 (16 bytes)
+// of f32, a uint2 (8 bytes) of bf16 bit patterns, a char4 (4 bytes) of
+// int8.  Each unit is widened to a float4 in registers; int8 is then
+// multiplied by its 4 per-column scales, one f32 multiply a value, which is
+// the IEEE result of the JAX package's dequantize_fused.
+struct TierF32 {
+  using T = float;
+  using Unit = float4;
+  static constexpr bool kScale = false;
+};
+struct TierBF16 {
+  using T = uint16_t;
+  using Unit = uint2;
+  static constexpr bool kScale = false;
+};
+struct TierI8 {
+  using T = int8_t;
+  using Unit = char4;
+  static constexpr bool kScale = true;
+};
+
+// bf16 -> f32 is exact: the 16 bits are the top half of the f32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+__device__ __forceinline__ float widen(int8_t v) { return static_cast<float>(v); }
+
+__device__ __forceinline__ float4 widen4(const float4& u) { return u; }
+__device__ __forceinline__ float4 widen4(const uint2& u) {   // little-endian pairs
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 widen4(const char4& u) {
+  return make_float4(static_cast<float>(u.x), static_cast<float>(u.y),
+                     static_cast<float>(u.z), static_cast<float>(u.w));
+}
+
+__device__ __forceinline__ float4 mul4(float4 v, const float4& s) {
+  v.x *= s.x; v.y *= s.y; v.z *= s.z; v.w *= s.w;
+  return v;
+}
+
+// Rows a group of lanes serves, in flight together.
+constexpr int kRowsPerGroup = 4;
+
+// s = src_row[r];  row = s >= 0 ? cache[s] : miss[-1 - s]
+// out[r] = float(row) (* scale for int8)
+// A group of 1 << lg lanes serves kRowsPerGroup consecutive rows: their
+// indices first (one 16-byte load, one round trip), then one unit of each
+// row (and the int8 scale unit, which needs no index and stays in L1), then
+// the stores.  Each row waits for memory twice, index then data, and a lane
+// has kRowsPerGroup units in flight; at D = 100 a warp serves 4 rows and
+// the main path's 25,344 rows are 6,336 warps, one wave (32-40 registers a
+// thread: 48-64 resident warps an SM).  A lane serves units sub, sub + G,
+// ...: where a row has more units than the group has lanes (D > 128 on the
+// unit path, D > 32 on the scalar one), each such pass loads before it
+// stores.  VEC: 4-column units (D % 4 == 0, tables aligned to their unit);
+// else one column a unit.
+template <typename Tier, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+assemble_kernel(const typename Tier::T* __restrict__ cache,
+                const typename Tier::T* __restrict__ miss,
+                const int32_t* __restrict__ src_row,
+                const float* __restrict__ scale,
+                float* __restrict__ out, int64_t n, int d, int lg) {
+  using T = typename Tier::T;
+  using Unit = typename std::conditional<VEC, typename Tier::Unit, T>::type;
+  using Val = typename std::conditional<VEC, float4, float>::type;
+  constexpr int R = kRowsPerGroup;
+  static_assert(R == 4, "a group's indices are one int4");
+  const int64_t row0 =
+      (static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg)) * R;
+  if (row0 >= n) return;
+  const int group = 1 << lg;
+  const int sub = threadIdx.x & (group - 1);
+  const int units = VEC ? d / 4 : d;
+  // the indices, held as 32-bit values (a pointer each costs registers and
+  // so resident warps).  Rows past n repeat row0's source row into the
+  // padding rows of out
+  int32_t s[R];
+  if (row0 + R <= n && (reinterpret_cast<uintptr_t>(src_row) & 15) == 0) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(src_row + row0));
+    s[0] = v.x; s[1] = v.y; s[2] = v.z; s[3] = v.w;
   } else {
-    for (int i = lane; i < d; i += kWarp) o[i] = __ldg(s + i);
+    s[0] = __ldg(src_row + row0);
+#pragma unroll
+    for (int j = 1; j < R; ++j) s[j] = row0 + j < n ? __ldg(src_row + row0 + j) : s[0];
+  }
+  for (int i = sub; i < units; i += group) {
+    Val f{};
+    if constexpr (Tier::kScale) f = __ldg(reinterpret_cast<const Val*>(scale) + i);
+    // No test on the loads or the stores: a load that only a conditional
+    // store reads is sunk below the first store by the compiler.  The rows
+    // are read with ld.global.cg (L2 only: each is read once), which ptxas
+    // keeps ahead of the stores; it moves ld.global.nc (__ldg) behind them.
+    Unit u[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const T* row = s[j] >= 0 ? cache + static_cast<int64_t>(s[j]) * d
+                               : miss + (-1 - static_cast<int64_t>(s[j])) * d;
+      u[j] = __ldcg(reinterpret_cast<const Unit*>(row) + i);
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      Val v;
+      if constexpr (VEC) {
+        v = widen4(u[j]);
+        if constexpr (Tier::kScale) v = mul4(v, f);
+      } else {
+        v = widen(u[j]);
+        if constexpr (Tier::kScale) v *= f;
+      }
+      reinterpret_cast<Val*>(out + (row0 + j) * d)[i] = v;
+    }
   }
 }
 
-// pos = cache_map[nids[r]];
-// out[r] = pos >= 0 ? cache_values[pos] : miss_feats[miss_slot[r]]
-// (zeros when there are no miss rows at all: only padded rows get there).
-// One warp a row.
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-assemble_kernel(const float* __restrict__ cache_values,
-                const int32_t* __restrict__ cache_map,
-                const int32_t* __restrict__ nids,
-                const int32_t* __restrict__ miss_slot,
-                const float* __restrict__ miss_feats,
-                float* __restrict__ out, int64_t n, int d, int64_t n_miss_rows) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n) return;
-  const int lane = threadIdx.x % kWarp;
-  const int32_t pos = cache_map[nids[row]];
-  float* o = out + row * d;
-  if (pos >= 0) {
-    copy_row<VEC>(cache_values + static_cast<int64_t>(pos) * d, o, d, lane);
-  } else if (n_miss_rows > 0) {
-    copy_row<VEC>(miss_feats + static_cast<int64_t>(miss_slot[row]) * d, o, d, lane);
-  } else if (VEC) {
-    for (int i = lane; i < d / 4; i += kWarp) st4(o, i, make_float4(0.f, 0.f, 0.f, 0.f));
+template <typename Tier>
+void launch_assemble(const void* cache, const void* miss, const int32_t* src_row,
+                     const float* scale, float* out, int64_t n, int d, bool vec,
+                     cudaStream_t st) {
+  using T = typename Tier::T;
+  const int lg = lanes_lg(vec ? d / 4 : d);
+  const dim3 grid(static_cast<unsigned>(ceil_div(n, (kThreads >> lg) * kRowsPerGroup)));
+  const T* c = static_cast<const T*>(cache);
+  const T* m = static_cast<const T*>(miss);
+  if (vec) {
+    assemble_kernel<Tier, true><<<grid, kThreads, 0, st>>>(c, m, src_row, scale, out, n, d, lg);
   } else {
-    for (int i = lane; i < d; i += kWarp) o[i] = 0.f;
+    assemble_kernel<Tier, false><<<grid, kThreads, 0, st>>>(c, m, src_row, scale, out, n, d, lg);
   }
 }
 
@@ -456,22 +562,26 @@ int pg_block_gather_fwd(const void* src, const void* self_pos, int64_t n_self,
   return static_cast<int>(cudaGetLastError());
 }
 
-int pg_assemble_from_map(const void* cache_values, const void* cache_map,
-                         const void* nids, const void* miss_slot,
-                         const void* miss_feats, void* out, int64_t n, int d,
-                         int64_t n_miss_rows, int vec, void* stream) {
+// Layer-0 features out [n, d] f32 in one launch on the caller's stream
+// (out has room for n rounded up to a multiple of 4 rows, and the padding
+// rows are written too):
+// row r from cache_values[s] when s = src_row[r] >= 0, else from
+// miss_feats[-1 - s], widened to f32 (tier 0 f32, 1 bf16, 2 int8) and, for
+// int8, multiplied by scale [d].  scale is ignored (may be null) for the
+// other tiers; miss_feats may be null when no src_row is negative.
+int pg_assemble(const void* cache_values, const void* miss_feats,
+                const void* src_row, const void* scale, void* out, int64_t n,
+                int d, int tier, int vec, void* stream) {
+  if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* cv = static_cast<const float*>(cache_values);
-  const int32_t* cm = static_cast<const int32_t*>(cache_map);
-  const int32_t* ni = static_cast<const int32_t*>(nids);
-  const int32_t* ms = static_cast<const int32_t*>(miss_slot);
-  const float* mf = static_cast<const float*>(miss_feats);
+  const int32_t* sr = static_cast<const int32_t*>(src_row);
+  const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
-  const dim3 grid(static_cast<unsigned>(ceil_div(n, kWarpsPerBlock)));
-  if (vec) {
-    assemble_kernel<true><<<grid, kThreads, 0, st>>>(cv, cm, ni, ms, mf, o, n, d, n_miss_rows);
-  } else {
-    assemble_kernel<false><<<grid, kThreads, 0, st>>>(cv, cm, ni, ms, mf, o, n, d, n_miss_rows);
+  switch (tier) {
+    case 0: launch_assemble<TierF32>(cache_values, miss_feats, sr, sc, o, n, d, vec != 0, st); break;
+    case 1: launch_assemble<TierBF16>(cache_values, miss_feats, sr, sc, o, n, d, vec != 0, st); break;
+    case 2: launch_assemble<TierI8>(cache_values, miss_feats, sr, sc, o, n, d, vec != 0, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,9 @@ wrapper                computes                                         replaces
 ``block_gather_fwd``   both halves below from one table                 K1 + K2
 ``gather_rows``        ``out[r] = src[ids[r]]``                         ``gather_rows_pallas`` (K1)
 ``gather_reduce``      masked ``mean``/``sum`` of ``src[pos[n, k]]``    ``gather_mean_pallas`` (K2)
-``assemble_from_map``  ``cache_values[pos]`` if ``pos = cache_map        ``gather_rows_pallas`` (K1)
-                       [nids[r]] >= 0``, else ``miss_feats               + ``assemble_features_from_map``
-                       [miss_slot[r]]``
+``assemble``           ``cache_values[s]`` if ``s = src_row[r] >= 0``,  ``gather_rows_pallas`` (K1)
+                       else ``miss_feats[-1 - s]``; as f32 (int8:       + ``assemble_features``
+                       times a per-column scale)                        + ``dequantize_fused``
 ``block_gather_bwd``   both halves below into one table                 backward of K1 + K2
 ``scatter_add_rows``   ``grad_src[ids[r]] += grad_out[r]``              backward of K1
 ``gather_reduce_bwd``  ``grad_src[pos[n,k]] += grad_out[n] (/count)``   backward of K2
@@ -25,7 +25,9 @@ with one half absent.  The three backwards are one kernel,
 one C call), run the same way by ``block_gather_bwd``, ``scatter_add_rows``
 and ``gather_reduce_bwd``.  A train step launches 4 kernels: the assembly,
 one block forward for each block, and one block backward for block 1 (the
-layer-0 features need no gradient).
+layer-0 features need no gradient).  The assembly is one kernel,
+``pg_assemble``, for the f32, bf16 and int8 cache tiers (counted under
+``assemble_f32``, ``assemble_bf16``, ``assemble_int8``).
 
 Dispatch is by the device of the tensors and nothing else: on CUDA tensors a
 wrapper launches its kernel (``csrc/gather_kernels.cu``, built at first use by
@@ -52,7 +54,9 @@ LAUNCHES: Dict[str, int] = {
     "block_gather_fwd_mean": 0,
     "block_gather_fwd_sum": 0,
     "gather_rows": 0,
-    "assemble_from_map": 0,
+    "assemble_f32": 0,
+    "assemble_bf16": 0,
+    "assemble_int8": 0,
     "scatter_add_rows": 0,
     "gather_reduce_mean": 0,
     "gather_reduce_sum": 0,
@@ -93,14 +97,14 @@ def gather_rows_plain(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return src[ids.long()]
 
 
-def assemble_from_map_plain(cache_values, cache_map, nids, miss_slot,
-                            miss_feats) -> torch.Tensor:
-    pos = cache_map[nids.long()]
-    hit = (pos >= 0)[:, None]
-    hits = cache_values[pos.clamp(min=0).long()]
-    if miss_feats.shape[0] == 0:
-        return torch.where(hit, hits, torch.zeros_like(hits))
-    return torch.where(hit, hits, miss_feats[miss_slot.long()])
+def assemble_plain(cache_values, src_row, miss_feats, scale=None) -> torch.Tensor:
+    """Gather the typed rows, select, ``.float()``, times the scale."""
+    s = src_row.long()
+    rows = cache_values[s.clamp(min=0)]
+    if miss_feats.shape[0]:
+        rows = torch.where((s >= 0)[:, None], rows, miss_feats[(-1 - s).clamp(min=0)])
+    rows = rows.float()
+    return rows if scale is None else rows * scale[None, :]
 
 
 def _count(mask: torch.Tensor, dtype) -> torch.Tensor:
@@ -268,34 +272,54 @@ def gather_rows(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return _block_fwd_kernel("gather_rows", src, ids, None, None, "sum")[0]
 
 
-def assemble_from_map(cache_values: torch.Tensor, cache_map: torch.Tensor,
-                      nids: torch.Tensor, miss_slot: torch.Tensor,
-                      miss_feats: torch.Tensor) -> torch.Tensor:
-    """Layer-0 features from the device cache plus the shipped miss rows:
-    row r is ``cache_values[cache_map[nids[r]]]`` when that is ``>= 0``,
-    else ``miss_feats[miss_slot[r]]`` (zeros if there are no miss rows)."""
-    if not _use_kernel(cache_values, cache_map, nids, miss_slot, miss_feats):
-        return assemble_from_map_plain(cache_values, cache_map, nids,
-                                       miss_slot, miss_feats)
-    _check(cache_values, "cache_values", torch.float32, 2)
-    _check(cache_map, "cache_map", torch.int32, 1)
-    _check(nids, "nids", torch.int32, 1)
-    _check(miss_slot, "miss_slot", torch.int32, 1)
-    _check(miss_feats, "miss_feats", torch.float32, 2)
-    n, d = nids.shape[0], cache_values.shape[1]
-    if miss_slot.shape[0] != n:
-        raise ValueError(f"miss_slot has {miss_slot.shape[0]} rows, nids {n}")
+# rows a group of lanes of the assembly kernel writes (kRowsPerGroup)
+ASSEMBLE_ROWS = 4
+# the cache tiers the assembly reads: row dtype -> (C tier, LAUNCHES key, unit bytes)
+ASSEMBLE_TIERS = {torch.float32: (0, "assemble_f32", 16),
+                  torch.bfloat16: (1, "assemble_bf16", 8),
+                  torch.int8: (2, "assemble_int8", 4)}
+
+
+def assemble(cache_values: torch.Tensor, src_row: torch.Tensor,
+             miss_feats: torch.Tensor, scale=None) -> torch.Tensor:
+    """Layer-0 features, f32 ``[n, D]``, from the device cache plus the
+    shipped miss rows: row r is ``cache_values[s]`` when ``s = src_row[r]
+    >= 0``, else ``miss_feats[-1 - s]``, widened to f32 and, for the int8
+    tier, multiplied by ``scale`` f32 ``[D]``.  ``cache_values`` and
+    ``miss_feats`` share one row dtype: f32, bf16 or int8 (which needs the
+    scale; the others take none)."""
+    if cache_values.dtype not in ASSEMBLE_TIERS:
+        raise TypeError(f"cache_values must be one of {list(ASSEMBLE_TIERS)}, "
+                        f"got {cache_values.dtype}")
+    tier, key, unit = ASSEMBLE_TIERS[cache_values.dtype]
+    if (scale is not None) != (cache_values.dtype == torch.int8):
+        raise ValueError("the int8 tier needs a scale; the f32 and bf16 tiers take none")
+    tables = [cache_values, src_row, miss_feats] + ([] if scale is None else [scale])
+    if not _use_kernel(*tables):
+        return assemble_plain(cache_values, src_row, miss_feats, scale)
+    _check(cache_values, "cache_values", cache_values.dtype, 2)
+    _check(miss_feats, "miss_feats", cache_values.dtype, 2)
+    _check(src_row, "src_row", torch.int32, 1)
+    n, d = src_row.shape[0], cache_values.shape[1]
     if miss_feats.shape[1] != d:
         raise ValueError(f"miss_feats width {miss_feats.shape[1]} != cache width {d}")
-    out = torch.empty((n, d), dtype=torch.float32, device=cache_values.device)
+    if scale is not None:
+        _check(scale, "scale", torch.float32, 1)
+        if scale.shape[0] != d:
+            raise ValueError(f"scale has {scale.shape[0]} columns, the cache {d}")
+    # the kernel writes rows in groups of ASSEMBLE_ROWS: pad, and return a view
+    out = torch.empty((-(-n // ASSEMBLE_ROWS) * ASSEMBLE_ROWS, d), dtype=torch.float32,
+                      device=cache_values.device)
     if n and d:
-        _raise_on(_lib().pg_assemble_from_map(
-            cache_values.data_ptr(), cache_map.data_ptr(), nids.data_ptr(),
-            miss_slot.data_ptr(), miss_feats.data_ptr(), out.data_ptr(), n, d,
-            miss_feats.shape[0], _vec(d, cache_values, miss_feats, out),
-            _stream(out.device)), "pg_assemble_from_map")
-        LAUNCHES["assemble_from_map"] += 1
-    return out
+        vec = int(d % 4 == 0 and cache_values.data_ptr() % unit == 0
+                  and miss_feats.data_ptr() % unit == 0 and out.data_ptr() % 16 == 0
+                  and (scale is None or scale.data_ptr() % 16 == 0))
+        _raise_on(_lib().pg_assemble(
+            cache_values.data_ptr(), _ptr(miss_feats) if miss_feats.numel() else None,
+            src_row.data_ptr(), _ptr(scale), out.data_ptr(), n, d, tier, vec,
+            _stream(out.device)), "pg_assemble")
+        LAUNCHES[key] += 1
+    return out[:n]
 
 
 def gather_reduce(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,

@@ -29,12 +29,13 @@ from .sampler import NeighborSampler
 
 _END = object()
 
-Item = Tuple[MiniBatch, torch.Tensor, torch.Tensor]   # (mb, miss_feats, miss_slot)
+Item = Tuple[MiniBatch, torch.Tensor, torch.Tensor]   # (mb, miss_feats, src_row)
 
 
 class PrefetchLoader:
-    """Iterates ``(device MiniBatch, miss_feats, miss_slot)`` for one epoch.
-    ``device=None`` is the GPU (``RuntimeError`` without one)."""
+    """Iterates ``(device MiniBatch, miss_feats, src_row)`` for one epoch,
+    the miss rows in the cache tier's dtype.  ``device=None`` is the GPU
+    (``RuntimeError`` without one)."""
 
     def __init__(self, sampler: NeighborSampler, cache: FeatureCache, *,
                  prefetch: int = 2, device=None, workers: int = 2):
@@ -44,7 +45,7 @@ class PrefetchLoader:
         self.device = resolve_device(device)
         self.workers = max(1, workers)
         # per-epoch accounting: valid sampled edges, loaded vertices, and the
-        # bytes shipped host -> device
+        # bytes shipped host -> device (miss rows at the tier's width)
         self.epoch_edges = 0
         self.epoch_vertices = 0
         self.epoch_h2d_bytes = 0
@@ -63,11 +64,11 @@ class PrefetchLoader:
                     self.epoch_edges += mb.num_sampled_edges()
                     self.epoch_vertices += mb.num_loaded_vertices()
                 plan = self.cache.fetch_plan(mb.input_nids, mb.input_mask)
-                nbytes = (plan.miss_feats.nbytes + plan.miss_slot.nbytes
+                nbytes = (plan.miss_feats.nbytes + plan.src_row.nbytes
                           + sum(np.asarray(a).nbytes for a in _arrays(mb)))
                 item = (mb.to(self.device, non_blocking=True),
                         _ship(plan.miss_feats, self.device, True),
-                        _ship(plan.miss_slot, self.device, True))
+                        _ship(plan.src_row, self.device, True))
                 with it_lock:
                     self.epoch_h2d_bytes += nbytes
                 q.put((seq, item))

@@ -2,16 +2,20 @@
 ``pagraph_tpu/storage/cache.py``).
 
 The cache is a read-only device tensor ``[capacity, total_dim]`` plus a
-residency map ``cache_map`` (local id -> cache row or -1) kept both on the
-host and on the device.  Per batch, the host splits hits from misses and
-gathers the miss rows (:meth:`FeatureCache.fetch_plan`, run by the loader's
+host residency map ``cache_map`` (local id -> cache row or -1).  Per batch,
+the host splits hits from misses, gathers the miss rows and writes one index
+a row, ``src_row`` (:meth:`FeatureCache.fetch_plan`, run by the loader's
 producer threads); on the device one CUDA launch assembles the layer-0
 features from the cache and the shipped miss rows
-(:func:`assemble_features_from_map`).  Only the outermost layer is fetched:
-deeper layers are reached through ``self_pos`` (sampling/block.py).
+(:func:`assemble_features`).  Only the outermost layer is fetched: deeper
+layers are reached through ``self_pos`` (sampling/block.py).
 
-Only ``dtype="float32"`` rows are ported; the bf16 and int8 tiers (with the
-dequant folded into the assembly kernel) are ROADMAP queue 1.
+Three row tiers, as in the JAX package: ``float32``; ``bfloat16`` (2-byte
+rows, round to nearest even); ``int8`` (1-byte rows with a store-wide
+per-column scale, :func:`compute_dequant_scale`).  Cache rows and miss rows
+are held and shipped in the tier's dtype; the assembly kernel widens them to
+f32 (times the scale for int8).  The int8 *store* tier (pre-quantized
+fields) is not ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -23,9 +27,37 @@ import numpy as np
 import torch
 
 from ..graph import CSRGraph
-from ..ops.gather_kernels import assemble_from_map
+from ..ops.gather_kernels import assemble
 from ..utils.device import resolve_device
 from .feature_store import FeatureStore
+
+ROW_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def compute_dequant_scale(store: FeatureStore, field_names: Sequence[str],
+                          chunk: int = 1 << 20) -> np.ndarray:
+    """Per-column symmetric int8 scale over the FULL store: ``maxabs/127``
+    per fused column (zero-variance columns get scale 1 so they quantize to
+    exact 0).  One sequential chunked pass.  The scale is store-wide (not
+    cache-subset) so cached rows and miss rows dequantize identically."""
+    maxabs = np.zeros(store.total_dim(field_names), dtype=np.float32)
+    offs = store.field_offsets(field_names)
+    for name in field_names:
+        f = store.fields[name]
+        sl = offs[name]
+        for at in range(0, f.shape[0], chunk):
+            m = np.max(np.abs(f[at:at + chunk].astype(np.float32)), axis=0)
+            np.maximum(maxabs[sl], m, out=maxabs[sl])
+    scale = maxabs / 127.0
+    scale[scale == 0.0] = 1.0
+    return scale
+
+
+def quantize_rows(rows: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """f32 rows -> int8 with the per-column ``scale`` (round-to-nearest,
+    clipped to [-127, 127]; -128 unused to keep the scheme symmetric)."""
+    q = np.rint(np.asarray(rows, dtype=np.float32) / scale[None, :])
+    return np.clip(q, -127, 127).astype(np.int8)
 
 
 def bucket_size(n: int, cap: int, min_bucket: int = 512) -> int:
@@ -39,29 +71,37 @@ def bucket_size(n: int, cap: int, min_bucket: int = 512) -> int:
     return min(b, cap)
 
 
+def free_device_bytes(device: torch.device) -> int:
+    """Free memory of a CUDA device (what ``capacity=None`` sizes from)."""
+    if device.type != "cuda":
+        raise ValueError("capacity=None sizes the cache from free GPU "
+                         "memory: give a capacity on a CPU device")
+    return torch.cuda.mem_get_info(device)[0]
+
+
 @dataclasses.dataclass(frozen=True)
 class FetchPlan:
-    """Host-computed per-batch cache plan (numpy).  Hits need no field:
-    the device reads them through its own copy of ``cache_map``."""
+    """Host-computed per-batch cache plan: one index a layer-0 row.
 
-    miss_slot: np.ndarray    # int32 [cap0] row in miss_feats (0 unless a valid miss)
-    miss_feats: np.ndarray   # f32   [bucket, total_dim] gathered from the store
+    ``src_row[r] >= 0`` is row r's cache row; ``src_row[r] = -1 - k`` is
+    miss row k.  Padded rows read cache row 0.  The JAX package's plan
+    carries the same as ``hit_mask``, ``cache_pos`` and ``miss_slot``."""
+
+    src_row: np.ndarray          # int32 [cap0]
+    miss_feats: torch.Tensor     # [bucket, total_dim] host rows in the tier's dtype
 
 
-def assemble_features_from_map(
-    cache_values: torch.Tensor,   # f32 [capacity, total_dim]
-    cache_map: torch.Tensor,      # int32 [num_local_nodes] row or -1
-    nids: torch.Tensor,           # int32 [cap0] layer-0 local ids
-    miss_slot: torch.Tensor,      # int32 [cap0] from FetchPlan.miss_slot
-    miss_feats: torch.Tensor,     # f32 [bucket, total_dim]
+def assemble_features(
+    cache_values: torch.Tensor,   # [capacity, total_dim] f32 | bf16 | int8
+    src_row: torch.Tensor,        # int32 [cap0] from FetchPlan.src_row
+    miss_feats: torch.Tensor,     # [bucket, total_dim], cache_values' dtype
+    dequant_scale: Optional[torch.Tensor] = None,   # f32 [total_dim], int8 only
 ) -> torch.Tensor:
-    """Layer-0 features [cap0, total_dim] in one K1 launch.
-
-    ``pagraph_tpu`` recomputes the miss slots on the device with a cumsum;
-    here the host plan's ``miss_slot`` is shipped with the miss rows.  The
-    two agree on every valid row; padded rows, which no valid
+    """Layer-0 features, f32 ``[cap0, total_dim]``, in one K1 launch: the
+    port's ``dequantize_fused(assemble_features(cache_values, plan),
+    scale)``.  Equal to it on every valid row; padded rows, which no valid
     ``neigh_pos``/``self_pos`` reads, may differ."""
-    return assemble_from_map(cache_values, cache_map, nids, miss_slot, miss_feats)
+    return assemble(cache_values, src_row, miss_feats, dequant_scale)
 
 
 class FeatureCache:
@@ -77,10 +117,10 @@ class FeatureCache:
         device=None,                 # None: the GPU (RuntimeError without one)
         dtype: str = "float32",
     ):
-        if dtype != "float32":
-            raise NotImplementedError(
-                f"cache dtype {dtype!r} is not ported yet: the bf16/int8 "
-                "tiers are ROADMAP queue 1 (dequant in the K1 assembly kernel)")
+        if dtype not in ROW_DTYPES:
+            raise ValueError(f"cache dtype must be one of {tuple(ROW_DTYPES)}, got {dtype!r}")
+        self.dtype = dtype
+        self.row_dtype = ROW_DTYPES[dtype]
         self.store = store
         self.field_names = list(field_names)
         self.graph = local_graph
@@ -92,9 +132,16 @@ class FeatureCache:
         self.device = resolve_device(device)
         self.total_dim = store.total_dim(self.field_names)
         self.field_offsets = store.field_offsets(self.field_names)
+        # int8 tier: store-wide per-column scale, computed once here, so
+        # cached rows and miss rows share it whatever the capacity
+        self.dequant_scale: Optional[np.ndarray] = None
+        self.dequant_scale_dev: Optional[torch.Tensor] = None
+        if dtype == "int8":
+            self.dequant_scale = compute_dequant_scale(store, self.field_names)
+            self.dequant_scale_dev = torch.from_numpy(self.dequant_scale).to(
+                self.device, copy=True)
         n = local_graph.num_nodes
         self.cache_map = np.full(n, -1, dtype=np.int32)
-        self.cache_map_dev: Optional[torch.Tensor] = None
         self.cache_values: Optional[torch.Tensor] = None
         self.capacity = 0
         self.fully_cached = False
@@ -123,12 +170,19 @@ class FeatureCache:
         return np.argsort(-score, kind="stable")
 
     def auto_capacity(self, reserve_bytes: int = 1 << 30) -> int:
-        """Vertices whose rows fit in the device's free memory."""
-        if self.device.type != "cuda":
-            raise ValueError("capacity=None sizes the cache from free GPU "
-                             "memory: give a capacity on a CPU device")
-        free, _ = torch.cuda.mem_get_info(self.device)
-        return int(max(free - reserve_bytes, 0) // (self.total_dim * 4))
+        """Vertices whose rows fit in the device's free memory, at the
+        tier's own row width: bf16 caches twice the vertices of f32, int8
+        four times."""
+        free = free_device_bytes(self.device)
+        row_bytes = self.total_dim * self.row_dtype.itemsize
+        return int(max(free - reserve_bytes, 0) // row_bytes)
+
+    def _to_rows(self, rows: np.ndarray) -> torch.Tensor:
+        """f32 host rows -> host tensor in the tier's dtype (int8: quantized
+        with the store-wide scale; bf16: rounded to nearest even)."""
+        if self.dtype == "int8":
+            return torch.from_numpy(quantize_rows(rows, self.dequant_scale))
+        return torch.from_numpy(rows).to(self.row_dtype)
 
     def fill(self, capacity: Optional[int] = None,
              rank_by: str = "out_degree") -> None:
@@ -150,21 +204,19 @@ class FeatureCache:
                 chosen = self.rank_vertices(rank_by)[:capacity].astype(np.int64)
             self.cache_map[chosen] = np.arange(len(chosen), dtype=np.int32)
             host_rows = self.store.gather(self.field_names, self.local2full[chosen])
-        # copy=True: on a CPU device the tensors must not alias the host map,
-        # which the next fill() rewrites in place
-        self.cache_values = torch.from_numpy(host_rows).to(self.device, copy=True)
-        self.cache_map_dev = torch.from_numpy(self.cache_map).to(self.device, copy=True)
+        # copy=True: on a CPU device the tensor must not alias a host buffer
+        self.cache_values = self._to_rows(host_rows).to(self.device, copy=True)
 
     # -- per-batch fetch ----------------------------------------------------
 
     def fetch_plan(self, input_nids: np.ndarray, input_mask: np.ndarray, *,
                    track: bool = True) -> FetchPlan:
         """Host-side hit/miss split + miss gather.  Miss rows are packed in
-        first-occurrence order of the valid misses."""
+        first-occurrence order of the valid misses, in the tier's dtype."""
         nids = np.asarray(input_nids)
         mask = np.asarray(input_mask)
-        cap0 = len(nids)
-        miss = (self.cache_map[nids] < 0) & mask
+        pos = self.cache_map[nids]
+        miss = (pos < 0) & mask
         n_miss = int(miss.sum())
         if track:
             with self._stat_lock:
@@ -172,15 +224,15 @@ class FeatureCache:
                 self.miss_num += n_miss
                 if self.track_access:
                     np.add.at(self.access_counts, nids[mask], 1)
-        bucket = bucket_size(n_miss, cap0)
-        miss_feats = np.zeros((bucket, self.total_dim), dtype=np.float32)
-        miss_slot = np.zeros(cap0, dtype=np.int32)
+        bucket = bucket_size(n_miss, len(nids))
+        rows = np.zeros((bucket, self.total_dim), dtype=np.float32)
+        src_row = np.where(mask & (pos >= 0), pos, 0).astype(np.int32)
         if n_miss:
             miss_idx = np.nonzero(miss)[0]
-            miss_slot[miss_idx] = np.arange(n_miss, dtype=np.int32)
+            src_row[miss_idx] = -1 - np.arange(n_miss, dtype=np.int32)
             self.store.gather(self.field_names, self.local2full[nids[miss_idx]],
-                              out=miss_feats[:n_miss])
-        return FetchPlan(miss_slot=miss_slot, miss_feats=miss_feats)
+                              out=rows[:n_miss])
+        return FetchPlan(src_row=src_row, miss_feats=self._to_rows(rows))
 
     # -- metrics ------------------------------------------------------------
 

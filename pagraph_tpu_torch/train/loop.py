@@ -127,10 +127,10 @@ class Trainer:
         self.cache.reset_stats()
         sums = torch.zeros(2, dtype=torch.float32, device=self.device)
         nb = 0
-        for mb, miss_feats, miss_slot in self.loader.epoch():
+        for mb, miss_feats, src_row in self.loader.epoch():
             with self.timers.scope("step"):
-                m = train_step(self.state, mb, miss_feats, miss_slot,
-                               self.cache.cache_values, self.cache.cache_map_dev)
+                m = train_step(self.state, mb, miss_feats, src_row,
+                               self.cache.cache_values, self.cache.dequant_scale_dev)
                 sums += torch.stack([m["loss"], m["acc"]])
             nb += 1
             if self.log and nb % self.cfg.train.log_every == 0:
@@ -139,7 +139,9 @@ class Trainer:
         c = self.cfg.cache
         if (epoch == 0 and c.enabled and c.rank_by == "access_freq"
                 and not self.cache.fully_cached):
-            # refill by observed access frequency after the probe epoch
+            # refill by observed access frequency after the probe epoch.  The
+            # loader's threads have been joined: every plan of this epoch
+            # indexed the old fill, and the next epoch's index the new one
             self.cache.fill(capacity=c.capacity, rank_by="access_freq")
         em = EpochMetrics(
             epoch=epoch,

@@ -2,7 +2,8 @@
 ``pagraph_tpu/train/state.py``).
 
 One step: assemble the layer-0 features from the device cache and the
-shipped miss rows (one launch), run GraphSAGE forward (one fused gather
+shipped miss rows (one launch, which widens the bf16 and int8 cache tiers
+to f32), run GraphSAGE forward (one fused gather
 launch per block), the masked cross-entropy, backward (one fused scatter-add
 launch for each block whose source needs a gradient) and Adam: 4 kernel
 launches for the 2-layer model.  Nothing in a
@@ -11,7 +12,7 @@ step waits for the device: loss and accuracy come back as device tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -19,7 +20,7 @@ from torch import nn
 from ..config import Config
 from ..models import get_model
 from ..sampling.block import MiniBatch
-from ..storage.cache import assemble_features_from_map
+from ..storage.cache import assemble_features
 from ..utils.device import resolve_device
 from .objective import masked_accuracy, masked_cross_entropy
 
@@ -57,12 +58,13 @@ def create_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
 
 
 def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
-               miss_slot: torch.Tensor, cache_values: torch.Tensor,
-               cache_map: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One optimizer step on a device minibatch; returns ``{"loss", "acc"}``
-    as device scalars (no host sync)."""
-    feats = assemble_features_from_map(cache_values, cache_map, mb.input_nids,
-                                       miss_slot, miss_feats)
+               src_row: torch.Tensor, cache_values: torch.Tensor,
+               dequant_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a device minibatch, its plan's miss rows and
+    ``src_row`` (:class:`FetchPlan`), the cache rows and, for the int8
+    tier, the cache's dequant scale; returns ``{"loss", "acc"}`` as device
+    scalars (no host sync)."""
+    feats = assemble_features(cache_values, src_row, miss_feats, dequant_scale)
     logits = state.model(mb, feats, generator=state.generator)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
     state.optimizer.zero_grad(set_to_none=True)

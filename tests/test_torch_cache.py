@@ -1,7 +1,6 @@
 """The port's feature store and device cache against ``pagraph_tpu.storage``:
 the same store and graph must give bit-equal fills, plans and (valid)
-assembled rows."""
-import jax.numpy as jnp
+assembled rows, at every cache tier (f32, bf16, int8)."""
 import numpy as np
 import pytest
 import torch
@@ -10,13 +9,24 @@ import pagraph_tpu as pg
 from pagraph_tpu.sampling.sampler import NeighborSampler as JSampler
 from pagraph_tpu.storage import cache as jcache
 from pagraph_tpu.storage.feature_store import FeatureStore as JStore
+from pagraph_tpu.utils import platform as jplatform
 from pagraph_tpu_torch.graph import CSRGraph as TGraph
 from pagraph_tpu_torch.storage import cache as tcache
 from pagraph_tpu_torch.storage.feature_store import FeatureStore as TStore
 
+TIERS = ("float32", "bfloat16", "int8")
+
 
 def _tgraph(g) -> TGraph:
     return TGraph(g.indptr, g.indices, g.out_degrees)
+
+
+def _bits(x) -> np.ndarray:
+    """Host values as comparable bits: bf16 as its uint16 patterns."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().view(np.uint16) if x.dtype == torch.bfloat16 else x.numpy()
+    x = np.asarray(x)
+    return x.view(np.uint16) if x.dtype.name == "bfloat16" else x
 
 
 @pytest.fixture(scope="module")
@@ -48,45 +58,93 @@ def test_rank_vertices_match(pair, rank_by):
     np.testing.assert_array_equal(tc.rank_vertices(rank_by), jc.rank_vertices(rank_by))
 
 
-@pytest.mark.parametrize("frac", [0.0, 0.3, 1.0])
-def test_fill_plan_and_assembly_match(pair, frac):
-    """Fill order, cache_map, cache rows, the miss slots and the miss rows
-    are bit-equal; the assembled layer-0 features are equal on every valid row
-    (padded rows may differ: see assemble_features_from_map)."""
+@pytest.mark.parametrize("frac,dtype", [
+    *(pytest.param(f, "float32", id=str(f)) for f in (0.0, 0.3, 1.0)),
+    *(pytest.param(f, t, id=f"{t}-{f}") for t in TIERS[1:] for f in (0.0, 0.3, 1.0))])
+def test_fill_plan_and_assembly_match(pair, frac, dtype):
+    """Per tier: fill order, cache_map, the cache rows, the dequant scale and
+    the plan's miss rows are bit-equal (bf16 as uint16 bits); the plan's
+    one index a row encodes JAX's hit_mask / cache_pos / miss_slot on every
+    valid row; the assembled f32 features equal ``dequantize_fused(
+    assemble_features(...), scale)`` on every valid row (padded rows may
+    differ: see assemble_features)."""
     ds, jstore, tstore = pair
     cap = int(ds.num_nodes * frac)
-    jc = jcache.FeatureCache(jstore, ["features"], ds.graph)
-    tc = tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), device="cpu")
+    jc = jcache.FeatureCache(jstore, ["features"], ds.graph, dtype=dtype)
+    tc = tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), device="cpu",
+                             dtype=dtype)
     jc.fill(capacity=cap)
     tc.fill(capacity=cap)
     np.testing.assert_array_equal(tc.cache_map, jc.cache_map)
-    np.testing.assert_array_equal(tc.cache_map_dev.numpy(), jc.cache_map)
-    np.testing.assert_array_equal(tc.cache_values.numpy(), np.asarray(jc.cache_values))
+    np.testing.assert_array_equal(_bits(tc.cache_values), _bits(jc.cache_values))
+    assert tc.cache_values.dtype == tcache.ROW_DTYPES[dtype]
     assert (tc.capacity, tc.fully_cached) == (jc.capacity, jc.fully_cached)
+    if dtype == "int8":
+        np.testing.assert_array_equal(tc.dequant_scale, jc.dequant_scale)
+        np.testing.assert_array_equal(tc.dequant_scale_dev.numpy(), jc.dequant_scale)
+    else:
+        assert tc.dequant_scale is None and tc.dequant_scale_dev is None
 
     cfg = pg.SamplerConfig(batch_size=128, fanout=3, num_hops=2, seed=5)
     sampler = JSampler(ds.graph, ds.train_nids, cfg, backend="numpy")
     for mb in list(sampler.epoch())[:3]:
         nids, mask = np.asarray(mb.input_nids), np.asarray(mb.input_mask)
         jp, tp = jc.fetch_plan(nids, mask), tc.fetch_plan(nids, mask)
-        for field in ("miss_slot", "miss_feats"):
-            np.testing.assert_array_equal(getattr(tp, field), np.asarray(getattr(jp, field)))
-        want = jcache.assemble_features_from_map(
-            jc.cache_values, jnp.asarray(jc.cache_map), jnp.asarray(nids),
-            jnp.asarray(mask), jnp.asarray(jp.miss_feats))
-        got = tcache.assemble_features_from_map(
-            tc.cache_values, tc.cache_map_dev, torch.from_numpy(nids),
-            torch.from_numpy(tp.miss_slot), torch.from_numpy(tp.miss_feats))
+        np.testing.assert_array_equal(_bits(tp.miss_feats), _bits(jp.miss_feats))
+        want_src = np.where(jp.hit_mask, jp.cache_pos, -1 - np.asarray(jp.miss_slot))
+        np.testing.assert_array_equal(tp.src_row[mask], want_src[mask])
+        assert tp.src_row.dtype == np.int32 and not tp.src_row[~mask].any()
+        want = jcache.dequantize_fused(jcache.assemble_features(jc.cache_values, jp),
+                                       jc.dequant_scale)
+        scale = tc.dequant_scale_dev
+        got = tcache.assemble_features(tc.cache_values, torch.from_numpy(tp.src_row),
+                                       tp.miss_feats, scale)
+        assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy()[mask], np.asarray(want)[mask])
-        np.testing.assert_array_equal(got.numpy()[mask], ds.features[nids[mask]])
+        if dtype == "float32":
+            np.testing.assert_array_equal(got.numpy()[mask], ds.features[nids[mask]])
     assert tc.miss_rate() == jc.miss_rate()
+
+
+def test_dequant_scale_and_quantize_rows_match():
+    """compute_dequant_scale (chunked pass, a zero-variance column gets
+    scale 1) and quantize_rows (round to nearest, clipped at +-127) are
+    bit-equal to the JAX package's on the same store and rows."""
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(700, 12)).astype(np.float32) * np.arange(1, 13, dtype=np.float32)
+    feats[:, 4] = 0.0                   # zero variance
+    feats[:, 7] = 2.5                   # constant, nonzero
+    jstore, tstore = JStore({"features": feats}), TStore({"features": feats})
+    js = jcache.compute_dequant_scale(jstore, ["features"], chunk=128)
+    ts = tcache.compute_dequant_scale(tstore, ["features"], chunk=128)
+    np.testing.assert_array_equal(ts, js)
+    assert ts.dtype == np.float32 and ts[4] == 1.0
+    rows = np.concatenate([feats[:50], 3.0 * feats[50:100]])   # x3 rows clip at +-127
+    tq, jq = tcache.quantize_rows(rows, ts), jcache.quantize_rows(rows, js)
+    np.testing.assert_array_equal(tq, jq)
+    assert tq.dtype == np.int8 and tq.max() == 127 and tq.min() == -127
+    assert not tq[:, 4].any()
+
+
+@pytest.mark.parametrize("dtype", TIERS)
+def test_auto_capacity_scales_with_tier(pair, monkeypatch, dtype):
+    """capacity=None budgets with the tier's own row width, as the JAX
+    package does: bf16 caches 2x the vertices of f32, int8 4x."""
+    ds, jstore, tstore = pair
+    reserve, room = 1 << 30, 32 * 4 * 400         # 400 f32 rows of the store's width
+    monkeypatch.setattr(tcache, "free_device_bytes", lambda device: reserve + room)
+    monkeypatch.setattr(jplatform, "free_hbm_bytes", lambda device=None, reserve=0: room)
+    tc = tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), device="cpu",
+                             dtype=dtype)
+    jc = jcache.FeatureCache(jstore, ["features"], ds.graph, dtype=dtype)
+    want = 400 * {"float32": 1, "bfloat16": 2, "int8": 4}[dtype]
+    assert tc.auto_capacity(reserve_bytes=reserve) == jc.auto_capacity() == want
+    tc.fill(None)
+    assert tc.capacity == want and tc.cache_values.shape == (want, 32)
 
 
 def test_unported_tiers_raise(pair):
     ds, _, tstore = pair
-    with pytest.raises(NotImplementedError):
-        tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), device="cpu",
-                            dtype="bfloat16")
     with pytest.raises(NotImplementedError):
         TStore({"features": ds.features.astype(np.int8)})
     with pytest.raises(ValueError):      # capacity=None sizes from GPU memory

@@ -7,6 +7,8 @@ the card by ``chip_smoke.py``.  Here the plain versions and the autograd
 Functions around them are held against the Pallas kernels in interpret mode,
 ``jnp.take``, ``pagraph_tpu.ops.aggregate`` and ``jax.vjp``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from pagraph_tpu.ops import aggregate as jagg
 from pagraph_tpu.ops.pallas_gather import gather_mean_pallas, gather_rows_pallas
 from pagraph_tpu.sampling.block import Block as JBlock
 from pagraph_tpu.sampling.sampler import NeighborSampler as JSampler
+from pagraph_tpu.storage import cache as jcache
 from pagraph_tpu_torch.models import get_model
 from pagraph_tpu_torch.ops import aggregate as tagg
 from pagraph_tpu_torch.ops import gather_kernels as gk
@@ -303,10 +306,11 @@ def test_block_gather_forward_is_one_block_gather_fwd_a_block(sampled, monkeypat
 
 
 def test_launch_counters_have_the_fused_forward():
-    """The fused forward's keys sit beside every earlier key, and
-    reset_launch_counts zeroes them all."""
+    """The fused forward's keys sit beside every other key (the assembly
+    has one a cache tier), and reset_launch_counts zeroes them all."""
     keys = {"block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
-            "assemble_from_map", "scatter_add_rows", "gather_reduce_mean",
+            "assemble_f32", "assemble_bf16", "assemble_int8",
+            "scatter_add_rows", "gather_reduce_mean",
             "gather_reduce_sum", "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
             "block_gather_bwd_mean", "block_gather_bwd_sum"}
     assert set(gk.LAUNCHES) == keys
@@ -358,3 +362,64 @@ def test_wrappers_refuse_bad_input():
     # neither CPU nor CUDA: no plain version, no kernel
     with pytest.raises(ValueError):
         gk.gather_rows(src.to("meta"), pos[:, 0].to("meta"))
+    # the assembly: int8 needs its scale, f32 and bf16 take none, no f64 tier
+    rows, scale = torch.zeros(3, dtype=torch.int32), torch.ones(4)
+    with pytest.raises(ValueError):
+        gk.assemble(src.to(torch.int8), rows, src[:0].to(torch.int8))
+    with pytest.raises(ValueError):
+        gk.assemble(src, rows, src[:0], scale)
+    with pytest.raises(TypeError):
+        gk.assemble(src.double(), rows, src[:0].double())
+
+
+def _assemble_case(case: str, dtype: str, seed: int):
+    """Cache and miss tables in a tier's dtype (the same values for JAX and
+    the port), the JAX plan, and the port's one index a row: 10 padded rows
+    at the end.  Cases: the main path's D = 100 and a scalar D = 30 with
+    hits and misses mixed, no miss rows at all, every valid row a miss, and
+    every valid row a hit beside a shipped miss bucket."""
+    rng = np.random.default_rng(seed)
+    d = 30 if case == "D=30" else 100
+    n, cap, bucket = 300, 80, 0 if case == "no misses" else 512
+    hit = {"all misses": np.zeros(n, bool), "all hits": np.ones(n, bool),
+           "no misses": np.ones(n, bool)}.get(case, rng.random(n) < 0.6)
+    valid = np.arange(n) < n - 10
+    miss = ~hit & valid
+    cache_pos = np.where(hit & valid, rng.integers(0, cap, n), 0).astype(np.int32)
+    miss_slot = np.zeros(n, np.int32)
+    miss_slot[miss] = np.arange(miss.sum(), dtype=np.int32)
+    src_row = np.where(miss, -1 - miss_slot, cache_pos).astype(np.int32)
+    if dtype == "int8":
+        cv = rng.integers(-127, 128, size=(cap, d)).astype(np.int8)
+        mf = rng.integers(-127, 128, size=(bucket, d)).astype(np.int8)
+        scale = rng.random(d).astype(np.float32) / 127.0 + 1e-3
+    else:
+        cv = rng.normal(size=(cap, d)).astype(np.float32)
+        mf = rng.normal(size=(bucket, d)).astype(np.float32)
+        scale = None
+    jplan = jcache.FetchPlan(hit_mask=jnp.asarray(hit & valid), cache_pos=jnp.asarray(cache_pos),
+                             miss_slot=jnp.asarray(miss_slot), miss_feats=jnp.asarray(mf))
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}[dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}[dtype]
+    jplan = dataclasses.replace(jplan, miss_feats=jplan.miss_feats.astype(jdt))
+    want = jcache.dequantize_fused(jcache.assemble_features(jnp.asarray(cv).astype(jdt), jplan),
+                                   scale)
+    port = (_t(cv).to(tdt), _t(src_row), _t(mf).to(tdt),
+            None if scale is None else _t(scale))
+    return valid, np.asarray(want), port
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("case", ["D=100", "D=30", "no misses", "all misses", "all hits"])
+def test_assemble_matches_jax(case, dtype):
+    """assemble (its plain version on the CPU) against the JAX package's
+    dequantize_fused(assemble_features(cache_values, plan), scale), exact on
+    every valid row at every tier; f32 out; the launch counters untouched
+    (the CPU runs no kernel)."""
+    valid, want, (cv, src_row, mf, scale) = _assemble_case(case, dtype, seed=len(case))
+    gk.reset_launch_counts()
+    got = gk.assemble(cv, src_row, mf, scale)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy()[valid], want[valid])
+    np.testing.assert_array_equal(gk.assemble_plain(cv, src_row, mf, scale).numpy(), got.numpy())
+    assert set(gk.launch_counts().values()) == {0}
