@@ -19,6 +19,15 @@ Phases, each printed as one JSON line:
   (seed 0) at 40% capacity: epoch time, edges/s, miss rate (equal to the
   f32 run's epoch 0: the same batches), bytes shipped host -> device, the
   cache's device bytes and each kernel's launches (4 a step);
+* ``device_epoch``: the whole-epoch on-device path (``train.on_device_sampling``)
+  of the same configuration with the full cache and the CSR on the card,
+  each run a fresh ``Trainer`` (seed 0): f32 with generic draws and f32 with
+  paired draws for 2 epochs each (the loss must fall), bf16 and int8 with
+  paired draws for one epoch (every ``epoch_dispatch`` value runs the same
+  enqueue loop, so one is driven).  Setup and epoch time, edges/s (every
+  valid slot of the undeduplicated layers: not the host path's count),
+  batches, loss, cache and CSR bytes, peak device memory, and the launches:
+  one ``assemble_<tier>`` a step and no other gather kernel;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -30,7 +39,10 @@ Phases, each printed as one JSON line:
   block backward (``block_gather_bwd``) and its single-half uses
   (``scatter_add_rows``, ``gather_reduce_bwd``).  The assembly
   (``assemble``) is one kernel for the three cache tiers, each timed on
-  that tier's cache and plan of the batch.  No one PyTorch call
+  that tier's cache and plan of the batch; ``assemble_full[tier]`` is the
+  on-device path's layer-0 fetch (``ops.gather.take_rows``: the assembly
+  with no miss rows) from the full cache at a device-sampled batch's 54,000
+  rows, its ``library_ms`` ``index_select`` at f32.  No one PyTorch call
   computes a fused case: its ``library_ms`` times the calls that compute
   each output from pre-flattened inputs (for the forward ``index_select`` +
   ``embedding_bag``; for the backwards the ``index_add_`` calls into a
@@ -60,13 +72,25 @@ Phases, each printed as one JSON line:
   block backward);
 * ``breakdown``: where the epoch's time goes — an epoch of the loader alone
   (host sampling, miss gather, pinned H2D), and one train step alone on a
-  shipped batch (host enqueue time, wall time, device time).
+  shipped batch (host enqueue time, wall time, device time);
+* ``device_sampler_parity``: one batch sampled on the card and the same
+  draws through the same function on CPU copies, generic and paired: equal
+  ids, masks, labels and blocks;
+* ``device_step_parity``: one device-sampled step at each tier through the
+  kernel and under ``gather_kernels.plain_versions()`` from the same
+  parameters: loss and every gradient within 1e-5 relative, one assembly
+  launch through the kernel and none under the plain versions;
+* ``device_breakdown``: one on-device step alone and its parts (sample,
+  fetch, train): host enqueue, wall and device time (CUDA events), CUDA
+  kernels and memory operations counted with ``torch.profiler``, and that a
+  step never synchronizes with the host (``torch.cuda.set_sync_debug_mode``).
 
 Any failed check exits non-zero without the final line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -243,6 +267,14 @@ def main() -> None:
         from pagraph_tpu_torch.graph import CSRGraph
         from pagraph_tpu_torch.ops import _build
         from pagraph_tpu_torch.ops import gather_kernels as gk
+        from pagraph_tpu_torch.ops.gather import take_rows
+        from pagraph_tpu_torch.sampling.device_sampler import (DeviceCSR, hop_draws,
+                                                               hop_sizes,
+                                                               sample_minibatch_device)
+        from pagraph_tpu_torch.train.device_epoch import (EpochAccumulator,
+                                                          device_batch_step,
+                                                          epoch_schedule, fetch_batch,
+                                                          train_batch)
         from pagraph_tpu_torch.train.loop import Trainer
         from pagraph_tpu_torch.train.state import (TrainState, make_optimizer,
                                                    train_step)
@@ -280,16 +312,20 @@ def main() -> None:
     ds = build_dataset(np, synthetic, Dataset, CSRGraph)
     data_s = time.perf_counter() - t0
 
-    def config(aggregator: str, cache_dtype: str = "float32"):
+    def config(aggregator: str, cache_dtype: str = "float32", *, on_device: bool = False,
+               paired: bool = False):
+        """The main path's configuration; ``on_device`` is the whole-epoch
+        device path (full cache, ``paired`` draws)."""
         return pt.Config(
             model=pt.ModelConfig(arch="graphsage", n_layers=1, hidden=16,
                                  feat_dim=100, n_classes=47,
                                  aggregator=aggregator, dropout=0.2),
             sampler=pt.SamplerConfig(batch_size=6000, fanout=2, num_hops=2,
-                                     seed=0, prefetch=3),
-            cache=pt.CacheConfig(enabled=True, capacity=int(ds.num_nodes * 0.4),
+                                     seed=0, prefetch=3, paired_draws=paired),
+            cache=pt.CacheConfig(enabled=True,
+                                 capacity=None if on_device else int(ds.num_nodes * 0.4),
                                  dtype=cache_dtype),
-            train=pt.TrainConfig(lr=1e-2, warmup_epochs=1),
+            train=pt.TrainConfig(lr=1e-2, warmup_epochs=1, on_device_sampling=on_device),
         )
 
     cfg = config("mean")
@@ -371,6 +407,74 @@ def main() -> None:
             fail(f"{dtype} tier: launches {t['launches']} over {t['batches']} steps, "
                  "expected 4 a step with one assemble_" + tag)
 
+    # -- device_epoch: the whole-epoch on-device path ------------------------
+    # each run a fresh Trainer (seed 0) with the full cache and the CSR on the
+    # card; launches counted from 0 over its epochs
+    def device_run(n_epochs: int, dtype: str = "float32", paired: bool = False):
+        tag = TIERS[dtype]
+        t0 = time.perf_counter()
+        d_tr = Trainer.from_dataset(config("mean", dtype, on_device=True, paired=paired),
+                                    ds, seed=0)
+        d_tr._maybe_fill_cache()
+        torch.cuda.synchronize()
+        d_setup = time.perf_counter() - t0
+        start_bytes = torch.cuda.memory_allocated()   # earlier phases' tensors included
+        torch.cuda.reset_peak_memory_stats()
+        gk.reset_launch_counts()
+        ms = [d_tr.run_epoch(e) for e in range(n_epochs)]
+        torch.cuda.synchronize()
+        counts = gk.launch_counts()
+        cv_d = d_tr.cache.cache_values
+        out = {"cache_dtype": dtype, "paired_draws": paired, "setup_s": d_setup,
+               "epochs": [{"epoch": m.epoch, "time_s": m.time_s, "batches": m.num_batches,
+                           "edges": m.edges, "edges_per_s": m.edges / m.time_s,
+                           "vertices": m.vertices, "mean_loss": m.mean_loss,
+                           "mean_acc": m.mean_acc, "miss_rate": m.miss_rate,
+                           "h2d_bytes": m.h2d_bytes} for m in ms],
+               "cache_bytes": cv_d.numel() * cv_d.element_size(),
+               "csr_bytes": d_tr._dev_csr.nbytes(),
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "run_peak_device_bytes": torch.cuda.max_memory_allocated() - start_bytes
+               + cv_d.numel() * cv_d.element_size() + d_tr._dev_csr.nbytes(),
+               "launches": {k: v for k, v in counts.items() if v}}
+        steps = sum(m.num_batches for m in ms)
+        losses = [m.mean_loss for m in ms]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"device epoch ({dtype}, paired={paired}): non-finite loss {losses}")
+        if counts[f"assemble_{tag}"] != steps or sum(counts.values()) != steps:
+            fail(f"device epoch ({dtype}, paired={paired}): launches "
+                 f"{out['launches']} over {steps} steps, expected one assemble_{tag} a step "
+                 "and no other gather kernel")
+        return d_tr, out
+
+    dev_tr, dev_out = {}, {}
+    for label, n_epochs, kw in (("f32", 2, {}), ("f32_paired", 2, {"paired": True}),
+                                ("bf16_paired", 1, {"dtype": "bfloat16", "paired": True}),
+                                ("int8_paired", 1, {"dtype": "int8", "paired": True})):
+        dev_tr[label], dev_out[label] = device_run(n_epochs, **kw)
+        if label == "f32_paired":
+            del dev_tr[label]                # keep the card's memory for what follows
+    emit("device_epoch", dev_out)
+    for label in ("f32", "f32_paired"):
+        e0, e1 = (m["mean_loss"] for m in dev_out[label]["epochs"])
+        if not e1 < e0:
+            fail(f"device epoch ({label}): loss did not fall: {e0} -> {e1}")
+    dev_launches = {TIERS[dev_tr[k].cfg.cache.dtype]: dev_out[k]["launches"]
+                    for k in ("f32", "bf16_paired", "int8_paired")}
+
+    # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
+    dtr = dev_tr["f32"]
+    dcfg = dtr.cfg
+    d_perm, d_draws = dtr.epoch_randomness(0)
+    d_seeds, d_masks = epoch_schedule(d_perm, dtr._dev_train_nids, dcfg.sampler.batch_size)
+    d_step = (d_seeds[0], d_masks[0], [d[0] for d in d_draws])
+    d_mb = sample_minibatch_device(dtr._dev_csr, d_step[0], d_step[1], dcfg.sampler.num_hops,
+                                   dcfg.sampler.hop_fanouts(), d_step[2],
+                                   labels=dtr._dev_labels)
+    d_ids = d_mb.input_nids
+    d_full = {TIERS[t.cfg.cache.dtype]: (t.cache.cache_values, t.cache.dequant_scale_dev)
+              for t in (dev_tr["f32"], dev_tr["bf16_paired"], dev_tr["int8_paired"])}
+
     # -- kernels: one batch of the run, at its shapes ------------------------
     seeds = tr.sampler.train_nids[:cfg.sampler.batch_size]
     mb_h = tr.sampler.sample(seeds)
@@ -451,6 +555,33 @@ def main() -> None:
             library=None, same_fn=lambda a=tier_in[dtype]: assemble_same_fn(*a),
             nbytes=4 * n0 + distinct(sr_t) * d0 * cv_t.element_size() + rows_bytes(n0, d0)
             + (0 if sc_t is None else 4 * d0)))
+    # the on-device path's layer-0 fetch (take_rows): the assembly with no
+    # miss rows, from the full cache, at a device-sampled batch's layer 0;
+    # the bound as above, with no miss rows
+    nd, dd = d_ids.shape[0], d_full["f32"][0].shape[1]
+    nd_distinct = distinct(d_ids)
+
+    def full_same_fn(cv_t, sc_t):
+        """take_rows in PyTorch calls: index_select, .float(), the scale."""
+        rows = torch.index_select(cv_t, 0, d_ids).float()
+        return rows if sc_t is None else rows * sc_t
+
+    for dtype, tag in TIERS.items():
+        cv_f, sc_f = d_full[tag]
+        cases.append(dict(
+            name=f"assemble_full[{tag}]", key=f"assemble_{tag}",
+            launches=dev_launches[tag][f"assemble_{tag}"],
+            replaces=f"{PALLAS}:58 gather_rows_pallas (on-device layer-0 fetch: "
+                     "ops/gather.py:21 chunked_take + storage/cache.py:69 dequantize_fused)",
+            shape=f"cache {list(cv_f.shape)} {cv_f.dtype} ids [{nd}], no miss rows",
+            tol="exact",
+            kernel=lambda c=cv_f, s=sc_f: take_rows(c, d_ids, s),
+            plain=lambda c=cv_f, s=sc_f: gk.assemble_plain(c, d_ids, c[:0], s),
+            library=(lambda c=cv_f: torch.index_select(c, 0, d_ids)) if sc_f is None
+            and cv_f.dtype == torch.float32 else None,
+            same_fn=lambda c=cv_f, s=sc_f: full_same_fn(c, s),
+            nbytes=4 * nd + nd_distinct * dd * cv_f.element_size() + rows_bytes(nd, dd)
+            + (0 if sc_f is None else 4 * dd)))
     # -- the backwards: the fused block backward and its single-half uses ----
     s1, d1 = h1.shape
     n1, f1 = b1.neigh_pos.shape
@@ -616,17 +747,19 @@ def main() -> None:
         "copy_bytes_moved": 2 * copy_src.numel()})
 
     # -- step parity ------------------------------------------------------------
-    def fresh_state():
-        model = copy.deepcopy(tr.state.model)
+    def clone_state(src, c):
+        """A train state with a copy of ``src``'s model and dropout
+        generator and a fresh optimizer for config ``c``."""
+        model = copy.deepcopy(src.model)
         g = torch.Generator(device=dev)
-        g.set_state(tr.state.generator.get_state())
-        return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
+        g.set_state(src.generator.get_state())
+        return TrainState(model=model, optimizer=make_optimizer(c, model.parameters()),
                           generator=g)
 
     parities = {}
     for dtype, tag in TIERS.items():
         cv_t, sr_t, mf_t, sc_t = tier_in[dtype]
-        s_kernel, s_plain = fresh_state(), fresh_state()
+        s_kernel, s_plain = clone_state(tr.state, cfg), clone_state(tr.state, cfg)
         gk.reset_launch_counts()
         m_kernel = train_step(s_kernel, mb, mf_t, sr_t, cv_t, sc_t)
         with gk.plain_versions():
@@ -657,39 +790,180 @@ def main() -> None:
     n_items = sum(1 for _ in tr.loader.epoch())
     torch.cuda.synchronize()
     loader_s = time.perf_counter() - t0
-    s_bench = fresh_state()
-    train_step(s_bench, mb, miss_feats, src_row, cv)
-    torch.cuda.synchronize()
-    reps = 20                            # host: enqueue, then wall to the sync
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        train_step(s_bench, mb, miss_feats, src_row, cv)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3 / reps
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    # device: few enough steps to fit the launch queue, behind a ~0.1 s
-    # device sleep that outlasts their host enqueue
-    dev_reps = 4
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    torch.cuda._sleep(200_000_000)
-    ev[1].record()
-    t0 = time.perf_counter()
-    for _ in range(dev_reps):
-        train_step(s_bench, mb, miss_feats, src_row, cv)
-    ev[2].record()
-    dev_enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    sleep_ms = ev[0].elapsed_time(ev[1])
+
+    def host_and_device(fn, reps: int = 20, dev_reps: int = 2):
+        """Host enqueue and wall time a call (``reps`` back to back), and
+        device time a call behind a ~0.1 s device sleep that outlasts the
+        enqueue of ``dev_reps`` calls (few, to stay under the launch queue)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(200_000_000)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(dev_reps):
+            fn()
+        ev[2].record()
+        dev_enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return {"host_enqueue_ms": enqueue, "wall_ms": wall,
+                "device_ms": ev[1].elapsed_time(ev[2]) / dev_reps,
+                "device_time_is_pure": dev_enqueue < ev[0].elapsed_time(ev[1]),
+                "sleep_ms": ev[0].elapsed_time(ev[1])}
+
+    s_bench = clone_state(tr.state, cfg)
+    t_step = host_and_device(lambda: train_step(s_bench, mb, miss_feats, src_row, cv),
+                             dev_reps=4)
     emit("breakdown", {
         "loader_only_epoch_s": loader_s, "loader_batches": n_items,
         "train_epoch_s": epochs[1].time_s,
-        "step_host_enqueue_ms": enqueue_ms, "step_wall_ms": wall_ms,
-        "step_device_ms": ev[1].elapsed_time(ev[2]) / dev_reps,
-        "device_time_is_pure": dev_enqueue_ms < sleep_ms,
-        "sleep_ms": sleep_ms,
+        "step_host_enqueue_ms": t_step["host_enqueue_ms"], "step_wall_ms": t_step["wall_ms"],
+        "step_device_ms": t_step["device_ms"],
+        "device_time_is_pure": t_step["device_time_is_pure"],
+        "sleep_ms": t_step["sleep_ms"],
         "note": "steps on one pre-shipped batch, no loader threads running",
     })
+
+    # -- device_sampler_parity: the sampler on the card and on the CPU ---------
+    # one batch of the f32 run's epoch 0, fresh draws for each kind; the same
+    # function on CPU copies of the same tensors must give equal batches
+    nh, fanouts, bsz = dcfg.sampler.num_hops, dcfg.sampler.hop_fanouts(), dcfg.sampler.batch_size
+    csr_cpu = DeviceCSR.from_graph(ds.graph, "cpu")
+    gen_d = torch.Generator(device=dev).manual_seed(8)
+
+    def fresh_draws(paired: bool):
+        return [hop_draws(gen_d, n, f, paired, dev)
+                for n, f in zip(hop_sizes(bsz, fanouts), fanouts)]
+
+    def batch_tensors(m):
+        return (list(m.layer_nids) + list(m.layer_mask) + [m.labels]
+                + [t for b in m.blocks for t in (b.neigh_pos, b.neigh_mask, b.self_pos)])
+
+    sampler_parity = {}
+    for paired in (False, True):
+        draws_p = fresh_draws(paired)
+        mb_g = sample_minibatch_device(dtr._dev_csr, d_step[0], d_step[1], nh, fanouts, draws_p,
+                                       labels=dtr._dev_labels, paired=paired)
+        mb_c = sample_minibatch_device(csr_cpu, d_step[0].cpu(), d_step[1].cpu(), nh, fanouts,
+                                       [x.cpu() for x in draws_p],
+                                       labels=dtr._dev_labels.cpu(), paired=paired)
+        pairs = list(zip(batch_tensors(mb_g), batch_tensors(mb_c)))
+        sampler_parity["paired" if paired else "generic"] = {
+            "equal": all(torch.equal(g.cpu(), c) for g, c in pairs), "tensors": len(pairs),
+            "layer_rows": [x.shape[0] for x in mb_g.layer_nids],
+            "valid_edges": int(sum(b.neigh_mask.sum() for b in mb_g.blocks)),
+            "prefix_layout": all(b.prefix_layout for b in mb_g.blocks)}
+    del csr_cpu
+    emit("device_sampler_parity", sampler_parity)
+    for kind_, r in sampler_parity.items():
+        if not (r["equal"] and r["prefix_layout"]):
+            fail(f"device sampler ({kind_}): the card's batch differs from the CPU's: {r}")
+
+    # -- device_step_parity: one device-sampled step, kernel and plain --------
+    dev_parities = {}
+    for label in ("f32", "bf16_paired", "int8_paired"):
+        t_d = dev_tr[label]
+        tag = TIERS[t_d.cfg.cache.dtype]
+        step_in = (d_step[0], d_step[1], fresh_draws(t_d.cfg.sampler.paired_draws),
+                   t_d._dev_labels, t_d._dev_csr, t_d.cache.cache_values,
+                   t_d.cache.dequant_scale_dev)
+        res = {}
+        for mode in ("kernel", "plain"):
+            s_m, acc_m = clone_state(t_d.state, t_d.cfg), EpochAccumulator.zeros(dev)
+            gk.reset_launch_counts()
+            with (gk.plain_versions() if mode == "plain" else contextlib.nullcontext()):
+                device_batch_step(t_d.cfg, s_m, acc_m, *step_in)
+            torch.cuda.synchronize()
+            res[mode] = (s_m, acc_m.values(), gk.launch_counts())
+        (s_k, v_k, c_k), (s_p, v_p, c_p) = res["kernel"], res["plain"]
+        parity = {"loss_kernel": v_k["loss_sum"], "loss_plain": v_p["loss_sum"],
+                  "loss_rel_err": abs(v_k["loss_sum"] - v_p["loss_sum"])
+                  / max(abs(v_p["loss_sum"]), 1e-30),
+                  "edges": [v_k["edges"], v_p["edges"]],
+                  "kernel_launches": sum(c_k.values()),
+                  "assemble_launches": c_k[f"assemble_{tag}"],
+                  "plain_launches": sum(c_p.values()), "grads": {}}
+        for (name, pk), (_, pp) in zip(s_k.model.named_parameters(),
+                                       s_p.model.named_parameters()):
+            err = (pk.grad - pp.grad).abs().max().item()
+            parity["grads"][name] = err / max(pp.grad.abs().max().item(), 1e-30)
+        dev_parities[label] = parity
+    emit("device_step_parity", dev_parities)
+    for label, parity in dev_parities.items():
+        worst = max([parity["loss_rel_err"], *parity["grads"].values()])
+        if not worst <= 1e-5:
+            fail(f"device step parity ({label}): worst relative error {worst} > 1e-5")
+        if parity["edges"][0] != parity["edges"][1]:
+            fail(f"device step parity ({label}): edges {parity['edges']} differ")
+        if (parity["kernel_launches"], parity["assemble_launches"],
+                parity["plain_launches"]) != (1, 1, 0):
+            fail(f"device step parity ({label}): launches {parity}, expected one assembly "
+                 "through the kernel and none under the plain versions")
+
+    # -- device_breakdown: one on-device step alone (f32, generic draws) ------
+    s_b, acc_b = clone_state(dtr.state, dcfg), EpochAccumulator.zeros(dev)
+    d_cv = d_full["f32"][0]
+    fetched = fetch_batch(dcfg, d_step[0], d_step[1], d_step[2], dtr._dev_labels,
+                          dtr._dev_csr, d_cv)
+    parts = {
+        "step": lambda: device_batch_step(dcfg, s_b, acc_b, *d_step, dtr._dev_labels,
+                                          dtr._dev_csr, d_cv),
+        "sample": lambda: sample_minibatch_device(dtr._dev_csr, *d_step[:2], nh, fanouts,
+                                                  d_step[2], labels=dtr._dev_labels),
+        "fetch": lambda: take_rows(d_cv, d_ids),
+        "train": lambda: train_batch(s_b, acc_b, *fetched),
+    }
+
+    def profiled(fn):
+        """CUDA kernels, memory operations and their summed device time in
+        one call, from a torch.profiler trace (the second of two calls, each
+        traced), and the host operations with the most time of their own."""
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(2):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        host_ops = sorted((a for a in prof.key_averages() if a.self_cpu_time_total > 0),
+                          key=lambda a: -a.self_cpu_time_total)[:10]
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        mem = [e for e in evs if "memcpy" in e.name.lower() or "memset" in e.name.lower()]
+        names: dict = {}
+        for e in evs:
+            names[e.name[:60]] = names.get(e.name[:60], 0) + 1
+        return {"cuda_kernels": len(evs) - len(mem), "cuda_memory_ops": len(mem),
+                "profiler_device_ms": sum(e.time_range.elapsed_us() for e in evs) / 1e3,
+                "most_launched": sorted(names.items(), key=lambda kv: -kv[1])[:12],
+                "host_self_ms_top": [[a.key[:60], a.count, a.self_cpu_time_total / 1e3]
+                                     for a in host_ops]}
+
+    # no host sync inside a step: the sync debug mode raises on one
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        parts["step"]()
+        sync_free = True
+    except RuntimeError as e:
+        sync_free = f"{type(e).__name__}: {e}"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    breakdown_d = {name: {**host_and_device(fn), **profiled(fn)} for name, fn in parts.items()}
+    breakdown_d["step_is_sync_free"] = sync_free
+    breakdown_d["epoch_s"] = dev_out["f32"]["epochs"][1]["time_s"]
+    breakdown_d["epoch_batches"] = dev_out["f32"]["epochs"][1]["batches"]
+    breakdown_d["note"] = ("device_batch_step on one device-sampled batch of the f32 run "
+                           "(generic draws): sample, fetch (take_rows) and train "
+                           "(forward, loss, backward, Adam) are its parts")
+    emit("device_breakdown", breakdown_d)
+    if sync_free is not True:
+        fail(f"a device step synchronized with the host: {sync_free}")
 
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

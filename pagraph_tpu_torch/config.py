@@ -2,10 +2,9 @@
 
 A copy of ``pagraph_tpu/config.py``: the same five dataclasses, fields,
 defaults and ``validate`` rules, so one JSON config drives either package.
-Knobs that only the JAX package's on-device paths read
-(``steps_per_dispatch``, ``on_device_sampling``, ``epoch_dispatch``,
-``scan_unroll``, ``paired_draws``, ``halo_*``) are kept for parity; the
-port's host ``Trainer`` says which of them it does not run yet.
+Knobs that the port does not read (``steps_per_dispatch``,
+``scan_unroll``, ``halo_slack``) are kept for parity; the port's ``Trainer``
+says which paths it does not run yet.
 """
 from __future__ import annotations
 
@@ -53,7 +52,7 @@ class SamplerConfig:
     backend: str = "auto"             # auto | numpy | native
     prefetch: int = 2                 # batches in flight
     seed: int = 0
-    paired_draws: bool = False        # on-device sampler only (not ported yet)
+    paired_draws: bool = False        # on-device sampler only: row-gather draws
 
     def hop_fanouts(self) -> Tuple[int, ...]:
         """Fanout at each expansion hop, seeds outward."""
@@ -125,7 +124,7 @@ class TrainConfig:
     remote_sampling: bool = False     # isolation mode: sampling in worker procs
     on_device_sampling: bool = False  # whole epoch sampled on the device
     steps_per_dispatch: int = 8       # JAX package: K batches per compiled call
-    epoch_dispatch: str = "scan"      # on-device epoch dispatch: scan | steps | pipelined
+    epoch_dispatch: str = "scan"      # scan | steps | pipelined: one eager loop in the port
     scan_unroll: int = 1              # on-device epoch: minibatches per scan step
     halo_slack: float = 1.5           # multi-device halo width factor
     halo_pipeline: bool = False       # multi-device edge mode only

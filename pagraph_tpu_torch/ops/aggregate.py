@@ -8,8 +8,10 @@ backward adds both gradients into the source table in one more
 (``gather_kernels.BlockGather``); :func:`block_self` and
 :func:`block_aggregate`, the counterparts of the JAX functions, do one half
 each (the same forward kernel with the other half absent).
-Prefix-layout blocks need no gather: their neighbor messages are a
-contiguous slice.
+Prefix-layout blocks, which the on-device sampler
+(``sampling/device_sampler.py``) produces, need no gather: a block's self
+rows and its neighbor messages are contiguous slices, reduced in plain torch
+(the JAX package reduces them with XLA, not Pallas).
 """
 from __future__ import annotations
 

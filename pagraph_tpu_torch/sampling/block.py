@@ -46,7 +46,7 @@ class Block:
     # Layout promise: self_pos == arange(cap_dst) and
     # neigh_pos == cap_dst + arange(cap_dst*fanout) (row-major), which turns
     # every aggregation gather into a contiguous slice.  Only the on-device
-    # sampler (not ported yet) produces it; host batches are False.
+    # sampler (sampling/device_sampler.py) produces it; host batches are False.
     prefix_layout: bool = False
 
     @property

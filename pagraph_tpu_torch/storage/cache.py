@@ -187,7 +187,9 @@ class FeatureCache:
     def fill(self, capacity: Optional[int] = None,
              rank_by: str = "out_degree") -> None:
         """Size and populate the cache: everything if it fits, else the top
-        ``capacity`` vertices by ``rank_by``."""
+        ``capacity`` vertices by ``rank_by``.  A full fill keeps the identity
+        map (cache row = vertex id), which the on-device path reads rows by;
+        ``fully_cached`` says it holds."""
         n = self.graph.num_nodes
         if capacity is None:
             capacity = self.auto_capacity()

@@ -1,11 +1,20 @@
-"""Single-device training loop (the port of the host branch of
-``pagraph_tpu/train/loop.py``).
+"""Single-device training loop (the port of ``pagraph_tpu/train/loop.py``).
 
-Attach the store, fill the device cache, then per batch: sample, split
-hits/misses and gather the miss rows on the host (the loader's producer
-threads), and run one train step on the device.  The measurement follows the
-reference: epoch times excluding warm-up epochs, per-epoch cache miss rate,
-and valid sampled edges per epoch.
+Host path: attach the store, fill the device cache, then per batch: sample,
+split hits/misses and gather the miss rows on the host (the loader's
+producer threads), and run one train step on the device.  The measurement
+follows the reference: epoch times excluding warm-up epochs, per-epoch cache
+miss rate, and valid sampled edges per epoch.
+
+On-device path (``train.on_device_sampling=True``): the CSR and the full
+feature cache live in device memory, and the whole epoch (permutation,
+sampling, layer-0 fetch, forward, backward, Adam) runs on the device with
+one host sync an epoch, to read the metrics (``train/device_epoch.py``).
+There is no sampler or loader.  Each epoch's random integers come from a
+generator on the device seeded from ``(seed, epoch)``, so an epoch can be
+replayed alone.  Its edges and vertices count every valid slot of the
+undeduplicated layers, as the JAX package's device path does; the host path
+counts deduplicated ones, so the two compare by epoch time.
 
 A step is one call of :func:`train_step`.  ``train.steps_per_dispatch`` is
 ignored: the JAX package groups K steps into one compiled dispatch to
@@ -14,9 +23,9 @@ asynchronously step by step and the loop never waits for the device inside
 an epoch (loss and accuracy accumulate on the device and are read once at
 the end).
 
-Not ported yet, and refused with ``NotImplementedError``: on-device sampling,
-remote (isolation-mode) sampling, evaluation and checkpoints during
-training.
+Not ported yet, and refused with ``NotImplementedError``: remote
+(isolation-mode) sampling, evaluation and checkpoints during training, and
+every architecture but GraphSAGE (``models.get_model``), CV-GCN included.
 """
 from __future__ import annotations
 
@@ -30,12 +39,14 @@ import torch
 from ..config import Config
 from ..data.formats import Dataset
 from ..graph import CSRGraph
+from ..sampling.device_sampler import DeviceCSR
 from ..sampling.loader import PrefetchLoader
 from ..sampling.sampler import NeighborSampler
 from ..storage.cache import FeatureCache
 from ..storage.feature_store import FeatureStore
 from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
+from .device_epoch import epoch_draws, epoch_seed, make_device_epoch_fn
 from .state import create_state, train_step
 
 
@@ -70,8 +81,7 @@ class Trainer:
         log: bool = False,
     ):
         t = cfg.train
-        for flag, what in ((t.on_device_sampling, "train.on_device_sampling"),
-                           (t.remote_sampling, "train.remote_sampling"),
+        for flag, what in ((t.remote_sampling, "train.remote_sampling"),
                            (t.eval_every, "train.eval_every"),
                            (t.ckpt_dir and t.ckpt_every, "checkpointing")):
             if flag:
@@ -87,6 +97,23 @@ class Trainer:
         self.log = log
         self.cache = FeatureCache(store, ["features"], local_graph, local2full,
                                   device=self.device, dtype=cfg.cache.dtype)
+        self.timers = PhaseTimers()
+        self._cache_filled = False
+        self.epoch_metrics: List[EpochMetrics] = []
+        self._device_mode = t.on_device_sampling
+        if self._device_mode:
+            # no sampler or loader: the CSR, the train vertices and the labels
+            # live on the device beside the full cache (filled before epoch 0)
+            self.sampler = self.loader = None
+            self._seed = seed
+            self._dev_csr = DeviceCSR.from_graph(local_graph, self.device)
+            self._dev_train_nids = torch.from_numpy(
+                np.asarray(train_nids, dtype=np.int32)).to(self.device, copy=True)
+            self._dev_labels = torch.from_numpy(
+                np.asarray(labels, dtype=np.int32)).to(self.device, copy=True)
+            self.state = create_state(cfg, seed=seed, device=self.device)
+            self.epoch_fn = make_device_epoch_fn(cfg)
+            return
         if cfg.cache.rank_by == "access_freq":
             self.cache.track_access = True
         self.sampler = NeighborSampler(local_graph, train_nids, cfg.sampler,
@@ -97,9 +124,6 @@ class Trainer:
                                      prefetch=cfg.sampler.prefetch,
                                      device=self.device)
         self.state = create_state(cfg, seed=seed, device=self.device)
-        self.timers = PhaseTimers()
-        self._cache_filled = False
-        self.epoch_metrics: List[EpochMetrics] = []
 
     @classmethod
     def from_dataset(cls, cfg: Config, ds: Dataset, **kw) -> "Trainer":
@@ -111,17 +135,29 @@ class Trainer:
 
     def _maybe_fill_cache(self) -> None:
         """Size and fill the cache once, before the first step (capacity 0
-        when the cache is disabled; ``None`` sizes it from free memory)."""
+        when the cache is disabled; ``None`` sizes it from free memory, or
+        on the device path means every vertex, which that path needs:
+        anything less raises ``ValueError``)."""
         if self._cache_filled:
             return
         c = self.cfg.cache
-        self.cache.fill(capacity=c.capacity if c.enabled else 0, rank_by=c.rank_by)
+        cap = c.capacity if c.enabled else 0
+        if self._device_mode and cap is None:
+            cap = self.cache.graph.num_nodes
+        self.cache.fill(capacity=cap, rank_by=c.rank_by)
+        if self._device_mode and not self.cache.fully_cached:
+            raise ValueError(
+                f"on_device_sampling needs the full feature set in device memory: "
+                f"capacity {self.cache.capacity} < {self.cache.graph.num_nodes} "
+                "vertices. Use cache.dtype='bfloat16' (or 'int8'), or the host path.")
         self._cache_filled = True
         if self.log:
             print(f"[cache] capacity={self.cache.capacity} vertices "
                   f"({'full' if self.cache.fully_cached else 'partial'})")
 
     def run_epoch(self, epoch: int = 0) -> EpochMetrics:
+        if self._device_mode:
+            return self._run_epoch_on_device(epoch)
         self._maybe_fill_cache()
         t_epoch = time.perf_counter()
         self.cache.reset_stats()
@@ -158,6 +194,45 @@ class Trainer:
         if self.log:
             print(f"epoch {epoch}: loss={em.mean_loss:.4f} acc={em.mean_acc:.3f} "
                   f"time={em.time_s:.2f}s miss={em.miss_rate:.1%}")
+        return em
+
+    def epoch_randomness(self, epoch: int):
+        """``(perm, draws)`` of an epoch, drawn on the device from a
+        generator seeded by ``(seed, epoch)``: the permutation of the train
+        vertices and every step's random integers (``epoch_draws``)."""
+        gen = torch.Generator(device=self.device).manual_seed(epoch_seed(self._seed, epoch))
+        s = self.cfg.sampler
+        n_train = self._dev_train_nids.shape[0]
+        perm = torch.randperm(n_train, generator=gen, device=self.device)
+        draws = epoch_draws(gen, -(-n_train // s.batch_size), s.batch_size,
+                            s.hop_fanouts(), s.paired_draws, self.device)
+        return perm, draws
+
+    def _run_epoch_on_device(self, epoch: int) -> EpochMetrics:
+        """Enqueue the epoch, then read its metrics: the epoch's one sync."""
+        self._maybe_fill_cache()
+        t_epoch = time.perf_counter()
+        with self.timers.scope("enqueue"):          # the whole epoch's
+            acc = self.epoch_fn(self.state, *self.epoch_randomness(epoch),
+                                self._dev_train_nids, self._dev_labels, self._dev_csr,
+                                self.cache.cache_values, self.cache.dequant_scale_dev)
+        vals = acc.values()
+        steps = max(int(vals["steps"]), 1)
+        em = EpochMetrics(
+            epoch=epoch,
+            mean_loss=vals["loss_sum"] / steps,
+            mean_acc=vals["acc_sum"] / steps,
+            time_s=time.perf_counter() - t_epoch,
+            miss_rate=0.0,                  # fully cached by construction
+            num_batches=int(vals["steps"]),
+            edges=int(vals["edges"]),
+            vertices=int(vals["vertices"]),
+            h2d_bytes=0,                    # nothing crosses the host link
+        )
+        self.epoch_metrics.append(em)
+        if self.log:
+            print(f"epoch {epoch}: loss={em.mean_loss:.4f} acc={em.mean_acc:.3f} "
+                  f"time={em.time_s:.2f}s [on-device]")
         return em
 
     def train(self, epochs: Optional[int] = None, *, start_epoch: int = 0) -> Dict:

@@ -8,6 +8,8 @@ launch per block), the masked cross-entropy, backward (one fused scatter-add
 launch for each block whose source needs a gradient) and Adam: 4 kernel
 launches for the 2-layer model.  Nothing in a
 step waits for the device: loss and accuracy come back as device tensors.
+The on-device epoch (``train/device_epoch.py``) fetches its features
+otherwise and shares the rest, :func:`train_on_features`.
 """
 from __future__ import annotations
 
@@ -65,6 +67,14 @@ def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
     tier, the cache's dequant scale; returns ``{"loss", "acc"}`` as device
     scalars (no host sync)."""
     feats = assemble_features(cache_values, src_row, miss_feats, dequant_scale)
+    return train_on_features(state, mb, feats)
+
+
+def train_on_features(state: TrainState, mb: MiniBatch,
+                      feats: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The step after the layer-0 fetch: forward, masked cross-entropy,
+    backward and Adam on f32 features ``feats``; ``{"loss", "acc"}`` as
+    device scalars (no host sync)."""
     logits = state.model(mb, feats, generator=state.generator)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
     state.optimizer.zero_grad(set_to_none=True)

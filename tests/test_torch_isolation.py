@@ -86,7 +86,7 @@ def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
     assert PrefetchLoader(tr.sampler, tr.cache, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("train_kw", [dict(on_device_sampling=True),
+@pytest.mark.parametrize("train_kw", [dict(ckpt_dir="ckpt", ckpt_every=1),
                                       dict(remote_sampling=True),
                                       dict(eval_every=1),
                                       dict(lr_schedule="cosine", lr_decay_steps=5),
