@@ -19,15 +19,29 @@ Phases, each printed as one JSON line:
   (seed 0) at 40% capacity: epoch time, edges/s, miss rate (equal to the
   f32 run's epoch 0: the same batches), bytes shipped host -> device, the
   cache's device bytes and each kernel's launches (4 a step);
+* ``bf16_train``: the host path at bf16 compute (``train.dtype="bfloat16"``)
+  with the bf16 cache tier at 40% capacity, 2 epochs (the loss must fall,
+  the miss rate equal the f32 run's), then one ``gcn`` epoch over the f32
+  tier: epoch time, edges/s, miss rate, bytes shipped, and 5 launches a
+  step, all bf16 (``assemble_<tier>_to_bf16``, two
+  ``block_gather_fwd_<kind>_bf16``, one ``block_gather_bwd_<kind>_bf16``
+  and the ``grad_to_bf16`` that rounds its f32 table, in the same C call);
+* ``store_int8``: ``quantize_store`` of the f32 store, then a ``Trainer``
+  over it at the int8 tier (one epoch at bf16 compute): its setup (no scale
+  pass) beside the f32 store's int8 setup in ``tiers``, its miss rate and
+  bytes shipped (equal to that run's), its scale and cache rows (equal),
+  and the loader alone over both stores, in turns;
 * ``device_epoch``: the whole-epoch on-device path (``train.on_device_sampling``)
   of the same configuration with the full cache and the CSR on the card,
   each run a fresh ``Trainer`` (seed 0): f32 with generic draws and f32 with
   paired draws for 2 epochs each (the loss must fall), bf16 and int8 with
-  paired draws for one epoch (every ``epoch_dispatch`` value runs the same
+  paired draws for one epoch, and bf16 with paired draws at bf16 compute
+  for one (every ``epoch_dispatch`` value runs the same
   enqueue loop, so one is driven).  Setup and epoch time, edges/s (every
   valid slot of the undeduplicated layers: not the host path's count),
   batches, loss, cache and CSR bytes, peak device memory, and the launches:
-  one ``assemble_<tier>`` a step and no other gather kernel;
+  one ``assemble_<tier>`` (at bf16 compute ``assemble_<tier>_to_bf16``) a
+  step and no other gather kernel;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -52,15 +66,22 @@ Phases, each printed as one JSON line:
   function in PyTorch calls from the kernel's own inputs.  A bound counts
   each index and each output once and each distinct source row a launch
   reads once (a row that repeats, or is both a self and a neighbor row, is
-  one read);
-* ``fwd_branches``: the block forward and backward on the card at the
-  branches the main path does not take -- D = 30 (scalar rows), a table
-  4 bytes off alignment, fan-out 7 (no unrolled instantiation), each half
-  absent -- against their plain versions;
-* ``assemble_branches``: the assembly at each tier where the main path
-  does not go -- D = 30 (scalar units), a table one element off its unit's
-  alignment, D = 600 (several units a lane), no miss rows, every row a
-  miss, every row a hit -- exact against its plain version;
+  one read), at the rows' own width.  The bf16 entries
+  (``block_gather_fwd_<kind>_bf16[block0|1]``,
+  ``block_gather_bwd_<kind>_bf16[block1]``, ``assemble[<tier>->bf16]``,
+  ``assemble_full[bf16->bf16]``) run the same batch at bf16 compute: the
+  forward's neighbor half and the backward within 1e-2 of each element
+  plus 1e-2 of max|plain|, rows and the assembly exact;
+* ``fwd_branches``: the block forward and backward on the card, on f32 and
+  on bf16 rows, at the branches the main path does not take -- D = 30
+  (scalar rows), a table one element off its unit's alignment, fan-out 7
+  (no unrolled instantiation), each half absent -- against their plain
+  versions;
+* ``assemble_branches``: the assembly at each tier, to f32 and to bf16,
+  where the main path does not go -- D = 30 (scalar units), a table one
+  element off its unit's alignment, D = 600 (several units a lane), no
+  miss rows, every row a miss, every row a hit -- exact against its plain
+  version;
 * ``timing_floor``: the same timing around no work, around the block
   backward's memset alone, and around a contiguous device copy that moves
   the block-0 forward's bound bytes (half read, half written): what the
@@ -70,9 +91,14 @@ Phases, each printed as one JSON line:
   loss and every gradient within 1e-5 relative (atomic summation order),
   4 kernel launches (the assembly, two fused block forwards, one fused
   block backward);
+* ``bf16_step_parity``: one bf16-compute step at each cache tier through
+  the kernels and through the plain versions: loss within 1e-2 relative,
+  each gradient within ``||g - g_plain|| <= 2e-2 ||g_plain||``, 5 bf16
+  launches, the assembly to bf16 bit-equal;
 * ``breakdown``: where the epoch's time goes — an epoch of the loader alone
   (host sampling, miss gather, pinned H2D), and one train step alone on a
-  shipped batch (host enqueue time, wall time, device time);
+  shipped batch (host enqueue time, wall time, device time), at f32 and at
+  bf16 compute;
 * ``device_sampler_parity``: one batch sampled on the card and the same
   draws through the same function on CPU copies, generic and paired: equal
   ids, masks, labels and blocks;
@@ -137,40 +163,57 @@ def time_ms(torch, fn, flush_buf, iters: int = 50, warmup: int = 5) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-TOLERANCES = {"exact": 0.0, "reduce": 1e-6, "atomic": 1e-5}
+TOLERANCES = {"exact": 0.0, "reduce": 1e-6, "atomic": 1e-5, "bf16": 1e-2}
 
 
 def compare(torch, out_k, out_p, tol):
     """(max abs error, within tolerance, text) of a kernel's output(s)
     against the plain version's; ``tol`` names a TOLERANCES entry, or one
     per output when the outputs are a tuple.  Each output is held to its
-    tolerance times its own scale, max|plain|."""
+    tolerance times its own scale, max|plain|; ``bf16`` (a reduction or a
+    gradient table in bf16) element by element to 1e-2 of the element plus
+    1e-2 of that scale."""
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
         out_k, out_p, tol = (out_k,), (out_p,), (tol,)
     err, ok, text = 0.0, True, []
     for k, p, t in zip(out_k, out_p, tol):
-        e = (k - p).abs().max().item() if p.numel() else 0.0
-        scale = max(p.abs().max().item() if p.numel() else 0.0, 1e-30)
-        err, ok = max(err, e), ok and e <= TOLERANCES[t] * scale
-        text.append(f"{t}: |err| <= {TOLERANCES[t]} * max|plain| ({scale:.6g})")
+        if k.dtype != p.dtype:
+            return float("inf"), False, f"dtype {k.dtype} != plain {p.dtype}"
+        diff = (k.float() - p.float()).abs()
+        e = diff.max().item() if p.numel() else 0.0
+        scale = max(p.float().abs().max().item() if p.numel() else 0.0, 1e-30)
+        r = TOLERANCES[t]
+        if t == "bf16":
+            good = bool((diff <= r * p.float().abs() + r * scale).all()) if p.numel() else True
+            text.append(f"bf16: |err| <= {r} * |plain| + {r} * max|plain| ({scale:.6g})")
+        else:
+            good = e <= r * scale
+            text.append(f"{t}: |err| <= {r} * max|plain| ({scale:.6g})")
+        err, ok = max(err, e), ok and good
     return err, ok, "; ".join(text)
 
 
 def fwd_branches(torch, gk, dev):
     """The block forward and backward against their plain versions where the
-    main path does not go: D = 30 (scalar rows), a source table and
-    incoming gradients 4 bytes off 16-byte alignment (scalar rows at
-    D = 32), fan-out 7 (the runtime-fan-out instantiation), each with both
-    halves, the self half alone and the neighbor half alone, both kinds.
-    Positions repeat and overlap; 10 rows have no valid slot."""
+    main path does not go, on f32 and on bf16 rows: D = 30 (scalar rows), a
+    source table and incoming gradients one element off their unit's
+    alignment (scalar rows at D = 32), fan-out 7 (the runtime-fan-out
+    instantiation), each with both halves, the self half alone and the
+    neighbor half alone, both kinds.  Positions repeat and overlap; 10 rows
+    have no valid slot."""
     gen = torch.Generator(device=dev).manual_seed(5)
     n_src, n = 3000, 2000
     out = []
-    for label, d, f, off in (("D=30", 30, 2, 0), ("offset table", 32, 2, 1),
-                             ("fan-out 7", 32, 7, 0), ("D=30 fan-out 7", 30, 7, 0)):
+    for (label, d, f, off), dtype in ((c, t) for t in (torch.float32, torch.bfloat16)
+                                      for c in (("D=30", 30, 2, 0), ("offset table", 32, 2, 1),
+                                                ("fan-out 7", 32, 7, 0),
+                                                ("D=30 fan-out 7", 30, 7, 0))):
+        tag = "" if dtype == torch.float32 else " bf16"
+        red_tol, bwd_tol = ("reduce", "atomic") if dtype == torch.float32 else ("bf16", "bf16")
+
         def table(rows):
-            flat = torch.randn(rows * d + off, generator=gen, device=dev)
+            flat = torch.randn(rows * d + off, generator=gen, device=dev).to(dtype)
             return flat[off:].view(rows, d)
         src, g_self, g_neigh = table(n_src), table(n), table(n)
         self_pos = torch.randint(0, n_src, (n,), generator=gen, device=dev,
@@ -188,24 +231,25 @@ def fwd_branches(torch, gk, dev):
                 gn = g_neigh if p is not None else None
                 fwd_k = gk.block_gather_fwd(src, sp, p, m, kind)
                 fwd_p = gk.block_gather_fwd_plain(src, sp, p, m, kind)
-                tols = tuple(t for t, h in zip(("exact", "reduce"), fwd_k) if h is not None)
+                tols = tuple(t for t, h in zip(("exact", red_tol), fwd_k) if h is not None)
                 fwd_k = tuple(h for h in fwd_k if h is not None)
                 fwd_p = tuple(h for h in fwd_p if h is not None)
                 for what, got, want, tol in (
                         ("fwd", fwd_k, fwd_p, tols),
                         ("bwd", gk.block_gather_bwd(gs, sp, gn, p, m, n_src, kind),
-                         gk.block_gather_bwd_plain(gs, sp, gn, p, m, n_src, kind), "atomic")):
+                         gk.block_gather_bwd_plain(gs, sp, gn, p, m, n_src, kind), bwd_tol)):
                     err, ok, text = compare(torch, got, want, tol)
-                    out.append({"case": f"{what} {kind} {label} {halves}",
+                    out.append({"case": f"{what} {kind} {label} {halves}{tag}",
                                 "max_abs_err": err, "ok": ok, "tolerance": text})
     return out
 
 
 def assemble_branches(torch, gk, dev):
-    """The assembly against its plain version, exact, at each tier where the
-    main path does not go: D = 30 (scalar units), tables one element off
-    their unit's alignment (scalar units at D = 100), D = 600 (several units
-    a lane), no miss rows, every row a miss, every row a hit."""
+    """The assembly against its plain version, exact, at each tier and with
+    an f32 and a bf16 output, where the main path does not go: D = 30
+    (scalar units), tables one element off their unit's alignment (scalar
+    units at D = 100), D = 600 (several units a lane), no miss rows, every
+    row a miss, every row a hit."""
     gen = torch.Generator(device=dev).manual_seed(6)
     n, cap = 2000, 3000
     out = []
@@ -234,10 +278,12 @@ def assemble_branches(torch, gk, dev):
             ).to(torch.int32)
             scale = (torch.rand(d, generator=gen, device=dev) / 127 + 1e-3
                      if row_dtype == torch.int8 else None)
-            err, ok, text = compare(torch, gk.assemble(cv, src_row, mf, scale),
-                                    gk.assemble_plain(cv, src_row, mf, scale), "exact")
-            out.append({"case": f"assemble[{tag}] {label}", "max_abs_err": err, "ok": ok,
-                        "tolerance": text})
+            for out_dtype, out_tag in ((torch.float32, ""), (torch.bfloat16, "->bf16")):
+                err, ok, text = compare(
+                    torch, gk.assemble(cv, src_row, mf, scale, out_dtype=out_dtype),
+                    gk.assemble_plain(cv, src_row, mf, scale, out_dtype=out_dtype), "exact")
+                out.append({"case": f"assemble[{tag}{out_tag}] {label}", "max_abs_err": err,
+                            "ok": ok, "tolerance": text})
     return out
 
 
@@ -271,6 +317,7 @@ def main() -> None:
         from pagraph_tpu_torch.sampling.device_sampler import (DeviceCSR, hop_draws,
                                                                hop_sizes,
                                                                sample_minibatch_device)
+        from pagraph_tpu_torch.storage.feature_store import FeatureStore, quantize_store
         from pagraph_tpu_torch.train.device_epoch import (EpochAccumulator,
                                                           device_batch_step,
                                                           epoch_schedule, fetch_batch,
@@ -313,9 +360,10 @@ def main() -> None:
     data_s = time.perf_counter() - t0
 
     def config(aggregator: str, cache_dtype: str = "float32", *, on_device: bool = False,
-               paired: bool = False):
+               paired: bool = False, compute: str = "float32"):
         """The main path's configuration; ``on_device`` is the whole-epoch
-        device path (full cache, ``paired`` draws)."""
+        device path (full cache, ``paired`` draws); ``compute`` is
+        ``train.dtype``."""
         return pt.Config(
             model=pt.ModelConfig(arch="graphsage", n_layers=1, hidden=16,
                                  feat_dim=100, n_classes=47,
@@ -325,7 +373,8 @@ def main() -> None:
             cache=pt.CacheConfig(enabled=True,
                                  capacity=None if on_device else int(ds.num_nodes * 0.4),
                                  dtype=cache_dtype),
-            train=pt.TrainConfig(lr=1e-2, warmup_epochs=1, on_device_sampling=on_device),
+            train=pt.TrainConfig(lr=1e-2, warmup_epochs=1, on_device_sampling=on_device,
+                                 dtype=compute),
         )
 
     cfg = config("mean")
@@ -379,9 +428,11 @@ def main() -> None:
     # -- tiers: one epoch at each cache tier, each a fresh Trainer -------------
     tier_tr, tier_launches, tiers_out = {}, {}, {}
     for dtype, tag in TIERS.items():
+        t0 = time.perf_counter()
         t_tr = Trainer.from_dataset(config("mean", dtype), ds, seed=0)
         t_tr._maybe_fill_cache()
         torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
         gk.reset_launch_counts()
         m = t_tr.run_epoch(0)
         torch.cuda.synchronize()
@@ -389,7 +440,8 @@ def main() -> None:
         cv_t = t_tr.cache.cache_values
         tier_tr[dtype], tier_launches[dtype] = t_tr, counts
         tiers_out[dtype] = {
-            "time_s": m.time_s, "edges": m.edges, "edges_per_s": m.edges / m.time_s,
+            "setup_s": t_setup, "time_s": m.time_s, "edges": m.edges,
+            "edges_per_s": m.edges / m.time_s,
             "miss_rate": m.miss_rate, "mean_loss": m.mean_loss, "batches": m.num_batches,
             "h2d_bytes": m.h2d_bytes, "cache_dtype": str(cv_t.dtype),
             "cache_bytes": cv_t.numel() * cv_t.element_size(),
@@ -407,14 +459,131 @@ def main() -> None:
             fail(f"{dtype} tier: launches {t['launches']} over {t['batches']} steps, "
                  "expected 4 a step with one assemble_" + tag)
 
+    # -- bf16_train: the host path at bf16 compute -------------------------------
+    # train.dtype="bfloat16" with the bf16 cache tier at 40%: 2 epochs of the
+    # mean aggregator, then one epoch of gcn (the sum kind) over the f32 tier
+    # (the assembly from f32 rows to bf16); 5 launches a step, all bf16 (the
+    # backward's C call adds in an f32 table and rounds it: grad_to_bf16)
+    bf_cfg = config("mean", "bfloat16", compute="bfloat16")
+    t0 = time.perf_counter()
+    bf_tr = Trainer.from_dataset(bf_cfg, ds, seed=0)
+    bf_tr._maybe_fill_cache()
+    torch.cuda.synchronize()
+    bf_setup = time.perf_counter() - t0
+    gk.reset_launch_counts()
+    bf_epochs = [bf_tr.run_epoch(e) for e in range(2)]
+    torch.cuda.synchronize()
+    bf_launches = gk.launch_counts()
+    gk.reset_launch_counts()
+    bf_gcn_tr = Trainer.from_dataset(config("gcn", "float32", compute="bfloat16"), ds, seed=0)
+    bf_gcn_epoch = bf_gcn_tr.run_epoch(0)
+    torch.cuda.synchronize()
+    bf_gcn_launches = gk.launch_counts()
+    del bf_gcn_tr
+    bf_out = {
+        "compute": "bfloat16", "cache_dtype": "bfloat16", "setup_s": bf_setup,
+        "epochs": [{"epoch": m.epoch, "time_s": m.time_s, "edges": m.edges,
+                    "edges_per_s": m.edges / m.time_s, "miss_rate": m.miss_rate,
+                    "mean_loss": m.mean_loss, "mean_acc": m.mean_acc,
+                    "batches": m.num_batches, "h2d_bytes": m.h2d_bytes} for m in bf_epochs],
+        "step_host_ms": bf_tr.timers.summary()["step"]["mean_ms"],
+        "launches": {k: v for k, v in bf_launches.items() if v},
+        "launches_per_step": sum(bf_launches.values()) / sum(m.num_batches for m in bf_epochs),
+        "gcn_epoch_f32_cache": {"time_s": bf_gcn_epoch.time_s,
+                                "mean_loss": bf_gcn_epoch.mean_loss,
+                                "miss_rate": bf_gcn_epoch.miss_rate,
+                                "launches": {k: v for k, v in bf_gcn_launches.items() if v}},
+        "nvidia_smi": smi}
+    emit("bf16_train", bf_out)
+    for label, counts, runs, want in (
+            ("mean, bf16 cache", bf_launches, bf_epochs,
+             {"assemble_bf16_to_bf16": 1, "block_gather_fwd_mean_bf16": 2,
+              "block_gather_bwd_mean_bf16": 1, "grad_to_bf16": 1}),
+            ("gcn, f32 cache", bf_gcn_launches, [bf_gcn_epoch],
+             {"assemble_f32_to_bf16": 1, "block_gather_fwd_sum_bf16": 2,
+              "block_gather_bwd_sum_bf16": 1, "grad_to_bf16": 1})):
+        steps = sum(m.num_batches for m in runs)
+        if {k: v for k, v in counts.items() if v} != {k: v * steps for k, v in want.items()}:
+            fail(f"bf16 compute ({label}): launches {counts} over {steps} steps, expected "
+                 f"{want} a step")
+    bf_losses = [m.mean_loss for m in bf_epochs] + [bf_gcn_epoch.mean_loss]
+    if not all(math.isfinite(v) for v in bf_losses):
+        fail(f"bf16 compute: non-finite loss {bf_losses}")
+    if not bf_epochs[1].mean_loss < bf_epochs[0].mean_loss:
+        fail(f"bf16 compute: loss did not fall: {bf_epochs[0].mean_loss} -> "
+             f"{bf_epochs[1].mean_loss}")
+    if bf_epochs[0].miss_rate != epochs[0].miss_rate:
+        fail(f"bf16 compute: miss rate {bf_epochs[0].miss_rate} != the f32 run's "
+             f"{epochs[0].miss_rate} on the same batches")
+
+    # -- store_int8: the pre-quantized store tier ----------------------------------
+    # quantize_store(store) once (what a user's preprocessing does), then a
+    # Trainer over it at the int8 cache tier: no scale pass at setup, miss
+    # rows gathered as stored.  One epoch at bf16 compute (the assembly from
+    # int8 rows to bf16); the loader alone, in turns with the f32 store's
+    # int8 trainer from `tiers`
+    t0 = time.perf_counter()
+    qstore = quantize_store(FeatureStore.build(ds.graph, ds.features))
+    quantize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_tr = Trainer(config("mean", "int8", compute="bfloat16"), qstore, ds.graph,
+                   ds.train_nids, ds.labels, seed=0)
+    q_tr._maybe_fill_cache()
+    torch.cuda.synchronize()
+    q_setup = time.perf_counter() - t0
+    gk.reset_launch_counts()
+    q_epoch = q_tr.run_epoch(0)
+    torch.cuda.synchronize()
+    q_launches = gk.launch_counts()
+    q_loader_s = {"f32_store": [], "int8_store": []}
+    for label, t_ in (("f32_store", tier_tr["int8"]), ("int8_store", q_tr),
+                      ("int8_store", q_tr), ("f32_store", tier_tr["int8"])):
+        t0 = time.perf_counter()
+        sum(1 for _ in t_.loader.epoch())
+        torch.cuda.synchronize()
+        q_loader_s[label].append(time.perf_counter() - t0)
+    q_out = {
+        "quantize_store_s": quantize_s, "setup_s": q_setup,
+        "f32_store_int8_setup_s": tiers_out["int8"]["setup_s"],
+        "epoch": {"compute": "bfloat16", "time_s": q_epoch.time_s, "edges": q_epoch.edges,
+                  "edges_per_s": q_epoch.edges / q_epoch.time_s,
+                  "miss_rate": q_epoch.miss_rate, "h2d_bytes": q_epoch.h2d_bytes,
+                  "mean_loss": q_epoch.mean_loss, "batches": q_epoch.num_batches},
+        "f32_store_int8_epoch": {k: tiers_out["int8"][k]
+                                 for k in ("time_s", "miss_rate", "h2d_bytes", "mean_loss")},
+        "loader_only_epoch_s": q_loader_s,
+        "scale_equal": bool((q_tr.cache.dequant_scale
+                             == tier_tr["int8"].cache.dequant_scale).all()),
+        "cache_rows_equal": torch.equal(q_tr.cache.cache_values,
+                                        tier_tr["int8"].cache.cache_values),
+        "launches": {k: v for k, v in q_launches.items() if v},
+        "nvidia_smi": smi}
+    emit("store_int8", q_out)
+    if (q_epoch.miss_rate, q_epoch.h2d_bytes) != (tiers_out["int8"]["miss_rate"],
+                                                  tiers_out["int8"]["h2d_bytes"]):
+        fail(f"int8 store: miss rate {q_epoch.miss_rate} and h2d bytes {q_epoch.h2d_bytes} "
+             f"differ from the f32 store's int8 tier {tiers_out['int8']}")
+    if not (q_out["scale_equal"] and q_out["cache_rows_equal"]):
+        fail("int8 store: its scale or cache rows differ from the f32 store's int8 tier")
+    if not math.isfinite(q_epoch.mean_loss):
+        fail(f"int8 store: non-finite loss {q_epoch.mean_loss}")
+    steps = q_epoch.num_batches
+    if {k: v for k, v in q_launches.items() if v} != {
+            "assemble_int8_to_bf16": steps, "block_gather_fwd_mean_bf16": 2 * steps,
+            "block_gather_bwd_mean_bf16": steps, "grad_to_bf16": steps}:
+        fail(f"int8 store: launches {q_out['launches']} over {steps} steps, expected one "
+             "assemble_int8_to_bf16, two bf16 block forwards, one bf16 block backward "
+             "and one grad_to_bf16")
+
     # -- device_epoch: the whole-epoch on-device path ------------------------
     # each run a fresh Trainer (seed 0) with the full cache and the CSR on the
     # card; launches counted from 0 over its epochs
-    def device_run(n_epochs: int, dtype: str = "float32", paired: bool = False):
-        tag = TIERS[dtype]
+    def device_run(n_epochs: int, dtype: str = "float32", paired: bool = False,
+                   compute: str = "float32"):
+        key = f"assemble_{TIERS[dtype]}" + ("_to_bf16" if compute == "bfloat16" else "")
         t0 = time.perf_counter()
-        d_tr = Trainer.from_dataset(config("mean", dtype, on_device=True, paired=paired),
-                                    ds, seed=0)
+        d_tr = Trainer.from_dataset(config("mean", dtype, on_device=True, paired=paired,
+                                           compute=compute), ds, seed=0)
         d_tr._maybe_fill_cache()
         torch.cuda.synchronize()
         d_setup = time.perf_counter() - t0
@@ -425,7 +594,8 @@ def main() -> None:
         torch.cuda.synchronize()
         counts = gk.launch_counts()
         cv_d = d_tr.cache.cache_values
-        out = {"cache_dtype": dtype, "paired_draws": paired, "setup_s": d_setup,
+        out = {"cache_dtype": dtype, "compute": compute, "paired_draws": paired,
+               "setup_s": d_setup,
                "epochs": [{"epoch": m.epoch, "time_s": m.time_s, "batches": m.num_batches,
                            "edges": m.edges, "edges_per_s": m.edges / m.time_s,
                            "vertices": m.vertices, "mean_loss": m.mean_loss,
@@ -440,19 +610,21 @@ def main() -> None:
         steps = sum(m.num_batches for m in ms)
         losses = [m.mean_loss for m in ms]
         if not all(math.isfinite(v) for v in losses):
-            fail(f"device epoch ({dtype}, paired={paired}): non-finite loss {losses}")
-        if counts[f"assemble_{tag}"] != steps or sum(counts.values()) != steps:
-            fail(f"device epoch ({dtype}, paired={paired}): launches "
-                 f"{out['launches']} over {steps} steps, expected one assemble_{tag} a step "
+            fail(f"device epoch ({dtype}, paired={paired}, {compute}): non-finite loss {losses}")
+        if counts[key] != steps or sum(counts.values()) != steps:
+            fail(f"device epoch ({dtype}, paired={paired}, {compute}): launches "
+                 f"{out['launches']} over {steps} steps, expected one {key} a step "
                  "and no other gather kernel")
         return d_tr, out
 
     dev_tr, dev_out = {}, {}
     for label, n_epochs, kw in (("f32", 2, {}), ("f32_paired", 2, {"paired": True}),
                                 ("bf16_paired", 1, {"dtype": "bfloat16", "paired": True}),
-                                ("int8_paired", 1, {"dtype": "int8", "paired": True})):
+                                ("int8_paired", 1, {"dtype": "int8", "paired": True}),
+                                ("bf16_compute", 1, {"dtype": "bfloat16", "paired": True,
+                                                     "compute": "bfloat16"})):
         dev_tr[label], dev_out[label] = device_run(n_epochs, **kw)
-        if label == "f32_paired":
+        if label in ("f32_paired", "bf16_compute"):
             del dev_tr[label]                # keep the card's memory for what follows
     emit("device_epoch", dev_out)
     for label in ("f32", "f32_paired"):
@@ -498,8 +670,8 @@ def main() -> None:
     g1 = torch.randn(b1.cap_dst, 2 * cfg.model.hidden, generator=gen, device=dev)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
-    def rows_bytes(n, d):
-        return 4 * n * d
+    def rows_bytes(n, d, size=4):
+        return size * n * d
 
     def distinct(*idx):
         """Distinct source rows that one launch reads through these
@@ -594,12 +766,13 @@ def main() -> None:
     def expanded(g, kind):
         """The index_add_ yardstick's input: the per-row division and the
         expansion over valid slots, done outside the timed call."""
-        return (g / cnt1 if kind == "mean" else g)[rows1].contiguous()
+        return (g / cnt1.to(g.dtype) if kind == "mean" else g)[rows1].contiguous()
 
     def same_fn(g_self, g_neigh, kind):
         """The backward from the kernel's own inputs in PyTorch calls: a
         zeroed table, the division and expansion, the index_add_ calls."""
-        out = torch.zeros(s1, d1, device=dev)
+        out = torch.zeros(s1, d1, device=dev,
+                          dtype=(g_self if g_self is not None else g_neigh).dtype)
         if g_self is not None:
             out.index_add_(0, b1.self_pos, g_self)
         if g_neigh is not None:
@@ -689,6 +862,90 @@ def main() -> None:
             same_fn=lambda k=rk: same_fn(g1, g1n, k),
             nbytes=4 * n1 + 5 * n1 * f1 + 2 * rows_bytes(n1, d1) + rows_bytes(s1, d1)))
 
+    # -- bf16 compute: the block kernels on bf16 rows, the assembly to bf16 --
+    # the same batch and blocks; block 0's rows are the f32 tier's assembly
+    # to bf16, block 1's and the gradients the f32 tensors above rounded.
+    # The bound counts bf16 rows (2 bytes a value).  launches: the bf16_train
+    # runs (mean over the bf16 tier; sum over the f32 tier), the store_int8
+    # run (int8 tier) and the device_epoch bf16 compute run
+    bf = torch.bfloat16
+    feats_bf = gk.assemble(cv, src_row, miss_feats, out_dtype=bf)
+    h1_bf, g1_bf, g1n_bf = h1.to(bf), g1.to(bf), g1n.to(bf)
+    bf_runs = {"mean": bf_launches, "sum": bf_gcn_launches}
+    for rk in ("mean", "sum"):
+        for label, src, blk in (("block0", feats_bf, b0), ("block1", h1_bf, b1)):
+            flat, offs, _ = reduce_inputs(blk.neigh_pos, blk.neigh_mask)
+            n, f = blk.neigh_pos.shape
+            d = src.shape[1]
+            n_s = blk.self_pos.shape[0]
+            neigh_rows = blk.neigh_pos[blk.neigh_mask]
+            cases.append(dict(
+                name=f"block_gather_fwd_{rk}_bf16[{label}]", key=f"block_gather_fwd_{rk}_bf16",
+                launches=bf_runs[rk][f"block_gather_fwd_{rk}_bf16"],
+                replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas "
+                         "(bf16 source rows)",
+                shape=f"src {list(src.shape)} bf16 self_pos [{n_s}] pos/mask [{n}, {f}]",
+                tol=("exact", "bf16"),
+                kernel=lambda s=src, b=blk, k=rk: gk.block_gather_fwd(
+                    s, b.self_pos, b.neigh_pos, b.neigh_mask, k),
+                plain=lambda s=src, b=blk, k=rk: gk.block_gather_fwd_plain(
+                    s, b.self_pos, b.neigh_pos, b.neigh_mask, k),
+                library=lambda s=src, ids=blk.self_pos.long(), fl=flat, of=offs, k=rk: (
+                    torch.index_select(s, 0, ids),
+                    torch.nn.functional.embedding_bag(fl, s, of, mode=k)),
+                same_fn=lambda s=src, b=blk, k=rk: fwd_same_fn(s, b, k),
+                nbytes=4 * n_s + 5 * n * f + rows_bytes(distinct(blk.self_pos, neigh_rows), d, 2)
+                + rows_bytes(n_s, d, 2) + rows_bytes(n, d, 2)))
+        bs_bf, bn_bf = torch.zeros_like(h1_bf), torch.zeros_like(h1_bf)
+        cases.append(dict(
+            name=f"block_gather_bwd_{rk}_bf16[block1]", key=f"block_gather_bwd_{rk}_bf16",
+            launches=bf_runs[rk][f"block_gather_bwd_{rk}_bf16"],
+            replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas "
+                     "(backward of both on bf16 gradients; JAX: autodiff of jnp.take)",
+            shape=f"g_self {list(g1.shape)} bf16 self_pos [{n1}], g_neigh {list(g1n.shape)} "
+                  f"bf16 pos/mask [{n1}, {f1}] -> {list(h1.shape)} bf16 (memset, the "
+                  "reductions into an f32 table, grad_to_bf16: one C call)",
+            tol="bf16",
+            kernel=lambda k=rk: gk.block_gather_bwd(g1_bf, b1.self_pos, g1n_bf, b1.neigh_pos,
+                                                    b1.neigh_mask, s1, k),
+            plain=lambda k=rk: gk.block_gather_bwd_plain(g1_bf, b1.self_pos, g1n_bf,
+                                                         b1.neigh_pos, b1.neigh_mask, s1, k),
+            library=lambda ex=expanded(g1n_bf, rk), bs=bs_bf, bn=bn_bf: (
+                bs.index_add_(0, ids1_l, g1_bf), bn.index_add_(0, flat1, ex)),
+            same_fn=lambda k=rk: same_fn(g1_bf, g1n_bf, k),
+            nbytes=4 * n1 + 5 * n1 * f1 + 2 * rows_bytes(n1, d1, 2) + rows_bytes(s1, d1, 2)))
+    bf_assemble_runs = {"float32": bf_gcn_launches, "bfloat16": bf_launches,
+                        "int8": q_launches}
+    for dtype, tag in TIERS.items():
+        cv_t, sr_t, mf_t, sc_t = tier_in[dtype]
+        cases.append(dict(
+            name=f"assemble[{tag}->bf16]", key=f"assemble_{tag}_to_bf16",
+            launches=bf_assemble_runs[dtype][f"assemble_{tag}_to_bf16"],
+            replaces=f"{PALLAS}:58 gather_rows_pallas (+ storage/cache.py:103 "
+                     "assemble_features, :69 dequantize_fused, train/state.py:50 the bf16 cast)",
+            shape=f"cache {list(cv_t.shape)} {cv_t.dtype} miss {list(mf_t.shape)} "
+                  f"src_row [{n0}] -> bf16",
+            tol="exact",
+            kernel=lambda a=tier_in[dtype]: gk.assemble(*a, out_dtype=bf),
+            plain=lambda a=tier_in[dtype]: gk.assemble_plain(*a, out_dtype=bf),
+            library=None, same_fn=lambda a=tier_in[dtype]: assemble_same_fn(*a).to(bf),
+            nbytes=4 * n0 + distinct(sr_t) * d0 * cv_t.element_size() + rows_bytes(n0, d0, 2)
+            + (0 if sc_t is None else 4 * d0)))
+    cv_f = d_full["bf16"][0]
+    cases.append(dict(
+        name="assemble_full[bf16->bf16]", key="assemble_bf16_to_bf16",
+        launches=dev_out["bf16_compute"]["launches"]["assemble_bf16_to_bf16"],
+        replaces=f"{PALLAS}:58 gather_rows_pallas (on-device layer-0 fetch at bf16 compute: "
+                 "ops/gather.py:21 chunked_take + storage/cache.py:69 dequantize_fused "
+                 "+ train/state.py:50 the bf16 cast)",
+        shape=f"cache {list(cv_f.shape)} {cv_f.dtype} ids [{nd}], no miss rows -> bf16",
+        tol="exact",
+        kernel=lambda: take_rows(cv_f, d_ids, out_dtype=bf),
+        plain=lambda: gk.assemble_plain(cv_f, d_ids, cv_f[:0], out_dtype=bf),
+        library=lambda: torch.index_select(cv_f, 0, d_ids),
+        same_fn=lambda: torch.index_select(cv_f, 0, d_ids),
+        nbytes=4 * nd + nd_distinct * dd * 2 + rows_bytes(nd, dd, 2)))
+
     entries, bad = [], []
     for c in cases:
         err, ok, tol_text = compare(torch, c["kernel"](), c["plain"](), c["tol"])
@@ -740,7 +997,7 @@ def main() -> None:
     emit("timing_floor", {
         "empty_event_pair_ms": time_ms(torch, lambda: None, flush),
         "block_bwd_memset_ms": time_ms(torch, lambda: gk._lib().pg_block_gather_bwd(
-            None, None, 0, None, None, None, 0, 0, table.data_ptr(), s1, d1, 0, 1,
+            None, None, 0, None, None, None, 0, 0, table.data_ptr(), None, s1, d1, 0, 1, 0,
             torch.cuda.current_stream(dev).cuda_stream), flush),
         "memset_shape": [s1, d1],
         "copy_block0_fwd_bytes_ms": time_ms(torch, lambda: copy_dst.copy_(copy_src), flush),
@@ -754,7 +1011,7 @@ def main() -> None:
         g = torch.Generator(device=dev)
         g.set_state(src.generator.get_state())
         return TrainState(model=model, optimizer=make_optimizer(c, model.parameters()),
-                          generator=g)
+                          generator=g, dtype=src.dtype)
 
     parities = {}
     for dtype, tag in TIERS.items():
@@ -785,11 +1042,57 @@ def main() -> None:
             fail(f"the kernel step ({dtype} cache) launched {parity['kernel_launches']} "
                  "kernels, expected 4 with one assembly of its tier")
 
+    # -- bf16_step_parity: one bf16-compute step a tier, kernel and plain -----
+    # from the bf16_train model; the loss within 1e-2 relative and each
+    # gradient within ||g - g_plain|| <= 2e-2 ||g_plain|| (bf16 reductions
+    # round in another order); 5 launches, all bf16; the assembly to bf16
+    # bit-equal to its plain version
+    bf_parities = {}
+    for dtype, tag in TIERS.items():
+        cv_t, sr_t, mf_t, sc_t = tier_in[dtype]
+        s_kernel, s_plain = clone_state(bf_tr.state, bf_cfg), clone_state(bf_tr.state, bf_cfg)
+        gk.reset_launch_counts()
+        m_kernel = train_step(s_kernel, mb, mf_t, sr_t, cv_t, sc_t)
+        with gk.plain_versions():
+            m_plain = train_step(s_plain, mb, mf_t, sr_t, cv_t, sc_t)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in gk.launch_counts().items() if v}
+        l_k, l_p = m_kernel["loss"].item(), m_plain["loss"].item()
+        parity = {"loss_kernel": l_k, "loss_plain": l_p,
+                  "loss_rel_err": abs(l_k - l_p) / max(abs(l_p), 1e-30),
+                  "launches": counts,
+                  "assemble_bit_equal": torch.equal(gk.assemble(*tier_in[dtype], out_dtype=bf),
+                                                    gk.assemble_plain(*tier_in[dtype],
+                                                                      out_dtype=bf)),
+                  "grads_rel_norm_err": {}}
+        for (name, pk), (_, pp) in zip(s_kernel.model.named_parameters(),
+                                       s_plain.model.named_parameters()):
+            parity["grads_rel_norm_err"][name] = (
+                (pk.grad - pp.grad).norm().item() / max(pp.grad.norm().item(), 1e-30))
+        bf_parities[dtype] = parity
+    emit("bf16_step_parity", bf_parities)
+    for dtype, parity in bf_parities.items():
+        tag = TIERS[dtype]
+        if not (parity["loss_rel_err"] <= 1e-2
+                and max(parity["grads_rel_norm_err"].values()) <= 2e-2):
+            fail(f"bf16 step parity ({dtype} cache): {parity}")
+        if parity["launches"] != {f"assemble_{tag}_to_bf16": 1, "block_gather_fwd_mean_bf16": 2,
+                                  "block_gather_bwd_mean_bf16": 1, "grad_to_bf16": 1}:
+            fail(f"bf16 step parity ({dtype} cache): launches {parity['launches']}, expected "
+                 f"one assemble_{tag}_to_bf16, two bf16 block forwards, one bf16 backward "
+                 "and one grad_to_bf16")
+        if not parity["assemble_bit_equal"]:
+            fail(f"bf16 step parity ({dtype} cache): the assembly to bf16 is not bit-equal")
+
     # -- breakdown: host pipeline alone vs device step alone -----------------
     t0 = time.perf_counter()
     n_items = sum(1 for _ in tr.loader.epoch())
     torch.cuda.synchronize()
     loader_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sum(1 for _ in bf_tr.loader.epoch())
+    torch.cuda.synchronize()
+    loader_bf_s = time.perf_counter() - t0
 
     def host_and_device(fn, reps: int = 20, dev_reps: int = 2):
         """Host enqueue and wall time a call (``reps`` back to back), and
@@ -821,6 +1124,10 @@ def main() -> None:
     s_bench = clone_state(tr.state, cfg)
     t_step = host_and_device(lambda: train_step(s_bench, mb, miss_feats, src_row, cv),
                              dev_reps=4)
+    cv_b, sr_b, mf_b, _ = tier_in["bfloat16"]
+    s_bench_bf = clone_state(bf_tr.state, bf_cfg)
+    t_step_bf = host_and_device(lambda: train_step(s_bench_bf, mb, mf_b, sr_b, cv_b),
+                                dev_reps=4)
     emit("breakdown", {
         "loader_only_epoch_s": loader_s, "loader_batches": n_items,
         "train_epoch_s": epochs[1].time_s,
@@ -828,6 +1135,9 @@ def main() -> None:
         "step_device_ms": t_step["device_ms"],
         "device_time_is_pure": t_step["device_time_is_pure"],
         "sleep_ms": t_step["sleep_ms"],
+        "bf16_step": {"cache": "bfloat16", "compute": "bfloat16", **t_step_bf,
+                      "loader_only_epoch_s": loader_bf_s,
+                      "train_epoch_s": bf_epochs[1].time_s},
         "note": "steps on one pre-shipped batch, no loader threads running",
     })
 

@@ -8,32 +8,38 @@
 //     _gather_sum_kernel :86), with a 'sum' kind beside 'mean'.  A GraphSAGE
 //     block gathers the same source table twice, for its self rows and for
 //     its neighbor mean, so one launch writes both outputs; either half may
-//     be absent, which makes it the forward of one gather alone.
+//     be absent, which makes it the forward of one gather alone.  Both
+//     Pallas kernels compute at their source's dtype (:79, :157, :163), so
+//     the table is f32 or bf16 (train.dtype="bfloat16"), and so are the
+//     outputs.
 //   * pg_assemble <- gather_rows_pallas, folding in the two-source cache
 //     hit/miss selection of pagraph_tpu/storage/cache.py assemble_features
 //     and the f32 promotion (int8: times a per-column scale) of its
-//     dequantize_fused, both of which the JAX package leaves to XLA.
+//     dequantize_fused, both of which the JAX package leaves to XLA, and, at
+//     bf16 compute, the cast of train/state.py cast_apply.
 //   * pg_block_gather_bwd: the backward of both halves.  The Pallas kernels
 //     are forward-only (JAX differentiates jnp.take); the port trains through
 //     these kernels, so their gradient is a kernel too: one launch takes both
-//     incoming gradients and writes the one gradient table.
+//     incoming gradients and writes the one gradient table (in f32; bf16
+//     gradients get a bf16 table, rounded from it by a second launch).
 //
 // What bounds them: device-memory bytes and latency, not FLOPs.  A row gather
 // does no arithmetic; the reduction does fanout adds per output element.  The
 // least traffic is the index bytes, the bytes of each distinct source row a
 // launch reads, and the output bytes, each once; chip_smoke.py's bound_ms
-// counts that at the main path's blocks (PERF.md).  Rows are 128-400 bytes, so each row is a few independent loads whose
-// latency (not the bytes) sets the time unless enough rows are in flight;
-// at block 1 the launch's fixed cost is most of it.
+// counts that at the main path's blocks (PERF.md).  Rows are 64-400 bytes, so
+// each row is a few independent loads whose latency (not the bytes) sets the
+// time unless enough rows are in flight; at block 1 the launch's fixed cost
+// is most of it.
 //
 // What the design does about it:
 //   * one launch a block for both gathers (the forward and the backward),
 //     so each block pays the launch and the first memory round trip once;
 //   * a group of G lanes serves one row, G the smallest power of two >= the
-//     row's units (at most 32); a unit is a float4 when D % 4 == 0 and every
-//     table is 16-byte aligned, else a float.  At D = 32 that is 8 lanes, 4
-//     rows a warp, where one warp a row left 24 lanes idle; at D = 100, one
-//     warp of 25 active lanes.  Rows move in coalesced 16-byte transactions;
+//     row's units (at most 32); a unit is 4 elements (a float4 of f32, 8
+//     bytes of bf16) when D % 4 == 0 and every table is aligned to it, else
+//     one element.  At D = 32 that is 8 lanes, 4 rows a warp, where one warp
+//     a row left 24 lanes idle; at D = 100, one warp of 25 active lanes;
 //   * a row's indices (its self position, its fan-out positions and mask
 //     bytes) are loaded once and held in registers, with the fan-out a
 //     template parameter so the slot loops unroll; fan-outs with no
@@ -42,7 +48,10 @@
 //     is issued before its first add or store, so a row waits for memory
 //     once; masked slots issue no load, as in the Pallas kernel, where
 //     invalid slots start no DMA;
-//   * the mean is one reciprocal a row, not a division per element;
+//   * values are f32 in registers at every element type: bf16 widens by a
+//     shift, the neighbor sum accumulates in f32, the mean is one reciprocal
+//     a row, not a division per element, and a bf16 output is rounded to
+//     nearest even once; a self row is copied as it is;
 //   * the forward's grid is one row per group of lanes.  A grid capped at
 //     the blocks the card holds resident, each group walking rows with a
 //     stride and loading the next row's indices first (the counterpart of
@@ -56,19 +65,27 @@
 //     issuing all 4 rows' loads before the first store; the rows are read at
 //     the tier's own width (4, 2 or 1 byte a value, 4-column units of 16, 8
 //     or 4 bytes) and widened in registers, so the bf16 and int8 tiers move
-//     a half and a quarter of the f32 row bytes;
-//   * the backward's table (~2 MB, in the 50 MB L2) is zeroed with
-//     cudaMemsetAsync and filled by one kernel in the same C call, with
-//     16-byte vector reductions (atomicAdd(float4*), red.global.add.v4.f32
-//     on sm_90) on the float4 path, else scalar f32 reductions.
+//     a half and a quarter of the f32 row bytes; at bf16 compute the output
+//     is written as bf16, half the f32 output bytes;
+//   * the backward's table (~1-2 MB, in the 50 MB L2) is f32 at every
+//     element type: zeroed with cudaMemsetAsync and filled by one kernel in
+//     the same C call, with one 16-byte reduction a 4-element unit
+//     (atomicAdd(float4*), red.global.add.v4.f32 on sm_90) and scalar f32
+//     reductions otherwise.  Bf16 gradients are widened as they are loaded,
+//     and the f32 table is rounded to the bf16 gradient table by a second
+//     kernel in the same call.  Adding in bf16 (red.global.add.noftz.bf16x2)
+//     rounds every add, in an order the atomics choose: on the main path's
+//     block 1 that missed 1e-2 of the sum, so the port adds in f32 and
+//     rounds once (one more launch, PERF.md).
 //
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
-// sizes are int64_t / int.  Kernels run on the caller's stream, allocate
-// nothing and do not synchronize.  Each entry point returns
-// cudaGetLastError() so a refused launch is reported to the caller.
-// Indices must be in range; the Python wrappers check shapes, dtypes,
-// devices and contiguity.
+// sizes are int64_t / int; element types are codes (0 f32, 1 bf16).  Kernels
+// run on the caller's stream, allocate nothing and do not synchronize.  Each
+// entry point returns cudaGetLastError() so a refused launch is reported to
+// the caller.  Indices must be in range; the Python wrappers check shapes,
+// dtypes, devices and contiguity.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,21 +97,83 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
 
-__device__ __forceinline__ void add4(float4& a, const float4& b) {
-  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+// ---------------------------------------------------------------------------
+// element types and their units
+// ---------------------------------------------------------------------------
+// Rows hold float, uint16_t (bf16 bit patterns) or int8_t.  A unit is 4
+// elements (VEC: a float4, a uint2, a char4) or one; in registers it is a
+// float4 or a float.
+
+template <typename T> struct Unit4;
+template <> struct Unit4<float> { using type = float4; };
+template <> struct Unit4<uint16_t> { using type = uint2; };
+template <> struct Unit4<int8_t> { using type = char4; };
+
+template <typename T, bool VEC>
+using UnitOf = typename std::conditional<VEC, typename Unit4<T>::type, T>::type;
+template <bool VEC>
+using ValOf = typename std::conditional<VEC, float4, float>::type;
+
+template <typename T, bool VEC>
+__device__ __forceinline__ const UnitOf<T, VEC>* unit_row(const T* table, int64_t row, int d) {
+  return reinterpret_cast<const UnitOf<T, VEC>*>(table + row * d);
+}
+template <typename T, bool VEC>
+__device__ __forceinline__ UnitOf<T, VEC>* unit_row(T* table, int64_t row, int d) {
+  return reinterpret_cast<UnitOf<T, VEC>*>(table + row * d);
 }
 
-__device__ __forceinline__ float4 scale4(float4 v, float s) {
+// bf16 -> f32 is exact: the 16 bits are the top half of the f32.
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+__device__ __forceinline__ float widen(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float4 widen(const float4& u) { return u; }
+__device__ __forceinline__ float4 widen(const uint2& u) {    // little-endian pairs
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 widen(const char4& u) {
+  return make_float4(static_cast<float>(u.x), static_cast<float>(u.y),
+                     static_cast<float>(u.z), static_cast<float>(u.w));
+}
+
+// f32 -> bf16, rounded to nearest even (torch's .to(torch.bfloat16) on
+// finite values)
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// store f32 values as a unit of the output's element type
+__device__ __forceinline__ void st_unit(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_unit(uint16_t* p, float v) {
+  *p = static_cast<uint16_t>(bf16_bits(v));
+}
+__device__ __forceinline__ void st_unit(float4* p, const float4& v) { *p = v; }
+__device__ __forceinline__ void st_unit(uint2* p, const float4& v) {
+  *p = make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                  bf16_bits(v.z) | (bf16_bits(v.w) << 16));
+}
+
+// add f32 values into a unit of f32 device memory.  sm_90 declares
+// atomicAdd for float4 (global memory only); with the result unused it
+// compiles to a reduction (REDG.E.ADD.F32x4), not a fetch-and-add.
+__device__ __forceinline__ void red_unit(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ void red_unit(float4* p, const float4& v) { atomicAdd(p, v); }
+
+__device__ __forceinline__ void add_to(float& a, float b) { a += b; }
+__device__ __forceinline__ void add_to(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+__device__ __forceinline__ float scaled(float v, float s) { return v * s; }
+__device__ __forceinline__ float4 scaled(float4 v, float s) {
   v.x *= s; v.y *= s; v.z *= s; v.w *= s;
   return v;
 }
-
-__device__ __forceinline__ float4 ldg4(const float* row, int i) {
-  return __ldg(reinterpret_cast<const float4*>(row) + i);
-}
-
-__device__ __forceinline__ void st4(float* row, int i, const float4& v) {
-  reinterpret_cast<float4*>(row)[i] = v;
+__device__ __forceinline__ float4 scaled(float4 v, const float4& s) {
+  v.x *= s.x; v.y *= s.y; v.z *= s.z; v.w *= s.w;
+  return v;
 }
 
 // log2 of the lanes that serve one row: the smallest power of two covering
@@ -141,13 +220,16 @@ __device__ __forceinline__ RowIdx<FANOUT> load_idx(
 // One row of both outputs:
 //   out_self[row]  = src[x.self]                                   row < n_self
 //   out_neigh[row] = sum_k mask[row,k] * src[pos[row,k]]  (* 1/max(count,1) for MEAN)
-template <int FANOUT, bool MEAN, bool VEC>
+// The sum is f32 in registers, rounded once to T.
+template <typename T, int FANOUT, bool MEAN, bool VEC>
 __device__ __forceinline__ void block_fwd_row(
-    const RowIdx<FANOUT>& x, int64_t row, const float* __restrict__ src,
+    const RowIdx<FANOUT>& x, int64_t row, const T* __restrict__ src,
     int64_t n_self, const int32_t* __restrict__ pos,
     const uint8_t* __restrict__ mask, int64_t n_neigh, int fanout_rt,
-    float* __restrict__ out_self, float* __restrict__ out_neigh, int d,
+    T* __restrict__ out_self, T* __restrict__ out_neigh, int d,
     int group, int sub) {
+  using Unit = UnitOf<T, VEC>;
+  using Val = ValOf<VEC>;
   constexpr int kSlots = RowIdx<FANOUT>::kSlots;
   const bool has_self = row < n_self, has_neigh = row < n_neigh;
   const int F = FANOUT > 0 ? FANOUT : fanout_rt;
@@ -161,103 +243,84 @@ __device__ __forceinline__ void block_fwd_row(
     for (int k = 0; k < F; ++k) count += m[k] ? 1 : 0;
   }
   const float s = MEAN && count > 0 ? 1.f / static_cast<float>(count) : 1.f;
-  const float* src_self = src + static_cast<int64_t>(x.self) * d;
-  float* os = has_self ? out_self + row * d : nullptr;
-  float* on = has_neigh ? out_neigh + row * d : nullptr;
+  const Unit* src_self = unit_row<T, VEC>(src, x.self, d);
+  Unit* os = has_self ? unit_row<T, VEC>(out_self, row, d) : nullptr;
+  Unit* on = has_neigh ? unit_row<T, VEC>(out_neigh, row, d) : nullptr;
   const int units = VEC ? d / 4 : d;
   for (int i = sub; i < units; i += group) {
-    if (VEC) {
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 vs = has_self ? ldg4(src_self, i) : zero;
-      float4 acc = zero;
-      if (FANOUT > 0) {
-        float4 v[kSlots];
+    const Unit vs = has_self ? __ldg(src_self + i) : Unit{};
+    Val acc{};
+    if (FANOUT > 0) {
+      Unit v[kSlots];
 #pragma unroll
-        for (int k = 0; k < kSlots; ++k)
-          v[k] = x.m[k] ? ldg4(src + static_cast<int64_t>(x.p[k]) * d, i) : zero;
+      for (int k = 0; k < kSlots; ++k)
+        v[k] = x.m[k] ? __ldg(unit_row<T, VEC>(src, x.p[k], d) + i) : Unit{};
 #pragma unroll
-        for (int k = 0; k < kSlots; ++k)
-          if (x.m[k]) add4(acc, v[k]);
-      } else if (has_neigh) {
-        for (int k = 0; k < F; ++k)
-          if (m[k]) add4(acc, ldg4(src + static_cast<int64_t>(p[k]) * d, i));
-      }
-      if (has_self) st4(os, i, vs);
-      if (has_neigh) st4(on, i, MEAN ? scale4(acc, s) : acc);
-    } else {
-      const float vs = has_self ? __ldg(src_self + i) : 0.f;
-      float acc = 0.f;
-      if (FANOUT > 0) {
-        float v[kSlots];
-#pragma unroll
-        for (int k = 0; k < kSlots; ++k)
-          v[k] = x.m[k] ? __ldg(src + static_cast<int64_t>(x.p[k]) * d + i) : 0.f;
-#pragma unroll
-        for (int k = 0; k < kSlots; ++k)
-          if (x.m[k]) acc += v[k];
-      } else if (has_neigh) {
-        for (int k = 0; k < F; ++k)
-          if (m[k]) acc += __ldg(src + static_cast<int64_t>(p[k]) * d + i);
-      }
-      if (has_self) os[i] = vs;
-      if (has_neigh) on[i] = MEAN ? acc * s : acc;
+      for (int k = 0; k < kSlots; ++k)
+        if (x.m[k]) add_to(acc, widen(v[k]));
+    } else if (has_neigh) {
+      for (int k = 0; k < F; ++k)
+        if (m[k]) add_to(acc, widen(__ldg(unit_row<T, VEC>(src, p[k], d) + i)));
     }
+    if (has_self) os[i] = vs;                       // a copy, at any T
+    if (has_neigh) st_unit(on + i, MEAN ? scaled(acc, s) : acc);
   }
 }
 
 // Forward of a block's two gathers of one source table.  A group of
 // 1 << lg lanes serves one row.
-template <int FANOUT, bool MEAN, bool VEC>
+template <typename T, int FANOUT, bool MEAN, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-block_gather_fwd_kernel(const float* __restrict__ src,
+block_gather_fwd_kernel(const T* __restrict__ src,
                         const int32_t* __restrict__ self_pos, int64_t n_self,
                         const int32_t* __restrict__ pos,
                         const uint8_t* __restrict__ mask, int64_t n_neigh,
-                        int fanout_rt, float* __restrict__ out_self,
-                        float* __restrict__ out_neigh, int d, int lg) {
+                        int fanout_rt, T* __restrict__ out_self,
+                        T* __restrict__ out_neigh, int d, int lg) {
   const int64_t rows = n_self > n_neigh ? n_self : n_neigh;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
   if (row >= rows) return;
   const int group = 1 << lg;
   const int sub = threadIdx.x & (group - 1);
   const RowIdx<FANOUT> x = load_idx<FANOUT>(row, self_pos, n_self, pos, mask, n_neigh);
-  block_fwd_row<FANOUT, MEAN, VEC>(x, row, src, n_self, pos, mask, n_neigh,
-                                   fanout_rt, out_self, out_neigh, d, group, sub);
+  block_fwd_row<T, FANOUT, MEAN, VEC>(x, row, src, n_self, pos, mask, n_neigh,
+                                      fanout_rt, out_self, out_neigh, d, group, sub);
 }
 
+template <typename T>
 struct BlockFwdArgs {
-  const float* src;
+  const T* src;
   const int32_t* self_pos;
   int64_t n_self;
   const int32_t* pos;
   const uint8_t* mask;
   int64_t n_neigh;
   int fanout;
-  float* out_self;
-  float* out_neigh;
+  T* out_self;
+  T* out_neigh;
   int d;
 };
 
-template <int FANOUT, bool MEAN, bool VEC>
-void launch_block_fwd_as(const BlockFwdArgs& a, cudaStream_t st) {
+template <typename T, int FANOUT, bool MEAN, bool VEC>
+void launch_block_fwd_as(const BlockFwdArgs<T>& a, cudaStream_t st) {
   const int lg = lanes_lg(VEC ? a.d / 4 : a.d);
   const int64_t rows = a.n_self > a.n_neigh ? a.n_self : a.n_neigh;
   const dim3 grid(static_cast<unsigned>(ceil_div(rows, kThreads >> lg)));
-  block_gather_fwd_kernel<FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
+  block_gather_fwd_kernel<T, FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
       a.src, a.self_pos, a.n_self, a.pos, a.mask, a.n_neigh, a.fanout,
       a.out_self, a.out_neigh, a.d, lg);
 }
 
-template <int FANOUT>
-void launch_block_fwd(const BlockFwdArgs& a, bool mean, bool vec, cudaStream_t st) {
+template <typename T, int FANOUT>
+void launch_block_fwd(const BlockFwdArgs<T>& a, bool mean, bool vec, cudaStream_t st) {
   if (mean && vec) {
-    launch_block_fwd_as<FANOUT, true, true>(a, st);
+    launch_block_fwd_as<T, FANOUT, true, true>(a, st);
   } else if (mean) {
-    launch_block_fwd_as<FANOUT, true, false>(a, st);
+    launch_block_fwd_as<T, FANOUT, true, false>(a, st);
   } else if (vec) {
-    launch_block_fwd_as<FANOUT, false, true>(a, st);
+    launch_block_fwd_as<T, FANOUT, false, true>(a, st);
   } else {
-    launch_block_fwd_as<FANOUT, false, false>(a, st);
+    launch_block_fwd_as<T, FANOUT, false, false>(a, st);
   }
 }
 
@@ -265,54 +328,17 @@ void launch_block_fwd(const BlockFwdArgs& a, bool mean, bool vec, cudaStream_t s
 // layer-0 assembly
 // ---------------------------------------------------------------------------
 
-// The cache tiers.  A unit is 4 columns at every tier: a float4 (16 bytes)
-// of f32, a uint2 (8 bytes) of bf16 bit patterns, a char4 (4 bytes) of
-// int8.  Each unit is widened to a float4 in registers; int8 is then
-// multiplied by its 4 per-column scales, one f32 multiply a value, which is
-// the IEEE result of the JAX package's dequantize_fused.
-struct TierF32 {
-  using T = float;
-  using Unit = float4;
-  static constexpr bool kScale = false;
-};
-struct TierBF16 {
-  using T = uint16_t;
-  using Unit = uint2;
-  static constexpr bool kScale = false;
-};
-struct TierI8 {
-  using T = int8_t;
-  using Unit = char4;
-  static constexpr bool kScale = true;
-};
-
-// bf16 -> f32 is exact: the 16 bits are the top half of the f32.
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(uint16_t v) {
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
-}
-__device__ __forceinline__ float widen(int8_t v) { return static_cast<float>(v); }
-
-__device__ __forceinline__ float4 widen4(const float4& u) { return u; }
-__device__ __forceinline__ float4 widen4(const uint2& u) {   // little-endian pairs
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-__device__ __forceinline__ float4 widen4(const char4& u) {
-  return make_float4(static_cast<float>(u.x), static_cast<float>(u.y),
-                     static_cast<float>(u.z), static_cast<float>(u.w));
-}
-
-__device__ __forceinline__ float4 mul4(float4 v, const float4& s) {
-  v.x *= s.x; v.y *= s.y; v.z *= s.z; v.w *= s.w;
-  return v;
-}
-
 // Rows a group of lanes serves, in flight together.
 constexpr int kRowsPerGroup = 4;
 
 // s = src_row[r];  row = s >= 0 ? cache[s] : miss[-1 - s]
-// out[r] = float(row) (* scale for int8)
+// out[r] = Out(float(row) (* scale for int8))
+// The cache tiers: T is float, uint16_t (bf16) or int8_t; a unit is 4
+// columns at every tier (16, 8 or 4 bytes), widened to a float4 in
+// registers; int8 is then multiplied by its 4 per-column scales, one f32
+// multiply a value, which is the IEEE result of the JAX package's
+// dequantize_fused.  Out is float, or uint16_t: the f32 value rounded to
+// bf16 (nearest even), which is that result cast by cast_apply.
 // A group of 1 << lg lanes serves kRowsPerGroup consecutive rows: their
 // indices first (one 16-byte load, one round trip), then one unit of each
 // row (and the int8 scale unit, which needs no index and stays in L1), then
@@ -324,16 +350,15 @@ constexpr int kRowsPerGroup = 4;
 // unit path, D > 32 on the scalar one), each such pass loads before it
 // stores.  VEC: 4-column units (D % 4 == 0, tables aligned to their unit);
 // else one column a unit.
-template <typename Tier, bool VEC>
+template <typename T, typename Out, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-assemble_kernel(const typename Tier::T* __restrict__ cache,
-                const typename Tier::T* __restrict__ miss,
+assemble_kernel(const T* __restrict__ cache, const T* __restrict__ miss,
                 const int32_t* __restrict__ src_row,
                 const float* __restrict__ scale,
-                float* __restrict__ out, int64_t n, int d, int lg) {
-  using T = typename Tier::T;
-  using Unit = typename std::conditional<VEC, typename Tier::Unit, T>::type;
-  using Val = typename std::conditional<VEC, float4, float>::type;
+                Out* __restrict__ out, int64_t n, int d, int lg) {
+  using Unit = UnitOf<T, VEC>;
+  using Val = ValOf<VEC>;
+  constexpr bool kScale = std::is_same<T, int8_t>::value;
   constexpr int R = kRowsPerGroup;
   static_assert(R == 4, "a group's indices are one int4");
   const int64_t row0 =
@@ -356,7 +381,7 @@ assemble_kernel(const typename Tier::T* __restrict__ cache,
   }
   for (int i = sub; i < units; i += group) {
     Val f{};
-    if constexpr (Tier::kScale) f = __ldg(reinterpret_cast<const Val*>(scale) + i);
+    if constexpr (kScale) f = __ldg(reinterpret_cast<const Val*>(scale) + i);
     // No test on the loads or the stores: a load that only a conditional
     // store reads is sunk below the first store by the compiler.  The rows
     // are read with ld.global.cg (L2 only: each is read once), which ptxas
@@ -370,32 +395,37 @@ assemble_kernel(const typename Tier::T* __restrict__ cache,
     }
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      Val v;
-      if constexpr (VEC) {
-        v = widen4(u[j]);
-        if constexpr (Tier::kScale) v = mul4(v, f);
-      } else {
-        v = widen(u[j]);
-        if constexpr (Tier::kScale) v *= f;
-      }
-      reinterpret_cast<Val*>(out + (row0 + j) * d)[i] = v;
+      Val v = widen(u[j]);
+      if constexpr (kScale) v = scaled(v, f);
+      st_unit(unit_row<Out, VEC>(out, row0 + j, d) + i, v);
     }
   }
 }
 
-template <typename Tier>
+template <typename T, typename Out>
 void launch_assemble(const void* cache, const void* miss, const int32_t* src_row,
-                     const float* scale, float* out, int64_t n, int d, bool vec,
+                     const float* scale, void* out, int64_t n, int d, bool vec,
                      cudaStream_t st) {
-  using T = typename Tier::T;
   const int lg = lanes_lg(vec ? d / 4 : d);
   const dim3 grid(static_cast<unsigned>(ceil_div(n, (kThreads >> lg) * kRowsPerGroup)));
   const T* c = static_cast<const T*>(cache);
   const T* m = static_cast<const T*>(miss);
+  Out* o = static_cast<Out*>(out);
   if (vec) {
-    assemble_kernel<Tier, true><<<grid, kThreads, 0, st>>>(c, m, src_row, scale, out, n, d, lg);
+    assemble_kernel<T, Out, true><<<grid, kThreads, 0, st>>>(c, m, src_row, scale, o, n, d, lg);
   } else {
-    assemble_kernel<Tier, false><<<grid, kThreads, 0, st>>>(c, m, src_row, scale, out, n, d, lg);
+    assemble_kernel<T, Out, false><<<grid, kThreads, 0, st>>>(c, m, src_row, scale, o, n, d, lg);
+  }
+}
+
+template <typename T>
+void launch_assemble_to(const void* cache, const void* miss, const int32_t* src_row,
+                        const float* scale, void* out, int64_t n, int d, bool vec,
+                        bool out_bf16, cudaStream_t st) {
+  if (out_bf16) {
+    launch_assemble<T, uint16_t>(cache, miss, src_row, scale, out, n, d, vec, st);
+  } else {
+    launch_assemble<T, float>(cache, miss, src_row, scale, out, n, d, vec, st);
   }
 }
 
@@ -403,29 +433,26 @@ void launch_assemble(const void* cache, const void* miss, const int32_t* src_row
 // backward
 // ---------------------------------------------------------------------------
 
-// 16-byte vector reduction to global memory.  sm_90 declares atomicAdd for
-// float4 (global memory only); with the result unused it compiles to a
-// reduction (RED), not a fetch-and-add.
-__device__ __forceinline__ void red4(float* dst, const float4& v) {
-  atomicAdd(reinterpret_cast<float4*>(dst), v);
-}
-
-// Backward of a block's two gathers of one source table, into grad_src that
-// the caller zeroed:
-//   grad_src[self_pos[r]]  += g_self[r]                      r < n_self
-//   grad_src[pos[r, k]]    += g_neigh[r] / max(count_r, 1)   r < n_neigh, mask[r, k]
-// (undivided for !MEAN).  A group of 1 << lg lanes serves one row.  Every
-// load of a row (its indices, mask and both gradient units) is issued before
-// its first reduction.  Padded rows need no test: they carry a zero gradient
-// (self_pos 0) and no valid slot.
-template <int FANOUT, bool MEAN, bool VEC>
+// Backward of a block's two gathers of one source table, into the f32 table
+// grad that the caller zeroed:
+//   grad[self_pos[r]]  += g_self[r]                      r < n_self
+//   grad[pos[r, k]]    += g_neigh[r] / max(count_r, 1)   r < n_neigh, mask[r, k]
+// (undivided for !MEAN), the gradients T (f32 or bf16) widened to f32.  A
+// group of 1 << lg lanes serves one row.  Every load of a row (its indices,
+// mask and both gradient units) is issued before its first reduction.
+// Padded rows need no test: they carry a zero gradient (self_pos 0) and no
+// valid slot.  The division is one f32 multiply by the row's reciprocal.
+template <typename T, int FANOUT, bool MEAN, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-block_gather_bwd_kernel(const float* __restrict__ g_self,
+block_gather_bwd_kernel(const T* __restrict__ g_self,
                         const int32_t* __restrict__ self_pos, int64_t n_self,
-                        const float* __restrict__ g_neigh,
+                        const T* __restrict__ g_neigh,
                         const int32_t* __restrict__ pos,
                         const uint8_t* __restrict__ mask, int64_t n_neigh,
-                        int fanout_rt, float* __restrict__ grad_src, int d, int lg) {
+                        int fanout_rt, float* __restrict__ grad, int d, int lg) {
+  using Unit = UnitOf<T, VEC>;
+  using Acc = UnitOf<float, VEC>;
+  using Val = ValOf<VEC>;
   const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
   const bool has_self = row < n_self, has_neigh = row < n_neigh;
   if (!has_self && !has_neigh) return;
@@ -438,9 +465,8 @@ block_gather_bwd_kernel(const float* __restrict__ g_self,
   constexpr int kSlots = FANOUT > 0 ? FANOUT : 1;
   int32_t p_reg[kSlots];
   bool m_reg[kSlots];
-  float* dst_self = grad_src;
+  Acc* dst_self = has_self ? unit_row<float, VEC>(grad, self_pos[row], d) : nullptr;
   int count = 0;
-  if (has_self) dst_self += static_cast<int64_t>(self_pos[row]) * d;
 #pragma unroll
   for (int k = 0; k < F; ++k) {
     const bool on = has_neigh && m[k] != 0;
@@ -451,68 +477,83 @@ block_gather_bwd_kernel(const float* __restrict__ g_self,
     count += on ? 1 : 0;
   }
   const float s = MEAN && count > 0 ? 1.f / static_cast<float>(count) : 1.f;
-  const float* gs = g_self + row * d;
-  const float* gn = g_neigh + row * d;
+  const Unit* gs = unit_row<T, VEC>(g_self, row, d);
+  const Unit* gn = unit_row<T, VEC>(g_neigh, row, d);
   for (int i = sub; i < units; i += group) {
-    if (VEC) {
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 vs = has_self ? ldg4(gs, i) : zero;
-      float4 vn = has_neigh ? ldg4(gn, i) : zero;
-      if (has_self) red4(dst_self + 4 * i, vs);
-      if (MEAN) vn = scale4(vn, s);
+    const Val vs = has_self ? widen(__ldg(gs + i)) : Val{};
+    Val vn = has_neigh ? widen(__ldg(gn + i)) : Val{};
+    if (has_self) red_unit(dst_self + i, vs);
+    if (MEAN) vn = scaled(vn, s);
 #pragma unroll
-      for (int k = 0; k < F; ++k) {
-        const bool on = FANOUT > 0 ? m_reg[k] : has_neigh && m[k] != 0;
-        const int32_t pk = FANOUT > 0 ? p_reg[k] : p[k];
-        if (on) red4(grad_src + static_cast<int64_t>(pk) * d + 4 * i, vn);
-      }
-    } else {
-      const float vs = has_self ? __ldg(gs + i) : 0.f;
-      const float vn = has_neigh ? __ldg(gn + i) * s : 0.f;
-      if (has_self) atomicAdd(dst_self + i, vs);
-#pragma unroll
-      for (int k = 0; k < F; ++k) {
-        const bool on = FANOUT > 0 ? m_reg[k] : has_neigh && m[k] != 0;
-        const int32_t pk = FANOUT > 0 ? p_reg[k] : p[k];
-        if (on) atomicAdd(grad_src + static_cast<int64_t>(pk) * d + i, vn);
-      }
+    for (int k = 0; k < F; ++k) {
+      const bool on = FANOUT > 0 ? m_reg[k] : has_neigh && m[k] != 0;
+      const int32_t pk = FANOUT > 0 ? p_reg[k] : p[k];
+      if (on) red_unit(unit_row<float, VEC>(grad, pk, d) + i, vn);
     }
   }
 }
 
+template <typename T>
 struct BlockBwdArgs {
-  const float* g_self;
+  const T* g_self;
   const int32_t* self_pos;
   int64_t n_self;
-  const float* g_neigh;
+  const T* g_neigh;
   const int32_t* pos;
   const uint8_t* mask;
   int64_t n_neigh;
   int fanout;
-  float* grad_src;
+  float* grad;
   int d;
 };
 
-template <int FANOUT, bool MEAN, bool VEC>
-void launch_block_bwd_as(const BlockBwdArgs& a, cudaStream_t st) {
+template <typename T, int FANOUT, bool MEAN, bool VEC>
+void launch_block_bwd_as(const BlockBwdArgs<T>& a, cudaStream_t st) {
   const int lg = lanes_lg(VEC ? a.d / 4 : a.d);
   const int64_t rows = a.n_self > a.n_neigh ? a.n_self : a.n_neigh;
   const dim3 grid(static_cast<unsigned>(ceil_div(rows, kThreads >> lg)));
-  block_gather_bwd_kernel<FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
+  block_gather_bwd_kernel<T, FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
       a.g_self, a.self_pos, a.n_self, a.g_neigh, a.pos, a.mask, a.n_neigh,
-      a.fanout, a.grad_src, a.d, lg);
+      a.fanout, a.grad, a.d, lg);
 }
 
-template <int FANOUT>
-void launch_block_bwd(const BlockBwdArgs& a, bool mean, bool vec, cudaStream_t st) {
+template <typename T, int FANOUT>
+void launch_block_bwd(const BlockBwdArgs<T>& a, bool mean, bool vec, cudaStream_t st) {
   if (mean && vec) {
-    launch_block_bwd_as<FANOUT, true, true>(a, st);
+    launch_block_bwd_as<T, FANOUT, true, true>(a, st);
   } else if (mean) {
-    launch_block_bwd_as<FANOUT, true, false>(a, st);
+    launch_block_bwd_as<T, FANOUT, true, false>(a, st);
   } else if (vec) {
-    launch_block_bwd_as<FANOUT, false, true>(a, st);
+    launch_block_bwd_as<T, FANOUT, false, true>(a, st);
   } else {
-    launch_block_bwd_as<FANOUT, false, false>(a, st);
+    launch_block_bwd_as<T, FANOUT, false, false>(a, st);
+  }
+}
+
+// out[i] = in[i] rounded to bf16 (nearest even) for n values: the f32
+// gradient table to the bf16 one.  VEC: a float4 in, 8 bytes out a thread
+// (n % 4 == 0, both tables aligned to their unit); a grid-stride loop.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+to_bf16_kernel(const float* __restrict__ in, uint16_t* __restrict__ out, int64_t n) {
+  using Val = ValOf<VEC>;
+  using Unit = UnitOf<uint16_t, VEC>;
+  const int64_t units = VEC ? n / 4 : n;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < units;
+       i += stride)
+    st_unit(reinterpret_cast<Unit*>(out) + i, __ldcs(reinterpret_cast<const Val*>(in) + i));
+}
+
+void launch_to_bf16(const float* in, uint16_t* out, int64_t n, cudaStream_t st) {
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(in) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 7) == 0;
+  const int64_t blocks = ceil_div(vec ? n / 4 : n, kThreads);
+  const dim3 grid(static_cast<unsigned>(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096));
+  if (vec) {
+    to_bf16_kernel<true><<<grid, kThreads, 0, st>>>(in, out, n);
+  } else {
+    to_bf16_kernel<false><<<grid, kThreads, 0, st>>>(in, out, n);
   }
 }
 
@@ -534,82 +575,123 @@ void launch_block_bwd(const BlockBwdArgs& a, bool mean, bool vec, cudaStream_t s
     default: LAUNCH(0); break;                    \
   }
 
+template <typename T>
+int block_gather_fwd(const void* src, const void* self_pos, int64_t n_self,
+                     const void* pos, const void* mask, int64_t n_neigh, int fanout,
+                     void* out_self, void* out_neigh, int d, bool mean, bool vec,
+                     cudaStream_t st) {
+  const BlockFwdArgs<T> a{static_cast<const T*>(src),
+                          static_cast<const int32_t*>(self_pos), n_self,
+                          static_cast<const int32_t*>(pos),
+                          static_cast<const uint8_t*>(mask), n_neigh,
+                          n_neigh > 0 ? fanout : 0,
+                          static_cast<T*>(out_self), static_cast<T*>(out_neigh), d};
+#define PG_LAUNCH_BLOCK_FWD(F) launch_block_fwd<T, F>(a, mean, vec, st)
+  PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_FWD)
+#undef PG_LAUNCH_BLOCK_FWD
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int block_gather_bwd(const void* g_self, const void* self_pos, int64_t n_self,
+                     const void* g_neigh, const void* pos, const void* mask,
+                     int64_t n_neigh, int fanout, float* grad, int64_t num_src,
+                     int d, bool mean, bool vec, cudaStream_t st) {
+  const cudaError_t rc = cudaMemsetAsync(
+      grad, 0, static_cast<size_t>(num_src) * d * sizeof(float), st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if ((n_self == 0 && n_neigh == 0) || d == 0) return static_cast<int>(cudaGetLastError());
+  const BlockBwdArgs<T> a{static_cast<const T*>(g_self),
+                          static_cast<const int32_t*>(self_pos), n_self,
+                          static_cast<const T*>(g_neigh),
+                          static_cast<const int32_t*>(pos),
+                          static_cast<const uint8_t*>(mask), n_neigh,
+                          n_neigh > 0 ? fanout : 0, grad, d};
+#define PG_LAUNCH_BLOCK_BWD(F) launch_block_bwd<T, F>(a, mean, vec, st)
+  PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_BWD)
+#undef PG_LAUNCH_BLOCK_BWD
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Both outputs of a block's forward in one launch on the caller's stream:
 // out_self [n_self, d] = src[self_pos] and out_neigh [n_neigh, d] = the
-// masked sum (mean != 0: mean) of src over pos/mask [n_neigh, fanout].  An
-// absent half has null pointers and 0 rows (the self half: self_pos,
-// out_self, n_self; the neighbor half: pos, mask, out_neigh, n_neigh, and
-// then fanout is ignored).
+// masked sum (mean != 0: mean) of src over pos/mask [n_neigh, fanout], all
+// at the element type dtype (0 f32, 1 bf16).  An absent half has null
+// pointers and 0 rows (the self half: self_pos, out_self, n_self; the
+// neighbor half: pos, mask, out_neigh, n_neigh, and then fanout is ignored).
 int pg_block_gather_fwd(const void* src, const void* self_pos, int64_t n_self,
                         const void* pos, const void* mask, int64_t n_neigh,
                         int fanout, void* out_self, void* out_neigh, int d,
-                        int mean, int vec, void* stream) {
+                        int mean, int vec, int dtype, void* stream) {
   if ((n_self == 0 && n_neigh == 0) || d == 0) return static_cast<int>(cudaGetLastError());
-  const BlockFwdArgs a{static_cast<const float*>(src),
-                       static_cast<const int32_t*>(self_pos), n_self,
-                       static_cast<const int32_t*>(pos),
-                       static_cast<const uint8_t*>(mask), n_neigh,
-                       n_neigh > 0 ? fanout : 0,
-                       static_cast<float*>(out_self), static_cast<float*>(out_neigh), d};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PG_LAUNCH_BLOCK_FWD(F) launch_block_fwd<F>(a, mean != 0, vec != 0, st)
-  PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_FWD)
-#undef PG_LAUNCH_BLOCK_FWD
-  return static_cast<int>(cudaGetLastError());
+  switch (dtype) {
+    case 0: return block_gather_fwd<float>(src, self_pos, n_self, pos, mask, n_neigh, fanout,
+                                           out_self, out_neigh, d, mean != 0, vec != 0, st);
+    case 1: return block_gather_fwd<uint16_t>(src, self_pos, n_self, pos, mask, n_neigh,
+                                              fanout, out_self, out_neigh, d, mean != 0,
+                                              vec != 0, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// Layer-0 features out [n, d] f32 in one launch on the caller's stream
-// (out has room for n rounded up to a multiple of 4 rows, and the padding
-// rows are written too):
-// row r from cache_values[s] when s = src_row[r] >= 0, else from
-// miss_feats[-1 - s], widened to f32 (tier 0 f32, 1 bf16, 2 int8) and, for
-// int8, multiplied by scale [d].  scale is ignored (may be null) for the
+// Layer-0 features out [n, d] in one launch on the caller's stream (out has
+// room for n rounded up to a multiple of 4 rows, and the padding rows are
+// written too): row r from cache_values[s] when s = src_row[r] >= 0, else
+// from miss_feats[-1 - s], widened to f32 (tier 0 f32, 1 bf16, 2 int8) and,
+// for int8, multiplied by scale [d]; written as f32, or (out_bf16 != 0) as
+// bf16 rounded to nearest even.  scale is ignored (may be null) for the
 // other tiers; miss_feats may be null when no src_row is negative.
 int pg_assemble(const void* cache_values, const void* miss_feats,
                 const void* src_row, const void* scale, void* out, int64_t n,
-                int d, int tier, int vec, void* stream) {
+                int d, int tier, int vec, int out_bf16, void* stream) {
   if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* sr = static_cast<const int32_t*>(src_row);
   const float* sc = static_cast<const float*>(scale);
-  float* o = static_cast<float*>(out);
+  const bool v = vec != 0, ob = out_bf16 != 0;
   switch (tier) {
-    case 0: launch_assemble<TierF32>(cache_values, miss_feats, sr, sc, o, n, d, vec != 0, st); break;
-    case 1: launch_assemble<TierBF16>(cache_values, miss_feats, sr, sc, o, n, d, vec != 0, st); break;
-    case 2: launch_assemble<TierI8>(cache_values, miss_feats, sr, sc, o, n, d, vec != 0, st); break;
+    case 0: launch_assemble_to<float>(cache_values, miss_feats, sr, sc, out, n, d, v, ob, st); break;
+    case 1: launch_assemble_to<uint16_t>(cache_values, miss_feats, sr, sc, out, n, d, v, ob, st); break;
+    case 2: launch_assemble_to<int8_t>(cache_values, miss_feats, sr, sc, out, n, d, v, ob, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Zero grad_src [num_src, d] and add both halves of a block's backward into
-// it, in one memset and one launch on the caller's stream.  An absent half
-// has null pointers and 0 rows (the self half: g_self, self_pos, n_self; the
-// neighbor half: g_neigh, pos, mask, n_neigh, and then fanout is ignored).
+// Zero the f32 table [num_src, d] and add both halves of a block's backward
+// into it, in one memset and one launch on the caller's stream, from
+// gradients of the element type dtype (0 f32, 1 bf16).  At f32 that table
+// is grad_src and grad_f32 is ignored (may be null); at bf16 it is the
+// scratch grad_f32, which a second launch then rounds into the bf16 table
+// grad_src.  An absent half has null pointers and 0 rows (the self half:
+// g_self, self_pos, n_self; the neighbor half: g_neigh, pos, mask, n_neigh,
+// and then fanout is ignored).
 int pg_block_gather_bwd(const void* g_self, const void* self_pos, int64_t n_self,
                         const void* g_neigh, const void* pos, const void* mask,
-                        int64_t n_neigh, int fanout, void* grad_src,
-                        int64_t num_src, int d, int mean, int vec, void* stream) {
+                        int64_t n_neigh, int fanout, void* grad_src, void* grad_f32,
+                        int64_t num_src, int d, int mean, int vec, int dtype,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc = cudaMemsetAsync(
-      grad_src, 0, static_cast<size_t>(num_src) * d * sizeof(float), st);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  if ((n_self == 0 && n_neigh == 0) || d == 0) return static_cast<int>(cudaGetLastError());
-  const BlockBwdArgs a{static_cast<const float*>(g_self),
-                       static_cast<const int32_t*>(self_pos), n_self,
-                       static_cast<const float*>(g_neigh),
-                       static_cast<const int32_t*>(pos),
-                       static_cast<const uint8_t*>(mask), n_neigh,
-                       n_neigh > 0 ? fanout : 0,
-                       static_cast<float*>(grad_src), d};
-#define PG_LAUNCH_BLOCK_BWD(F) launch_block_bwd<F>(a, mean != 0, vec != 0, st)
-  PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_BWD)
-#undef PG_LAUNCH_BLOCK_BWD
-  return static_cast<int>(cudaGetLastError());
+  switch (dtype) {
+    case 0: return block_gather_bwd<float>(g_self, self_pos, n_self, g_neigh, pos, mask,
+                                           n_neigh, fanout, static_cast<float*>(grad_src),
+                                           num_src, d, mean != 0, vec != 0, st);
+    case 1: {
+      float* acc = static_cast<float*>(grad_f32);
+      const int rc = block_gather_bwd<uint16_t>(g_self, self_pos, n_self, g_neigh, pos, mask,
+                                                n_neigh, fanout, acc, num_src, d,
+                                                mean != 0, vec != 0, st);
+      if (rc != cudaSuccess || num_src * d == 0) return rc;
+      launch_to_bf16(acc, static_cast<uint16_t*>(grad_src), num_src * d, st);
+      return static_cast<int>(cudaGetLastError());
+    }
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

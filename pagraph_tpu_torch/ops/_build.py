@@ -33,10 +33,10 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "gather_kernels": {
         "pg_block_gather_fwd": (_P, _P, _I64, _P, _P, _I64, _I, _P, _P, _I,
-                                _I, _I, _P),
-        "pg_assemble": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P),
-        "pg_block_gather_bwd": (_P, _P, _I64, _P, _P, _P, _I64, _I, _P, _I64,
                                 _I, _I, _I, _P),
+        "pg_assemble": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
+        "pg_block_gather_bwd": (_P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P,
+                                _I64, _I, _I, _I, _I, _P),
     },
 }
 

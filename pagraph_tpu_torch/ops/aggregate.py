@@ -11,7 +11,9 @@ each (the same forward kernel with the other half absent).
 Prefix-layout blocks, which the on-device sampler
 (``sampling/device_sampler.py``) produces, need no gather: a block's self
 rows and its neighbor messages are contiguous slices, reduced in plain torch
-(the JAX package reduces them with XLA, not Pallas).
+(the JAX package reduces them with XLA, not Pallas).  Every function here
+computes at its input's dtype: f32, or bf16 under ``train.dtype="bfloat16"``
+(the kernels take both).
 """
 from __future__ import annotations
 

@@ -14,8 +14,12 @@ Three row tiers, as in the JAX package: ``float32``; ``bfloat16`` (2-byte
 rows, round to nearest even); ``int8`` (1-byte rows with a store-wide
 per-column scale, :func:`compute_dequant_scale`).  Cache rows and miss rows
 are held and shipped in the tier's dtype; the assembly kernel widens them to
-f32 (times the scale for int8).  The int8 *store* tier (pre-quantized
-fields) is not ported yet (ROADMAP queue 1).
+f32 (times the scale for int8), and writes f32 or, at bf16 compute, bf16.
+A pre-quantized store (int8 fields with their scales,
+``feature_store.quantize_store`` / ``build_prequantized``) feeds the int8
+tier with no quantization pass: its scale is the store's own, and the cache
+rows and the miss rows are gathered as stored, equal bit for bit to those
+quantized from the f32 store.
 """
 from __future__ import annotations
 
@@ -39,7 +43,11 @@ def compute_dequant_scale(store: FeatureStore, field_names: Sequence[str],
     """Per-column symmetric int8 scale over the FULL store: ``maxabs/127``
     per fused column (zero-variance columns get scale 1 so they quantize to
     exact 0).  One sequential chunked pass.  The scale is store-wide (not
-    cache-subset) so cached rows and miss rows dequantize identically."""
+    cache-subset) so cached rows and miss rows dequantize identically.  A
+    pre-quantized store short-circuits to its own fused scale: no pass over
+    the data."""
+    if store.is_quantized(field_names):
+        return store.fused_scale(field_names)
     maxabs = np.zeros(store.total_dim(field_names), dtype=np.float32)
     offs = store.field_offsets(field_names)
     for name in field_names:
@@ -96,12 +104,14 @@ def assemble_features(
     src_row: torch.Tensor,        # int32 [cap0] from FetchPlan.src_row
     miss_feats: torch.Tensor,     # [bucket, total_dim], cache_values' dtype
     dequant_scale: Optional[torch.Tensor] = None,   # f32 [total_dim], int8 only
+    out_dtype: torch.dtype = torch.float32,         # f32, or bf16 at bf16 compute
 ) -> torch.Tensor:
-    """Layer-0 features, f32 ``[cap0, total_dim]``, in one K1 launch: the
-    port's ``dequantize_fused(assemble_features(cache_values, plan),
-    scale)``.  Equal to it on every valid row; padded rows, which no valid
-    ``neigh_pos``/``self_pos`` reads, may differ."""
-    return assemble(cache_values, src_row, miss_feats, dequant_scale)
+    """Layer-0 features ``[cap0, total_dim]`` in one K1 launch: the port's
+    ``dequantize_fused(assemble_features(cache_values, plan), scale)``, as
+    f32 or cast to bf16 (``cast_apply``'s cast).  Equal to it on every valid
+    row; padded rows, which no valid ``neigh_pos``/``self_pos`` reads, may
+    differ."""
+    return assemble(cache_values, src_row, miss_feats, dequant_scale, out_dtype)
 
 
 class FeatureCache:
@@ -136,6 +146,8 @@ class FeatureCache:
         # cached rows and miss rows share it whatever the capacity
         self.dequant_scale: Optional[np.ndarray] = None
         self.dequant_scale_dev: Optional[torch.Tensor] = None
+        # a pre-quantized store feeds the int8 tier its rows as stored
+        self._store_i8 = dtype == "int8" and store.is_quantized(self.field_names)
         if dtype == "int8":
             self.dequant_scale = compute_dequant_scale(store, self.field_names)
             self.dequant_scale_dev = torch.from_numpy(self.dequant_scale).to(
@@ -178,11 +190,20 @@ class FeatureCache:
         return int(max(free - reserve_bytes, 0) // row_bytes)
 
     def _to_rows(self, rows: np.ndarray) -> torch.Tensor:
-        """f32 host rows -> host tensor in the tier's dtype (int8: quantized
-        with the store-wide scale; bf16: rounded to nearest even)."""
+        """Host rows -> host tensor in the tier's dtype: int8 rows as they
+        are; f32 rows quantized with the store-wide scale (int8) or rounded
+        to nearest even (bf16)."""
+        if rows.dtype == np.int8:
+            return torch.from_numpy(rows)
         if self.dtype == "int8":
             return torch.from_numpy(quantize_rows(rows, self.dequant_scale))
         return torch.from_numpy(rows).to(self.row_dtype)
+
+    def _gather(self, nids: np.ndarray, out: Optional[np.ndarray] = None) -> np.ndarray:
+        """The store's rows of ``nids`` (local ids): as stored (int8) when
+        the tier is int8 and the store pre-quantized, else f32."""
+        return self.store.gather(self.field_names, self.local2full[nids], out=out,
+                                 quantized=self._store_i8)
 
     def fill(self, capacity: Optional[int] = None,
              rank_by: str = "out_degree") -> None:
@@ -205,7 +226,7 @@ class FeatureCache:
             else:
                 chosen = self.rank_vertices(rank_by)[:capacity].astype(np.int64)
             self.cache_map[chosen] = np.arange(len(chosen), dtype=np.int32)
-            host_rows = self.store.gather(self.field_names, self.local2full[chosen])
+            host_rows = self._gather(chosen)
         # copy=True: on a CPU device the tensor must not alias a host buffer
         self.cache_values = self._to_rows(host_rows).to(self.device, copy=True)
 
@@ -214,7 +235,8 @@ class FeatureCache:
     def fetch_plan(self, input_nids: np.ndarray, input_mask: np.ndarray, *,
                    track: bool = True) -> FetchPlan:
         """Host-side hit/miss split + miss gather.  Miss rows are packed in
-        first-occurrence order of the valid misses, in the tier's dtype."""
+        first-occurrence order of the valid misses, in the tier's dtype (from
+        a pre-quantized store, gathered straight into the int8 buffer)."""
         nids = np.asarray(input_nids)
         mask = np.asarray(input_mask)
         pos = self.cache_map[nids]
@@ -227,13 +249,13 @@ class FeatureCache:
                 if self.track_access:
                     np.add.at(self.access_counts, nids[mask], 1)
         bucket = bucket_size(n_miss, len(nids))
-        rows = np.zeros((bucket, self.total_dim), dtype=np.float32)
+        rows = np.zeros((bucket, self.total_dim),
+                        dtype=np.int8 if self._store_i8 else np.float32)
         src_row = np.where(mask & (pos >= 0), pos, 0).astype(np.int32)
         if n_miss:
             miss_idx = np.nonzero(miss)[0]
             src_row[miss_idx] = -1 - np.arange(n_miss, dtype=np.int32)
-            self.store.gather(self.field_names, self.local2full[nids[miss_idx]],
-                              out=rows[:n_miss])
+            self._gather(nids[miss_idx], out=rows[:n_miss])
         return FetchPlan(src_row=src_row, miss_feats=self._to_rows(rows))
 
     # -- metrics ------------------------------------------------------------

@@ -5,8 +5,9 @@ When the CSR and the full feature cache live in device memory, an epoch
 needs nothing from the host: the train-vertex permutation and every step's
 random integers are drawn on the device up front, then each step samples
 (:mod:`pagraph_tpu_torch.sampling.device_sampler`), fetches layer 0 from the
-cache (:func:`pagraph_tpu_torch.ops.gather.take_rows`, one ``pg_assemble``
-launch), and runs forward, the masked cross-entropy, backward and Adam.
+cache in the compute dtype (:func:`pagraph_tpu_torch.ops.gather.take_rows`,
+one ``pg_assemble`` launch), and runs forward, the masked cross-entropy,
+backward and Adam (through ``cast_apply`` at ``train.dtype="bfloat16"``).
 Loss, accuracy and the edge and vertex counts accumulate in device tensors,
 read once at the end of the epoch.
 
@@ -39,7 +40,7 @@ from ..ops.gather import take_rows
 from ..sampling.block import MiniBatch
 from ..sampling.device_sampler import (DeviceCSR, hop_draws, hop_sizes,
                                        sample_minibatch_device)
-from .state import TrainState, train_on_features
+from .state import TrainState, compute_dtype, train_on_features
 
 METRIC_NAMES = ("loss_sum", "acc_sum", "steps", "edges", "vertices")
 
@@ -98,12 +99,14 @@ def fetch_batch(cfg: Config, seeds: torch.Tensor, smask: torch.Tensor,
                 draws: Sequence[torch.Tensor], labels: torch.Tensor, csr: DeviceCSR,
                 cache_values: torch.Tensor,
                 dequant_scale: Optional[torch.Tensor] = None) -> Tuple[MiniBatch, torch.Tensor]:
-    """Sample one batch on the device and fetch its layer-0 features (f32)
-    from the full cache: ``(mb, feats)``."""
+    """Sample one batch on the device and fetch its layer-0 features from
+    the full cache in the compute dtype (f32, or bf16 at
+    ``train.dtype="bfloat16"``): ``(mb, feats)``."""
     s = cfg.sampler
     mb = sample_minibatch_device(csr, seeds, smask, s.num_hops, s.hop_fanouts(), draws,
                                  labels=labels, paired=s.paired_draws)
-    return mb, take_rows(cache_values, mb.input_nids, dequant_scale)
+    return mb, take_rows(cache_values, mb.input_nids, dequant_scale,
+                         out_dtype=compute_dtype(cfg))
 
 
 def train_batch(state: TrainState, acc: EpochAccumulator, mb: MiniBatch,

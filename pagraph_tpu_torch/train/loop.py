@@ -23,6 +23,12 @@ asynchronously step by step and the loop never waits for the device inside
 an epoch (loss and accuracy accumulate on the device and are read once at
 the end).
 
+``train.dtype="bfloat16"`` runs both paths at bf16 compute
+(``state.cast_apply``) at every cache tier.  ``Trainer(cfg, store, ...)``
+takes a pre-quantized store (``storage.feature_store.quantize_store`` or
+``build_prequantized``) as well as an f32 one; the int8 cache then holds
+and ships the store's own rows, on the on-device path too.
+
 Not ported yet, and refused with ``NotImplementedError``: remote
 (isolation-mode) sampling, evaluation and checkpoints during training, and
 every architecture but GraphSAGE (``models.get_model``), CV-GCN included.
@@ -65,7 +71,8 @@ class EpochMetrics:
 
 
 class Trainer:
-    """One-device trainer over a (partition of a) dataset."""
+    """One-device trainer over a (partition of a) dataset.  ``store`` holds
+    the ``features`` field, f32 or pre-quantized int8 (with its scale)."""
 
     def __init__(
         self,

@@ -10,11 +10,19 @@ launches for the 2-layer model.  Nothing in a
 step waits for the device: loss and accuracy come back as device tensors.
 The on-device epoch (``train/device_epoch.py``) fetches its features
 otherwise and shares the rest, :func:`train_on_features`.
+
+``train.dtype="bfloat16"`` is the JAX package's mixed precision
+(``cast_apply``): the forward, and so the backward, run on bf16 copies of
+the parameters and bf16 features, while the master parameters, the Adam
+state, the logits and the loss stay f32.  The assembly then writes its
+features as bf16 (the same launch), and the block kernels run on bf16 rows;
+the backward adds into an f32 table and rounds it in a second launch, so a
+bf16 step launches 5 kernels.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -33,6 +41,29 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator      # dropout stream, on the model's device
     step: int = 0
+    dtype: torch.dtype = torch.float32   # compute dtype (compute_dtype)
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """Activation/matmul dtype from ``TrainConfig.dtype``."""
+    return torch.bfloat16 if cfg.train.dtype == "bfloat16" else torch.float32
+
+
+def cast_apply(model: nn.Module, dtype: torch.dtype) -> Callable:
+    """Mixed precision as the JAX package's ``cast_apply``: the forward
+    (and so the backward) on parameters and features cast to ``dtype``,
+    f32 logits.  The casts are explicit, parameter by parameter, not
+    ``torch.autocast`` (which picks a dtype op by op); they are
+    differentiable, so the gradients reach the f32 master parameters as
+    f32.  The model itself for f32."""
+    if dtype == torch.float32:
+        return model
+
+    def apply(mb: MiniBatch, feats: torch.Tensor, **kw) -> torch.Tensor:
+        params = {name: p.to(dtype) for name, p in model.named_parameters()}
+        return torch.func.functional_call(model, params, (mb, feats.to(dtype)), kw).float()
+
+    return apply
 
 
 def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
@@ -46,17 +77,15 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
 
 def create_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
     """Parameters are drawn on the CPU from ``seed`` and then moved, so a
-    seed gives the same initial model on every device.  ``device=None`` is
-    the GPU (``RuntimeError`` without one)."""
-    if cfg.train.dtype != "float32":
-        raise NotImplementedError(
-            f"train.dtype {cfg.train.dtype!r} is not ported yet (ROADMAP queue 1)")
+    seed gives the same initial model on every device; they stay f32 at
+    every ``train.dtype``.  ``device=None`` is the GPU (``RuntimeError``
+    without one)."""
     device = resolve_device(device)
     model = get_model(cfg.model, generator=torch.Generator().manual_seed(seed))
     model.to(device).train()
     gen = torch.Generator(device=device).manual_seed(seed ^ 0x5EED)
     return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
-                      generator=gen)
+                      generator=gen, dtype=compute_dtype(cfg))
 
 
 def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
@@ -65,17 +94,20 @@ def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
     """One optimizer step on a device minibatch, its plan's miss rows and
     ``src_row`` (:class:`FetchPlan`), the cache rows and, for the int8
     tier, the cache's dequant scale; returns ``{"loss", "acc"}`` as device
-    scalars (no host sync)."""
-    feats = assemble_features(cache_values, src_row, miss_feats, dequant_scale)
+    scalars (no host sync).  The features are assembled in the compute
+    dtype."""
+    feats = assemble_features(cache_values, src_row, miss_feats, dequant_scale,
+                              out_dtype=state.dtype)
     return train_on_features(state, mb, feats)
 
 
 def train_on_features(state: TrainState, mb: MiniBatch,
                       feats: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The step after the layer-0 fetch: forward, masked cross-entropy,
-    backward and Adam on f32 features ``feats``; ``{"loss", "acc"}`` as
-    device scalars (no host sync)."""
-    logits = state.model(mb, feats, generator=state.generator)
+    backward and Adam on features ``feats`` (f32, or bf16 at bf16 compute),
+    through :func:`cast_apply`; ``{"loss", "acc"}`` as device scalars (no
+    host sync)."""
+    logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()

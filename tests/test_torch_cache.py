@@ -144,8 +144,12 @@ def test_auto_capacity_scales_with_tier(pair, monkeypatch, dtype):
 
 
 def test_unported_tiers_raise(pair):
+    """The store holds f32 and int8 fields only (an int8 field needs its
+    scale, as in the JAX package: tests/test_torch_store_int8.py)."""
     ds, _, tstore = pair
     with pytest.raises(NotImplementedError):
+        TStore({"features": ds.features.astype(np.float64)})
+    with pytest.raises(ValueError):
         TStore({"features": ds.features.astype(np.int8)})
     with pytest.raises(ValueError):      # capacity=None sizes from GPU memory
         tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph),

@@ -307,13 +307,16 @@ def test_block_gather_forward_is_one_block_gather_fwd_a_block(sampled, monkeypat
 
 def test_launch_counters_have_the_fused_forward():
     """The fused forward's keys sit beside every other key (the assembly
-    has one a cache tier), and reset_launch_counts zeroes them all."""
-    keys = {"block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
-            "assemble_f32", "assemble_bf16", "assemble_int8",
-            "scatter_add_rows", "gather_reduce_mean",
-            "gather_reduce_sum", "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
-            "block_gather_bwd_mean", "block_gather_bwd_sum"}
-    assert set(gk.LAUNCHES) == keys
+    has one a cache tier, and one a tier for its bf16 output; each block
+    kernel one for bf16 rows, and the bf16 backward's rounding launch one),
+    and reset_launch_counts zeroes them all."""
+    block = {"block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
+             "scatter_add_rows", "gather_reduce_mean",
+             "gather_reduce_sum", "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
+             "block_gather_bwd_mean", "block_gather_bwd_sum"}
+    assemble = {"assemble_f32", "assemble_bf16", "assemble_int8"}
+    keys = block | {k + "_bf16" for k in block} | assemble | {k + "_to_bf16" for k in assemble}
+    assert set(gk.LAUNCHES) == keys | {"grad_to_bf16"}
     gk.LAUNCHES["block_gather_fwd_mean"] += 1
     gk.reset_launch_counts()
     assert set(gk.launch_counts().values()) == {0}

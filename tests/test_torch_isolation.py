@@ -90,7 +90,7 @@ def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
                                       dict(remote_sampling=True),
                                       dict(eval_every=1),
                                       dict(lr_schedule="cosine", lr_decay_steps=5),
-                                      dict(dtype="bfloat16")])
+                                      dict(eval_every=1, eval_backend="device")])
 def test_unported_paths_raise(train_kw):
     ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
     cfg = _tiny_cfg()
