@@ -33,15 +33,34 @@ Phases, each printed as one JSON line:
   and the loader alone over both stores, in turns;
 * ``device_epoch``: the whole-epoch on-device path (``train.on_device_sampling``)
   of the same configuration with the full cache and the CSR on the card,
-  each run a fresh ``Trainer`` (seed 0): f32 with generic draws and f32 with
-  paired draws for 2 epochs each (the loss must fall), bf16 and int8 with
-  paired draws for one epoch, and bf16 with paired draws at bf16 compute
-  for one (every ``epoch_dispatch`` value runs the same
-  enqueue loop, so one is driven).  Setup and epoch time, edges/s (every
-  valid slot of the undeduplicated layers: not the host path's count),
-  batches, loss, cache and CSR bytes, peak device memory, and the launches:
-  one ``assemble_<tier>`` (at bf16 compute ``assemble_<tier>_to_bf16``) a
-  step and no other gather kernel;
+  each run a fresh ``Trainer`` (seed 0) for 2 epochs, the first eager and
+  the second replayed from the CUDA graphs of its ``epoch_dispatch``: f32
+  with generic draws (``scan``), f32 with paired draws (``steps``), bf16
+  (``pipelined``) and int8 (``steps``) with paired draws, and bf16 with
+  paired draws at bf16 compute (``pipelined``); the loss must fall.  Setup,
+  capture and epoch time, edges/s (every valid slot of the undeduplicated
+  layers: not the host path's count), batches, loss, cache and CSR bytes,
+  peak device memory, and the launches run (those counted eagerly plus
+  each graph's captured launches times its replays): one
+  ``assemble_<tier>`` (at bf16 compute ``assemble_<tier>_to_bf16``) a step
+  and no other gather kernel;
+* ``dispatch``: every ``epoch_dispatch`` mode (``scan``, ``steps``,
+  ``pipelined``) on six runs (f32 generic, f32 paired, the bf16 and int8
+  tiers paired, bf16 compute on the bf16 tier, and f32 with the cosine
+  schedule over 150 of its 228 updates), each 2 epochs through the
+  ``Trainer`` (epoch 1 replayed) against a fresh Trainer's 2 epochs through
+  the same function's eager form from the same seed, and a second eager run
+  for the eager spread: capture time, epoch time and host enqueue replayed
+  (the first replay, which also uploads the graphs, and a third epoch) and
+  eager, device time a step (CUDA events behind a device sleep: a fourth,
+  replayed, epoch; the eager step's alone), the device's busy share (that
+  device time over the third epoch's, or the eager epoch's, wall time),
+  replayed gather launches a step, peak device bytes, and the loss and
+  parameter differences replay against eager and eager against eager.  It
+  fails unless steps, edges and vertices are equal, each epoch's loss is
+  within 1e-4 relative (or the eager spread, if larger), every parameter
+  within 1e-3 of its norm, one ``assemble_<tier>`` replays a step, and the
+  loss falls;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -82,6 +101,9 @@ Phases, each printed as one JSON line:
   element off its unit's alignment, D = 600 (several units a lane), no
   miss rows, every row a miss, every row a hit -- exact against its plain
   version;
+* ``graph_block_kernels``: the host path's block forward and backward
+  (``ops.aggregate.block_gather``, the backward launched from autograd's
+  thread) captured in a CUDA graph and replayed, against the eager call;
 * ``timing_floor``: the same timing around no work, around the block
   backward's memset alone, and around a contiguous device copy that moves
   the block-0 forward's bound bytes (half read, half written): what the
@@ -107,9 +129,10 @@ Phases, each printed as one JSON line:
   parameters: loss and every gradient within 1e-5 relative, one assembly
   launch through the kernel and none under the plain versions;
 * ``device_breakdown``: one on-device step alone and its parts (sample,
-  fetch, train): host enqueue, wall and device time (CUDA events), CUDA
-  kernels and memory operations counted with ``torch.profiler``, and that a
-  step never synchronizes with the host (``torch.cuda.set_sync_debug_mode``).
+  fetch, train), and one replay of the ``steps`` mode's step graph:
+  host enqueue, wall and device time (CUDA events), CUDA kernels and memory
+  operations counted with ``torch.profiler``, and that a step never
+  synchronizes with the host (``torch.cuda.set_sync_debug_mode``).
 
 Any failed check exits non-zero without the final line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -118,6 +141,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -318,9 +342,13 @@ def main() -> None:
                                                                hop_sizes,
                                                                sample_minibatch_device)
         from pagraph_tpu_torch.storage.feature_store import FeatureStore, quantize_store
-        from pagraph_tpu_torch.train.device_epoch import (EpochAccumulator,
+        from pagraph_tpu_torch.ops.aggregate import block_gather
+        from pagraph_tpu_torch.sampling.block import Block
+        from pagraph_tpu_torch.train.device_epoch import (DeviceEpochRunner,
+                                                          EpochAccumulator,
                                                           device_batch_step,
                                                           epoch_schedule, fetch_batch,
+                                                          make_device_step_fns,
                                                           train_batch)
         from pagraph_tpu_torch.train.loop import Trainer
         from pagraph_tpu_torch.train.state import (TrainState, make_optimizer,
@@ -360,10 +388,12 @@ def main() -> None:
     data_s = time.perf_counter() - t0
 
     def config(aggregator: str, cache_dtype: str = "float32", *, on_device: bool = False,
-               paired: bool = False, compute: str = "float32"):
+               paired: bool = False, compute: str = "float32", dispatch: str = "scan",
+               cosine_steps: int = 0):
         """The main path's configuration; ``on_device`` is the whole-epoch
-        device path (full cache, ``paired`` draws); ``compute`` is
-        ``train.dtype``."""
+        device path (full cache, ``paired`` draws, ``dispatch`` its
+        ``train.epoch_dispatch``); ``compute`` is ``train.dtype``;
+        ``cosine_steps`` > 0 the cosine schedule over that many updates."""
         return pt.Config(
             model=pt.ModelConfig(arch="graphsage", n_layers=1, hidden=16,
                                  feat_dim=100, n_classes=47,
@@ -374,7 +404,9 @@ def main() -> None:
                                  capacity=None if on_device else int(ds.num_nodes * 0.4),
                                  dtype=cache_dtype),
             train=pt.TrainConfig(lr=1e-2, warmup_epochs=1, on_device_sampling=on_device,
-                                 dtype=compute),
+                                 dtype=compute, epoch_dispatch=dispatch,
+                                 lr_schedule="cosine" if cosine_steps else "none",
+                                 lr_decay_steps=cosine_steps),
         )
 
     cfg = config("mean")
@@ -575,28 +607,77 @@ def main() -> None:
              "assemble_int8_to_bf16, two bf16 block forwards, one bf16 block backward "
              "and one grad_to_bf16")
 
+    def host_and_device(fn, reps: int = 20, dev_reps: int = 2):
+        """Host enqueue and wall time a call (``reps`` back to back), and
+        device time a call behind a ~0.1 s device sleep that outlasts the
+        enqueue of ``dev_reps`` calls (few, to stay under the launch queue)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(200_000_000)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(dev_reps):
+            fn()
+        ev[2].record()
+        dev_enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return {"host_enqueue_ms": enqueue, "wall_ms": wall,
+                "device_ms": ev[1].elapsed_time(ev[2]) / dev_reps,
+                "device_time_is_pure": dev_enqueue < ev[0].elapsed_time(ev[1]),
+                "sleep_ms": ev[0].elapsed_time(ev[1])}
+
+    def executed_launches(counted, runner):
+        """The launches run since the counters' reset: ``counted`` (which
+        counts a launch captured into a graph once, at capture) with each of
+        ``runner``'s graphs' captured launches times its replays in place of
+        that once (its graphs captured since the reset)."""
+        out = dict(counted)
+        for g in runner.graphs:
+            for k, v in g.launches.items():
+                out[k] += v * (g.replays - 1)
+        return out
+
+    def free_memory():
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -- device_epoch: the whole-epoch on-device path ------------------------
     # each run a fresh Trainer (seed 0) with the full cache and the CSR on the
-    # card; launches counted from 0 over its epochs
-    def device_run(n_epochs: int, dtype: str = "float32", paired: bool = False,
+    # card, 2 epochs: epoch 0 eager, epoch 1 replayed from the CUDA graphs of
+    # its epoch_dispatch (every mode driven); launches counted from 0 over its
+    # epochs: those counted eagerly plus each graph's captured launches times
+    # its replays (the counter counts a captured launch once, at capture)
+    def device_run(dispatch: str, dtype: str = "float32", paired: bool = False,
                    compute: str = "float32"):
         key = f"assemble_{TIERS[dtype]}" + ("_to_bf16" if compute == "bfloat16" else "")
         t0 = time.perf_counter()
         d_tr = Trainer.from_dataset(config("mean", dtype, on_device=True, paired=paired,
-                                           compute=compute), ds, seed=0)
+                                           compute=compute, dispatch=dispatch), ds, seed=0)
         d_tr._maybe_fill_cache()
         torch.cuda.synchronize()
         d_setup = time.perf_counter() - t0
         start_bytes = torch.cuda.memory_allocated()   # earlier phases' tensors included
         torch.cuda.reset_peak_memory_stats()
         gk.reset_launch_counts()
-        ms = [d_tr.run_epoch(e) for e in range(n_epochs)]
+        ms = [d_tr.run_epoch(e) for e in range(2)]
         torch.cuda.synchronize()
-        counts = gk.launch_counts()
+        counted = gk.launch_counts()
+        counts = executed_launches(counted, d_tr.epoch_runner)
         cv_d = d_tr.cache.cache_values
+        timers = d_tr.timers.summary()
         out = {"cache_dtype": dtype, "compute": compute, "paired_draws": paired,
-               "setup_s": d_setup,
-               "epochs": [{"epoch": m.epoch, "time_s": m.time_s, "batches": m.num_batches,
+               "epoch_dispatch": dispatch, "setup_s": d_setup,
+               "capture_s": timers["capture"]["total_s"],
+               "epochs": [{"epoch": m.epoch, "form": "eager" if m.epoch == 0 else "replayed",
+                           "time_s": m.time_s, "batches": m.num_batches,
                            "edges": m.edges, "edges_per_s": m.edges / m.time_s,
                            "vertices": m.vertices, "mean_loss": m.mean_loss,
                            "mean_acc": m.mean_acc, "miss_rate": m.miss_rate,
@@ -606,33 +687,216 @@ def main() -> None:
                "peak_device_bytes": torch.cuda.max_memory_allocated(),
                "run_peak_device_bytes": torch.cuda.max_memory_allocated() - start_bytes
                + cv_d.numel() * cv_d.element_size() + d_tr._dev_csr.nbytes(),
-               "launches": {k: v for k, v in counts.items() if v}}
+               "launches": {k: v for k, v in counts.items() if v},
+               "launches_counted": {k: v for k, v in counted.items() if v},
+               "graphs": len(d_tr.epoch_runner.graphs)}
         steps = sum(m.num_batches for m in ms)
         losses = [m.mean_loss for m in ms]
+        what = f"device epoch ({dtype}, paired={paired}, {compute}, {dispatch})"
         if not all(math.isfinite(v) for v in losses):
-            fail(f"device epoch ({dtype}, paired={paired}, {compute}): non-finite loss {losses}")
+            fail(f"{what}: non-finite loss {losses}")
         if counts[key] != steps or sum(counts.values()) != steps:
-            fail(f"device epoch ({dtype}, paired={paired}, {compute}): launches "
-                 f"{out['launches']} over {steps} steps, expected one {key} a step "
-                 "and no other gather kernel")
+            fail(f"{what}: launches {out['launches']} over {steps} steps, expected one "
+                 f"{key} a step and no other gather kernel")
+        if not (d_tr.epoch_runner.graph and d_tr.epoch_runner.graphs):
+            fail(f"{what}: epoch 1 did not replay CUDA graphs")
         return d_tr, out
 
     dev_tr, dev_out = {}, {}
-    for label, n_epochs, kw in (("f32", 2, {}), ("f32_paired", 2, {"paired": True}),
-                                ("bf16_paired", 1, {"dtype": "bfloat16", "paired": True}),
-                                ("int8_paired", 1, {"dtype": "int8", "paired": True}),
-                                ("bf16_compute", 1, {"dtype": "bfloat16", "paired": True,
-                                                     "compute": "bfloat16"})):
-        dev_tr[label], dev_out[label] = device_run(n_epochs, **kw)
+    for label, dispatch, kw in (
+            ("f32", "scan", {}), ("f32_paired", "steps", {"paired": True}),
+            ("bf16_paired", "pipelined", {"dtype": "bfloat16", "paired": True}),
+            ("int8_paired", "steps", {"dtype": "int8", "paired": True}),
+            ("bf16_compute", "pipelined", {"dtype": "bfloat16", "paired": True,
+                                           "compute": "bfloat16"})):
+        dev_tr[label], dev_out[label] = device_run(dispatch, **kw)
         if label in ("f32_paired", "bf16_compute"):
             del dev_tr[label]                # keep the card's memory for what follows
+        free_memory()
     emit("device_epoch", dev_out)
-    for label in ("f32", "f32_paired"):
+    for label in dev_out:
         e0, e1 = (m["mean_loss"] for m in dev_out[label]["epochs"])
         if not e1 < e0:
             fail(f"device epoch ({label}): loss did not fall: {e0} -> {e1}")
     dev_launches = {TIERS[dev_tr[k].cfg.cache.dtype]: dev_out[k]["launches"]
                     for k in ("f32", "bf16_paired", "int8_paired")}
+
+    # -- dispatch: each epoch_dispatch mode replayed against its eager form ---
+    # for each run and mode: a Trainer (epoch 0 eager, the capture, epoch 1
+    # replayed) against a fresh Trainer's epochs through the eager form of the
+    # same function (DeviceEpochRunner(graph=False), main stream) from the same
+    # seed; the eager spread from a second eager run of the scan form
+    MODES = ("scan", "steps", "pipelined")
+
+    def eager_form(cfg_d, n_epochs: int):
+        """A fresh Trainer's ``n_epochs`` through the eager form: each
+        epoch's wall time, host enqueue and metrics; the Trainer."""
+        t_ = Trainer.from_dataset(cfg_d, ds, seed=0)
+        runner = DeviceEpochRunner(cfg_d, t_.state, t_.epoch_inputs, t_.device_data())
+        out = []
+        for e in range(n_epochs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t_.epoch_inputs.load(*t_.epoch_randomness(e, out=t_.epoch_inputs))
+            acc = runner()
+            enqueue = time.perf_counter() - t0
+            v = acc.values()
+            out.append({"time_s": time.perf_counter() - t0, "enqueue_ms": enqueue * 1e3,
+                        "steps": int(v["steps"]), "edges": int(v["edges"]),
+                        "vertices": int(v["vertices"]),
+                        "mean_loss": v["loss_sum"] / max(v["steps"], 1)})
+        return t_, out
+
+    def replay_run(cfg_d, n_epochs: int):
+        """A Trainer's ``n_epochs`` (the first eager, then replays), its
+        peak bytes and launches run and its parameters after them; then one
+        more replayed epoch (a graph's first replay also uploads it) and
+        one behind a device sleep that outlasts its enqueue: the replay's
+        device time."""
+        free_memory()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        gk.reset_launch_counts()
+        t_ = Trainer.from_dataset(cfg_d, ds, seed=0)
+        ms, enqueue_ms = [], []
+        for e in range(n_epochs):
+            before = t_.timers.total["enqueue"]
+            ms.append(t_.run_epoch(e))
+            enqueue_ms.append((t_.timers.total["enqueue"] - before) * 1e3)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - start_bytes
+        counts = executed_launches(gk.launch_counts(), t_.epoch_runner)
+        params = {n: p.detach().clone() for n, p in t_.state.model.named_parameters()}
+        before = t_.timers.total["enqueue"]
+        again = t_.run_epoch(n_epochs)
+        enqueue_ms.append((t_.timers.total["enqueue"] - before) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(200_000_000)
+        ev[1].record()
+        t0 = time.perf_counter()
+        t_.enqueue_device_epoch(n_epochs + 1)
+        dev_enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        return t_, ms, params, {"run_peak_device_bytes": peak, "launches": counts,
+                                "enqueue_ms": enqueue_ms, "again_s": again.time_s,
+                                "device_epoch_ms": ev[1].elapsed_time(ev[2]),
+                                "device_time_is_pure": dev_enqueue_ms
+                                < ev[0].elapsed_time(ev[1])}
+
+    def dispatch_config(kw, mode: str):
+        return config("mean", kw.get("dtype", "float32"), on_device=True,
+                      paired=kw.get("paired", False), compute=kw.get("compute", "float32"),
+                      dispatch=mode, cosine_steps=kw.get("cosine_steps", 0))
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def param_rel(pa, pb):
+        """The largest ||pa - pb|| / ||pb|| over the parameters."""
+        return max(((pa[n] - pb[n]).norm() / pb[n].norm().clamp(min=1e-30)).item() for n in pb)
+
+    dispatch_out, bad = {}, []
+    for label, kw in (("f32", {}), ("f32_paired", {"paired": True}),
+                      ("bf16_tier", {"dtype": "bfloat16", "paired": True}),
+                      ("int8_tier", {"dtype": "int8", "paired": True}),
+                      ("bf16_compute", {"dtype": "bfloat16", "paired": True,
+                                        "compute": "bfloat16"}),
+                      ("f32_cosine", {"cosine_steps": 150})):
+        dtype, compute = kw.get("dtype", "float32"), kw.get("compute", "float32")
+        key = f"assemble_{TIERS[dtype]}" + ("_to_bf16" if compute == "bfloat16" else "")
+        free_memory()
+        t_e2, eager2 = eager_form(dispatch_config(kw, "scan"), 2)
+        p_e2 = {n: p.detach().clone() for n, p in t_e2.state.model.named_parameters()}
+        # the eager step's device time (the steps mode's eager step_fn)
+        _, step_fn = make_device_step_fns(t_e2.cfg, t_e2.state, t_e2.epoch_inputs,
+                                          t_e2.device_data())
+        eager_step = host_and_device(step_fn, reps=2, dev_reps=2)
+        nb = t_e2.epoch_inputs.num_batches
+        del t_e2, step_fn
+        run_out = {"cache_dtype": dtype, "compute": compute,
+                   "paired_draws": kw.get("paired", False),
+                   "lr_schedule": (f"cosine, lr_decay_steps {kw['cosine_steps']} of "
+                                   f"{2 * nb} updates") if "cosine_steps" in kw else "none",
+                   "eager_step_device_ms": eager_step["device_ms"],
+                   "eager_step_device_time_is_pure": eager_step["device_time_is_pure"]}
+        for mode in MODES:
+            cfg_m = dispatch_config(kw, mode)
+            t_r, ms, p_r, meas = replay_run(cfg_m, 2)
+            timers = t_r.timers.summary()
+            runner = t_r.epoch_runner
+            replayed = runner.replayed_launches()
+            replayed_steps = nb * (len(ms) + 1)     # epochs 1.., again, the timing epoch
+            del t_r, runner
+            free_memory()
+            start_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t_e, eager = eager_form(cfg_m, 2)
+            eager_peak = torch.cuda.max_memory_allocated() - start_bytes
+            p_e = {n: p.detach().clone() for n, p in t_e.state.model.named_parameters()}
+            del t_e
+            m1, e1 = ms[1], eager[1]
+            dev_step_ms = meas["device_epoch_ms"] / nb
+            entry = {
+                "capture_s": timers["capture"]["total_s"],
+                "epoch_s": {"replayed": m1.time_s, "replayed_again": meas["again_s"],
+                            "eager": e1["time_s"]},
+                "enqueue_ms": {"replayed": meas["enqueue_ms"][1],
+                               "replayed_again": meas["enqueue_ms"][2],
+                               "eager": e1["enqueue_ms"],
+                               "eager_first_epoch_of_the_trainer": meas["enqueue_ms"][0]},
+                "device_ms_per_step": {"replayed": dev_step_ms,
+                                       "eager": eager_step["device_ms"]},
+                "device_time_is_pure": meas["device_time_is_pure"],
+                "device_busy_share": {"replayed_again": meas["device_epoch_ms"] / 1e3
+                                      / meas["again_s"],
+                                      "eager": nb * eager_step["device_ms"] / 1e3
+                                      / e1["time_s"]},
+                "replayed_gather_launches_per_step": {k: v / replayed_steps
+                                                      for k, v in replayed.items()},
+                "launches": {k: v for k, v in meas["launches"].items() if v},
+                "run_peak_device_bytes": {"replayed": meas["run_peak_device_bytes"],
+                                          "eager": eager_peak},
+                "epochs": [{"replayed": [m.num_batches, m.edges, m.vertices, m.mean_loss],
+                            "eager": [e["steps"], e["edges"], e["vertices"], e["mean_loss"]],
+                            "eager2": [e2["steps"], e2["edges"], e2["vertices"],
+                                       e2["mean_loss"]]}
+                           for m, e, e2 in zip(ms, eager, eager2)],
+                "loss_rel_diff": {"replay_vs_eager": [rel(m.mean_loss, e["mean_loss"])
+                                                      for m, e in zip(ms, eager)],
+                                  "eager_vs_eager": [rel(e2["mean_loss"], e["mean_loss"])
+                                                     for e, e2 in zip(eager, eager2)]},
+                "param_rel_diff": {"replay_vs_eager": param_rel(p_r, p_e),
+                                   "eager_vs_eager": param_rel(p_e2, p_e)},
+            }
+            run_out[mode] = entry
+            what = f"dispatch ({label}, {mode})"
+            for m, e in zip(ms, eager):
+                if (m.num_batches, m.edges, m.vertices) != (e["steps"], e["edges"],
+                                                            e["vertices"]):
+                    bad.append(f"{what}: epoch {m.epoch} steps/edges/vertices "
+                               f"{(m.num_batches, m.edges, m.vertices)} != eager "
+                               f"{(e['steps'], e['edges'], e['vertices'])}")
+            for r_, s_ in zip(*entry["loss_rel_diff"].values()):
+                if not r_ <= max(1e-4, s_):
+                    bad.append(f"{what}: loss {r_} from the eager form's, over 1e-4 and "
+                               f"the eager spread {s_}")
+            worst = entry["param_rel_diff"]["replay_vs_eager"]
+            if not worst <= 1e-3:
+                bad.append(f"{what}: parameters {worst} of their norm from the eager form's")
+            if entry["replayed_gather_launches_per_step"] != {key: 1.0}:
+                bad.append(f"{what}: replayed gather launches a step "
+                           f"{entry['replayed_gather_launches_per_step']}, expected one {key}")
+            if not ms[1].mean_loss < ms[0].mean_loss:
+                bad.append(f"{what}: loss did not fall: {ms[0].mean_loss} -> {ms[1].mean_loss}")
+            if not all(math.isfinite(m.mean_loss) for m in ms):
+                bad.append(f"{what}: non-finite loss")
+        dispatch_out[label] = run_out
+    dispatch_out["nvidia_smi"] = smi
+    emit("dispatch", dispatch_out)
+    if bad:
+        fail("graph replays disagree with the eager form: " + "; ".join(bad))
 
     # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
     dtr = dev_tr["f32"]
@@ -987,6 +1251,43 @@ def main() -> None:
     if bad:
         fail("assembly branches disagree with their plain versions: " + "; ".join(bad))
 
+    # -- graph_block_kernels: the block kernels' forward and backward wrappers
+    # captured in a CUDA graph (the backward launches from autograd's thread,
+    # on the stream autograd runs it on) and replayed, against the eager call
+    gen_g = torch.Generator(device=dev).manual_seed(9)
+    g_src = torch.randn(b0.cap_dst, 2 * cfg.model.hidden, generator=gen_g, device=dev,
+                        requires_grad=True)
+    g_w = torch.randn(b1.cap_dst, 2 * cfg.model.hidden, generator=gen_g, device=dev)
+    g_blk = Block(neigh_pos=b1.neigh_pos, neigh_mask=b1.neigh_mask, self_pos=b1.self_pos)
+
+    def block_fwd_bwd():
+        h_self, h_neigh = block_gather(g_src, g_blk, "mean")
+        ((h_self * g_w).sum() + (h_neigh * g_w * 2).sum()).backward()
+        return g_src.grad
+
+    want_g = block_fwd_bwd().clone()
+    g_src.grad = None
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        block_fwd_bwd()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    g_src.grad = None
+    gk.reset_launch_counts()
+    block_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(block_graph):
+        got_g = block_fwd_bwd()
+    captured = {k: v for k, v in gk.launch_counts().items() if v}
+    got_g.zero_()
+    block_graph.replay()
+    err, ok, text = compare(torch, got_g, want_g, "atomic")
+    emit("graph_block_kernels", {"captured_launches": captured, "max_abs_err": err,
+                                 "tolerance": text})
+    if not ok or captured != {"block_gather_fwd_mean": 1, "block_gather_bwd_mean": 1}:
+        fail(f"the block kernels replayed from a CUDA graph: error {err} ({text}), "
+             f"captured launches {captured}")
+    del block_graph, got_g
+
     # what the times above cannot go below: the event pair around no work,
     # the block backward's memset of its table alone (its C entry point with
     # both halves absent), and a streamed copy of the block-0 forward's bytes
@@ -1093,33 +1394,6 @@ def main() -> None:
     sum(1 for _ in bf_tr.loader.epoch())
     torch.cuda.synchronize()
     loader_bf_s = time.perf_counter() - t0
-
-    def host_and_device(fn, reps: int = 20, dev_reps: int = 2):
-        """Host enqueue and wall time a call (``reps`` back to back), and
-        device time a call behind a ~0.1 s device sleep that outlasts the
-        enqueue of ``dev_reps`` calls (few, to stay under the launch queue)."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        enqueue = (time.perf_counter() - t0) * 1e3 / reps
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        ev[0].record()
-        torch.cuda._sleep(200_000_000)
-        ev[1].record()
-        t0 = time.perf_counter()
-        for _ in range(dev_reps):
-            fn()
-        ev[2].record()
-        dev_enqueue = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        return {"host_enqueue_ms": enqueue, "wall_ms": wall,
-                "device_ms": ev[1].elapsed_time(ev[2]) / dev_reps,
-                "device_time_is_pure": dev_enqueue < ev[0].elapsed_time(ev[1]),
-                "sleep_ms": ev[0].elapsed_time(ev[1])}
 
     s_bench = clone_state(tr.state, cfg)
     t_step = host_and_device(lambda: train_step(s_bench, mb, miss_feats, src_row, cv),
@@ -1264,13 +1538,19 @@ def main() -> None:
         sync_free = f"{type(e).__name__}: {e}"
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    # one replayed step: the steps mode's step graph on the same state,
+    # reading the f32 run's last epoch schedule
+    _, parts["replayed_step"] = make_device_step_fns(dcfg, s_b, dtr.epoch_inputs,
+                                                     dtr.device_data(), graph=True)
     breakdown_d = {name: {**host_and_device(fn), **profiled(fn)} for name, fn in parts.items()}
     breakdown_d["step_is_sync_free"] = sync_free
-    breakdown_d["epoch_s"] = dev_out["f32"]["epochs"][1]["time_s"]
+    breakdown_d["epoch_s"] = {"eager": dev_out["f32"]["epochs"][0]["time_s"],
+                              "replayed": dev_out["f32"]["epochs"][1]["time_s"]}
     breakdown_d["epoch_batches"] = dev_out["f32"]["epochs"][1]["batches"]
     breakdown_d["note"] = ("device_batch_step on one device-sampled batch of the f32 run "
                            "(generic draws): sample, fetch (take_rows) and train "
-                           "(forward, loss, backward, Adam) are its parts")
+                           "(forward, loss, backward, Adam) are its parts; replayed_step "
+                           "replays the steps mode's CUDA graph of one step")
     emit("device_breakdown", breakdown_d)
     if sync_free is not True:
         fail(f"a device step synchronized with the host: {sync_free}")

@@ -124,8 +124,8 @@ class TrainConfig:
     remote_sampling: bool = False     # isolation mode: sampling in worker procs
     on_device_sampling: bool = False  # whole epoch sampled on the device
     steps_per_dispatch: int = 8       # JAX package: K batches per compiled call
-    epoch_dispatch: str = "scan"      # scan | steps | pipelined: one eager loop in the port
-    scan_unroll: int = 1              # on-device epoch: minibatches per scan step
+    epoch_dispatch: str = "scan"      # scan | steps | pipelined: CUDA graphs on the card
+    scan_unroll: int = 1              # JAX package: minibatches per scan step (ignored)
     halo_slack: float = 1.5           # multi-device halo width factor
     halo_pipeline: bool = False       # multi-device edge mode only
     dtype: str = "float32"            # compute dtype: float32 | bfloat16

@@ -49,8 +49,17 @@ plain versions on CUDA tensors too, so a check on the card can hold a whole
 train step against them.
 
 Each wrapper adds one to its entry of :data:`LAUNCHES` where it launches its
-kernel, and nowhere else.  Indices must be in range: the kernels do not
-bounds-check them (the sampler and the cache plan produce them).
+kernel, and nowhere else.  It is a host counter: under CUDA-graph capture a
+wrapper enqueues its kernel into the graph once and counts it once, and a
+replay counts nothing, so a run's launches are the eager ones plus each
+graph's captured launches times its replays
+(``train.device_epoch.CapturedGraph``).  A kernel launches on
+``torch.cuda.current_stream()`` of its tensors' device: the capture stream
+while a graph is captured, and in a backward the stream autograd runs it on
+(the forward's).  The build (:func:`_lib`, nvcc at first use) must have run
+before a capture: the first, eager, epoch does it.  Indices must be in
+range: the kernels do not bounds-check them (the sampler and the cache plan
+produce them).
 """
 from __future__ import annotations
 

@@ -125,15 +125,23 @@ def draw_width(fanout: int, paired: bool) -> int:
 
 
 def hop_draws(generator: torch.Generator, n: int, fanout: int, paired: bool,
-              device, *, steps: Optional[int] = None) -> torch.Tensor:
+              device, *, steps: Optional[int] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The random integers of one hop over ``n`` dst vertices: int32
     ``[n, draw_width(fanout, paired)]`` in ``[0, 2^31 - 1)``, the range of
     the JAX package's ``jax.random.randint``, made on ``device``
     (``generator``'s).  ``steps`` adds a leading dimension: that many
-    steps' draws in one call."""
+    steps' draws in one call.  ``out`` (int32, of that shape) receives
+    them in place: the same integers as a fresh tensor."""
     shape = (n, draw_width(fanout, paired))
-    return torch.randint(0, _DRAW_HIGH, shape if steps is None else (steps, *shape),
-                         generator=generator, device=device, dtype=torch.int32)
+    shape = shape if steps is None else (steps, *shape)
+    if out is not None:
+        if tuple(out.shape) != shape or out.dtype != torch.int32:
+            raise ValueError(f"out must be int32 {list(shape)}, got {out.dtype} "
+                             f"{list(out.shape)}")
+        return torch.randint(0, _DRAW_HIGH, shape, generator=generator, out=out)
+    return torch.randint(0, _DRAW_HIGH, shape, generator=generator, device=device,
+                         dtype=torch.int32)
 
 
 def sample_hop(csr: DeviceCSR, dst: torch.Tensor, dst_mask: torch.Tensor,

@@ -12,16 +12,26 @@ sampling, layer-0 fetch, forward, backward, Adam) runs on the device with
 one host sync an epoch, to read the metrics (``train/device_epoch.py``).
 There is no sampler or loader.  Each epoch's random integers come from a
 generator on the device seeded from ``(seed, epoch)``, so an epoch can be
-replayed alone.  Its edges and vertices count every valid slot of the
+replayed alone; they are drawn into static buffers (``EpochInputs``)
+allocated once.  Its edges and vertices count every valid slot of the
 undeduplicated layers, as the JAX package's device path does; the host path
 counts deduplicated ones, so the two compare by epoch time.
 
-A step is one call of :func:`train_step`.  ``train.steps_per_dispatch`` is
-ignored: the JAX package groups K steps into one compiled dispatch to
-amortize its per-dispatch host-link latency, while PyTorch enqueues kernels
-asynchronously step by step and the loop never waits for the device inside
-an epoch (loss and accuracy accumulate on the device and are read once at
-the end).
+The on-device epoch runs ``train.epoch_dispatch``'s function
+(``DeviceEpochRunner``).  The first epoch a Trainer runs is the eager form
+(on the card on a side stream: it creates Adam's state, builds the kernels
+and warms the libraries, as the JAX package's first epoch compiles).  On
+the card every later epoch replays CUDA graphs, captured once before the
+second epoch on that side stream and timed under the ``"capture"`` phase
+timer, outside the epoch's ``time_s``; a capture or replay error raises.
+The CPU runs the eager form throughout.
+
+Host path: a step is one call of :func:`train_step`.
+``train.steps_per_dispatch`` is ignored there: the JAX package groups K
+steps into one compiled dispatch, which on the card would be one CUDA
+graph a miss-row bucket shape (ROADMAP queue 1); here the loop enqueues
+step by step and never waits for the device inside an epoch (loss and
+accuracy accumulate on the device and are read once at the end).
 
 ``train.dtype="bfloat16"`` runs both paths at bf16 compute
 (``state.cast_apply``) at every cache tier.  ``Trainer(cfg, store, ...)``
@@ -52,7 +62,8 @@ from ..storage.cache import FeatureCache
 from ..storage.feature_store import FeatureStore
 from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
-from .device_epoch import epoch_draws, epoch_seed, make_device_epoch_fn
+from .device_epoch import (DeviceData, DeviceEpochRunner, EpochInputs, epoch_draws,
+                           epoch_seed, num_batches)
 from .state import create_state, train_step
 
 
@@ -119,7 +130,12 @@ class Trainer:
             self._dev_labels = torch.from_numpy(
                 np.asarray(labels, dtype=np.int32)).to(self.device, copy=True)
             self.state = create_state(cfg, seed=seed, device=self.device)
-            self.epoch_fn = make_device_epoch_fn(cfg)
+            self.epoch_inputs = EpochInputs.allocate(cfg, len(train_nids), self.device)
+            # the eager form for the first epoch, then (on the card) the graphs
+            self.epoch_runner: Optional[DeviceEpochRunner] = None
+            self._device_epochs = 0             # epochs enqueued
+            self._side_stream = (torch.cuda.Stream(device=self.device)
+                                 if self.device.type == "cuda" else None)
             return
         if cfg.cache.rank_by == "access_freq":
             self.cache.track_access = True
@@ -203,26 +219,66 @@ class Trainer:
                   f"time={em.time_s:.2f}s miss={em.miss_rate:.1%}")
         return em
 
-    def epoch_randomness(self, epoch: int):
+    def epoch_randomness(self, epoch: int, out: Optional[EpochInputs] = None):
         """``(perm, draws)`` of an epoch, drawn on the device from a
         generator seeded by ``(seed, epoch)``: the permutation of the train
-        vertices and every step's random integers (``epoch_draws``)."""
+        vertices and every step's random integers (``epoch_draws``), into
+        ``out``'s buffers when given, else fresh tensors."""
         gen = torch.Generator(device=self.device).manual_seed(epoch_seed(self._seed, epoch))
         s = self.cfg.sampler
         n_train = self._dev_train_nids.shape[0]
-        perm = torch.randperm(n_train, generator=gen, device=self.device)
-        draws = epoch_draws(gen, -(-n_train // s.batch_size), s.batch_size,
-                            s.hop_fanouts(), s.paired_draws, self.device)
+        if out is None:
+            perm = torch.randperm(n_train, generator=gen, device=self.device)
+        else:
+            perm = torch.randperm(n_train, generator=gen, out=out.perm)
+        draws = epoch_draws(gen, num_batches(n_train, s.batch_size), s.batch_size,
+                            s.hop_fanouts(), s.paired_draws, self.device,
+                            out=None if out is None else out.draws)
         return perm, draws
+
+    def device_data(self) -> DeviceData:
+        """What the on-device epoch reads (the cache filled first)."""
+        self._maybe_fill_cache()
+        return DeviceData(self._dev_train_nids, self._dev_labels, self._dev_csr,
+                          self.cache.cache_values, self.cache.dequant_scale_dev)
+
+    def _ready_device_runner(self) -> None:
+        """The eager form before the first epoch; on the card, the graphs
+        captured before the second (timed as ``"capture"``)."""
+        if self.epoch_runner is None:
+            self.epoch_runner = DeviceEpochRunner(self.cfg, self.state, self.epoch_inputs,
+                                                  self.device_data())
+        elif self._side_stream is not None and not self.epoch_runner.graph \
+                and self._device_epochs:
+            with self.timers.scope("capture"):
+                self.epoch_runner = DeviceEpochRunner(
+                    self.cfg, self.state, self.epoch_inputs, self.device_data(),
+                    graph=True, stream=self._side_stream)
+                torch.cuda.synchronize(self.device)
+
+    def enqueue_device_epoch(self, epoch: int):
+        """Load the epoch's randomness and enqueue the epoch; its
+        ``EpochAccumulator``, without waiting for the device.  On the card
+        the eager form runs on the side stream (PyTorch's warm-up before a
+        capture), after the randomness and before what follows."""
+        self._ready_device_runner()
+        self.epoch_inputs.load(*self.epoch_randomness(epoch, out=self.epoch_inputs))
+        self._device_epochs += 1
+        if self._side_stream is None or self.epoch_runner.graph:
+            return self.epoch_runner()
+        main = torch.cuda.current_stream(self.device)
+        self._side_stream.wait_stream(main)
+        with torch.cuda.stream(self._side_stream):
+            acc = self.epoch_runner()
+        main.wait_stream(self._side_stream)
+        return acc
 
     def _run_epoch_on_device(self, epoch: int) -> EpochMetrics:
         """Enqueue the epoch, then read its metrics: the epoch's one sync."""
-        self._maybe_fill_cache()
+        self._ready_device_runner()
         t_epoch = time.perf_counter()
         with self.timers.scope("enqueue"):          # the whole epoch's
-            acc = self.epoch_fn(self.state, *self.epoch_randomness(epoch),
-                                self._dev_train_nids, self._dev_labels, self._dev_csr,
-                                self.cache.cache_values, self.cache.dequant_scale_dev)
+            acc = self.enqueue_device_epoch(epoch)
         vals = acc.values()
         steps = max(int(vals["steps"]), 1)
         em = EpochMetrics(

@@ -18,10 +18,21 @@ state, the logits and the loss stay f32.  The assembly then writes its
 features as bf16 (the same launch), and the block kernels run on bf16 rows;
 the backward adds into an f32 table and rounds it in a second launch, so a
 bf16 step launches 5 kernels.
+
+The optimizer is Adam with its learning rate a 0-d f32 tensor on the
+parameters' device, under ``train.lr_schedule``: ``"none"`` keeps it
+fixed, ``"cosine"`` (the JAX package's ``optax.cosine_decay_schedule(lr,
+lr_decay_steps, alpha=0.05)``) sets it on the device before each update
+from ``TrainState.step_t``, the device count of updates applied.  Nothing
+is read back, so a step captured in a CUDA graph replays the schedule.
+On CUDA the optimizer is ``capturable`` (its step counts on the device too),
+eager and replayed alike; on the CPU it is not (PyTorch refuses it there),
+with the same tensor learning rate.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -35,13 +46,28 @@ from ..utils.device import resolve_device
 from .objective import masked_accuracy, masked_cross_entropy
 
 
+# optax.cosine_decay_schedule's alpha in the JAX package's make_optimizer
+COSINE_ALPHA = 0.05
+
+
 @dataclasses.dataclass
 class TrainState:
+    """``step`` counts updates on the host, ``step_t`` (int64, 0-d, on the
+    model's device) on the device; a replayed CUDA graph advances
+    ``step_t`` itself and its caller ``step``."""
+
     model: nn.Module
     optimizer: torch.optim.Optimizer
     generator: torch.Generator      # dropout stream, on the model's device
     step: int = 0
     dtype: torch.dtype = torch.float32   # compute dtype (compute_dtype)
+    lr_schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None   # make_lr_schedule
+    step_t: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.step_t is None:
+            self.step_t = torch.zeros((), dtype=torch.int64,
+                                      device=next(self.model.parameters()).device)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -66,13 +92,39 @@ def cast_apply(model: nn.Module, dtype: torch.dtype) -> Callable:
     return apply
 
 
-def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
-    """Adam with optax.adam's defaults: betas (0.9, 0.999), eps 1e-8."""
+def cosine_decay(count: torch.Tensor, lr: float, decay_steps: int,
+                 alpha: float = COSINE_ALPHA) -> torch.Tensor:
+    """``optax.cosine_decay_schedule(lr, decay_steps, alpha)`` at ``count``
+    updates applied: ``lr * ((1 - alpha) * (1 + cos(pi * min(count, T) / T))
+    / 2 + alpha)``, f32 on ``count``'s device, in optax's order."""
+    t = count.clamp(max=decay_steps).to(torch.float32)
+    return lr * ((1 - alpha) * (0.5 * (1 + torch.cos(math.pi * t / decay_steps))) + alpha)
+
+
+def make_lr_schedule(cfg: Config) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+    """The learning rate at an update count (a device tensor) under
+    ``train.lr_schedule``, or ``None`` for the fixed ``train.lr``.  The
+    horizon is ``max(lr_decay_steps, 1)``, as in the JAX package."""
     t = cfg.train
-    if t.lr_schedule != "none":
-        raise NotImplementedError(
-            f"lr_schedule {t.lr_schedule!r} is not ported yet (ROADMAP queue 1)")
-    return torch.optim.Adam(params, lr=t.lr, betas=(0.9, 0.999), eps=1e-8)
+    if t.lr_schedule == "none":
+        return None
+    if t.lr_schedule == "cosine":
+        lr, steps = t.lr, max(int(t.lr_decay_steps), 1)
+        return lambda count: cosine_decay(count, lr, steps)
+    raise ValueError(f"unknown lr_schedule {t.lr_schedule!r}")
+
+
+def make_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    """Adam with optax.adam's defaults: betas (0.9, 0.999), eps 1e-8, and
+    the learning rate ``train.lr`` as a 0-d f32 tensor on the parameters'
+    device (``param_groups[0]["lr"]``, which a schedule sets in place).
+    ``capturable`` (and ``foreach``) on CUDA; on the CPU neither."""
+    params = list(params)
+    device = params[0].device
+    on_cuda = device.type == "cuda"
+    lr = torch.tensor(cfg.train.lr, dtype=torch.float32, device=device)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=on_cuda, foreach=on_cuda)
 
 
 def create_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
@@ -85,7 +137,8 @@ def create_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
     model.to(device).train()
     gen = torch.Generator(device=device).manual_seed(seed ^ 0x5EED)
     return TrainState(model=model, optimizer=make_optimizer(cfg, model.parameters()),
-                      generator=gen, dtype=compute_dtype(cfg))
+                      generator=gen, dtype=compute_dtype(cfg),
+                      lr_schedule=make_lr_schedule(cfg))
 
 
 def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
@@ -111,7 +164,10 @@ def train_on_features(state: TrainState, mb: MiniBatch,
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if state.lr_schedule is not None:
+        state.optimizer.param_groups[0]["lr"].copy_(state.lr_schedule(state.step_t))
     state.optimizer.step()
+    state.step_t.add_(1)
     state.step += 1
     with torch.no_grad():
         acc = masked_accuracy(logits, mb.labels, mb.seed_mask)

@@ -150,7 +150,7 @@ def test_device_epochs_lockstep_with_jax(datasets, paired):
     ttr.state.model.load_state_dict(params_from_jax(jax.device_get(jtr.state.params)))
     n_train = len(tds.train_nids)
     assert n_train % 128
-    ttr.epoch_randomness = lambda e: _jax_epoch_randomness(3, e, n_train, tcfg)
+    ttr.epoch_randomness = lambda e, out=None: _jax_epoch_randomness(3, e, n_train, tcfg)
     jtr.train(2)
     ttr.train(2)
     for jm, tm in zip(jtr.epoch_metrics, ttr.epoch_metrics, strict=True):
@@ -164,8 +164,13 @@ def test_device_epochs_lockstep_with_jax(datasets, paired):
 
 @pytest.mark.parametrize("paired", [False, True])
 def test_dispatch_modes_share_one_trajectory(datasets, paired):
-    """``scan``, ``steps`` and ``pipelined`` are accepted and give identical
-    epochs and parameters (in eager PyTorch they are one enqueue loop)."""
+    """``scan``, ``steps`` and ``pipelined`` are three code paths, one
+    function each (``DeviceEpochRunner``; CUDA graphs on the card, their
+    eager forms on the CPU), and on the CPU they give bit-equal epochs,
+    parameters and device step counts: the same arithmetic in the same
+    order, whether a batch is a view of the schedule (``scan``) or taken
+    at a device index (``steps``, ``pipelined``), and whether batch i+1 is
+    fetched before batch i trains (``pipelined``)."""
     _, tds = datasets
     runs = {}
     for dispatch in ("scan", "steps", "pipelined"):
@@ -183,6 +188,12 @@ def test_dispatch_modes_share_one_trajectory(datasets, paired):
                                 tr.state.model.parameters()):
             assert torch.equal(p, q), name
         assert tr.state.step == ref.state.step == 2 * ref.epoch_metrics[0].num_batches
+    for dispatch, tr in runs.items():
+        runner = tr.epoch_runner
+        assert (runner.mode, runner.graph, runner.graphs) == (dispatch, False, [])
+        assert int(tr.state.step_t) == tr.state.step
+        assert runner.inputs is tr.epoch_inputs
+        assert torch.equal(tr.epoch_inputs.acc.sums, ref.epoch_inputs.acc.sums)
 
 
 def test_device_trainer_learns_on_cpu(datasets):

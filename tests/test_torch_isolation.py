@@ -89,7 +89,7 @@ def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("train_kw", [dict(ckpt_dir="ckpt", ckpt_every=1),
                                       dict(remote_sampling=True),
                                       dict(eval_every=1),
-                                      dict(lr_schedule="cosine", lr_decay_steps=5),
+                                      dict(eval_every=1, on_device_sampling=True),
                                       dict(eval_every=1, eval_backend="device")])
 def test_unported_paths_raise(train_kw):
     ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
