@@ -12,15 +12,20 @@ Phases, each printed as one JSON line:
   width (2 layers, hidden 16, 100-dim features, 47 classes, batch 6000,
   fan-out 2, Adam lr 1e-2) on an RMAT scale-20 graph (1,048,576 vertices,
   ~16.08M edges) with the cache at 40% capacity, 2 epochs through
-  ``Trainer.from_dataset``, with each kernel's launch count; then one epoch
-  with the ``gcn`` aggregator, the path of the ``sum`` kind;
+  ``Trainer.from_dataset`` at the JAX package's defaults (the native
+  sampler, ``backend="auto"``; ``steps_per_dispatch=8``: epoch 0 eager,
+  epoch 1 replayed from the host-step CUDA graphs), with each kernel's
+  launches run (those counted eagerly plus each graph's captured launches
+  times its replays); then one epoch with the ``gcn`` aggregator, the path
+  of the ``sum`` kind;
 * ``tiers``: one epoch of the same configuration at each cache tier
   (``cache.dtype`` float32, bfloat16, int8), each a fresh ``Trainer``
   (seed 0) at 40% capacity: epoch time, edges/s, miss rate (equal to the
   f32 run's epoch 0: the same batches), bytes shipped host -> device, the
   cache's device bytes and each kernel's launches (4 a step);
 * ``bf16_train``: the host path at bf16 compute (``train.dtype="bfloat16"``)
-  with the bf16 cache tier at 40% capacity, 2 epochs (the loss must fall,
+  with the bf16 cache tier at 40% capacity, 2 epochs (epoch 1 replayed; the
+  loss must fall,
   the miss rate equal the f32 run's), then one ``gcn`` epoch over the f32
   tier: epoch time, edges/s, miss rate, bytes shipped, and 5 launches a
   step, all bf16 (``assemble_<tier>_to_bf16``, two
@@ -31,6 +36,31 @@ Phases, each printed as one JSON line:
   pass) beside the f32 store's int8 setup in ``tiers``, its miss rate and
   bytes shipped (equal to that run's), its scale and cache rows (equal),
   and the loader alone over both stores, in turns;
+* ``host_dispatch``: the host path at the JAX package's defaults.  The
+  loader alone (sampling, plan, miss gather, pack, groups stacked in pinned
+  memory) for an epoch with the numpy and with the native sampler, in
+  turns, and the OpenMP setting; then fresh Trainers (seed 0) of the chip
+  configuration: ``steps_per_dispatch`` 8 replayed from CUDA graphs (3
+  epochs, epoch 0 eager), twice the eager form of K=8 (the eager spread),
+  the eager and the graph form of K=1, at bf16 compute over the bf16
+  tier K=8 replayed and twice eager, and with ``cache.rank_by=
+  "access_freq"`` (the cache refilled after epoch 0) K=8 replayed and
+  eager.  For each: epoch time, edges/s, host enqueue ms a step, device ms
+  a step (one more group behind a device sleep) and the busy share,
+  capture seconds, graphs and their ``(k, bucket)`` keys, miss rate and
+  bytes shipped, peak device bytes and launches; and the first and the
+  last (partial) group of a further epoch, each dispatched three times
+  from the same state (replayed, then twice eager).  It fails unless every
+  sampler is native, every run launches 4 kernels a step (5 at bf16
+  compute) and a replay those 4 (5), the runs' batches, edges and miss
+  rates equal their graph run's (and bytes shipped at the same K), the
+  access-frequency graphs read the refilled cache, each replayed group's
+  loss is within 1e-6 relative of the eager form's (or the eager spread,
+  if larger) and every parameter within 1e-5 of its norm (or the spread),
+  the bf16 replayed run's losses and parameters equal the eager run's to
+  the bit, and the loss falls.  At f32 the whole runs' losses and
+  parameters are reported, not held: their eager epoch 0 may already
+  differ (the block backward's atomics add in their own order);
 * ``device_epoch``: the whole-epoch on-device path (``train.on_device_sampling``)
   of the same configuration with the full cache and the CSR on the card,
   each run a fresh ``Trainer`` (seed 0) for 2 epochs, the first eager and
@@ -344,6 +374,7 @@ def main() -> None:
         from pagraph_tpu_torch.storage.feature_store import FeatureStore, quantize_store
         from pagraph_tpu_torch.ops.aggregate import block_gather
         from pagraph_tpu_torch.sampling.block import Block
+        from pagraph_tpu_torch.sampling.pack import PackedGroup
         from pagraph_tpu_torch.train.device_epoch import (DeviceEpochRunner,
                                                           EpochAccumulator,
                                                           device_batch_step,
@@ -351,8 +382,8 @@ def main() -> None:
                                                           make_device_step_fns,
                                                           train_batch)
         from pagraph_tpu_torch.train.loop import Trainer
-        from pagraph_tpu_torch.train.state import (TrainState, make_optimizer,
-                                                   train_step)
+        from pagraph_tpu_torch.train.state import (TrainState, make_multistep_train_step,
+                                                   make_optimizer, train_step)
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
     if os.path.dirname(os.path.abspath(pt.__file__)) != os.path.join(HERE, "pagraph_tpu_torch"):
@@ -409,6 +440,28 @@ def main() -> None:
                                  lr_decay_steps=cosine_steps),
         )
 
+    def executed_launches(counted, runner):
+        """The launches run since the counters' reset: ``counted`` (which
+        counts a launch captured into a graph once, at capture) with each of
+        ``runner``'s graphs' captured launches times its replays in place of
+        that once (its graphs captured since the reset).  ``runner``: a
+        ``DeviceEpochRunner``, a host Trainer's ``group_graphs``, or None."""
+        out = dict(counted)
+        for g in (runner.graphs if runner is not None else ()):
+            for k, v in g.launches.items():
+                out[k] += v * (g.replays - 1)
+        return out
+
+    def free_memory():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def host_step_ms(t_, runs):
+        """Host enqueue ms a step of a host Trainer (its ``"step"`` timer
+        over the steps of ``runs``: the dispatch of a group, its H2D copy
+        included; a capture is timed apart)."""
+        return t_.timers.total["step"] * 1e3 / sum(m.num_batches for m in runs)
+
     cfg = config("mean")
     t0 = time.perf_counter()
     tr = Trainer.from_dataset(cfg, ds, seed=0)
@@ -419,18 +472,21 @@ def main() -> None:
     gk.reset_launch_counts()
     epochs = [tr.run_epoch(e) for e in range(2)]
     torch.cuda.synchronize()
-    launches = gk.launch_counts()
+    launches = executed_launches(gk.launch_counts(), tr.group_graphs)
     main_keys = ("assemble_f32", "block_gather_fwd_mean", "block_gather_bwd_mean")
     train_out = {
         "graph": {"vertices": ds.num_nodes, "edges": ds.graph.num_edges},
         "caps": list(tr.sampler.caps), "cache_capacity": tr.cache.capacity,
+        "sampler_backend": tr.sampler.backend_name,
+        "steps_per_dispatch": tr.steps_per_dispatch,
+        "graphs": len(tr.group_graphs.graphs), "capture_s": tr.timers.total["capture"],
         "dataset_s": data_s, "setup_s": setup_s,
         "epochs": [{"epoch": m.epoch, "time_s": m.time_s,
                     "edges": m.edges, "edges_per_s": m.edges / m.time_s,
                     "miss_rate": m.miss_rate, "mean_loss": m.mean_loss,
                     "mean_acc": m.mean_acc, "batches": m.num_batches,
                     "h2d_bytes": m.h2d_bytes} for m in epochs],
-        "step_host_ms": tr.timers.summary()["step"]["mean_ms"],
+        "step_host_ms": host_step_ms(tr, epochs),
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches,
     }
@@ -505,7 +561,7 @@ def main() -> None:
     gk.reset_launch_counts()
     bf_epochs = [bf_tr.run_epoch(e) for e in range(2)]
     torch.cuda.synchronize()
-    bf_launches = gk.launch_counts()
+    bf_launches = executed_launches(gk.launch_counts(), bf_tr.group_graphs)
     gk.reset_launch_counts()
     bf_gcn_tr = Trainer.from_dataset(config("gcn", "float32", compute="bfloat16"), ds, seed=0)
     bf_gcn_epoch = bf_gcn_tr.run_epoch(0)
@@ -518,7 +574,7 @@ def main() -> None:
                     "edges_per_s": m.edges / m.time_s, "miss_rate": m.miss_rate,
                     "mean_loss": m.mean_loss, "mean_acc": m.mean_acc,
                     "batches": m.num_batches, "h2d_bytes": m.h2d_bytes} for m in bf_epochs],
-        "step_host_ms": bf_tr.timers.summary()["step"]["mean_ms"],
+        "step_host_ms": host_step_ms(bf_tr, bf_epochs),
         "launches": {k: v for k, v in bf_launches.items() if v},
         "launches_per_step": sum(bf_launches.values()) / sum(m.num_batches for m in bf_epochs),
         "gcn_epoch_f32_cache": {"time_s": bf_gcn_epoch.time_s,
@@ -607,6 +663,328 @@ def main() -> None:
              "assemble_int8_to_bf16, two bf16 block forwards, one bf16 block backward "
              "and one grad_to_bf16")
 
+    # -- host_dispatch: the host path at the JAX package's defaults -------------------
+    # backend "auto" (the native sampler) and steps_per_dispatch: the loader
+    # alone with each sampler; then fresh Trainers (seed 0) of the chip
+    # configuration: K=8 replayed from CUDA graphs (epoch 0 eager), twice the
+    # eager form of K=8 (the eager spread), the eager and the graph form of
+    # K=1; bf16 compute over the bf16 tier, K=8 replayed and twice eager;
+    # cache.rank_by="access_freq" (refilled after epoch 0), K=8 replayed
+    # and eager
+    omp = {"OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS"), "cpu_count": os.cpu_count(),
+           "torch_threads": torch.get_num_threads()}
+
+    def host_cfg(k: int, compute: str = "float32", cache_dtype: str = "float32",
+                 backend: str = "auto", rank_by: str = "out_degree"):
+        c = config("mean", cache_dtype, compute=compute)
+        c.train.steps_per_dispatch = k
+        c.sampler.backend = backend
+        c.cache.rank_by = rank_by
+        return c
+
+    def params_of(t_):
+        return {n: p.detach().clone() for n, p in t_.state.model.named_parameters()}
+
+    def loader_epoch(t_):
+        """One epoch of the host pipeline alone, as the Trainer consumes it
+        (sampling, plan, miss gather, pack, the groups stacked in pinned
+        memory; nothing crosses to the card): seconds, batches, the bytes
+        the groups would ship, the miss rate."""
+        t_.cache.reset_stats()
+        t0 = time.perf_counter()
+        nb = h2d = 0
+        for grp in t_.loader.groups(t_.steps_per_dispatch):
+            nb, h2d = nb + grp.k, h2d + grp.nbytes
+        return {"s": time.perf_counter() - t0, "batches": nb, "h2d_bytes": h2d,
+                "miss_rate": t_.cache.miss_rate()}
+
+    def group_device_ms(t_):
+        """Device ms a step of one group's dispatch in the form the Trainer
+        runs now (its H2D copy included), behind a device sleep that
+        outlasts its enqueue: the first group of a further loader epoch,
+        one replay; in the eager form its first two batches (eight eager
+        steps, some 1,100 launches, would fill the launch queue and block
+        the host)."""
+        gen = t_.loader.groups(t_.steps_per_dispatch)
+        grp = next(gen)
+        gen.close()
+        graphs = t_.group_graphs if t_.host_graphs else None
+        if graphs is not None and graphs.needs_capture(grp):
+            graphs.capture(grp, t_._acc)
+        if graphs is None:
+            grp = PackedGroup(grp.layout, grp.i32[:2], grp.u8[:2], grp.miss[:2])
+        eager = make_multistep_train_step(t_.state, t_.cache.cache_values,
+                                          t_.cache.dequant_scale_dev)
+
+        def run():
+            if graphs is not None:
+                graphs(grp, t_._acc)
+            else:
+                eager(grp, t_._acc)
+        run()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(400_000_000)
+        ev[1].record()
+        t0 = time.perf_counter()
+        run()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        return {"device_ms_per_step": ev[1].elapsed_time(ev[2]) / grp.k, "timed_group_k": grp.k,
+                "device_time_is_pure": enqueue_ms < ev[0].elapsed_time(ev[1])}
+
+    def group_parity(t_):
+        """The first and the last (partial) group of a further loader epoch,
+        each dispatched three times from the same state (parameters, Adam's
+        state, the dropout generator, the step counts, the accumulator,
+        restored in place between): replayed from the Trainer's graph of its
+        key, then twice through the eager form.  For each, the relative
+        difference of the group's loss sum and the largest
+        ||p - p_eager|| / ||p_eager||, replay against eager and eager
+        against eager."""
+        gen = t_.loader.groups(t_.steps_per_dispatch)
+        first = last = next(gen)
+        for last in gen:
+            pass
+        grps = (first, last)
+        st, acc = t_.state, t_._acc
+        params = list(st.model.parameters())
+        graphs = t_.group_graphs
+        eager = make_multistep_train_step(st, t_.cache.cache_values,
+                                          t_.cache.dequant_scale_dev)
+        for grp in (grps[0], grps[-1]):
+            if graphs.needs_capture(grp):
+                graphs.capture(grp, acc)
+        torch.cuda.synchronize()
+        snap = ([p.detach().clone() for p in params],
+                [{k: v.clone() for k, v in st.optimizer.state[p].items()} for p in params],
+                st.generator.get_state(), st.step_t.clone(), st.step, acc.clone())
+
+        def restore():
+            with torch.no_grad():
+                for p, v, o in zip(params, snap[0], snap[1]):
+                    p.copy_(v)
+                    for k, t in o.items():
+                        st.optimizer.state[p][k].copy_(t)
+                st.step_t.copy_(snap[3])
+                acc.copy_(snap[5])
+            st.generator.set_state(snap[2])
+            st.step = snap[4]
+
+        out = {}
+        for which, grp in (("first", grps[0]), ("last", grps[-1])):
+            results = []
+            for form in ("replayed", "eager", "eager_again"):
+                restore()
+                if form == "replayed":
+                    graphs(grp, acc)
+                else:
+                    eager(grp, acc)
+                torch.cuda.synchronize()
+                results.append(((acc[0] - snap[5][0]).item(),
+                                {n: p.detach().clone()
+                                 for n, p in st.model.named_parameters()}))
+            (l_r, p_r), (l_e, p_e), (l_e2, p_e2) = results
+            out[which] = {"group_key": [grp.k, grp.layout.bucket],
+                          "group_loss_sum": [l_r, l_e, l_e2],
+                          "loss_rel_diff": {"replay_vs_eager": rel(l_r, l_e),
+                                            "eager_vs_eager": rel(l_e2, l_e)},
+                          "param_rel_diff": {"replay_vs_eager": param_rel(p_r, p_e),
+                                             "eager_vs_eager": param_rel(p_e2, p_e)}}
+        restore()
+        return out
+
+    def host_run(cfg_h, n_epochs: int, graphs: bool):
+        """A fresh Trainer's ``n_epochs`` (the first eager, then the form
+        ``graphs`` picks): each epoch's metrics and host enqueue ms a step,
+        setup, capture seconds, graphs, the launches run (counted from 0 just
+        before), peak device bytes from the run's start, the parameters
+        after epoch 1, and the device time a step of one more group; whether
+        the cache was refilled (``access_freq``) and the graphs read the
+        rows it holds now."""
+        free_memory()
+        start_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t_ = Trainer.from_dataset(cfg_h, ds, seed=0)
+        t_.host_graphs = graphs
+        t_._maybe_fill_cache()
+        first_fill = t_.cache.cache_values
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        gk.reset_launch_counts()
+        ms, eps, params = [], [], None
+        for e in range(n_epochs):
+            step_s = t_.timers.total["step"]
+            ms.append(t_.run_epoch(e))
+            m = ms[-1]
+            eps.append({"epoch": e, "form": "graphs" if graphs and e else "eager",
+                        "time_s": m.time_s, "edges": m.edges,
+                        "edges_per_s": m.edges / m.time_s, "batches": m.num_batches,
+                        "miss_rate": m.miss_rate, "h2d_bytes": m.h2d_bytes,
+                        "mean_loss": m.mean_loss, "mean_acc": m.mean_acc,
+                        "enqueue_ms_per_step": (t_.timers.total["step"] - step_s) * 1e3
+                        / m.num_batches})
+            if e == 1:
+                params = params_of(t_)
+        torch.cuda.synchronize()
+        counts = executed_launches(gk.launch_counts(), t_.group_graphs)
+        peak = torch.cuda.max_memory_allocated() - start_bytes
+        out = {"k": t_.steps_per_dispatch, "form": "graphs" if graphs else "eager",
+               "sampler_backend": t_.sampler.backend_name, "caps": list(t_.sampler.caps),
+               "setup_s": setup, "epochs": eps,
+               "capture_s": t_.timers.total["capture"],
+               "graphs": len(t_.group_graphs.graphs) if t_.group_graphs else 0,
+               "graph_keys": ([[k, lay.bucket] for k, lay in t_.group_graphs.keys]
+                              if t_.group_graphs else []),
+               "launches": {k: v for k, v in counts.items() if v},
+               "run_peak_device_bytes": peak,
+               "cache_refilled": t_.cache.cache_values is not first_fill,
+               "graphs_read_current_cache": (t_.group_graphs.cache_values
+                                             is t_.cache.cache_values
+                                             if t_.group_graphs else None),
+               "replayed_launches_per_step": (
+                   {k: v / sum(m.num_batches for m in ms[1:])
+                    for k, v in t_.group_graphs.replayed_launches().items()}
+                   if t_.group_graphs else {})}
+        out.update(group_device_ms(t_))
+        out["device_busy_share"] = (out["device_ms_per_step"] * ms[-1].num_batches / 1e3
+                                    / ms[-1].time_s)
+        return t_, ms, params, out
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def param_rel(pa, pb):
+        """The largest ||pa - pb|| / ||pb|| over the parameters."""
+        return max(((pa[n] - pb[n]).norm() / pb[n].norm().clamp(min=1e-30)).item() for n in pb)
+
+    hd_out, hd_bad = {"omp": omp, "nvidia_smi": smi}, []
+    # the loader alone, numpy and native sampler, in turns
+    loader_tr = {b: Trainer.from_dataset(host_cfg(8, backend=b), ds, seed=0)
+                 for b in ("numpy", "auto")}
+    for t_ in loader_tr.values():
+        t_._maybe_fill_cache()
+    lo = {"numpy": [], "native": []}
+    for b in ("numpy", "auto", "auto", "numpy"):
+        lo["numpy" if b == "numpy" else "native"].append(loader_epoch(loader_tr[b]))
+    hd_out["loader_only"] = {
+        "epoch_s": {k: [r["s"] for r in v] for k, v in lo.items()},
+        "first_epoch": {k: {f: v[0][f] for f in ("batches", "miss_rate", "h2d_bytes")}
+                        for k, v in lo.items()},
+        "caps": {k: list(loader_tr[b].sampler.caps) for k, b in (("numpy", "numpy"),
+                                                                 ("native", "auto"))},
+        "backend": {k: loader_tr[b].sampler.backend_name for k, b in (("numpy", "numpy"),
+                                                                      ("native", "auto"))}}
+    del loader_tr, t_
+    if hd_out["loader_only"]["backend"] != {"numpy": "numpy", "native": "native"}:
+        hd_bad.append(f"sampler backends {hd_out['loader_only']['backend']}")
+
+    runs = {}
+    for label, cfg_h, n_epochs, graphs in (
+            ("f32_k8_graphs", host_cfg(8), 3, True),
+            ("f32_k8_eager", host_cfg(8), 2, False),
+            ("f32_k8_eager_again", host_cfg(8), 2, False),
+            ("f32_k1_eager", host_cfg(1), 2, False),
+            ("f32_k1_graphs", host_cfg(1), 2, True),
+            ("bf16_k8_graphs", host_cfg(8, "bfloat16", "bfloat16"), 3, True),
+            ("bf16_k8_eager", host_cfg(8, "bfloat16", "bfloat16"), 2, False),
+            ("bf16_k8_eager_again", host_cfg(8, "bfloat16", "bfloat16"), 2, False),
+            ("access_freq_k8_graphs", host_cfg(8, rank_by="access_freq"), 2, True),
+            ("access_freq_k8_eager", host_cfg(8, rank_by="access_freq"), 2, False)):
+        t_, ms, params, out = host_run(cfg_h, n_epochs, graphs)
+        runs[label] = (ms, params)
+        hd_out[label] = out
+        if graphs and t_.steps_per_dispatch == 8:
+            hd_out[label.replace("_graphs", "_group_parity")] = group_parity(t_)
+        del t_
+    f32_step = {"assemble_f32": 1, "block_gather_fwd_mean": 2, "block_gather_bwd_mean": 1}
+    for pre, per_step in (("f32", f32_step),
+                          ("bf16", {"assemble_bf16_to_bf16": 1,
+                                    "block_gather_fwd_mean_bf16": 2,
+                                    "block_gather_bwd_mean_bf16": 1, "grad_to_bf16": 1}),
+                          ("access_freq", f32_step)):
+        graph_k8, eager_k8 = f"{pre}_k8_graphs", f"{pre}_k8_eager"
+        ms_g, p_g = runs[graph_k8]
+        ms_e, p_e = runs[eager_k8]
+        # the whole runs: their epoch 0 is eager in both.  At f32 the
+        # atomics' order in the block backward parts them (reported); at
+        # bf16 compute the backward's f32 table is rounded once to bf16,
+        # and the replayed run must equal the eager one to the bit
+        whole = {"loss_rel_diff": {"replay_vs_eager": [rel(a.mean_loss, b.mean_loss)
+                                                       for a, b in zip(ms_g, ms_e)]},
+                 "param_rel_diff_after_epoch_1": {"replay_vs_eager": param_rel(p_g, p_e)},
+                 "bit_equal": {"losses": [a.mean_loss for a in ms_g[:len(ms_e)]]
+                               == [b.mean_loss for b in ms_e],
+                               "params": all(torch.equal(p_g[n], p_e[n]) for n in p_e)}}
+        if f"{pre}_k8_eager_again" in runs:
+            ms_e2, p_e2 = runs[f"{pre}_k8_eager_again"]
+            whole["loss_rel_diff"]["eager_vs_eager"] = [rel(a.mean_loss, b.mean_loss)
+                                                        for a, b in zip(ms_e2, ms_e)]
+            whole["param_rel_diff_after_epoch_1"]["eager_vs_eager"] = param_rel(p_e2, p_e)
+        hd_out[f"{pre}_epochs_replay_vs_eager"] = whole
+        if pre == "bf16" and whole["bit_equal"] != {"losses": True, "params": True}:
+            hd_bad.append(f"bf16: the replayed run is not bit-equal to the eager run: {whole}")
+        # one group from the same state: the first (8, bucket) and the
+        # last, partial (2, bucket) group of an epoch, each against its graph
+        for which, par in hd_out[f"{pre}_k8_group_parity"].items():
+            par["bound"] = ("the group's loss within max(1e-6, eager spread) relative, "
+                            "every parameter within max(1e-5, eager spread) of its norm")
+            for what, tol in (("loss_rel_diff", 1e-6), ("param_rel_diff", 1e-5)):
+                got, spread = par[what]["replay_vs_eager"], par[what]["eager_vs_eager"]
+                if not got <= max(tol, spread):
+                    hd_bad.append(f"{pre}: the {which} group {par['group_key']} replayed "
+                                  f"against the eager form from the same state: {what} "
+                                  f"{got}, over {tol} and the eager spread {spread}")
+        if not ms_g[1].mean_loss < ms_g[0].mean_loss:
+            hd_bad.append(f"{pre}: loss did not fall: {ms_g[0].mean_loss} -> "
+                          f"{ms_g[1].mean_loss}")
+        labels_pre = [k for k in runs if k.startswith(pre + "_")]
+        for label in labels_pre:
+            out, (ms, _) = hd_out[label], runs[label]
+            steps = sum(m.num_batches for m in ms)
+            if out["sampler_backend"] != "native":
+                hd_bad.append(f"{label}: sampler backend {out['sampler_backend']}")
+            if out["launches"] != {k: v * steps for k, v in per_step.items()}:
+                hd_bad.append(f"{label}: launches {out['launches']} over {steps} steps, "
+                              f"expected {per_step} a step")
+            if out["form"] == "graphs" and (out["replayed_launches_per_step"]
+                                            != {k: float(v) for k, v in per_step.items()}
+                                            or not out["graphs"]):
+                hd_bad.append(f"{label}: replayed launches a step "
+                              f"{out['replayed_launches_per_step']}, expected {per_step}")
+            if out["form"] == "graphs" and not out["graphs_read_current_cache"]:
+                hd_bad.append(f"{label}: the graphs do not read the cache's current rows")
+            if out["cache_refilled"] != (pre == "access_freq"):
+                hd_bad.append(f"{label}: cache refilled: {out['cache_refilled']}")
+            if not all(math.isfinite(m.mean_loss) for m in ms):
+                hd_bad.append(f"{label}: non-finite loss")
+            for m, r in zip(ms, runs[graph_k8][0]):
+                if (m.num_batches, m.edges, m.miss_rate) != (r.num_batches, r.edges,
+                                                             r.miss_rate):
+                    hd_bad.append(f"{label}: epoch {m.epoch} batches/edges/miss rate "
+                                  f"{(m.num_batches, m.edges, m.miss_rate)} != the graph "
+                                  f"run's {(r.num_batches, r.edges, r.miss_rate)}")
+                if "_k8" in label and m.h2d_bytes != r.h2d_bytes:
+                    hd_bad.append(f"{label}: epoch {m.epoch} h2d bytes {m.h2d_bytes} != the "
+                                  f"graph run's {r.h2d_bytes}")
+    # the refill by access frequency moved the miss rate of epoch 1
+    af, od = runs["access_freq_k8_graphs"][0], runs["f32_k8_graphs"][0]
+    hd_out["access_freq_miss_rate"] = {"access_freq": [m.miss_rate for m in af],
+                                       "out_degree": [m.miss_rate for m in od[:2]]}
+    if af[0].miss_rate != od[0].miss_rate:
+        hd_bad.append("access_freq: epoch 0 (the out-degree fill) missed "
+                      f"{af[0].miss_rate}, the out-degree run {od[0].miss_rate}")
+    k1 = [runs["f32_k1_eager"][0], runs["f32_k1_graphs"][0]]
+    if [m.h2d_bytes for m in k1[0]] != [m.h2d_bytes for m in k1[1]]:
+        hd_bad.append("K=1: the eager and the graph run shipped different bytes")
+    emit("host_dispatch", hd_out)
+    if hd_bad:
+        fail("host_dispatch: " + "; ".join(hd_bad))
+    del runs
+
     def host_and_device(fn, reps: int = 20, dev_reps: int = 2):
         """Host enqueue and wall time a call (``reps`` back to back), and
         device time a call behind a ~0.1 s device sleep that outlasts the
@@ -633,21 +1011,6 @@ def main() -> None:
                 "device_ms": ev[1].elapsed_time(ev[2]) / dev_reps,
                 "device_time_is_pure": dev_enqueue < ev[0].elapsed_time(ev[1]),
                 "sleep_ms": ev[0].elapsed_time(ev[1])}
-
-    def executed_launches(counted, runner):
-        """The launches run since the counters' reset: ``counted`` (which
-        counts a launch captured into a graph once, at capture) with each of
-        ``runner``'s graphs' captured launches times its replays in place of
-        that once (its graphs captured since the reset)."""
-        out = dict(counted)
-        for g in runner.graphs:
-            for k, v in g.launches.items():
-                out[k] += v * (g.replays - 1)
-        return out
-
-    def free_memory():
-        gc.collect()
-        torch.cuda.empty_cache()
 
     # -- device_epoch: the whole-epoch on-device path ------------------------
     # each run a fresh Trainer (seed 0) with the full cache and the CSR on the
@@ -789,13 +1152,6 @@ def main() -> None:
         return config("mean", kw.get("dtype", "float32"), on_device=True,
                       paired=kw.get("paired", False), compute=kw.get("compute", "float32"),
                       dispatch=mode, cosine_steps=kw.get("cosine_steps", 0))
-
-    def rel(a, b):
-        return abs(a - b) / max(abs(b), 1e-30)
-
-    def param_rel(pa, pb):
-        """The largest ||pa - pb|| / ||pb|| over the parameters."""
-        return max(((pa[n] - pb[n]).norm() / pb[n].norm().clamp(min=1e-30)).item() for n in pb)
 
     dispatch_out, bad = {}, []
     for label, kw in (("f32", {}), ("f32_paired", {"paired": True}),

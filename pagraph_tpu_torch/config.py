@@ -2,9 +2,9 @@
 
 A copy of ``pagraph_tpu/config.py``: the same five dataclasses, fields,
 defaults and ``validate`` rules, so one JSON config drives either package.
-Knobs that the port does not read (``steps_per_dispatch``,
-``scan_unroll``, ``halo_slack``) are kept for parity; the port's ``Trainer``
-says which paths it does not run yet.
+Knobs that the port does not read (``scan_unroll``, ``halo_slack``) are
+kept for parity; the port's ``Trainer`` says which paths it does not run
+yet.
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ class TrainConfig:
     eval_backend: str = "auto"        # host | device | auto
     remote_sampling: bool = False     # isolation mode: sampling in worker procs
     on_device_sampling: bool = False  # whole epoch sampled on the device
-    steps_per_dispatch: int = 8       # JAX package: K batches per compiled call
+    steps_per_dispatch: int = 8       # host path: K batches per dispatch (a CUDA graph)
     epoch_dispatch: str = "scan"      # scan | steps | pipelined: CUDA graphs on the card
     scan_unroll: int = 1              # JAX package: minibatches per scan step (ignored)
     halo_slack: float = 1.5           # multi-device halo width factor

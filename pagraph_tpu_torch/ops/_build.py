@@ -1,4 +1,4 @@
-"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+"""Build the port's native libraries at first use and load them with ctypes.
 
 Every ``csrc/*.cu`` file is compiled on its own (all nvcc processes started
 together) into a shared library with a plain C interface:
@@ -6,26 +6,40 @@ together) into a shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
+and the host library ``csrc/host_native.cpp`` (the sampler and the miss-row
+gathers) with g++:
+
+    g++ -O3 -march=native -shared -fPIC -fopenmp -std=c++17
+        -o _build/libhost_native-<hash>.so csrc/host_native.cpp
+
 The output goes to ``pagraph_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.  A failed build raises: there is no
-fallback.  nvcc's output (with ``-Xptxas -v``: registers, shared memory and
+and an unchanged one is loaded as it is.  Builds run under an exclusive
+lock on ``_build/.lock`` (``fcntl.flock``, released if the process dies)
+and write a temporary file that ``os.replace`` moves into place, so
+processes that start at once (test workers) build a library once and never
+load a half-written one.  A failed build raises: there is no fallback.  The
+compilers' output (nvcc's with ``-Xptxas -v``: registers, shared memory and
 spills per kernel) is kept in ``_build/<name>.log``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict
+from typing import Dict, Iterator, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_SRC = os.path.join(CSRC, "host_native.cpp")
+CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-fopenmp", "-std=c++17")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
@@ -52,40 +66,76 @@ def _nvcc() -> str:
         "and need the CUDA toolkit (set CUDA_HOME)")
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+def _target(src: str, flags: Sequence[str]) -> str:
+    """``_build/lib<stem>-<hash of the source and the flags>.so``."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+
+
+@contextlib.contextmanager
+def _build_lock() -> Iterator[None]:
+    """Hold the exclusive lock on ``_build/.lock`` (one build at a time
+    across processes)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(jobs: Dict[str, tuple]) -> None:
+    """Run ``{name: (argv without -o, target)}`` at once, each into a
+    temporary file moved into place on success; log each one's output to
+    ``_build/<name>.log``.  Raises with the output of those that failed."""
+    procs = {}
+    for name, (argv, target) in jobs.items():
+        tmp = f"{target}.{os.getpid()}.tmp"
+        procs[name] = (subprocess.Popen([*argv, "-o", tmp], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp, target)
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        with open(os.path.join(BUILD_DIR, name + ".log"), "wb") as f:
+            f.write(out)
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n" + out.decode(errors="replace"))
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(tmp)
+        else:
+            os.replace(tmp, target)
+    if failed:
+        raise RuntimeError("build failed for " + "\n".join(failed))
 
 
 @functools.lru_cache(maxsize=None)
 def build_all() -> Dict[str, str]:
-    """Compile every library whose output is missing, in parallel; return
-    ``{name: path}``.  Raises with nvcc's output if a build fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    targets = {name: _target(name) for name in SIGNATURES}
-    todo = {n: t for n, t in targets.items() if not os.path.exists(t)}
-    if todo:
-        nvcc = _nvcc()
-        procs = {}
-        for name, target in todo.items():
-            tmp = f"{target}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT), tmp)
-        failed = []
-        for name, (proc, tmp) in procs.items():
-            out, _ = proc.communicate()
-            with open(os.path.join(BUILD_DIR, name + ".log"), "wb") as f:
-                f.write(out)
-            if proc.returncode != 0:
-                failed.append(f"{name}.cu (exit {proc.returncode}):\n"
-                              + out.decode(errors="replace"))
-            else:
-                os.replace(tmp, todo[name])
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    """Compile every CUDA library whose output is missing, in parallel;
+    return ``{name: path}``.  Raises with nvcc's output if a build fails."""
+    srcs = {name: os.path.join(CSRC, name + ".cu") for name in SIGNATURES}
+    targets = {name: _target(src, NVCC_FLAGS) for name, src in srcs.items()}
+    with _build_lock():
+        todo = {n: t for n, t in targets.items() if not os.path.exists(t)}
+        if todo:
+            nvcc = _nvcc()
+            _compile({n: ([nvcc, *NVCC_FLAGS, srcs[n]], t) for n, t in todo.items()})
     return targets
+
+
+def build_host() -> str:
+    """The host library's path, compiled with g++ first if it is missing.
+    Raises ``RuntimeError`` if there is no g++ or the build fails."""
+    target = _target(HOST_SRC, CXX_FLAGS)
+    with _build_lock():
+        if not os.path.exists(target):
+            cxx = shutil.which("g++")
+            if cxx is None:
+                raise RuntimeError("g++ not found: the host library is compiled at first use")
+            _compile({"host_native": ([cxx, *CXX_FLAGS, HOST_SRC], target)})
+    return target
 
 
 @functools.lru_cache(maxsize=None)

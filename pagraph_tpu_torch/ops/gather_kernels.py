@@ -53,7 +53,7 @@ kernel, and nowhere else.  It is a host counter: under CUDA-graph capture a
 wrapper enqueues its kernel into the graph once and counts it once, and a
 replay counts nothing, so a run's launches are the eager ones plus each
 graph's captured launches times its replays
-(``train.device_epoch.CapturedGraph``).  A kernel launches on
+(``train.state.CapturedGraph``).  A kernel launches on
 ``torch.cuda.current_stream()`` of its tensors' device: the capture stream
 while a graph is captured, and in a backward the stream autograd runs it on
 (the forward's).  The build (:func:`_lib`, nvcc at first use) must have run

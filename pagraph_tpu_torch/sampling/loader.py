@@ -2,16 +2,17 @@
 with device compute (the port of ``pagraph_tpu/sampling/loader.py``).
 
 Producer threads run [sample -> cache hit/miss split -> host miss gather ->
-copy to the device] while the main thread runs the step on an earlier batch.
-Host arrays go through pinned buffers with ``non_blocking=True`` copies on
-the producer's current stream (the default stream, so the step that uses
-them is ordered after the copy).  Items carry sequence numbers and the
-consumer reorders them, so the epoch order — and the training trajectory —
-is deterministic.  A bounded queue gives backpressure.
+pack] while the main thread runs the step on an earlier batch.  A batch is
+packed into three flat host buffers (``sampling/pack.py``), the JAX
+package's packed, host-output mode: the item is ``(layout, i32, u8,
+miss)``.  Items carry sequence numbers and the consumer reorders them, so
+the epoch order — and the training trajectory — is deterministic.  A
+bounded queue gives backpressure.
 
-The JAX package packs each batch into three flat buffers
-(``sampling/pack.py``) to cut per-array round trips on its TPU host link;
-that format is not ported.
+:meth:`PrefetchLoader.groups` stacks K items into one group
+(``pack.stack``), in pinned memory for a CUDA device: the only pinned copy
+a batch makes, from which its group crosses in one copy a buffer (the
+Trainer's ``steps_per_dispatch``).
 """
 from __future__ import annotations
 
@@ -19,23 +20,24 @@ import queue
 import threading
 from typing import Iterator, Tuple
 
-import numpy as np
 import torch
 
 from ..storage.cache import FeatureCache
 from ..utils.device import resolve_device
-from .block import MiniBatch, _ship
+from .block import MiniBatch
+from .pack import BatchLayout, PackedGroup, make_layout, pack, stack
 from .sampler import NeighborSampler
 
 _END = object()
 
-Item = Tuple[MiniBatch, torch.Tensor, torch.Tensor]   # (mb, miss_feats, src_row)
+Item = Tuple[BatchLayout, torch.Tensor, torch.Tensor, torch.Tensor]  # layout, i32, u8, miss
 
 
 class PrefetchLoader:
-    """Iterates ``(device MiniBatch, miss_feats, src_row)`` for one epoch,
-    the miss rows in the cache tier's dtype.  ``device=None`` is the GPU
-    (``RuntimeError`` without one)."""
+    """Iterates one epoch's packed host batches ``(layout, i32, u8,
+    miss)``, the miss rows in the cache tier's dtype (:meth:`epoch`), or
+    groups of them (:meth:`groups`) for ``device``.  ``device=None`` is the
+    GPU (``RuntimeError`` without one)."""
 
     def __init__(self, sampler: NeighborSampler, cache: FeatureCache, *,
                  prefetch: int = 2, device=None, workers: int = 2):
@@ -44,11 +46,9 @@ class PrefetchLoader:
         self.prefetch = max(1, prefetch)
         self.device = resolve_device(device)
         self.workers = max(1, workers)
-        # per-epoch accounting: valid sampled edges, loaded vertices, and the
-        # bytes shipped host -> device (miss rows at the tier's width)
+        # per-epoch accounting: valid sampled edges and loaded vertices
         self.epoch_edges = 0
         self.epoch_vertices = 0
-        self.epoch_h2d_bytes = 0
 
     def _produce(self, q: queue.Queue, stop: threading.Event, it,
                  it_lock: threading.Lock, done_counter: list) -> None:
@@ -63,15 +63,7 @@ class PrefetchLoader:
                     done_counter[1] += 1
                     self.epoch_edges += mb.num_sampled_edges()
                     self.epoch_vertices += mb.num_loaded_vertices()
-                plan = self.cache.fetch_plan(mb.input_nids, mb.input_mask)
-                nbytes = (plan.miss_feats.nbytes + plan.src_row.nbytes
-                          + sum(np.asarray(a).nbytes for a in _arrays(mb)))
-                item = (mb.to(self.device, non_blocking=True),
-                        _ship(plan.miss_feats, self.device, True),
-                        _ship(plan.src_row, self.device, True))
-                with it_lock:
-                    self.epoch_h2d_bytes += nbytes
-                q.put((seq, item))
+                q.put((seq, self._pack(mb)))
             with it_lock:
                 done_counter[0] += 1
                 if done_counter[0] == self.workers:
@@ -79,10 +71,15 @@ class PrefetchLoader:
         except BaseException as e:  # surface errors to the consumer
             q.put(e)
 
+    def _pack(self, mb: MiniBatch) -> Item:
+        plan = self.cache.fetch_plan(mb.input_nids, mb.input_mask)
+        layout = make_layout(self.sampler.caps, self.sampler.config.block_fanouts(),
+                             self.cache.total_dim, plan.miss_feats.shape[0])
+        return (layout, *pack(mb, plan.src_row, plan.miss_feats, layout))
+
     def epoch(self) -> Iterator[Item]:
         self.epoch_edges = 0
         self.epoch_vertices = 0
-        self.epoch_h2d_bytes = 0
         q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, self.workers))
         stop = threading.Event()
         it = self.sampler.epoch()
@@ -123,13 +120,19 @@ class PrefetchLoader:
             for t in threads:
                 t.join()
 
+    def groups(self, k: int) -> Iterator[PackedGroup]:
+        """One epoch in groups of ``k`` batches (the last one shorter),
+        stacked in pinned memory for a CUDA device: the consumer side of
+        the JAX package's grouped transfer."""
+        pin = self.device.type == "cuda"
+        group = []
+        for item in self.epoch():
+            group.append(item)
+            if len(group) == k:
+                yield stack(group, pin_memory=pin)
+                group = []
+        if group:
+            yield stack(group, pin_memory=pin)
+
     def __iter__(self):
         return self.epoch()
-
-
-def _arrays(mb: MiniBatch):
-    yield from mb.layer_nids
-    yield from mb.layer_mask
-    yield mb.labels
-    for b in mb.blocks:
-        yield from (b.neigh_pos, b.neigh_mask, b.self_pos)

@@ -8,14 +8,18 @@ with in-degree ``d``:
   * ``0 < d <= fanout``   -> take all ``d`` in-neighbors;
   * ``d > fanout``        -> ``fanout`` uniform draws **with replacement**.
 
-Backends: only the numpy one is ported.  ``backend="auto"`` means numpy for
-now; ``backend="native"`` (the C++/OpenMP sampler of the JAX package) raises
-``NotImplementedError`` until ROADMAP queue 1 item "native sampler backend"
-lands.  Same seed, same draws: batches are identical to ``pagraph_tpu``'s
-``NeighborSampler(backend="numpy")``.
+Two backends, as in the JAX package: ``"numpy"`` (below; same seed, same
+draws: batches identical to ``pagraph_tpu``'s ``backend="numpy"``) and
+``"native"``, the C++/OpenMP sampler of ``csrc/host_native.cpp``
+(:mod:`.native`), whose batches are bit-equal to ``pagraph_tpu``'s native
+sampler from the same per-batch seed.  ``"auto"`` takes the native one and
+falls back to numpy only where the JAX package does: when the library
+cannot be built or loaded (or the config needs ``include_self=False``),
+with a warning.  ``NeighborSampler.backend_name`` says which one runs.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -149,11 +153,7 @@ class NeighborSampler:
         caps: Optional[Sequence[int]] = None,
     ):
         backend = backend or config.backend
-        if backend == "native":
-            raise NotImplementedError(
-                "the native C++ sampler backend is not ported yet (ROADMAP "
-                "queue 1, 'native sampler backend'); use backend='numpy'")
-        if backend not in ("auto", "numpy"):
+        if backend not in ("auto", "native", "numpy"):
             raise ValueError(f"unknown sampler backend {backend!r}")
         self.graph = graph
         self.train_nids = np.asarray(train_nids, dtype=np.int64)
@@ -163,6 +163,24 @@ class NeighborSampler:
         self.caps = (tuple(caps) if caps is not None
                      else config.layer_capacities(graph.num_nodes))
         self.rng = np.random.default_rng(config.seed if seed is None else seed)
+        self._native = None
+        if backend != "numpy":
+            try:
+                self._native = self._native_sampler()
+            except (RuntimeError, OSError, NotImplementedError) as e:
+                if backend == "native":
+                    raise
+                warnings.warn(f"sampler backend 'auto' falls back to numpy: {e}",
+                              RuntimeWarning, stacklevel=2)
+
+    @property
+    def backend_name(self) -> str:
+        """The backend that samples: ``"native"`` or ``"numpy"``."""
+        return "numpy" if self._native is None else "native"
+
+    def _native_sampler(self):
+        from .native import NativeSampler
+        return NativeSampler(self.graph, self.config, self.caps)
 
     @property
     def num_batches(self) -> int:
@@ -200,6 +218,8 @@ class NeighborSampler:
 
     def set_caps(self, caps: tuple) -> None:
         self.caps = tuple(int(c) for c in caps)
+        if self._native is not None:
+            self._native = self._native_sampler()
 
     def epoch(self) -> Iterator[MiniBatch]:
         order = (
@@ -213,6 +233,11 @@ class NeighborSampler:
             yield self.sample(nids[start: start + b])
 
     def sample(self, seeds: np.ndarray) -> MiniBatch:
+        """One batch; the native backend draws a 31-bit seed for it from
+        ``self.rng``, as the JAX package's does."""
+        if self._native is not None:
+            return self._native.sample(seeds, self.labels,
+                                       int(self.rng.integers(0, 2**31 - 1)))
         return sample_minibatch(
             self.graph, seeds, self.config, self.caps, self.rng, self.labels
         )

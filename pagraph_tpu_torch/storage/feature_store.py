@@ -6,9 +6,13 @@ gather for the cache-miss path.  Fields follow the reference's store schema:
 ``features`` and ``norm`` (1/in_degree).  A field is float32, or int8 with a
 per-column dequant scale: the pre-quantized tier (:func:`quantize_store`,
 :func:`build_prequantized`), whose miss rows the int8 cache gathers and
-ships as they are stored.  Not ported yet: the native C++ gathers (ROADMAP
-queue 1 item 3) and the preprocess fields, which need
-``full_graph_mean_aggregate`` and its int8 SpMM (queue 1 items 3-4).
+ships as they are stored.  ``native=True`` (the default) gathers the miss
+rows of a single f32 field, and of each int8 field into the int8 tier's
+buffer, with the host library's OpenMP row copies
+(``sampling/native.py``), as the JAX package's store does; other gathers
+are ``np.take``.  Not ported yet: the preprocess fields, which need
+``full_graph_mean_aggregate`` and its int8 SpMM (ROADMAP queue 1 items 4
+and 8).
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ class FeatureStore:
     ``scales``: per-column symmetric dequant scales of the int8 fields, the
     pre-quantized host tier: such a field lives in host memory as int8 (4x
     smaller than f32), the int8 cache gathers and ships its rows as they are,
-    and f32 consumers get ``row * scale``.  ``native`` is accepted for the
-    JAX package's signature and ignored: the native C++ gathers are not
-    ported yet (ROADMAP queue 1 item 3)."""
+    and f32 consumers get ``row * scale``.  ``native``: gather with the host
+    library where the JAX package's store does (the library is built at the
+    first such gather; a failed build raises)."""
 
     def __init__(self, fields: Dict[str, np.ndarray], *, native: bool = True,
                  scales: Optional[Dict[str, np.ndarray]] = None):
@@ -59,6 +63,7 @@ class FeatureStore:
         for name, arr in self.fields.items():
             if arr.dtype == np.int8 and name not in self.scales:
                 raise ValueError(f"int8 field {name!r} requires a dequant scale")
+        self.native = native
 
     def is_quantized(self, names: Sequence[str]) -> bool:
         """True iff every named field is stored int8 (with scales)."""
@@ -98,12 +103,17 @@ class FeatureStore:
         for n in names:
             f = self.fields[n]
             d = f.shape[1]
-            if f.dtype == np.int8 and not quantized:
+            dst = out[:, at:at + d]
+            if (self.native and f.dtype == (np.int8 if quantized else np.float32)
+                    and f.flags.c_contiguous and dst.flags.c_contiguous):
+                from ..sampling import native
+                (native.gather_rows_i8 if quantized else native.gather_rows_f32)(f, nids, dst)
+            elif f.dtype == np.int8 and not quantized:
                 rows = np.take(f, nids, axis=0).astype(np.float32)
                 rows *= self.scales[n][None, :]
-                out[:, at:at + d] = rows
+                dst[:] = rows
             else:
-                np.take(f, nids, axis=0, out=out[:, at:at + d])
+                np.take(f, nids, axis=0, out=dst)
             at += d
         return out
 

@@ -53,12 +53,11 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops import gather_kernels
 from ..ops.gather import take_rows
 from ..sampling.block import MiniBatch
 from ..sampling.device_sampler import (DeviceCSR, draw_width, hop_draws, hop_sizes,
                                        sample_minibatch_device)
-from .state import TrainState, compute_dtype, train_on_features
+from .state import CapturedGraph, TrainState, capture_train, compute_dtype, train_on_features
 
 METRIC_NAMES = ("loss_sum", "acc_sum", "steps", "edges", "vertices")
 
@@ -222,61 +221,6 @@ def device_batch_step(cfg: Config, state: TrainState, acc: EpochAccumulator,
                                          cache_values, dequant_scale))
 
 
-class CapturedGraph:
-    """``fn`` captured as a CUDA graph; calling it replays the graph and
-    returns what ``fn`` returned at capture (its static outputs).
-
-    ``launches``: the gather-kernel launches one replay makes.  A wrapper
-    counts a launch (``gather_kernels.LAUNCHES``) when it enqueues it, which
-    under capture is once, into the graph; a replay runs the kernels again
-    and counts nothing, so a run's launches are those counted eagerly plus
-    ``launches`` times ``replays`` for each graph.  ``generator``, a CUDA
-    generator that ``fn`` draws from, is registered with the graph: each
-    replay draws what ``fn`` would draw eagerly from the generator's state
-    then, and advances it as far.  ``after`` runs on the host after each
-    replay (the host step count)."""
-
-    def __init__(self, fn: Callable, *, generator: Optional[torch.Generator] = None,
-                 stream: Optional[torch.cuda.Stream] = None, pool=None,
-                 after: Optional[Callable[[], None]] = None):
-        self.graph = torch.cuda.CUDAGraph()
-        if generator is not None:
-            self.graph.register_generator_state(generator)
-        before = gather_kernels.launch_counts()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
-            self.out = fn()
-        after_capture = gather_kernels.launch_counts()
-        self.launches = {k: v - before[k] for k, v in after_capture.items() if v != before[k]}
-        self.replays = 0
-        self._after = after
-
-    def __call__(self):
-        self.graph.replay()
-        self.replays += 1
-        if self._after is not None:
-            self._after()
-        return self.out
-
-
-def _capture_train(state: TrainState, fn: Callable, steps: int, **kw) -> CapturedGraph:
-    """Capture ``fn``, which makes ``steps`` optimizer steps: gradients
-    freed first (the graph allocates its own), the dropout generator
-    registered, and the host step count left as it was (the capture ran the
-    Python, not the kernels) and advanced by ``steps`` at each replay."""
-    state.optimizer.zero_grad(set_to_none=True)
-    step = state.step
-    try:
-        g = CapturedGraph(fn, generator=state.generator, after=lambda: _advance(state, steps),
-                          **kw)
-    finally:
-        state.step = step
-    return g
-
-
-def _advance(state: TrainState, steps: int) -> None:
-    state.step += steps
-
-
 def _prepare(cfg: Config, inputs: EpochInputs, data: DeviceData) -> None:
     """The epoch's schedule into its buffers, the accumulator and the fetch
     counter zeroed (the JAX package's ``prepare_fn``)."""
@@ -312,7 +256,7 @@ def make_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
                               data.cache_values, data.dequant_scale)
         return inputs.acc
 
-    return _capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
+    return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
 
 
 def make_device_step_fns(cfg: Config, state: TrainState, inputs: EpochInputs,
@@ -337,7 +281,7 @@ def make_device_step_fns(cfg: Config, state: TrainState, inputs: EpochInputs,
     if not graph:
         return prepare_fn, step_fn
     return (CapturedGraph(prepare_fn, stream=stream),
-            _capture_train(state, step_fn, 1, stream=stream))
+            capture_train(state, step_fn, 1, stream=stream))
 
 
 def make_device_pipelined_fns(cfg: Config, state: TrainState, inputs: EpochInputs,
@@ -381,7 +325,7 @@ def make_device_pipelined_fns(cfg: Config, state: TrainState, inputs: EpochInput
                 tuple(lambda k=k: train_and_free(k) for k in range(2)))
     train_pool = torch.cuda.graph_pool_handle()
     gathers = tuple(CapturedGraph(lambda k=k: gather(k), stream=stream) for k in range(2))
-    trains = tuple(_capture_train(state, lambda k=k: train(k), 1, stream=stream,
+    trains = tuple(capture_train(state, lambda k=k: train(k), 1, stream=stream,
                                   pool=train_pool) for k in range(2))
     return CapturedGraph(prepare_fn, stream=stream), gathers, trains
 

@@ -26,12 +26,23 @@ second epoch on that side stream and timed under the ``"capture"`` phase
 timer, outside the epoch's ``time_s``; a capture or replay error raises.
 The CPU runs the eager form throughout.
 
-Host path: a step is one call of :func:`train_step`.
-``train.steps_per_dispatch`` is ignored there: the JAX package groups K
-steps into one compiled dispatch, which on the card would be one CUDA
-graph a miss-row bucket shape (ROADMAP queue 1); here the loop enqueues
-step by step and never waits for the device inside an epoch (loss and
-accuracy accumulate on the device and are read once at the end).
+Host path, at the JAX package's defaults: the sampler's ``backend``
+(``"auto"``: the native one, ``sampler.backend_name`` says which ran), the
+loader's producers pack each batch into three buffers
+(``sampling/pack.py``), and the loop groups ``K = max(1,
+train.steps_per_dispatch)`` batches, stacks them into pinned host buffers
+(``PrefetchLoader.groups``: their miss rows padded to the group's largest
+bucket, the one pinned copy a batch makes) and dispatches K
+steps at once (``make_multistep_train_step``), the last group holding the
+remainder.  The first epoch a Trainer runs, and every epoch on the CPU, is
+the eager form (on the card on a side stream: it creates Adam's state and
+builds the kernels); on the card later epochs replay CUDA graphs, one a
+``(k, layout)`` key (``GroupGraphs``), each captured at its key's first
+group under the ``"capture"`` phase timer, which the epoch's ``time_s``
+leaves out.  A capture or replay error raises.  The loop never waits for
+the device inside an epoch (loss and accuracy accumulate on the device and
+are read once at the end).  ``host_graphs`` picks the form from the
+second epoch on: True on the card, False for the eager form throughout.
 
 ``train.dtype="bfloat16"`` runs both paths at bf16 compute
 (``state.cast_apply``) at every cache tier.  ``Trainer(cfg, store, ...)``
@@ -64,7 +75,7 @@ from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
 from .device_epoch import (DeviceData, DeviceEpochRunner, EpochInputs, epoch_draws,
                            epoch_seed, num_batches)
-from .state import create_state, train_step
+from .state import GroupGraphs, create_state, make_multistep_train_step
 
 
 @dataclasses.dataclass
@@ -119,6 +130,8 @@ class Trainer:
         self._cache_filled = False
         self.epoch_metrics: List[EpochMetrics] = []
         self._device_mode = t.on_device_sampling
+        self._side_stream = (torch.cuda.Stream(device=self.device)
+                             if self.device.type == "cuda" else None)
         if self._device_mode:
             # no sampler or loader: the CSR, the train vertices and the labels
             # live on the device beside the full cache (filled before epoch 0)
@@ -134,8 +147,6 @@ class Trainer:
             # the eager form for the first epoch, then (on the card) the graphs
             self.epoch_runner: Optional[DeviceEpochRunner] = None
             self._device_epochs = 0             # epochs enqueued
-            self._side_stream = (torch.cuda.Stream(device=self.device)
-                                 if self.device.type == "cuda" else None)
             return
         if cfg.cache.rank_by == "access_freq":
             self.cache.track_access = True
@@ -147,6 +158,11 @@ class Trainer:
                                      prefetch=cfg.sampler.prefetch,
                                      device=self.device)
         self.state = create_state(cfg, seed=seed, device=self.device)
+        self.steps_per_dispatch = max(1, t.steps_per_dispatch)
+        self.host_graphs = self.device.type == "cuda"
+        self.group_graphs: Optional[GroupGraphs] = None    # made at the second epoch
+        self._acc = torch.zeros(2, dtype=torch.float32, device=self.device)   # loss, acc
+        self._host_epochs = 0                               # epochs run
 
     @classmethod
     def from_dataset(cls, cfg: Config, ds: Dataset, **kw) -> "Trainer":
@@ -183,41 +199,76 @@ class Trainer:
             return self._run_epoch_on_device(epoch)
         self._maybe_fill_cache()
         t_epoch = time.perf_counter()
+        capture_s = self.timers.total["capture"]
         self.cache.reset_stats()
-        sums = torch.zeros(2, dtype=torch.float32, device=self.device)
-        nb = 0
-        for mb, miss_feats, src_row in self.loader.epoch():
+        graphs = self._ready_group_graphs()
+        eager = side = None
+        if graphs is None:          # on the card on the side stream (None on the CPU)
+            eager = make_multistep_train_step(self.state, self.cache.cache_values,
+                                              self.cache.dequant_scale_dev)
+            side = self._side_stream
+        self._acc.zero_()
+        if side:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        nb = h2d = 0
+        for group in self.loader.groups(self.steps_per_dispatch):
+            h2d += group.nbytes
+            if graphs is not None and graphs.needs_capture(group):
+                with self.timers.scope("capture"):
+                    graphs.capture(group, self._acc)
             with self.timers.scope("step"):
-                m = train_step(self.state, mb, miss_feats, src_row,
-                               self.cache.cache_values, self.cache.dequant_scale_dev)
-                sums += torch.stack([m["loss"], m["acc"]])
-            nb += 1
-            if self.log and nb % self.cfg.train.log_every == 0:
+                if graphs is not None:
+                    graphs(group, self._acc)
+                else:
+                    with torch.cuda.stream(side):
+                        eager(group, self._acc)
+            nb += group.k
+            if self.log and nb % self.cfg.train.log_every < group.k:
                 print(f"  step {nb}")
-        tot_loss, tot_acc = sums.tolist()      # the epoch's one device sync
+        if side:
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        tot_loss, tot_acc = self._acc.tolist()      # the epoch's one device sync
+        self._host_epochs += 1
         c = self.cfg.cache
         if (epoch == 0 and c.enabled and c.rank_by == "access_freq"
                 and not self.cache.fully_cached):
             # refill by observed access frequency after the probe epoch.  The
             # loader's threads have been joined: every plan of this epoch
             # indexed the old fill, and the next epoch's index the new one
+            # (graphs, captured from the next epoch on, read the new rows)
             self.cache.fill(capacity=c.capacity, rank_by="access_freq")
         em = EpochMetrics(
             epoch=epoch,
             mean_loss=tot_loss / max(nb, 1),
             mean_acc=tot_acc / max(nb, 1),
-            time_s=time.perf_counter() - t_epoch,
+            time_s=time.perf_counter() - t_epoch - (self.timers.total["capture"] - capture_s),
             miss_rate=self.cache.miss_rate(),
             num_batches=nb,
             edges=self.loader.epoch_edges,
             vertices=self.loader.epoch_vertices,
-            h2d_bytes=self.loader.epoch_h2d_bytes,
+            h2d_bytes=h2d,
         )
         self.epoch_metrics.append(em)
         if self.log:
             print(f"epoch {epoch}: loss={em.mean_loss:.4f} acc={em.mean_acc:.3f} "
                   f"time={em.time_s:.2f}s miss={em.miss_rate:.1%}")
         return em
+
+    def _ready_group_graphs(self) -> Optional[GroupGraphs]:
+        """The host-step graphs from the second epoch on (``host_graphs``),
+        made at the first call after the first epoch, after any refill of
+        the cache, whose rows they read at the address they had then; else
+        ``None``, the eager form."""
+        if not self.host_graphs or not self._host_epochs:
+            return None
+        if self.group_graphs is None:
+            self.group_graphs = make_multistep_train_step(
+                self.state, self.cache.cache_values, self.cache.dequant_scale_dev,
+                graph=True, stream=self._side_stream)
+        elif self.group_graphs.cache_values is not self.cache.cache_values:
+            raise RuntimeError("the cache was refilled after the host-step graphs "
+                               "were captured: they read the old rows")
+        return self.group_graphs
 
     def epoch_randomness(self, epoch: int, out: Optional[EpochInputs] = None):
         """``(perm, draws)`` of an epoch, drawn on the device from a

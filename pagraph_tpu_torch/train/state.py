@@ -28,19 +28,31 @@ is read back, so a step captured in a CUDA graph replays the schedule.
 On CUDA the optimizer is ``capturable`` (its step counts on the device too),
 eager and replayed alike; on the CPU it is not (PyTorch refuses it there),
 with the same tensor learning rate.
+
+The host path's dispatch (the JAX package's ``make_packed_train_step`` and
+``make_multistep_train_step``): a step reads one packed batch
+(``sampling/pack.py``) and adds its loss and accuracy into a device
+accumulator; K steps run over a group of K batches stacked ``[K, ...]``.
+The eager form is K calls of :func:`train_step`, the same arithmetic; the
+graph form (:class:`GroupGraphs`) captures the K-step body as one CUDA
+graph (:class:`CapturedGraph`) a ``(k, layout)`` key over static device
+buffers, at the key's first group, and replays it for every later group
+with that key, the group copied into its buffers first.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import Config
 from ..models import get_model
+from ..ops import gather_kernels
 from ..sampling.block import MiniBatch
+from ..sampling.pack import BatchLayout, PackedGroup, unpack
 from ..storage.cache import assemble_features
 from ..utils.device import resolve_device
 from .objective import masked_accuracy, masked_cross_entropy
@@ -172,3 +184,181 @@ def train_on_features(state: TrainState, mb: MiniBatch,
     with torch.no_grad():
         acc = masked_accuracy(logits, mb.labels, mb.seed_mask)
     return {"loss": loss.detach(), "acc": acc}
+
+
+# -- CUDA graphs ---------------------------------------------------------------
+
+class CapturedGraph:
+    """``fn`` captured as a CUDA graph; calling it replays the graph and
+    returns what ``fn`` returned at capture (its static outputs).
+
+    ``launches``: the gather-kernel launches one replay makes.  A wrapper
+    counts a launch (``gather_kernels.LAUNCHES``) when it enqueues it, which
+    under capture is once, into the graph; a replay runs the kernels again
+    and counts nothing, so a run's launches are those counted eagerly plus
+    ``launches`` times ``replays`` for each graph.  ``generator``, a CUDA
+    generator that ``fn`` draws from, is registered with the graph: each
+    replay draws what ``fn`` would draw eagerly from the generator's state
+    then, and advances it as far.  ``after`` runs on the host after each
+    replay (the host step count).  The capture checks only its own
+    thread's CUDA calls (``capture_error_mode="thread_local"``), so other
+    threads (the loader's producers) run on meanwhile."""
+
+    def __init__(self, fn: Callable, *, generator: Optional[torch.Generator] = None,
+                 stream: Optional[torch.cuda.Stream] = None, pool=None,
+                 after: Optional[Callable[[], None]] = None):
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        before = gather_kernels.launch_counts()
+        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = fn()
+        after_capture = gather_kernels.launch_counts()
+        self.launches = {k: v - before[k] for k, v in after_capture.items() if v != before[k]}
+        self.replays = 0
+        self._after = after
+
+    def __call__(self):
+        self.graph.replay()
+        self.replays += 1
+        if self._after is not None:
+            self._after()
+        return self.out
+
+
+def capture_train(state: TrainState, fn: Callable, steps: int, **kw) -> CapturedGraph:
+    """Capture ``fn``, which makes ``steps`` optimizer steps: gradients
+    freed first (the graph allocates its own), the dropout generator
+    registered, and the host step count left as it was (the capture ran the
+    Python, not the kernels) and advanced by ``steps`` at each replay."""
+    state.optimizer.zero_grad(set_to_none=True)
+    step = state.step
+    try:
+        g = CapturedGraph(fn, generator=state.generator, after=lambda: _advance(state, steps),
+                          **kw)
+    finally:
+        state.step = step
+    return g
+
+
+def _advance(state: TrainState, steps: int) -> None:
+    state.step += steps
+
+
+# -- the host path's dispatch --------------------------------------------------
+
+def make_packed_train_step(state: TrainState, cache_values: torch.Tensor,
+                           dequant_scale: Optional[torch.Tensor] = None) -> Callable:
+    """``step(layout, acc, i32, u8, miss)``: one optimizer step on one packed
+    batch on the device (unpacked with static views, :func:`pack.unpack`),
+    its loss and accuracy added into ``acc`` (f32 ``[2]``); nothing waits
+    for the device."""
+
+    def step(layout: BatchLayout, acc: torch.Tensor, i32: torch.Tensor, u8: torch.Tensor,
+             miss: torch.Tensor) -> None:
+        mb, src_row, miss = unpack(layout, i32, u8, miss)
+        m = train_step(state, mb, miss, src_row, cache_values, dequant_scale)
+        acc.add_(torch.stack([m["loss"], m["acc"]]))
+
+    return step
+
+
+def make_multistep_train_step(state: TrainState, cache_values: torch.Tensor,
+                              dequant_scale: Optional[torch.Tensor] = None, *,
+                              graph: bool = False,
+                              stream: Optional[torch.cuda.Stream] = None):
+    """``steps(group, acc)``: ``group.k`` optimizer steps over a host
+    :class:`PackedGroup` (pinned for the card), each batch's miss rows its
+    first rows of ``group.miss[k]``.  Both forms copy the group to
+    ``cache_values``' device on the current stream first.  The eager form
+    (``graph=False``) then runs the steps one after the other; the graph
+    form is a :class:`GroupGraphs` (captured on ``stream``)."""
+    step = make_packed_train_step(state, cache_values, dequant_scale)
+
+    def on_device(group: PackedGroup, acc: torch.Tensor) -> None:
+        for k in range(group.k):
+            step(group.layout, acc, group.i32[k], group.u8[k], group.miss[k])
+
+    if graph:
+        return GroupGraphs(on_device, state, cache_values, stream=stream)
+
+    def steps(group: PackedGroup, acc: torch.Tensor) -> None:
+        on_device(group.to(cache_values.device, non_blocking=True), acc)
+
+    return steps
+
+
+class GroupGraphs:
+    """The graph form of :func:`make_multistep_train_step`: one
+    :class:`CapturedGraph` of the K-step body a ``(k, layout)`` key (the
+    layout holds the group's miss bucket), over static device buffers of
+    the key's shapes, as the JAX package compiles one executable a layout.
+
+    ``capture(group, acc)`` allocates the key's buffers and captures the
+    body over them on ``stream``; it neither copies the group in nor runs
+    the steps.
+    ``graphs(group, acc)`` copies a host group (pinned) into its key's
+    buffers on the current stream and replays the graph on the same stream,
+    so the copy of the next group is ordered after this replay.  Every
+    graph accumulates into the one ``acc`` given at the first capture, and
+    reads ``cache_values`` at the address it had then.  All graphs share one
+    memory pool: they never run at once, and none reads another's output
+    (what passes between steps, the parameters, Adam's state and ``acc``,
+    lives outside the pool).  A capture runs while the loader's producer
+    threads work (:class:`CapturedGraph` checks only its own thread)."""
+
+    def __init__(self, steps: Callable, state: TrainState, cache_values: torch.Tensor, *,
+                 stream: Optional[torch.cuda.Stream] = None):
+        self._steps, self.state, self.cache_values = steps, state, cache_values
+        self.stream = stream
+        self.pool = torch.cuda.graph_pool_handle()
+        self._entries: Dict[Tuple[int, BatchLayout], Tuple[CapturedGraph, PackedGroup]] = {}
+        self._acc: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def key(group: PackedGroup) -> Tuple[int, BatchLayout]:
+        return group.k, group.layout
+
+    def needs_capture(self, group: PackedGroup) -> bool:
+        return self.key(group) not in self._entries
+
+    def capture(self, group: PackedGroup, acc: torch.Tensor) -> None:
+        if self._acc is None:
+            self._acc = acc
+        self._check_acc(acc)
+        dev = self.cache_values.device
+        static = PackedGroup(group.layout, *(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                                             for t in (group.i32, group.u8, group.miss)))
+        g = capture_train(self.state, lambda: self._steps(static, acc), group.k,
+                          stream=self.stream, pool=self.pool)
+        self._entries[self.key(group)] = (g, static)
+
+    def __call__(self, group: PackedGroup, acc: torch.Tensor) -> None:
+        self._check_acc(acc)
+        g, static = self._entries[self.key(group)]
+        for dst, src in ((static.i32, group.i32), (static.u8, group.u8),
+                         (static.miss, group.miss)):
+            dst.copy_(src, non_blocking=True)
+        g()
+
+    def _check_acc(self, acc: torch.Tensor) -> None:
+        if acc is not self._acc:
+            raise ValueError("the host-step graphs accumulate into the tensor given at "
+                             "their first capture")
+
+    @property
+    def graphs(self) -> List[CapturedGraph]:
+        return [g for g, _ in self._entries.values()]
+
+    @property
+    def keys(self) -> List[Tuple[int, BatchLayout]]:
+        return list(self._entries)
+
+    def replayed_launches(self) -> Dict[str, int]:
+        """Gather-kernel launches made by the replays so far."""
+        out: Dict[str, int] = {}
+        for g in self.graphs:
+            for k, v in g.launches.items():
+                out[k] = out.get(k, 0) + v * g.replays
+        return out

@@ -23,6 +23,12 @@ SOURCES = sorted(
      for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")]
     + ["chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "pagraph_tpu")
+# every source file of the port, C++ and CUDA included, and chip_smoke.py
+ALL_SOURCES = sorted(
+    [os.path.relpath(os.path.join(d, f), ROOT)
+     for d, _, files in os.walk(PKG) for f in files
+     if f.endswith((".py", ".cpp", ".cu", ".cuh", ".h"))]
+    + ["chip_smoke.py"])
 
 
 def test_import_loads_no_jax():
@@ -56,6 +62,23 @@ def test_source_imports_no_jax(path):
             continue
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
+
+
+def test_scan_covers_the_host_path_modules():
+    for m in ("sampling/native.py", "sampling/pack.py", "sampling/sampler.py",
+              "storage/feature_store.py", "train/state.py", "train/loop.py"):
+        assert os.path.join("pagraph_tpu_torch", m) in SOURCES
+    assert os.path.join("pagraph_tpu_torch", "csrc", "host_native.cpp") in ALL_SOURCES
+
+
+@pytest.mark.parametrize("path", ALL_SOURCES)
+def test_source_names_no_jax_native_library(path):
+    """The port builds and loads its own host library
+    (``csrc/host_native.cpp``): no source names the JAX package's."""
+    with open(os.path.join(ROOT, path)) as f:
+        text = f.read()
+    for name in ("native/pagraph_native", "_pagraph_native"):
+        assert name not in text, f"{path} names {name}"
 
 
 def _tiny_cfg():

@@ -88,7 +88,7 @@ def test_overflow_and_unsorted_seeds(small_ds):
     js = JSampler(small_ds.graph, small_ds.train_nids, pg.SamplerConfig(**kw),
                   backend="numpy", caps=caps)
     ts = TSampler(_pair_graph(small_ds), small_ds.train_nids, pt.SamplerConfig(**kw),
-                  caps=caps)
+                  backend="numpy", caps=caps)
     seeds = small_ds.train_nids[::-7][:64]
     _assert_same_batch(ts.sample(seeds), js.sample(seeds))
 
@@ -100,7 +100,7 @@ def test_zero_in_degree_tail_vertex():
     g = pt.CSRGraph(indptr=np.array([0, 2, 3, 3, 3]), indices=np.array([1, 2, 0]),
                     out_degrees=np.array([1, 1, 1, 0]))
     cfg = pt.SamplerConfig(batch_size=2, fanout=2, num_hops=1, seed=0)
-    mb = TSampler(g, np.arange(4), cfg, caps=(8, 2)).sample(np.array([3, 2]))
+    mb = TSampler(g, np.arange(4), cfg, backend="numpy", caps=(8, 2)).sample(np.array([3, 2]))
     assert not mb.blocks[0].neigh_mask[:2].any()
     jg = pg.CSRGraph(g.indptr, g.indices, g.out_degrees)
     jcfg = pg.SamplerConfig(batch_size=2, fanout=2, num_hops=1, seed=0)
@@ -108,11 +108,20 @@ def test_zero_in_degree_tail_vertex():
         JSampler(jg, np.arange(4), jcfg, backend="numpy", caps=(8, 2)).sample(np.array([3]))
     seeds = np.array([0, 1])
     _assert_same_batch(
-        TSampler(g, np.arange(4), cfg, caps=(8, 2)).sample(seeds),
+        TSampler(g, np.arange(4), cfg, backend="numpy", caps=(8, 2)).sample(seeds),
         JSampler(jg, np.arange(4), jcfg, backend="numpy", caps=(8, 2)).sample(seeds))
 
 
 def test_native_backend_not_ported(small_ds):
-    with pytest.raises(NotImplementedError):
-        TSampler(_pair_graph(small_ds), small_ds.train_nids,
-                 pt.SamplerConfig(backend="native"))
+    """``backend="native"`` samples with the port's native sampler, says so
+    in ``backend_name``, and gives pagraph_tpu's native batches (the name
+    is kept from when the port refused this backend)."""
+    cfg = pt.SamplerConfig(backend="native", batch_size=64, seed=3)
+    ts = TSampler(_pair_graph(small_ds), small_ds.train_nids, cfg, labels=small_ds.labels)
+    assert ts.backend_name == "native"
+    js = JSampler(small_ds.graph, small_ds.train_nids, pg.SamplerConfig(**dataclasses.asdict(cfg)),
+                  labels=small_ds.labels)
+    for t, j in zip(ts.epoch(), js.epoch(), strict=True):
+        _assert_same_batch(t, j)
+    assert TSampler(_pair_graph(small_ds), small_ds.train_nids, cfg,
+                    backend="numpy").backend_name == "numpy"
