@@ -91,6 +91,33 @@ Phases, each printed as one JSON line:
   within 1e-4 relative (or the eager spread, if larger), every parameter
   within 1e-3 of its norm, one ``assemble_<tier>`` replays a step, and the
   loss falls;
+* ``sage_aggregators``: the ``pool`` and ``lstm`` aggregators, trained on
+  the 2-hop teacher labels (``synthetic.neighborhood_labels``) of the same
+  graph and features: each on the host path for 2 epochs (epoch 1
+  replayed) and on the on-device path for 1, pool also 1 host epoch at bf16
+  compute; epoch times, miss rates, losses (falling) and the launches a
+  step, which must be exactly 4 on the host path (pool: the assembly, two
+  ``block_gather_fwd_max``, one ``block_gather_bwd_max``; lstm: the
+  assembly, two ``gather_rows`` of a block's self and neighbor rows, one
+  ``scatter_add_rows``), 5 at bf16 compute, 1 on the device;
+* ``preprocess``: GraphSAGE preprocess (``model.preprocess=True``, one hop
+  sampled): store build time of the f32 store (``FeatureStore.build``, the
+  host library's SpMM) and of the pre-quantized one
+  (``build_prequantized``), each trained on the host path (40% cache, the
+  ``features`` and ``neigh`` fields side by side) and on the device path;
+  miss rate (the two stores' equal), bytes shipped, 3 launches a host step;
+* ``inference``: ``full_graph_logits`` at ``backend="device"`` (the window
+  tables' build, one ``gather_reduce`` launch a bucket) against
+  ``"host"`` on the trained parameters, mean (the main path's Trainer) and
+  pool on RMAT-20, lstm on an RMAT-16 graph with the same teacher: seconds
+  of each, logits within 1e-4 of each row's largest, ``evaluate``'s
+  validation accuracy, the launches of each backend;
+* ``checkpoint``: save after each epoch, ``resume`` from epoch 0 into a
+  fresh Trainer and run epoch 1: at bf16 compute equal to the
+  uninterrupted run to the bit on the host path and on the device path,
+  and so is a resume into the Trainer whose graphs replayed epoch 1, which
+  replays it again (its tensors restored in place); at f32 the difference
+  is reported beside the spread of two resumed runs;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -120,7 +147,15 @@ Phases, each printed as one JSON line:
   ``block_gather_bwd_<kind>_bf16[block1]``, ``assemble[<tier>->bf16]``,
   ``assemble_full[bf16->bf16]``) run the same batch at bf16 compute: the
   forward's neighbor half and the backward within 1e-2 of each element
-  plus 1e-2 of max|plain|, rows and the assembly exact;
+  plus 1e-2 of max|plain|, rows and the assembly exact.  The max kind
+  (``block_gather_fwd_max[_bf16][block0|1]``,
+  ``block_gather_bwd_max[_bf16][block1]``; block 1's rows concat(x,
+  relu(x)), tied at 0) is exact forward at f32 and bf16 and within 1e-6 of
+  max|plain| backward at f32; ``window_reduce[sum|max, F=8|64|4096]`` (the
+  neighbor half, ``gather_reduce``) runs the window tables of device
+  inference at those fan-outs over the
+  features, the max exact and the sum within max(1e-6, F x 2^-24) of
+  max|plain| (F terms in another order);
 * ``fwd_branches``: the block forward and backward on the card, on f32 and
   on bf16 rows, at the branches the main path does not take -- D = 30
   (scalar rows), a table one element off its unit's alignment, fan-out 7
@@ -222,11 +257,12 @@ TOLERANCES = {"exact": 0.0, "reduce": 1e-6, "atomic": 1e-5, "bf16": 1e-2}
 
 def compare(torch, out_k, out_p, tol):
     """(max abs error, within tolerance, text) of a kernel's output(s)
-    against the plain version's; ``tol`` names a TOLERANCES entry, or one
-    per output when the outputs are a tuple.  Each output is held to its
-    tolerance times its own scale, max|plain|; ``bf16`` (a reduction or a
-    gradient table in bf16) element by element to 1e-2 of the element plus
-    1e-2 of that scale."""
+    against the plain version's; ``tol`` names a TOLERANCES entry (or is a
+    number, a relative tolerance of its own), or one per output when the
+    outputs are a tuple.  Each output is held to its tolerance times its
+    own scale, max|plain|; ``bf16`` (a reduction or a gradient table in
+    bf16) element by element to 1e-2 of the element plus 1e-2 of that
+    scale."""
     torch.cuda.synchronize()
     if not isinstance(out_k, tuple):
         out_k, out_p, tol = (out_k,), (out_p,), (tol,)
@@ -237,13 +273,14 @@ def compare(torch, out_k, out_p, tol):
         diff = (k.float() - p.float()).abs()
         e = diff.max().item() if p.numel() else 0.0
         scale = max(p.float().abs().max().item() if p.numel() else 0.0, 1e-30)
-        r = TOLERANCES[t]
+        r = TOLERANCES.get(t, t)
         if t == "bf16":
             good = bool((diff <= r * p.float().abs() + r * scale).all()) if p.numel() else True
             text.append(f"bf16: |err| <= {r} * |plain| + {r} * max|plain| ({scale:.6g})")
         else:
             good = e <= r * scale
-            text.append(f"{t}: |err| <= {r} * max|plain| ({scale:.6g})")
+            name = t if isinstance(t, str) else "sum order"
+            text.append(f"{name}: |err| <= {r:.3g} * max|plain| ({scale:.6g})")
         err, ok = max(err, e), ok and good
     return err, ok, "; ".join(text)
 
@@ -254,8 +291,9 @@ def fwd_branches(torch, gk, dev):
     source table and incoming gradients one element off their unit's
     alignment (scalar rows at D = 32), fan-out 7 (the runtime-fan-out
     instantiation), each with both halves, the self half alone and the
-    neighbor half alone, both kinds.  Positions repeat and overlap; 10 rows
-    have no valid slot."""
+    neighbor half alone, every kind (mean, sum, max; the max backward reads
+    the source table).  Positions repeat and overlap; 10 rows have no valid
+    slot."""
     gen = torch.Generator(device=dev).manual_seed(5)
     n_src, n = 3000, 2000
     out = []
@@ -290,8 +328,9 @@ def fwd_branches(torch, gk, dev):
                 fwd_p = tuple(h for h in fwd_p if h is not None)
                 for what, got, want, tol in (
                         ("fwd", fwd_k, fwd_p, tols),
-                        ("bwd", gk.block_gather_bwd(gs, sp, gn, p, m, n_src, kind),
-                         gk.block_gather_bwd_plain(gs, sp, gn, p, m, n_src, kind), bwd_tol)):
+                        ("bwd", gk.block_gather_bwd(gs, sp, gn, p, m, n_src, kind, src),
+                         gk.block_gather_bwd_plain(gs, sp, gn, p, m, n_src, kind, src),
+                         bwd_tol)):
                     err, ok, text = compare(torch, got, want, tol)
                     out.append({"case": f"{what} {kind} {label} {halves}{tag}",
                                 "max_abs_err": err, "ok": ok, "tolerance": text})
@@ -371,7 +410,11 @@ def main() -> None:
         from pagraph_tpu_torch.sampling.device_sampler import (DeviceCSR, hop_draws,
                                                                hop_sizes,
                                                                sample_minibatch_device)
-        from pagraph_tpu_torch.storage.feature_store import FeatureStore, quantize_store
+        from pagraph_tpu_torch.models.inference import (_BucketedNeighborhoods, evaluate,
+                                                        full_graph_logits)
+        from pagraph_tpu_torch.storage.feature_store import (FeatureStore, build_prequantized,
+                                                             quantize_store)
+        from pagraph_tpu_torch.train.checkpoint import list_checkpoints
         from pagraph_tpu_torch.ops.aggregate import block_gather
         from pagraph_tpu_torch.sampling.block import Block
         from pagraph_tpu_torch.sampling.pack import PackedGroup
@@ -1254,6 +1297,249 @@ def main() -> None:
     if bad:
         fail("graph replays disagree with the eager form: " + "; ".join(bad))
 
+    # -- sage_aggregators: pool and lstm, host path and on-device path --------
+    # the 2-hop teacher labels (synthetic.neighborhood_labels) over the same
+    # graph and features, on which pool and lstm train: the accuracy anchor
+    # that needs the neighbor aggregation.  Host runs: 2 epochs (epoch 1
+    # replayed from the host-step graphs), pool also 1 epoch at bf16
+    # compute; on-device runs: 1 epoch (eager).  Launches a step: host 4
+    # (pool: the assembly, two block_gather_fwd_max, one block_gather_bwd_max;
+    # lstm: the assembly, two gather_rows of each block's self and neighbor
+    # rows, one scatter_add_rows), 5 at bf16 compute; on-device 1.
+    t0 = time.perf_counter()
+    nb_labels = synthetic.neighborhood_labels(ds.graph, ds.features, 47, seed=1)
+    ds_nb = Dataset(ds.graph, ds.features, nb_labels, ds.train_mask, ds.val_mask,
+                    ds.test_mask)
+    nb_labels_s = time.perf_counter() - t0
+
+    def epoch_rows(ms):
+        return [{"epoch": m.epoch, "time_s": m.time_s, "batches": m.num_batches,
+                 "edges": m.edges, "edges_per_s": m.edges / m.time_s,
+                 "mean_loss": m.mean_loss, "mean_acc": m.mean_acc,
+                 "miss_rate": m.miss_rate, "h2d_bytes": m.h2d_bytes} for m in ms]
+
+    def run_trainer(what, make, n_epochs, per_step):
+        """A fresh Trainer from ``make()`` for ``n_epochs``: setup, epochs,
+        launches run (eager ones plus each graph's replays); fails unless
+        ``per_step`` (key -> launches a step) is exactly what ran, every
+        loss is finite and, over 2 epochs, the loss falls."""
+        t0 = time.perf_counter()
+        t_ = make()
+        t_._maybe_fill_cache()
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        gk.reset_launch_counts()
+        ms = [t_.run_epoch(e) for e in range(n_epochs)]
+        torch.cuda.synchronize()
+        runner = t_.epoch_runner if t_._device_mode else t_.group_graphs
+        counts = {k: v for k, v in executed_launches(gk.launch_counts(), runner).items() if v}
+        steps = sum(m.num_batches for m in ms)
+        out = {"setup_s": setup, "capture_s": t_.timers.total["capture"],
+               "epochs": epoch_rows(ms), "launches": counts,
+               "launches_per_step": sum(counts.values()) / steps}
+        losses = [m.mean_loss for m in ms]
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{what}: non-finite loss {losses}")
+        if counts != {k: v * steps for k, v in per_step.items()}:
+            fail(f"{what}: launches {counts} over {steps} steps, expected {per_step} a step")
+        if n_epochs > 1 and not losses[-1] < losses[0]:
+            fail(f"{what}: loss did not fall: {losses}")
+        return t_, out
+
+    agg_tr, agg_out = {}, {"neighborhood_labels_s": nb_labels_s}
+    host_keys = {"pool": ("block_gather_fwd_max", "block_gather_bwd_max"),
+                 "lstm": ("gather_rows", "scatter_add_rows")}
+    for agg in ("pool", "lstm"):
+        fwd_key, bwd_key = host_keys[agg]
+        agg_tr[agg], agg_out[f"{agg}_host"] = run_trainer(
+            f"{agg} host", lambda a=agg: Trainer.from_dataset(config(a), ds_nb, seed=0), 2,
+            {"assemble_f32": 1, fwd_key: 2, bwd_key: 1})
+        free_memory()
+        _, agg_out[f"{agg}_device"] = run_trainer(
+            f"{agg} on-device", lambda a=agg: Trainer.from_dataset(
+                config(a, on_device=True, paired=True), ds_nb, seed=0), 1, {"assemble_f32": 1})
+        free_memory()
+    _, agg_out["pool_host_bf16"] = run_trainer(
+        "pool host bf16", lambda: Trainer.from_dataset(config("pool", compute="bfloat16"),
+                                                       ds_nb, seed=0), 1,
+        {"assemble_f32_to_bf16": 1, "block_gather_fwd_max_bf16": 2,
+         "block_gather_bwd_max_bf16": 1, "grad_to_bf16": 1})
+    free_memory()
+    pool_launches = agg_out["pool_host"]["launches"]
+    pool_bf16_launches = agg_out["pool_host_bf16"]["launches"]
+    agg_out["note"] = ("trained on neighborhood_labels(graph, features, 47, seed=1); host "
+                       "runs 2 epochs (epoch 1 replayed), on-device runs 1 eager epoch, "
+                       "pool_host_bf16 1 eager epoch at bf16 compute")
+    emit("sage_aggregators", agg_out)
+
+    # -- preprocess: GraphSAGE preprocess (the store's neigh field) -----------
+    # the f32 store (full_graph_mean_aggregate, the host library's SpMM) and
+    # the pre-quantized store (build_prequantized: the int8 SpMM, the field
+    # re-quantized), each on the host path (cache at 40% of the vertices, at
+    # twice the row width) and the on-device path (full cache); n_layers 1:
+    # the pre update, then one sampled hop, one block.  Launches a step: host
+    # 3 (the assembly of both fields, one block forward, one block backward),
+    # on-device 1
+    def pre_config(cache_dtype, on_device):
+        c = config("mean", cache_dtype, on_device=on_device)
+        c.model.preprocess = True
+        c.sync_hops().validate()
+        return c
+
+    pre_out = {}
+    t0 = time.perf_counter()
+    store_pre = FeatureStore.build(ds.graph, ds.features, preprocess="graphsage")
+    pre_out["build_f32_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store_pre_i8 = build_prequantized(ds.graph, qstore.fields["features"],
+                                      qstore.scales["features"], preprocess="graphsage")
+    pre_out["build_prequantized_s"] = time.perf_counter() - t0
+    for label, store_, dtype, on_device, n_ep, per_step in (
+            ("f32_host", store_pre, "float32", False, 2,
+             {"assemble_f32": 1, "block_gather_fwd_mean": 1, "block_gather_bwd_mean": 1}),
+            ("int8_host", store_pre_i8, "int8", False, 1,
+             {"assemble_int8": 1, "block_gather_fwd_mean": 1, "block_gather_bwd_mean": 1}),
+            ("f32_device", store_pre, "float32", True, 1, {"assemble_f32": 1}),
+            ("int8_device", store_pre_i8, "int8", True, 1, {"assemble_int8": 1})):
+        t_, pre_out[label] = run_trainer(
+            f"preprocess {label}", lambda s_=store_, d_=dtype, o_=on_device: Trainer(
+                pre_config(d_, o_), s_, ds.graph, ds.train_nids, ds.labels, seed=0),
+            n_ep, per_step)
+        pre_out[label]["cache_row_bytes"] = t_.cache.total_dim * t_.cache.cache_values.element_size()
+        pre_out[label]["cache_capacity"] = t_.cache.capacity
+        del t_
+        free_memory()
+    host_miss = [pre_out[k]["epochs"][0]["miss_rate"] for k in ("f32_host", "int8_host")]
+    if host_miss[0] != host_miss[1]:
+        fail(f"preprocess: the int8 store's miss rate {host_miss[1]} != the f32 store's "
+             f"{host_miss[0]} (the same batches and cache)")
+    del store_pre, store_pre_i8
+    emit("preprocess", pre_out)
+
+    # -- inference: full-graph logits on the card against the host backend ----
+    # the trained parameters of the main path (mean, the dataset's labels),
+    # and of the pool and lstm runs (the teacher labels): both backends'
+    # logits within 1e-4 of each row's largest, seconds, evaluate's accuracy
+    # on the validation vertices.  lstm runs on an RMAT scale-16 graph with
+    # the same 100-dim features and teacher (its full-neighborhood LSTM takes
+    # a step an in-neighbor: RMAT-20's hubs would take minutes)
+    t0 = time.perf_counter()
+    bn = _BucketedNeighborhoods(ds.graph, dev)
+    torch.cuda.synchronize()
+    inf_out = {"bucketed_build_s": time.perf_counter() - t0,
+               "window_tables": [[lv, list(p.shape)] for lv, p, _ in bn.tables()]}
+    g16 = CSRGraph.from_coo(synthetic.rmat_coo(16, 16, seed=42))
+    x16 = np.random.default_rng(7).random((g16.num_nodes, 100), dtype=np.float32)
+    ds16 = Dataset(g16, x16, synthetic.neighborhood_labels(g16, x16, 47, seed=1),
+                   *synthetic.random_split_masks(g16.num_nodes, seed=11))
+    inf_launches = {}
+    bad = []
+    for agg, t_, data in (("mean", tr, ds), ("pool", agg_tr["pool"], ds_nb),
+                          ("lstm", agg_tr["lstm"], ds16)):
+        model, mcfg = t_.state.model, t_.cfg.model
+        entry, logits = {"graph_vertices": data.num_nodes}, {}
+        for backend in ("host", "device"):
+            gk.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits[backend] = full_graph_logits(model, mcfg, data.graph, data.features,
+                                                backend=backend)
+            torch.cuda.synchronize()
+            entry[f"{backend}_s"] = time.perf_counter() - t0
+            entry[f"{backend}_launches"] = {k: v for k, v in gk.launch_counts().items() if v}
+        inf_launches[agg] = entry["device_launches"]
+        scale = 1.0 + np.abs(logits["host"]).max(axis=1, keepdims=True)
+        entry["max_row_rel_diff"] = float((np.abs(logits["device"] - logits["host"])
+                                           / scale).max())
+        entry["val_acc"] = evaluate(model, mcfg, data.graph, data.features, data.labels,
+                                    data.val_mask, backend="device")
+        entry["labels"] = "dataset (linear)" if agg == "mean" else "neighborhood teacher"
+        inf_out[agg] = entry
+        if not entry["max_row_rel_diff"] <= 1e-4:
+            bad.append(f"{agg}: device logits {entry['max_row_rel_diff']} from the host's")
+        want = {"mean": "gather_reduce_sum", "pool": "gather_reduce_max",
+                "lstm": "gather_rows"}[agg]
+        if entry["device_launches"].get(want, 0) <= 0:
+            bad.append(f"{agg}: the device backend launched no {want}")
+        if any(k.startswith("gather_reduce") for k in entry["host_launches"]):
+            bad.append(f"{agg}: the host backend launched a window reduction")
+    inf_out["nvidia_smi"] = smi
+    emit("inference", inf_out)
+    if bad:
+        fail("inference: " + "; ".join(bad))
+
+    # -- checkpoint: save after epoch 0, resume into a fresh Trainer, epoch 1 --
+    # host path (the main configuration; dropout 0.2, so the generator's
+    # state matters): at bf16 compute the resumed run's epoch 1 (eager)
+    # equals the uninterrupted run's (replayed) to the bit, as must a resume
+    # into the first Trainer after its graphs were captured, its epoch 1
+    # replayed again; at f32 the difference is reported beside the spread
+    # of two resumed runs.  On-device (scan, bf16 compute): bit-equal too.
+    import tempfile
+
+    def param_copy(t_):
+        return {n: p.detach().clone() for n, p in t_.state.model.named_parameters()}
+
+    def max_rel(pa, pb):
+        return max(float((pa[n] - pb[n]).norm() / pb[n].norm().clamp(min=1e-30)) for n in pa)
+
+    ck_out = {}
+    with tempfile.TemporaryDirectory() as ck_root:
+        for label, kw in (("host_bf16", {"compute": "bfloat16"}), ("host_f32", {}),
+                          ("device_bf16", {"compute": "bfloat16", "on_device": True,
+                                           "paired": True})):
+            c = config("mean", **kw)
+            c.train.ckpt_dir = os.path.join(ck_root, label)
+            c.train.ckpt_every = 1
+            a = Trainer.from_dataset(c, ds, seed=0)
+            t0 = time.perf_counter()
+            a.train(2)
+            torch.cuda.synchronize()
+            pa, la = param_copy(a), [m.mean_loss for m in a.epoch_metrics]
+            entry = {"checkpoints": list_checkpoints(c.train.ckpt_dir, "graphsage"),
+                     "uninterrupted_s": time.perf_counter() - t0}
+            resumed = []
+            for _ in range(1 if label != "host_f32" else 2):
+                b = Trainer.from_dataset(c, ds, seed=0)
+                t0 = time.perf_counter()
+                start = b.resume(epoch=0)
+                entry["resume_s"] = time.perf_counter() - t0
+                b.train(2, start_epoch=start)
+                torch.cuda.synchronize()
+                resumed.append((param_copy(b), b.epoch_metrics[-1].mean_loss))
+                del b
+                free_memory()
+            entry["resumed_vs_uninterrupted"] = max_rel(resumed[0][0], pa)
+            entry["loss"] = {"uninterrupted": la[1], "resumed": resumed[0][1]}
+            if label == "host_f32":
+                entry["resumed_vs_resumed"] = max_rel(resumed[1][0], resumed[0][0])
+            elif entry["resumed_vs_uninterrupted"] != 0.0:
+                bad.append(f"checkpoint {label}: the resumed run's parameters are "
+                           f"{entry['resumed_vs_uninterrupted']} from the uninterrupted run's")
+            if label != "device_bf16":
+                # resume into the Trainer whose graphs replayed epoch 1: in place
+                ptrs = {n: p.data_ptr() for n, p in a.state.model.named_parameters()}
+                a.resume(epoch=0)
+                a.run_epoch(1)
+                torch.cuda.synchronize()
+                entry["graphs_held"] = len(a.group_graphs.graphs) if a.group_graphs else 0
+                entry["after_capture_vs_uninterrupted"] = max_rel(param_copy(a), pa)
+                moved = [n for n, p in a.state.model.named_parameters()
+                         if p.data_ptr() != ptrs[n]]
+                if moved:
+                    bad.append(f"checkpoint {label}: resume moved {moved}")
+                if label == "host_bf16" and entry["after_capture_vs_uninterrupted"] != 0.0:
+                    bad.append(f"checkpoint {label}: the replay after a resume is "
+                               f"{entry['after_capture_vs_uninterrupted']} from the first")
+            if entry["checkpoints"] != [0, 1]:
+                bad.append(f"checkpoint {label}: saved {entry['checkpoints']}")
+            ck_out[label] = entry
+            del a
+            free_memory()
+    emit("checkpoint", ck_out)
+    if bad:
+        fail("checkpoint: " + "; ".join(bad))
+
     # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
     dtr = dev_tr["f32"]
     dcfg = dtr.cfg
@@ -1482,6 +1768,111 @@ def main() -> None:
             same_fn=lambda k=rk: same_fn(g1, g1n, k),
             nbytes=4 * n1 + 5 * n1 * f1 + 2 * rows_bytes(n1, d1) + rows_bytes(s1, d1)))
 
+    # -- the max kind (the pool aggregator's): block forward and backward -----
+    # block 1's rows are concat(x, relu(x)) as the model's skip makes them, so
+    # the relu half ties at 0; the launches are the pool host run's
+    # (sage_aggregators).  library: index_select and embedding_bag(mode="max")
+    # from pre-flattened inputs (as for mean and sum); same fn: index_select,
+    # then the masked amax over the slots
+    h1m = torch.cat([h1[:, :cfg.model.hidden], torch.relu(h1[:, :cfg.model.hidden])], 1)
+
+    def max_same_fn(src, blk):
+        msgs = torch.index_select(src, 0, blk.neigh_pos.view(-1)).view(
+            *blk.neigh_pos.shape, src.shape[1])
+        m = torch.where(blk.neigh_mask[..., None], msgs, -1e30).amax(1)
+        return (torch.index_select(src, 0, blk.self_pos),
+                torch.where(blk.neigh_mask.any(1, keepdim=True), m, 0.0))
+
+    def max_cases(tag, feats_t, h1_t, g_s, g_n, size, launches_, tol_bwd):
+        sfx = "" if tag == "f32" else "_bf16"
+        for label, src, blk in (("block0", feats_t, b0), ("block1", h1_t, b1)):
+            flat, offs, _ = reduce_inputs(blk.neigh_pos, blk.neigh_mask)
+            n, f = blk.neigh_pos.shape
+            d = src.shape[1]
+            n_s = blk.self_pos.shape[0]
+            neigh_rows = blk.neigh_pos[blk.neigh_mask]
+            cases.append(dict(
+                name=f"block_gather_fwd_max{sfx}[{label}]", key=f"block_gather_fwd_max{sfx}",
+                launches=launches_[f"block_gather_fwd_max{sfx}"],
+                replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas "
+                         "with the max kind (pagraph_tpu/ops/aggregate.py:62 XLA's max)",
+                shape=f"src {list(src.shape)} {src.dtype} self_pos [{n_s}] pos/mask [{n}, {f}]",
+                tol=("exact", "exact"),
+                kernel=lambda s=src, b=blk: gk.block_gather_fwd(
+                    s, b.self_pos, b.neigh_pos, b.neigh_mask, "max"),
+                plain=lambda s=src, b=blk: gk.block_gather_fwd_plain(
+                    s, b.self_pos, b.neigh_pos, b.neigh_mask, "max"),
+                library=lambda s=src, ids=blk.self_pos.long(), fl=flat, of=offs: (
+                    torch.index_select(s, 0, ids),
+                    torch.nn.functional.embedding_bag(fl, s, of, mode="max")),
+                same_fn=lambda s=src, b=blk: max_same_fn(s, b),
+                nbytes=4 * n_s + 5 * n * f
+                + rows_bytes(distinct(blk.self_pos, neigh_rows), d, size)
+                + rows_bytes(n_s, d, size) + rows_bytes(n, d, size)))
+        neigh1 = b1.neigh_pos[b1.neigh_mask]
+        cases.append(dict(
+            name=f"block_gather_bwd_max{sfx}[block1]", key=f"block_gather_bwd_max{sfx}",
+            launches=launches_[f"block_gather_bwd_max{sfx}"],
+            replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas "
+                     "(backward of both, max kind: g / ties at the tied maxima, re-reading "
+                     "the source rows; JAX: autodiff of jnp.take and jnp.max)",
+            shape=f"src {list(h1_t.shape)} {h1_t.dtype}, g_self/g_neigh [{n1}, {d1}], "
+                  f"pos/mask [{n1}, {f1}] -> [{s1}, {d1}]",
+            tol=tol_bwd,
+            kernel=lambda: gk.block_gather_bwd(g_s, b1.self_pos, g_n, b1.neigh_pos,
+                                               b1.neigh_mask, s1, "max", h1_t),
+            plain=lambda: gk.block_gather_bwd_plain(g_s, b1.self_pos, g_n, b1.neigh_pos,
+                                                    b1.neigh_mask, s1, "max", h1_t),
+            library=None,
+            nbytes=4 * n1 + 5 * n1 * f1 + 2 * rows_bytes(n1, d1, size)
+            + rows_bytes(distinct(neigh1), d1, size) + rows_bytes(s1, d1, size)))
+
+    max_cases("f32", feats, h1m, g1, g1n, 4, pool_launches, "reduce")
+
+    # -- window_reduce: device inference's degree-bucketed window reduction ---
+    # the block forward's neighbor half, sum and max kinds, on the RMAT-20
+    # window tables at F = 8, 64 and 4096 (inference phase's bn), over the
+    # 100-dim features; the launches are the inference phase's (mean: sum,
+    # pool: max).  library: embedding_bag over the pre-flattened valid
+    # positions (mode sum or max); same fn: index_select, then the masked
+    # sum or amax over the slots
+    x_dev = torch.from_numpy(ds.features).to(dev)
+    win = {p.shape[1]: (p, m) for lv, p, m in bn.tables() if lv == "bucket"}
+
+    def window_same_fn(src, pos, mask, kind):
+        msgs = torch.index_select(src, 0, pos.view(-1)).view(*pos.shape, src.shape[1])
+        if kind == "sum":
+            return torch.where(mask[..., None], msgs, 0.0).sum(1)
+        m = torch.where(mask[..., None], msgs, -1e30).amax(1)
+        return torch.where(mask.any(1, keepdim=True), m, 0.0)
+
+    for wf in (8, 64, 4096):
+        if wf not in win:
+            fail(f"no window table of fan-out {wf}: {sorted(win)}")
+        pos_w, mask_w = win[wf]
+        flat_w, offs_w, _ = reduce_inputs(pos_w, mask_w)
+        rows_w = pos_w.shape[0]
+        valid_w = pos_w[mask_w]
+        for wk in ("sum", "max"):
+            cases.append(dict(
+                name=f"window_reduce[{wk}, F={wf}]", key=f"gather_reduce_{wk}",
+                launches=inf_launches["mean" if wk == "sum" else "pool"][f"gather_reduce_{wk}"],
+                replaces=f"{PALLAS}:132 gather_mean_pallas (device inference's window "
+                         "reduction, pagraph_tpu/models/inference.py:152 _window_reduce)",
+                shape=f"src {list(x_dev.shape)} pos/mask [{rows_w}, {wf}] "
+                      f"({valid_w.numel()} valid slots)",
+                # a sum of F non-negative terms in another order: within
+                # F ulps of the sum (the recursive-summation bound), at least
+                # the other reductions' 1e-6; the max exact
+                tol=max(TOLERANCES["reduce"], wf * 2.0 ** -24) if wk == "sum" else "exact",
+                kernel=lambda p_=pos_w, m_=mask_w, k=wk: gk.gather_reduce(x_dev, p_, m_, k),
+                plain=lambda p_=pos_w, m_=mask_w, k=wk: gk.gather_reduce_plain(x_dev, p_, m_, k),
+                library=lambda fl=flat_w, of=offs_w, k=wk: torch.nn.functional.embedding_bag(
+                    fl, x_dev, of, mode=k),
+                same_fn=lambda p_=pos_w, m_=mask_w, k=wk: window_same_fn(x_dev, p_, m_, k),
+                nbytes=5 * rows_w * wf + rows_bytes(distinct(valid_w), x_dev.shape[1])
+                + rows_bytes(rows_w, x_dev.shape[1])))
+
     # -- bf16 compute: the block kernels on bf16 rows, the assembly to bf16 --
     # the same batch and blocks; block 0's rows are the f32 tier's assembly
     # to bf16, block 1's and the gradients the f32 tensors above rounded.
@@ -1565,6 +1956,9 @@ def main() -> None:
         library=lambda: torch.index_select(cv_f, 0, d_ids),
         same_fn=lambda: torch.index_select(cv_f, 0, d_ids),
         nbytes=4 * nd + nd_distinct * dd * 2 + rows_bytes(nd, dd, 2)))
+
+    h1m_bf = h1m.to(bf)
+    max_cases("bf16", feats_bf, h1m_bf, g1_bf, g1n_bf, 2, pool_bf16_launches, "bf16")
 
     entries, bad = [], []
     for c in cases:
@@ -1654,7 +2048,7 @@ def main() -> None:
     emit("timing_floor", {
         "empty_event_pair_ms": time_ms(torch, lambda: None, flush),
         "block_bwd_memset_ms": time_ms(torch, lambda: gk._lib().pg_block_gather_bwd(
-            None, None, 0, None, None, None, 0, 0, table.data_ptr(), None, s1, d1, 0, 1, 0,
+            None, None, None, 0, None, None, None, 0, 0, table.data_ptr(), None, s1, d1, 0, 1, 0,
             torch.cuda.current_stream(dev).cuda_stream), flush),
         "memset_shape": [s1, d1],
         "copy_block0_fwd_bytes_ms": time_ms(torch, lambda: copy_dst.copy_(copy_src), flush),

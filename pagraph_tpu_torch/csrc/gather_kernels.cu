@@ -5,7 +5,10 @@
 // What they replace (the two Pallas TPU kernels of the JAX package):
 //   * pg_block_gather_fwd <- gather_rows_pallas (pagraph_tpu/ops/pallas_gather.py:58,
 //     body _gather_rows_kernel :29) and gather_mean_pallas (:132, body
-//     _gather_sum_kernel :86), with a 'sum' kind beside 'mean'.  A GraphSAGE
+//     _gather_sum_kernel :86), with a 'sum' kind beside 'mean', and a 'max'
+//     kind (the pool aggregator's, XLA in the JAX package:
+//     pagraph_tpu/ops/aggregate.py:62-64), which device inference also runs
+//     as its degree-bucketed window reduction at fan-outs 8..4096.  A GraphSAGE
 //     block gathers the same source table twice, for its self rows and for
 //     its neighbor mean, so one launch writes both outputs; either half may
 //     be absent, which makes it the forward of one gather alone.  Both
@@ -21,7 +24,12 @@
 //     are forward-only (JAX differentiates jnp.take); the port trains through
 //     these kernels, so their gradient is a kernel too: one launch takes both
 //     incoming gradients and writes the one gradient table (in f32; bf16
-//     gradients get a bf16 table, rounded from it by a second launch).
+//     gradients get a bf16 table, rounded from it by a second launch).  The
+//     max kind's backward also re-reads the block's source rows: per output
+//     row and column it recomputes the max and the number of valid slots
+//     that reach it, and adds g / ties to each of those slots (JAX's
+//     gradient of jnp.max, and torch's of amax, split it equally among
+//     tied maxima; after a ReLU exact ties at 0 are common).
 //
 // What bounds them: device-memory bytes and latency, not FLOPs.  A row gather
 // does no arithmetic; the reduction does fanout adds per output element.  The
@@ -166,6 +174,50 @@ __device__ __forceinline__ void add_to(float& a, float b) { a += b; }
 __device__ __forceinline__ void add_to(float4& a, const float4& b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }
+__device__ __forceinline__ void max_to(float& a, float b) { a = fmaxf(a, b); }
+__device__ __forceinline__ void max_to(float4& a, const float4& b) {
+  a.x = fmaxf(a.x, b.x); a.y = fmaxf(a.y, b.y); a.z = fmaxf(a.z, b.z); a.w = fmaxf(a.w, b.w);
+}
+__device__ __forceinline__ void splat(float& a, float v) { a = v; }
+__device__ __forceinline__ void splat(float4& a, float v) { a = make_float4(v, v, v, v); }
+// ties += (v == mx), per column
+__device__ __forceinline__ void count_ties(float& t, float v, float mx) { t += v == mx ? 1.f : 0.f; }
+__device__ __forceinline__ void count_ties(float4& t, const float4& v, const float4& mx) {
+  count_ties(t.x, v.x, mx.x); count_ties(t.y, v.y, mx.y);
+  count_ties(t.z, v.z, mx.z); count_ties(t.w, v.w, mx.w);
+}
+// q = g / ties per column (IEEE division, as JAX's and torch's max gradients
+// divide); columns with no tie are never read
+__device__ __forceinline__ float tie_share(float g, float t) { return t > 0.f ? g / t : 0.f; }
+__device__ __forceinline__ float4 tie_share(const float4& g, const float4& t) {
+  return make_float4(tie_share(g.x, t.x), tie_share(g.y, t.y), tie_share(g.z, t.z),
+                     tie_share(g.w, t.w));
+}
+// c = (v == mx) ? q : 0 per column; true if any column is a tie
+__device__ __forceinline__ bool tie_select(float& c, float v, float mx, float q) {
+  c = v == mx ? q : 0.f;
+  return v == mx;
+}
+__device__ __forceinline__ bool tie_select(float4& c, const float4& v, const float4& mx,
+                                           const float4& q) {
+  const bool x = tie_select(c.x, v.x, mx.x, q.x), y = tie_select(c.y, v.y, mx.y, q.y);
+  const bool z = tie_select(c.z, v.z, mx.z, q.z), w = tie_select(c.w, v.w, mx.w, q.w);
+  return x || y || z || w;
+}
+
+// The neighbor reduction of a block, by the wrappers' kind codes.
+enum Kind : int { kSum = 0, kMean = 1, kMax = 2 };
+constexpr float kNegInf = -__builtin_huge_valf();
+
+template <int KIND, typename V>
+__device__ __forceinline__ void reduce_to(V& acc, const V& v) {
+  if constexpr (KIND == kMax) {
+    max_to(acc, v);
+  } else {
+    add_to(acc, v);
+  }
+}
+
 __device__ __forceinline__ float scaled(float v, float s) { return v * s; }
 __device__ __forceinline__ float4 scaled(float4 v, float s) {
   v.x *= s; v.y *= s; v.z *= s; v.w *= s;
@@ -219,9 +271,12 @@ __device__ __forceinline__ RowIdx<FANOUT> load_idx(
 
 // One row of both outputs:
 //   out_self[row]  = src[x.self]                                   row < n_self
-//   out_neigh[row] = sum_k mask[row,k] * src[pos[row,k]]  (* 1/max(count,1) for MEAN)
-// The sum is f32 in registers, rounded once to T.
-template <typename T, int FANOUT, bool MEAN, bool VEC>
+//   out_neigh[row] = sum_k mask[row,k] * src[pos[row,k]]  (* 1/max(count,1) for kMean)
+//                  | max over the valid k of src[pos[row,k]], 0 if none   (kMax)
+// The reduction is f32 in registers, rounded once to T (a max of bf16
+// values is one of them, so it rounds to itself).  The max is the JAX
+// package's where(mask, msgs, -1e30), max, where(count > 0, m, 0).
+template <typename T, int FANOUT, int KIND, bool VEC>
 __device__ __forceinline__ void block_fwd_row(
     const RowIdx<FANOUT>& x, int64_t row, const T* __restrict__ src,
     int64_t n_self, const int32_t* __restrict__ pos,
@@ -242,7 +297,7 @@ __device__ __forceinline__ void block_fwd_row(
   } else if (has_neigh) {
     for (int k = 0; k < F; ++k) count += m[k] ? 1 : 0;
   }
-  const float s = MEAN && count > 0 ? 1.f / static_cast<float>(count) : 1.f;
+  const float s = KIND == kMean && count > 0 ? 1.f / static_cast<float>(count) : 1.f;
   const Unit* src_self = unit_row<T, VEC>(src, x.self, d);
   Unit* os = has_self ? unit_row<T, VEC>(out_self, row, d) : nullptr;
   Unit* on = has_neigh ? unit_row<T, VEC>(out_neigh, row, d) : nullptr;
@@ -250,6 +305,7 @@ __device__ __forceinline__ void block_fwd_row(
   for (int i = sub; i < units; i += group) {
     const Unit vs = has_self ? __ldg(src_self + i) : Unit{};
     Val acc{};
+    if (KIND == kMax) splat(acc, kNegInf);
     if (FANOUT > 0) {
       Unit v[kSlots];
 #pragma unroll
@@ -257,19 +313,20 @@ __device__ __forceinline__ void block_fwd_row(
         v[k] = x.m[k] ? __ldg(unit_row<T, VEC>(src, x.p[k], d) + i) : Unit{};
 #pragma unroll
       for (int k = 0; k < kSlots; ++k)
-        if (x.m[k]) add_to(acc, widen(v[k]));
+        if (x.m[k]) reduce_to<KIND>(acc, widen(v[k]));
     } else if (has_neigh) {
       for (int k = 0; k < F; ++k)
-        if (m[k]) add_to(acc, widen(__ldg(unit_row<T, VEC>(src, p[k], d) + i)));
+        if (m[k]) reduce_to<KIND>(acc, widen(__ldg(unit_row<T, VEC>(src, p[k], d) + i)));
     }
+    if (KIND == kMax && count == 0) acc = Val{};    // DGL's empty-mailbox zero
     if (has_self) os[i] = vs;                       // a copy, at any T
-    if (has_neigh) st_unit(on + i, MEAN ? scaled(acc, s) : acc);
+    if (has_neigh) st_unit(on + i, KIND == kMean ? scaled(acc, s) : acc);
   }
 }
 
 // Forward of a block's two gathers of one source table.  A group of
 // 1 << lg lanes serves one row.
-template <typename T, int FANOUT, bool MEAN, bool VEC>
+template <typename T, int FANOUT, int KIND, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 block_gather_fwd_kernel(const T* __restrict__ src,
                         const int32_t* __restrict__ self_pos, int64_t n_self,
@@ -283,7 +340,7 @@ block_gather_fwd_kernel(const T* __restrict__ src,
   const int group = 1 << lg;
   const int sub = threadIdx.x & (group - 1);
   const RowIdx<FANOUT> x = load_idx<FANOUT>(row, self_pos, n_self, pos, mask, n_neigh);
-  block_fwd_row<T, FANOUT, MEAN, VEC>(x, row, src, n_self, pos, mask, n_neigh,
+  block_fwd_row<T, FANOUT, KIND, VEC>(x, row, src, n_self, pos, mask, n_neigh,
                                       fanout_rt, out_self, out_neigh, d, group, sub);
 }
 
@@ -301,26 +358,31 @@ struct BlockFwdArgs {
   int d;
 };
 
-template <typename T, int FANOUT, bool MEAN, bool VEC>
+template <typename T, int FANOUT, int KIND, bool VEC>
 void launch_block_fwd_as(const BlockFwdArgs<T>& a, cudaStream_t st) {
   const int lg = lanes_lg(VEC ? a.d / 4 : a.d);
   const int64_t rows = a.n_self > a.n_neigh ? a.n_self : a.n_neigh;
   const dim3 grid(static_cast<unsigned>(ceil_div(rows, kThreads >> lg)));
-  block_gather_fwd_kernel<T, FANOUT, MEAN, VEC><<<grid, kThreads, 0, st>>>(
+  block_gather_fwd_kernel<T, FANOUT, KIND, VEC><<<grid, kThreads, 0, st>>>(
       a.src, a.self_pos, a.n_self, a.pos, a.mask, a.n_neigh, a.fanout,
       a.out_self, a.out_neigh, a.d, lg);
 }
 
-template <typename T, int FANOUT>
-void launch_block_fwd(const BlockFwdArgs<T>& a, bool mean, bool vec, cudaStream_t st) {
-  if (mean && vec) {
-    launch_block_fwd_as<T, FANOUT, true, true>(a, st);
-  } else if (mean) {
-    launch_block_fwd_as<T, FANOUT, true, false>(a, st);
-  } else if (vec) {
-    launch_block_fwd_as<T, FANOUT, false, true>(a, st);
+template <typename T, int FANOUT, int KIND>
+void launch_block_fwd_kind(const BlockFwdArgs<T>& a, bool vec, cudaStream_t st) {
+  if (vec) {
+    launch_block_fwd_as<T, FANOUT, KIND, true>(a, st);
   } else {
-    launch_block_fwd_as<T, FANOUT, false, false>(a, st);
+    launch_block_fwd_as<T, FANOUT, KIND, false>(a, st);
+  }
+}
+
+template <typename T, int FANOUT>
+void launch_block_fwd(const BlockFwdArgs<T>& a, int kind, bool vec, cudaStream_t st) {
+  switch (kind) {
+    case kMean: launch_block_fwd_kind<T, FANOUT, kMean>(a, vec, st); break;
+    case kMax: launch_block_fwd_kind<T, FANOUT, kMax>(a, vec, st); break;
+    default: launch_block_fwd_kind<T, FANOUT, kSum>(a, vec, st); break;
   }
 }
 
@@ -493,8 +555,94 @@ block_gather_bwd_kernel(const T* __restrict__ g_self,
   }
 }
 
+// Backward of the max kind, into the f32 table grad that the caller zeroed:
+//   grad[self_pos[r]] += g_self[r]                                 r < n_self
+//   grad[pos[r, k]]   += (src[pos[r,k]] == mx_r) ? g_neigh[r] / ties_r : 0
+//                        per column, r < n_neigh, mask[r, k]
+// where mx_r is the column's max over row r's valid slots and ties_r the
+// number of valid slots equal to it: the gradient of JAX's jnp.max (and of
+// torch's amax), which splits each output gradient equally among tied
+// maxima.  A slot repeated in a row is a tie of its own each time, as a
+// gathered message is.  The source rows are re-read: with FANOUT > 0 each
+// valid slot's unit is loaded once into registers; the runtime fan-out
+// (FANOUT == 0) reads the slots three times (max, ties, add).  A unit adds
+// only where one of its columns is a tie (the others add 0).
+template <typename T, int FANOUT, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+block_gather_bwd_max_kernel(const T* __restrict__ src, const T* __restrict__ g_self,
+                            const int32_t* __restrict__ self_pos, int64_t n_self,
+                            const T* __restrict__ g_neigh,
+                            const int32_t* __restrict__ pos,
+                            const uint8_t* __restrict__ mask, int64_t n_neigh,
+                            int fanout_rt, float* __restrict__ grad, int d, int lg) {
+  using Unit = UnitOf<T, VEC>;
+  using Acc = UnitOf<float, VEC>;
+  using Val = ValOf<VEC>;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
+  const bool has_self = row < n_self, has_neigh = row < n_neigh;
+  if (!has_self && !has_neigh) return;
+  const int group = 1 << lg;
+  const int sub = threadIdx.x & (group - 1);
+  const int units = VEC ? d / 4 : d;
+  const int F = FANOUT > 0 ? FANOUT : fanout_rt;
+  const int32_t* p = pos + row * F;
+  const uint8_t* m = mask + row * F;
+  constexpr int kSlots = FANOUT > 0 ? FANOUT : 1;
+  int32_t p_reg[kSlots];
+  bool m_reg[kSlots];
+  bool any = false;
+  if (FANOUT > 0) {
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      m_reg[k] = has_neigh && m[k] != 0;
+      p_reg[k] = has_neigh ? p[k] : 0;
+      any |= m_reg[k];
+    }
+  } else if (has_neigh) {
+    for (int k = 0; k < F; ++k) any |= m[k] != 0;
+  }
+  Acc* dst_self = has_self ? unit_row<float, VEC>(grad, self_pos[row], d) : nullptr;
+  const Unit* gs = unit_row<T, VEC>(g_self, row, d);
+  const Unit* gn = unit_row<T, VEC>(g_neigh, row, d);
+  for (int i = sub; i < units; i += group) {
+    const Val vs = has_self ? widen(__ldg(gs + i)) : Val{};
+    const Val g = any ? widen(__ldg(gn + i)) : Val{};
+    if (has_self) red_unit(dst_self + i, vs);
+    if (!any) continue;
+    Val mx, ties{}, c;
+    splat(mx, kNegInf);
+    if (FANOUT > 0) {
+      Val v[kSlots];
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+        v[k] = m_reg[k] ? widen(__ldg(unit_row<T, VEC>(src, p_reg[k], d) + i)) : Val{};
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+        if (m_reg[k]) max_to(mx, v[k]);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+        if (m_reg[k]) count_ties(ties, v[k], mx);
+      const Val q = tie_share(g, ties);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k)
+        if (m_reg[k] && tie_select(c, v[k], mx, q))
+          red_unit(unit_row<float, VEC>(grad, p_reg[k], d) + i, c);
+    } else {
+      for (int k = 0; k < F; ++k)
+        if (m[k]) max_to(mx, widen(__ldg(unit_row<T, VEC>(src, p[k], d) + i)));
+      for (int k = 0; k < F; ++k)
+        if (m[k]) count_ties(ties, widen(__ldg(unit_row<T, VEC>(src, p[k], d) + i)), mx);
+      const Val q = tie_share(g, ties);
+      for (int k = 0; k < F; ++k)
+        if (m[k] && tie_select(c, widen(__ldg(unit_row<T, VEC>(src, p[k], d) + i)), mx, q))
+          red_unit(unit_row<float, VEC>(grad, p[k], d) + i, c);
+    }
+  }
+}
+
 template <typename T>
 struct BlockBwdArgs {
+  const T* src;            // read by the max kind only
   const T* g_self;
   const int32_t* self_pos;
   int64_t n_self;
@@ -517,11 +665,27 @@ void launch_block_bwd_as(const BlockBwdArgs<T>& a, cudaStream_t st) {
       a.fanout, a.grad, a.d, lg);
 }
 
+template <typename T, int FANOUT, bool VEC>
+void launch_block_bwd_max_as(const BlockBwdArgs<T>& a, cudaStream_t st) {
+  const int lg = lanes_lg(VEC ? a.d / 4 : a.d);
+  const int64_t rows = a.n_self > a.n_neigh ? a.n_self : a.n_neigh;
+  const dim3 grid(static_cast<unsigned>(ceil_div(rows, kThreads >> lg)));
+  block_gather_bwd_max_kernel<T, FANOUT, VEC><<<grid, kThreads, 0, st>>>(
+      a.src, a.g_self, a.self_pos, a.n_self, a.g_neigh, a.pos, a.mask, a.n_neigh,
+      a.fanout, a.grad, a.d, lg);
+}
+
 template <typename T, int FANOUT>
-void launch_block_bwd(const BlockBwdArgs<T>& a, bool mean, bool vec, cudaStream_t st) {
-  if (mean && vec) {
+void launch_block_bwd(const BlockBwdArgs<T>& a, int kind, bool vec, cudaStream_t st) {
+  if (kind == kMax) {
+    if (vec) {
+      launch_block_bwd_max_as<T, FANOUT, true>(a, st);
+    } else {
+      launch_block_bwd_max_as<T, FANOUT, false>(a, st);
+    }
+  } else if (kind == kMean && vec) {
     launch_block_bwd_as<T, FANOUT, true, true>(a, st);
-  } else if (mean) {
+  } else if (kind == kMean) {
     launch_block_bwd_as<T, FANOUT, true, false>(a, st);
   } else if (vec) {
     launch_block_bwd_as<T, FANOUT, false, true>(a, st);
@@ -578,7 +742,7 @@ void launch_to_bf16(const float* in, uint16_t* out, int64_t n, cudaStream_t st) 
 template <typename T>
 int block_gather_fwd(const void* src, const void* self_pos, int64_t n_self,
                      const void* pos, const void* mask, int64_t n_neigh, int fanout,
-                     void* out_self, void* out_neigh, int d, bool mean, bool vec,
+                     void* out_self, void* out_neigh, int d, int kind, bool vec,
                      cudaStream_t st) {
   const BlockFwdArgs<T> a{static_cast<const T*>(src),
                           static_cast<const int32_t*>(self_pos), n_self,
@@ -586,28 +750,28 @@ int block_gather_fwd(const void* src, const void* self_pos, int64_t n_self,
                           static_cast<const uint8_t*>(mask), n_neigh,
                           n_neigh > 0 ? fanout : 0,
                           static_cast<T*>(out_self), static_cast<T*>(out_neigh), d};
-#define PG_LAUNCH_BLOCK_FWD(F) launch_block_fwd<T, F>(a, mean, vec, st)
+#define PG_LAUNCH_BLOCK_FWD(F) launch_block_fwd<T, F>(a, kind, vec, st)
   PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_FWD)
 #undef PG_LAUNCH_BLOCK_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int block_gather_bwd(const void* g_self, const void* self_pos, int64_t n_self,
-                     const void* g_neigh, const void* pos, const void* mask,
-                     int64_t n_neigh, int fanout, float* grad, int64_t num_src,
-                     int d, bool mean, bool vec, cudaStream_t st) {
+int block_gather_bwd(const void* src, const void* g_self, const void* self_pos,
+                     int64_t n_self, const void* g_neigh, const void* pos,
+                     const void* mask, int64_t n_neigh, int fanout, float* grad,
+                     int64_t num_src, int d, int kind, bool vec, cudaStream_t st) {
   const cudaError_t rc = cudaMemsetAsync(
       grad, 0, static_cast<size_t>(num_src) * d * sizeof(float), st);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   if ((n_self == 0 && n_neigh == 0) || d == 0) return static_cast<int>(cudaGetLastError());
-  const BlockBwdArgs<T> a{static_cast<const T*>(g_self),
+  const BlockBwdArgs<T> a{static_cast<const T*>(src), static_cast<const T*>(g_self),
                           static_cast<const int32_t*>(self_pos), n_self,
                           static_cast<const T*>(g_neigh),
                           static_cast<const int32_t*>(pos),
                           static_cast<const uint8_t*>(mask), n_neigh,
                           n_neigh > 0 ? fanout : 0, grad, d};
-#define PG_LAUNCH_BLOCK_BWD(F) launch_block_bwd<T, F>(a, mean, vec, st)
+#define PG_LAUNCH_BLOCK_BWD(F) launch_block_bwd<T, F>(a, kind, vec, st)
   PG_FANOUT_SWITCH(a.fanout, PG_LAUNCH_BLOCK_BWD)
 #undef PG_LAUNCH_BLOCK_BWD
   return static_cast<int>(cudaGetLastError());
@@ -619,21 +783,23 @@ extern "C" {
 
 // Both outputs of a block's forward in one launch on the caller's stream:
 // out_self [n_self, d] = src[self_pos] and out_neigh [n_neigh, d] = the
-// masked sum (mean != 0: mean) of src over pos/mask [n_neigh, fanout], all
-// at the element type dtype (0 f32, 1 bf16).  An absent half has null
-// pointers and 0 rows (the self half: self_pos, out_self, n_self; the
-// neighbor half: pos, mask, out_neigh, n_neigh, and then fanout is ignored).
+// masked reduction of src over pos/mask [n_neigh, fanout] of kind kind (0
+// sum, 1 mean, 2 max: 0 for a row with no valid slot), all at the element
+// type dtype (0 f32, 1 bf16).  An absent half has null pointers and 0 rows
+// (the self half: self_pos, out_self, n_self; the neighbor half: pos, mask,
+// out_neigh, n_neigh, and then fanout and kind are ignored).
 int pg_block_gather_fwd(const void* src, const void* self_pos, int64_t n_self,
                         const void* pos, const void* mask, int64_t n_neigh,
                         int fanout, void* out_self, void* out_neigh, int d,
-                        int mean, int vec, int dtype, void* stream) {
+                        int kind, int vec, int dtype, void* stream) {
   if ((n_self == 0 && n_neigh == 0) || d == 0) return static_cast<int>(cudaGetLastError());
+  if (kind < kSum || kind > kMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return block_gather_fwd<float>(src, self_pos, n_self, pos, mask, n_neigh, fanout,
-                                           out_self, out_neigh, d, mean != 0, vec != 0, st);
+                                           out_self, out_neigh, d, kind, vec != 0, st);
     case 1: return block_gather_fwd<uint16_t>(src, self_pos, n_self, pos, mask, n_neigh,
-                                              fanout, out_self, out_neigh, d, mean != 0,
+                                              fanout, out_self, out_neigh, d, kind,
                                               vec != 0, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -665,27 +831,32 @@ int pg_assemble(const void* cache_values, const void* miss_feats,
 
 // Zero the f32 table [num_src, d] and add both halves of a block's backward
 // into it, in one memset and one launch on the caller's stream, from
-// gradients of the element type dtype (0 f32, 1 bf16).  At f32 that table
-// is grad_src and grad_f32 is ignored (may be null); at bf16 it is the
-// scratch grad_f32, which a second launch then rounds into the bf16 table
-// grad_src.  An absent half has null pointers and 0 rows (the self half:
-// g_self, self_pos, n_self; the neighbor half: g_neigh, pos, mask, n_neigh,
-// and then fanout is ignored).
-int pg_block_gather_bwd(const void* g_self, const void* self_pos, int64_t n_self,
-                        const void* g_neigh, const void* pos, const void* mask,
-                        int64_t n_neigh, int fanout, void* grad_src, void* grad_f32,
-                        int64_t num_src, int d, int mean, int vec, int dtype,
-                        void* stream) {
+// gradients of the element type dtype (0 f32, 1 bf16) for the reduction
+// kind (0 sum, 1 mean, 2 max).  The max kind also reads the block's source
+// table src [num_src, d] (same element type), to find each row's maxima;
+// the others ignore src (may be null).  At f32 that table is grad_src and
+// grad_f32 is ignored (may be null); at bf16 it is the scratch grad_f32,
+// which a second launch then rounds into the bf16 table grad_src.  An
+// absent half has null pointers and 0 rows (the self half: g_self,
+// self_pos, n_self; the neighbor half: g_neigh, pos, mask, n_neigh, and
+// then fanout and kind are ignored).
+int pg_block_gather_bwd(const void* src, const void* g_self, const void* self_pos,
+                        int64_t n_self, const void* g_neigh, const void* pos,
+                        const void* mask, int64_t n_neigh, int fanout, void* grad_src,
+                        void* grad_f32, int64_t num_src, int d, int kind, int vec,
+                        int dtype, void* stream) {
+  if (kind < kSum || kind > kMax || (kind == kMax && n_neigh > 0 && src == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return block_gather_bwd<float>(g_self, self_pos, n_self, g_neigh, pos, mask,
+    case 0: return block_gather_bwd<float>(src, g_self, self_pos, n_self, g_neigh, pos, mask,
                                            n_neigh, fanout, static_cast<float*>(grad_src),
-                                           num_src, d, mean != 0, vec != 0, st);
+                                           num_src, d, kind, vec != 0, st);
     case 1: {
       float* acc = static_cast<float*>(grad_f32);
-      const int rc = block_gather_bwd<uint16_t>(g_self, self_pos, n_self, g_neigh, pos, mask,
-                                                n_neigh, fanout, acc, num_src, d,
-                                                mean != 0, vec != 0, st);
+      const int rc = block_gather_bwd<uint16_t>(src, g_self, self_pos, n_self, g_neigh, pos,
+                                                mask, n_neigh, fanout, acc, num_src, d,
+                                                kind, vec != 0, st);
       if (rc != cudaSuccess || num_src * d == 0) return rc;
       launch_to_bf16(acc, static_cast<uint16_t*>(grad_src), num_src * d, st);
       return static_cast<int>(cudaGetLastError());

@@ -1,11 +1,15 @@
-// Host kernels of the port's host path: the neighbor sampler and the
-// miss-row gathers, compiled with g++ at first use (sampling/native.py) and
-// loaded with ctypes.
+// Host kernels of the port: the neighbor sampler and the miss-row gathers
+// of the host path, the mean-aggregate SpMMs of GraphSAGE's preprocess
+// field, and the R-MAT generator and COO -> CSR builder of rmat_csr,
+// compiled with g++ at first use (sampling/native.py) and loaded with
+// ctypes.
 //
-// The port's own copy of three functions of the JAX package's native host
-// library (pg_sample_minibatch, pg_gather_rows_f32, pg_gather_rows_i8), with
-// the arithmetic unchanged, so that a batch drawn from the same seed is
-// bit-equal to the JAX package's native sampler.
+// The port's own copy of seven functions of the JAX package's native host
+// library (pg_sample_minibatch, pg_gather_rows_f32, pg_gather_rows_i8,
+// pg_spmm_mean_f32, pg_spmm_mean_i8, pg_rmat_gen, pg_coo_to_csr), with the
+// arithmetic unchanged, so that a batch drawn from the same seed is
+// bit-equal to the JAX package's native sampler, and a preprocess field or
+// an R-MAT graph to the JAX package's.
 // Build: g++ -O3 -march=native -shared -fPIC -fopenmp -std=c++17.
 //
 // Sampling semantics (numpy sampler's policy, native draws):
@@ -16,6 +20,8 @@
 // Layer dedup keeps first-occurrence order, so the dst set occupies the
 // prefix of the src layer (the subset invariant the models rely on).
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -182,6 +188,148 @@ void pg_gather_rows_i8(const int8_t* src, int64_t num_rows, int64_t dim,
   for (int64_t i = 0; i < n; ++i) {
     std::memcpy(out + i * dim, src + ids[i] * dim, (size_t)dim);
   }
+}
+
+// CSR mean-aggregate SpMM: out[v] = norm[v] * sum_{u in N_in(v)} x[u]
+// (the preprocess trick's offline pass, reference server/pa_server.py:45-52;
+// scipy's single-threaded SpMM was the store_build bottleneck at 0.5B edges).
+void pg_spmm_mean_f32(const int64_t* indptr, const int32_t* indices,
+                      int64_t n, const float* x, int64_t d,
+                      const float* norm, float* out) {
+#pragma omp parallel for schedule(dynamic, 4096)
+  for (int64_t v = 0; v < n; ++v) {
+    float* o = out + v * d;
+    std::memset(o, 0, sizeof(float) * d);
+    for (int64_t e = indptr[v]; e < indptr[v + 1]; ++e) {
+      const float* row = x + (int64_t)indices[e] * d;
+      for (int64_t k = 0; k < d; ++k) o[k] += row[k];
+    }
+    const float nv = norm[v];
+    for (int64_t k = 0; k < d; ++k) o[k] *= nv;
+  }
+}
+
+// CSR mean-aggregate over an int8 (pre-quantized) feature matrix for rows
+// [row_lo, row_hi): out[v - row_lo, k] = norm[v] * scale[k] * sum int8 rows.
+// Exact: sum_u scale[k]*x[u,k] = scale[k] * sum_u x[u,k]; int64 accumulators
+// (hub in-degree * 127 overflows int32 around deg 16.9M).  The row range
+// makes the caller's chunked quantize-on-the-fly pass possible without ever
+// materializing the full f32 aggregate (papers100M preprocess field).
+void pg_spmm_mean_i8(const int64_t* indptr, const int32_t* indices,
+                     const int8_t* x, int64_t d,
+                     const float* norm, const float* scale,
+                     int64_t row_lo, int64_t row_hi, float* out) {
+#pragma omp parallel
+  {
+    std::vector<int64_t> acc(d);
+#pragma omp for schedule(dynamic, 2048)
+    for (int64_t v = row_lo; v < row_hi; ++v) {
+      std::memset(acc.data(), 0, sizeof(int64_t) * d);
+      for (int64_t e = indptr[v]; e < indptr[v + 1]; ++e) {
+        const int8_t* row = x + (int64_t)indices[e] * d;
+        for (int64_t k = 0; k < d; ++k) acc[k] += row[k];
+      }
+      float* o = out + (v - row_lo) * d;
+      const float nv = norm[v];
+      for (int64_t k = 0; k < d; ++k) o[k] = nv * scale[k] * (float)acc[k];
+    }
+  }
+}
+
+// R-MAT edge generation: m directed edges over 2^scale vertices, Graph500
+// quadrant descent.  Each edge owns an independent splitmix64 stream, so the
+// draw order is deterministic and parallel.  Self-loops are re-drawn (up to
+// 32 attempts, then the dst low bit is flipped) so exactly m edges emerge;
+// the numpy generator (data/synthetic.py:rmat_coo) instead filters them out.
+// Duplicate edges remain (removed at CSR build, like the COO->CSR round trip).
+void pg_rmat_gen(int32_t scale, int64_t m, double a, double b, double c,
+                 uint64_t seed, int32_t* src, int32_t* dst) {
+  const uint64_t ta = (uint64_t)(a * 18446744073709551616.0);
+  const uint64_t tab = (uint64_t)((a + b) * 18446744073709551616.0);
+  const uint64_t tabc = (uint64_t)((a + b + c) * 18446744073709551616.0);
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < m; ++i) {
+    uint64_t s = seed ^ splitmix64((uint64_t)i * 0x9E3779B97F4A7C15ULL + 1);
+    int32_t u = 0, v = 0;
+    for (int attempt = 0; attempt < 32; ++attempt) {
+      u = 0; v = 0;
+      for (int32_t bit = 0; bit < scale; ++bit) {
+        s = splitmix64(s);
+        const uint64_t r = s;
+        const int32_t sb = r >= tab ? 1 : 0;
+        const int32_t db = ((r >= ta && r < tab) || r >= tabc) ? 1 : 0;
+        u = (u << 1) | sb;
+        v = (v << 1) | db;
+      }
+      if (u != v) break;
+    }
+    if (u == v) v ^= 1;
+    src[i] = u;
+    dst[i] = v;
+  }
+}
+
+// COO (src -> dst) to in-CSR with per-row sort + dedup (scipy parity:
+// tocsr().sum_duplicates().sort_indices(), graph.py:from_coo).  Self-loops
+// kept iff drop_self == 0.  `indices` must have capacity m; rows are
+// compacted in place and the deduplicated edge count returned.  `cursor`
+// is int64 scratch [n].  Fills `out_deg` (source-occurrence histogram of the
+// deduplicated edges) when non-NULL.
+int64_t pg_coo_to_csr(const int32_t* src, const int32_t* dst, int64_t m,
+                      int64_t n, int32_t drop_self,
+                      int64_t* indptr, int32_t* indices, int64_t* cursor,
+                      int32_t* out_deg) {
+  std::atomic<int64_t>* counts =
+      reinterpret_cast<std::atomic<int64_t>*>(cursor);
+#pragma omp parallel for schedule(static)
+  for (int64_t v = 0; v < n; ++v) counts[v].store(0, std::memory_order_relaxed);
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < m; ++i) {
+    if (drop_self && src[i] == dst[i]) continue;
+    counts[dst[i]].fetch_add(1, std::memory_order_relaxed);
+  }
+  indptr[0] = 0;
+  for (int64_t v = 0; v < n; ++v)
+    indptr[v + 1] = indptr[v] + cursor[v];
+#pragma omp parallel for schedule(static)
+  for (int64_t v = 0; v < n; ++v) counts[v].store(indptr[v], std::memory_order_relaxed);
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < m; ++i) {
+    if (drop_self && src[i] == dst[i]) continue;
+    const int64_t pos = counts[dst[i]].fetch_add(1, std::memory_order_relaxed);
+    indices[pos] = src[i];
+  }
+  // Per-row sort + unique; new length recorded in cursor.
+#pragma omp parallel for schedule(dynamic, 4096)
+  for (int64_t v = 0; v < n; ++v) {
+    int32_t* lo = indices + indptr[v];
+    int32_t* hi = indices + indptr[v + 1];
+    std::sort(lo, hi);
+    cursor[v] = std::unique(lo, hi) - lo;
+  }
+  // Compact rows left.  SERIAL: a later row's new region can overlap an
+  // EARLIER row's not-yet-copied old region, so a parallel version races
+  // across thread boundaries; the sequential memmove is bandwidth-bound
+  // (~E*4 bytes) and cheap next to the sort pass.
+  std::vector<int64_t> new_start(n + 1);
+  new_start[0] = 0;
+  for (int64_t v = 0; v < n; ++v) new_start[v + 1] = new_start[v] + cursor[v];
+  for (int64_t v = 0; v < n; ++v) {
+    const int64_t cnt = cursor[v], from = indptr[v], to = new_start[v];
+    if (to != from && cnt > 0)
+      std::memmove(indices + to, indices + from, sizeof(int32_t) * cnt);
+  }
+  std::memcpy(indptr, new_start.data(), sizeof(int64_t) * (n + 1));
+  const int64_t e = new_start[n];
+  if (out_deg) {
+    std::atomic<int32_t>* od = reinterpret_cast<std::atomic<int32_t>*>(out_deg);
+#pragma omp parallel for schedule(static)
+    for (int64_t v = 0; v < n; ++v) od[v].store(0, std::memory_order_relaxed);
+#pragma omp parallel for schedule(static)
+    for (int64_t i = 0; i < e; ++i)
+      od[indices[i]].fetch_add(1, std::memory_order_relaxed);
+  }
+  return e;
 }
 
 }  // extern "C"

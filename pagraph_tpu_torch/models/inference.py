@@ -1,0 +1,302 @@
+"""Full-graph layer-wise inference and evaluation, GraphSAGE (the port of
+``pagraph_tpu/models/inference.py``).
+
+The reference evaluates by building a full-neighborhood NodeFlow over the
+test set and running the ``*Infer`` model variants.  Two backends with the
+same semantics, as in the JAX package:
+
+  * ``host``: exact aggregation over all in-neighbors on the host (a scipy
+    CSR SpMM for sum and mean, a segment max for pool), the linears on the
+    model's device in row batches;
+  * ``device``: the whole layer-wise propagation on the model's device.
+    Aggregation is scatter-free: each vertex reduces a padded window of its
+    in-neighbor rows (:class:`_BucketedNeighborhoods`, vertices bucketed by
+    power-of-two in-degree, hubs split into windows whose partials a second
+    level reduces), each bucket one launch of the block forward kernel's
+    neighbor half (``gather_kernels.gather_reduce``, sum or max kind) at its
+    fan-out, 8 to 4096.  The window tables and their masks are built once a
+    graph.
+
+GraphSAGE per layer: ``fc_self(h) + fc_neigh(agg(h))`` with mean, gcn
+(sum), pool (max) or lstm over every in-neighbor; under preprocess the
+``pre`` update reads the full-graph mean of the features, which is what
+training's ``neigh`` field holds.  The lstm aggregate runs the training
+op (``ops.aggregate.block_aggregate_lstm``) on vertices bucketed by
+power-of-two in-degree, on the model's device, for both backends, as the
+JAX package does.  The other architectures wait for their models (ROADMAP
+queue 1).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import scipy.sparse as spsp
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..graph import CSRGraph, gcn_norm
+from ..ops.aggregate import block_aggregate_lstm
+from ..ops.gather_kernels import gather_reduce
+from ..sampling.block import Block
+from .sage import AGG_KIND
+
+# backend="auto" takes the device path from this edge count up (the JAX
+# package's threshold); smaller graphs stay on the host
+AUTO_DEVICE_EDGES = 2_000_000
+
+
+def _adj_csr(graph: CSRGraph) -> spsp.csr_matrix:
+    n = graph.num_nodes
+    return spsp.csr_matrix(
+        (np.ones(graph.num_edges, dtype=np.float32), graph.indices, graph.indptr),
+        shape=(n, n))
+
+
+def _segment_max(graph: CSRGraph, h: np.ndarray) -> np.ndarray:
+    """Row-wise max over in-neighbors (the pool aggregator, full graph);
+    zero-degree rows stay zero."""
+    out = np.zeros((graph.num_nodes, h.shape[1]), dtype=h.dtype)
+    gathered = h[graph.indices]                        # [E, D]
+    ptr = graph.indptr
+    nonempty = np.diff(ptr) > 0
+    starts = ptr[:-1][nonempty]
+    if len(starts):
+        out[nonempty] = np.maximum.reduceat(gathered, starts, axis=0)
+    return out
+
+
+def _aggregate(graph: CSRGraph, adj, h: np.ndarray, kind: str,
+               norm: np.ndarray) -> np.ndarray:
+    if kind == "mean":
+        return (adj @ h) * norm[:, None]
+    if kind == "sum":
+        return adj @ h
+    if kind == "max":
+        return _segment_max(graph, h)
+    raise ValueError(kind)
+
+
+def _lstm_full_aggregate(graph: CSRGraph, h: torch.Tensor, lstm_params: Dict[str, torch.Tensor],
+                         row_budget: int = 1 << 22) -> torch.Tensor:
+    """Exact full-neighborhood LSTM aggregation on ``h``'s device: per
+    vertex, the LSTM over all its in-neighbors in CSR order, its final
+    hidden state; zero-degree rows stay zero.  Vertices are bucketed by
+    power-of-two in-degree, each bucket a padded ``[rows, F]`` block for
+    :func:`block_aggregate_lstm`, in chunks whose gathered ``[rows, F, D]``
+    messages stay within ``row_budget`` elements."""
+    n = graph.num_nodes
+    dev = h.device
+    deg = np.diff(graph.indptr).astype(np.int64)
+    hidden = lstm_params["w_hh"].shape[0]
+    out = torch.zeros((n, hidden), dtype=h.dtype, device=dev)
+    nz = np.nonzero(deg > 0)[0]
+    if len(nz) == 0:
+        return out
+    d_in = h.shape[1]
+    buckets = 1 << np.ceil(np.log2(np.maximum(deg[nz], 1))).astype(np.int64)
+    indptr = graph.indptr
+    for f in np.unique(buckets):
+        vs = nz[buckets == f]
+        rows_max = max(1, int(row_budget // max(int(f) * d_in, 1)))
+        for i in range(0, len(vs), rows_max):
+            chunk = vs[i:i + rows_max]
+            lens = deg[chunk]
+            cols = np.arange(f, dtype=np.int64)[None, :]
+            mask = cols < lens[:, None]
+            flat = indptr[chunk][:, None] + np.minimum(cols, lens[:, None] - 1)
+            blk = Block(neigh_pos=torch.from_numpy(graph.indices[flat].astype(np.int32)),
+                        neigh_mask=torch.from_numpy(mask),
+                        self_pos=torch.zeros(len(chunk), dtype=torch.int32)).to(dev)
+            out[torch.from_numpy(chunk).to(dev)] = block_aggregate_lstm(h, blk, lstm_params)
+    return out
+
+
+class _BucketedNeighborhoods:
+    """Degree-bucketed padded in-neighbor windows on a device: exact
+    full-graph sum and max aggregation as window reductions, with no
+    scatter.
+
+    - vertices with in-degree 1..``f_cap`` are grouped by power-of-two
+      in-degree (at least ``f_min``); each bucket is a window table ``pos``
+      int32 ``[rows, F]`` with its mask (``idx != n`` in the JAX package,
+      whose padded slots index an appended zero row; here padded slots hold
+      0 and are masked, so no row is appended and none is loaded);
+    - hubs (in-degree above ``f_cap``) split into ``ceil(deg / f_cap)``
+      windows of ``f_cap``, whose partial results a second level reduces,
+      bucketed by power-of-two window count (at least 2);
+    - the buckets' results concatenate in that order and one ``n``-row
+      gather puts them back in vertex order.
+
+    Built once a graph (about 2E int32 and 2E mask bytes on the device);
+    each :meth:`aggregate` is one ``gather_reduce`` launch a bucket."""
+
+    def __init__(self, graph: CSRGraph, device, f_min: int = 8, f_cap: int = 4096):
+        n = graph.num_nodes
+        self.num_nodes = n
+        self.device = torch.device(device)
+        deg = np.diff(graph.indptr).astype(np.int64)
+        indptr, indices = graph.indptr, graph.indices
+        zero = np.nonzero(deg == 0)[0]
+        perm_parts = [zero]
+        self._n0 = len(zero)
+        self.buckets: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        small = np.nonzero((deg > 0) & (deg <= f_cap))[0]
+        if len(small):
+            fs = np.maximum(f_min, 1 << np.ceil(np.log2(deg[small])).astype(np.int64))
+            for f in np.unique(fs):
+                vs = small[fs == f]
+                perm_parts.append(vs)
+                cols = np.arange(f, dtype=np.int64)[None, :]
+                mask = cols < deg[vs][:, None]
+                flat = indptr[vs][:, None] + np.where(mask, cols, 0)
+                self.buckets.append(self._table(np.where(mask, indices[flat], 0), mask))
+        big = np.nonzero(deg > f_cap)[0]
+        self.hubs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self.level2: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        if len(big):
+            # the second level is bucketed by each hub's window count, so one
+            # mega-hub does not widen every hub's row; hubs are reordered
+            # bucket by bucket so the outputs concatenate in perm order
+            wc_all = -(-deg[big] // f_cap)
+            f2s = np.maximum(2, 1 << np.ceil(np.log2(wc_all)).astype(np.int64))
+            order = np.argsort(f2s, kind="stable")
+            big, wcounts, f2s = big[order], wc_all[order], f2s[order]
+            perm_parts.append(big)
+            w = int(wcounts.sum())
+            widx = np.zeros((w, f_cap), dtype=np.int32)
+            wmask = np.zeros((w, f_cap), dtype=bool)
+            row = 0
+            for v, wc in zip(big, wcounts):
+                nb = indices[indptr[v]:indptr[v] + deg[v]]
+                widx.reshape(-1)[row * f_cap:row * f_cap + len(nb)] = nb
+                wmask.reshape(-1)[row * f_cap:row * f_cap + len(nb)] = True
+                row += int(wc)
+            self.hubs = self._table(widx, wmask)
+            starts = np.concatenate([[0], np.cumsum(wcounts)[:-1]])
+            for f2 in np.unique(f2s):
+                sel = f2s == f2
+                cols2 = np.arange(f2, dtype=np.int64)[None, :]
+                m2 = cols2 < wcounts[sel][:, None]
+                self.level2.append(self._table(np.where(m2, starts[sel][:, None] + cols2, 0), m2))
+        perm = np.concatenate(perm_parts)
+        inv = np.empty(n, dtype=np.int64)
+        inv[perm] = np.arange(n, dtype=np.int64)
+        self.inv_perm = torch.from_numpy(inv).to(self.device)
+
+    def _table(self, pos: np.ndarray, mask: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (torch.from_numpy(np.ascontiguousarray(pos, dtype=np.int32)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(mask)).to(self.device))
+
+    def tables(self) -> List[Tuple[str, torch.Tensor, torch.Tensor]]:
+        """``(level, pos, mask)`` of every window table, in the order
+        :meth:`aggregate` reduces them (``level``: ``"bucket"``, ``"hubs"``
+        or ``"level2"``, which reduces the hub windows' partials)."""
+        return ([("bucket", *t) for t in self.buckets]
+                + ([("hubs", *self.hubs)] if self.hubs is not None else [])
+                + [("level2", *t) for t in self.level2])
+
+    def aggregate(self, h: torch.Tensor, kind: str) -> torch.Tensor:
+        """``[n, D]``: each vertex's sum or max (``kind``) over its
+        in-neighbors' rows of ``h``; zero-degree vertices get zeros."""
+        if h.shape[0] != self.num_nodes:
+            raise ValueError(f"h has {h.shape[0]} rows, the graph {self.num_nodes} vertices")
+        h = h.contiguous()
+        outs = [h.new_zeros((self._n0, h.shape[1]))] if self._n0 else []
+        outs += [gather_reduce(h, pos, mask, kind) for pos, mask in self.buckets]
+        if self.hubs is not None:
+            partials = gather_reduce(h, *self.hubs, kind)
+            outs += [gather_reduce(partials, pos, mask, kind) for pos, mask in self.level2]
+        return torch.cat(outs).index_select(0, self.inv_perm)
+
+
+def _linears(model: nn.Module):
+    """``(pre, updates, lstm)``: the model's ``pre`` update (``None``
+    without preprocess), its block updates, and each block's LSTM
+    parameters (empty unless the lstm aggregator)."""
+    return (getattr(model, "pre", None), list(model.updates),
+            [m.params() for m in model.lstm])
+
+
+def full_graph_logits(model: nn.Module, cfg: ModelConfig, graph: CSRGraph,
+                      features: np.ndarray, *, batch_rows: int = 65536,
+                      backend: str = "host") -> np.ndarray:
+    """Logits of every vertex, f32 ``[N, n_classes]``, from a GraphSAGE
+    ``model`` on its device.  ``backend``: ``"host"`` (aggregation on the
+    host), ``"device"`` (all of it on the model's device, the window
+    reductions on the block kernel) or ``"auto"`` (device from
+    :data:`AUTO_DEVICE_EDGES` edges up)."""
+    if cfg.arch != "graphsage":
+        raise NotImplementedError(
+            f"full-graph inference for {cfg.arch!r} is not ported yet (ROADMAP queue 1)")
+    if backend == "auto":
+        backend = "device" if graph.num_edges >= AUTO_DEVICE_EDGES else "host"
+    if backend not in ("host", "device"):
+        raise ValueError(f"unknown inference backend {backend!r}")
+    dev = next(model.parameters()).device
+    pre, updates, lstms = _linears(model)
+    nl = cfg.n_layers
+    off = 1 if cfg.preprocess else 0
+    kind = AGG_KIND.get(cfg.aggregator)
+    norm_np = gcn_norm(graph)
+    with torch.no_grad():
+        if backend == "device":
+            edges = _BucketedNeighborhoods(graph, dev)
+            norm = torch.from_numpy(norm_np).to(dev)[:, None]
+            h = torch.from_numpy(np.asarray(features, dtype=np.float32)).to(dev)
+
+            def mean(x):
+                return edges.aggregate(x, "sum") * norm
+
+            def agg(x, li):
+                if cfg.aggregator == "lstm":
+                    return _lstm_full_aggregate(graph, x, lstms[li])
+                return mean(x) if kind == "mean" else edges.aggregate(x, kind)
+
+            def lin(p, x):
+                return p(x)
+
+            def finish(out, gi):
+                if gi == nl - 1 and cfg.skip_connection:
+                    return torch.cat([out, torch.relu(out)], dim=1)
+                return torch.relu(out) if gi < nl else out
+        else:
+            adj = _adj_csr(graph)
+            h = np.asarray(features, dtype=np.float32)
+
+            def mean(x):
+                return (adj @ x) * norm_np[:, None]
+
+            def agg(x, li):
+                if cfg.aggregator == "lstm":
+                    return _lstm_full_aggregate(
+                        graph, torch.from_numpy(x).to(dev), lstms[li]).cpu().numpy()
+                return _aggregate(graph, adj, x, kind, norm_np)
+
+            def lin(p, x):
+                return np.concatenate([
+                    p(torch.from_numpy(np.ascontiguousarray(x[i:i + batch_rows])).to(dev)
+                      ).cpu().numpy()
+                    for i in range(0, x.shape[0], batch_rows)], axis=0)
+
+            def finish(out, gi):
+                if gi == nl - 1 and cfg.skip_connection:
+                    return np.concatenate([out, np.maximum(out, 0.0)], axis=1)
+                return np.maximum(out, 0.0) if gi < nl else out
+
+        if cfg.preprocess:
+            # training's neigh field is the full-graph mean aggregate
+            h = finish(lin(pre["self"], h) + lin(pre["neigh"], mean(h)), 0)
+        for li, upd in enumerate(updates):
+            h = finish(lin(upd["self"], h) + lin(upd["neigh"], agg(h, li)), li + off)
+    return h.cpu().numpy() if isinstance(h, torch.Tensor) else h
+
+
+def evaluate(model: nn.Module, cfg: ModelConfig, graph: CSRGraph, features: np.ndarray,
+             labels: np.ndarray, mask: np.ndarray, *, backend: str = "host") -> float:
+    """Accuracy of :func:`full_graph_logits` over the masked vertices."""
+    logits = full_graph_logits(model, cfg, graph, features, backend=backend)
+    pred = logits.argmax(axis=1)
+    sel = np.asarray(mask, dtype=bool)
+    return float((pred[sel] == labels[sel]).mean())

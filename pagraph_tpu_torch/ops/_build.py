@@ -49,7 +49,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "pg_block_gather_fwd": (_P, _P, _I64, _P, _P, _I64, _I, _P, _P, _I,
                                 _I, _I, _I, _P),
         "pg_assemble": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
-        "pg_block_gather_bwd": (_P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P,
+        "pg_block_gather_bwd": (_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P,
                                 _I64, _I, _I, _I, _I, _P),
     },
 }

@@ -7,31 +7,36 @@ block's self rows and reduces its neighbor rows in one CUDA launch, and its
 backward adds both gradients into the source table in one more
 (``gather_kernels.BlockGather``); :func:`block_self` and
 :func:`block_aggregate`, the counterparts of the JAX functions, do one half
-each (the same forward kernel with the other half absent).
+each (the same forward kernel with the other half absent).  The kinds are
+``mean``, ``sum`` and ``max`` (the pool aggregator's; its backward splits
+each gradient equally among tied maxima, as ``jnp.max``'s does).
 Prefix-layout blocks, which the on-device sampler
 (``sampling/device_sampler.py``) produces, need no gather: a block's self
 rows and its neighbor messages are contiguous slices, reduced in plain torch
 (the JAX package reduces them with XLA, not Pallas).  Every function here
 computes at its input's dtype: f32, or bf16 under ``train.dtype="bfloat16"``
 (the kernels take both).
+
+The LSTM aggregator (:func:`block_aggregate_lstm`) runs an LSTM over each
+destination's neighbor sequence in plain torch matmuls, as the JAX package
+runs it in XLA (``nn.LSTM`` and cuDNN cannot carry the state through masked
+steps); on host-sampled blocks its messages, and the block's self rows,
+come from one row-gather launch (:func:`block_gather_msgs`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..sampling.block import Block
-from .gather_kernels import (BlockGather, GatherReduce, GatherRows,
+from .gather_kernels import (KINDS, BlockGather, GatherReduce, GatherRows,
                              reduce_msgs_plain)
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "max":
-        raise NotImplementedError(
-            "the 'max' kind (pool aggregator) is not ported yet: it needs "
-            "K2's max kind with an argmax backward (ROADMAP queue 1)")
-    if kind not in ("mean", "sum"):
+    if kind not in KINDS:
         raise ValueError(f"unknown aggregation kind {kind!r}")
 
 
@@ -43,19 +48,22 @@ def block_self(h_src: torch.Tensor, block: Block) -> torch.Tensor:
 
 
 def _neigh_msgs(h_src: torch.Tensor, block: Block) -> torch.Tensor:
-    """Prefix layout only: neighbor messages [cap_dst, fanout, D] are the
-    contiguous slice after the dst prefix (no gather; backward is a pad)."""
+    """Neighbor messages [cap_dst, fanout, D]: a contiguous slice after the
+    dst prefix in prefix layout (no gather; backward is a pad), else one row
+    gather of ``neigh_pos``."""
     n, f = block.cap_dst, block.fanout
-    return h_src[n:n + n * f].reshape(n, f, *h_src.shape[1:])
+    if block.prefix_layout:
+        return h_src[n:n + n * f].reshape(n, f, *h_src.shape[1:])
+    return GatherRows.apply(h_src.contiguous(), block.neigh_pos.reshape(-1)).reshape(
+        n, f, *h_src.shape[1:])
 
 
 def block_aggregate(h_src: torch.Tensor, block: Block,
                     kind: str = "mean") -> torch.Tensor:
     """Masked neighbor aggregation: [cap_src, D] -> [cap_dst, D].
 
-    kind: 'mean' | 'sum'.  Vertices with zero valid neighbors get a zero
-    vector (DGL's empty-mailbox default).  'max' waits for the pool
-    aggregator's kernel.
+    kind: 'mean' | 'sum' | 'max'.  Vertices with zero valid neighbors get a
+    zero vector (DGL's empty-mailbox default).
     """
     _check_kind(kind)
     if block.prefix_layout:
@@ -73,3 +81,59 @@ def block_gather(h_src: torch.Tensor, block: Block,
         return block_self(h_src, block), block_aggregate(h_src, block, kind)
     return BlockGather.apply(h_src.contiguous(), block.self_pos, block.neigh_pos,
                              block.neigh_mask, kind)
+
+
+def block_gather_msgs(h_src: torch.Tensor,
+                      block: Block) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(block_self(h_src, block), neighbor messages [cap_dst, fanout,
+    D])``: on host-sampled blocks one row gather of ``self_pos`` followed by
+    ``neigh_pos`` (one forward launch, one backward launch), sliced apart."""
+    if block.prefix_layout:
+        return block_self(h_src, block), _neigh_msgs(h_src, block)
+    n, f = block.cap_dst, block.fanout
+    ids = torch.cat([block.self_pos, block.neigh_pos.reshape(-1)])
+    rows = GatherRows.apply(h_src.contiguous(), ids)
+    return rows[:n], rows[n:].reshape(n, f, *h_src.shape[1:])
+
+
+def lstm_reduce(msgs: torch.Tensor, mask: torch.Tensor,
+                params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The final hidden state of an LSTM run over ``msgs [N, F, D]`` along
+    the fan-out axis; a masked step carries ``h`` and ``c`` through
+    unchanged.  ``params``: ``w_ih [D, 4H]``, ``w_hh [H, 4H]``, ``b [4H]``,
+    the gates split i, f, g, o (the JAX package's layout and single bias)."""
+    n, fanout = msgs.shape[0], msgs.shape[1]
+    w_ih, w_hh, b = params["w_ih"], params["w_hh"], params["b"]
+    hidden = w_hh.shape[0]
+    h = msgs.new_zeros((n, hidden))
+    c = msgs.new_zeros((n, hidden))
+    for k in range(fanout):
+        gates = msgs[:, k] @ w_ih + h @ w_hh + b
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        c_new = f * c + i * torch.tanh(g)
+        h_new = o * torch.tanh(c_new)
+        keep = mask[:, k, None]
+        h = torch.where(keep, h_new, h)
+        c = torch.where(keep, c_new, c)
+    return h
+
+
+def block_aggregate_lstm(h_src: torch.Tensor, block: Block,
+                         params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """LSTM aggregator: :func:`lstm_reduce` over each destination's (padded)
+    neighbor sequence, [cap_src, D] -> [cap_dst, H]."""
+    return lstm_reduce(_neigh_msgs(h_src, block), block.neigh_mask, params)
+
+
+def init_lstm_params(in_dim: int, hidden: int, *,
+                     generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """``w_ih [in, 4H]`` and ``w_hh [H, 4H]`` uniform in +-1/sqrt(H), ``b``
+    zeros ``[4H]``, on the CPU."""
+    bound = 1.0 / math.sqrt(hidden)
+
+    def uniform(shape):
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+    return {"w_ih": uniform((in_dim, 4 * hidden)), "w_hh": uniform((hidden, 4 * hidden)),
+            "b": torch.zeros(4 * hidden)}

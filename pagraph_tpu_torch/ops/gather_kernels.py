@@ -8,14 +8,24 @@ wrapper                computes                                         replaces
 =====================  ===============================================  ==========================
 ``block_gather_fwd``   both halves below from one table                 K1 + K2
 ``gather_rows``        ``out[r] = src[ids[r]]``                         ``gather_rows_pallas`` (K1)
-``gather_reduce``      masked ``mean``/``sum`` of ``src[pos[n, k]]``    ``gather_mean_pallas`` (K2)
+``gather_reduce``      masked ``mean``/``sum``/``max`` of               ``gather_mean_pallas`` (K2)
+                       ``src[pos[n, k]]`` (also device inference's
+                       window reduction, ``models/inference.py``)
 ``assemble``           ``cache_values[s]`` if ``s = src_row[r] >= 0``,  ``gather_rows_pallas`` (K1)
                        else ``miss_feats[-1 - s]``; as f32 (int8:       + ``assemble_features``
                        times a per-column scale), or that cast to bf16  + ``dequantize_fused``
 ``block_gather_bwd``   both halves below into one table                 backward of K1 + K2
 ``scatter_add_rows``   ``grad_src[ids[r]] += grad_out[r]``              backward of K1
 ``gather_reduce_bwd``  ``grad_src[pos[n,k]] += grad_out[n] (/count)``   backward of K2
+                       (max: ``/ ties`` at the tied maxima)
 =====================  ===============================================  ==========================
+
+The ``max`` kind (the pool aggregator's; XLA in the JAX package,
+``pagraph_tpu/ops/aggregate.py:62-64``) is the per-column max over the valid
+slots, 0 for a row with none.  Its backward splits each output gradient
+equally among the valid slots that reach the max, as JAX's gradient of
+``jnp.max`` and torch's of ``amax`` do, so it reads the source table too:
+:func:`block_gather_bwd` and :func:`gather_reduce_bwd` take ``src`` for it.
 
 The three forwards of a block's gathers are one kernel, ``pg_block_gather_fwd``:
 ``block_gather_fwd`` runs it with both halves (the forward of
@@ -69,17 +79,19 @@ from typing import Dict, Iterator
 
 import torch
 
-KINDS = ("mean", "sum")
+KINDS = ("mean", "sum", "max")
+# the reduction kinds -> the C kind code
+KIND_CODES = {"sum": 0, "mean": 1, "max": 2}
 
 # the block kernels' row dtypes -> the C element type code
 ELEMENT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the assembly's output dtypes -> the LAUNCHES key's suffix
 ASSEMBLE_OUT = {torch.float32: "", torch.bfloat16: "_to_bf16"}
 
-_BLOCK_KEYS = ("block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
-               "scatter_add_rows", "gather_reduce_mean", "gather_reduce_sum",
-               "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
-               "block_gather_bwd_mean", "block_gather_bwd_sum")
+_BLOCK_KEYS = ("gather_rows", "scatter_add_rows",
+               *(f"{base}_{kind}" for base in ("block_gather_fwd", "block_gather_bwd",
+                                               "gather_reduce", "gather_reduce_bwd")
+                 for kind in KINDS))
 
 LAUNCHES: Dict[str, int] = {
     **{k + sfx: 0 for sfx in ("", "_bf16") for k in _BLOCK_KEYS},
@@ -135,10 +147,19 @@ def _count(mask: torch.Tensor, dtype) -> torch.Tensor:
     return mask.sum(dim=1, keepdim=True).clamp(min=1).to(dtype)
 
 
+_NEG_FILL = -1e30      # the JAX package's masked-slot value for the max kind
+
+
 def reduce_msgs_plain(msgs: torch.Tensor, mask: torch.Tensor,
                       kind: str) -> torch.Tensor:
     """Masked reduction of ``msgs [N, F, D]`` over the fan-out axis; rows
-    with no valid slot get zeros (DGL's empty-mailbox default)."""
+    with no valid slot get zeros (DGL's empty-mailbox default).  ``max`` is
+    the JAX package's ``where(mask, msgs, -1e30)``, ``max``, ``where(count >
+    0, m, 0)``, through ``amax``, whose gradient splits equally among ties
+    as ``jnp.max``'s does."""
+    if kind == "max":
+        m = torch.where(mask[..., None], msgs, _NEG_FILL).amax(dim=1)
+        return torch.where(mask.any(dim=1, keepdim=True), m, 0.0)
     s = torch.where(mask[..., None], msgs, 0.0).sum(dim=1)
     return s / _count(mask, s.dtype) if kind == "mean" else s
 
@@ -156,20 +177,29 @@ def block_gather_fwd_plain(src, self_pos, pos, mask, kind: str):
 
 
 def block_gather_bwd_plain(g_self, self_pos, g_neigh, pos, mask, num_src: int,
-                           kind: str) -> torch.Tensor:
+                           kind: str, src=None) -> torch.Tensor:
     """``scatter_add_rows_plain(g_self, self_pos) + gather_reduce_bwd_plain(
-    g_neigh, pos, mask)``, added into one zeroed f32 table and returned at
-    the gradients' dtype (bf16: rounded once); a ``None`` gradient is an
-    absent half."""
+    g_neigh, pos, mask, num_src, kind, src)``, added into one zeroed f32
+    table and returned at the gradients' dtype (bf16: rounded once); a
+    ``None`` gradient is an absent half.  The max kind reads ``src``."""
     ref = g_self if g_self is not None else g_neigh
     out = torch.zeros((num_src, ref.shape[1]), dtype=torch.float32, device=ref.device)
     if g_self is not None:
         out.index_add_(0, self_pos.long(), g_self.float())
     if g_neigh is not None:
         g = g_neigh.float()
-        g = g / _count(mask, g.dtype) if kind == "mean" else g
-        rows, slots = mask.nonzero(as_tuple=True)
-        out.index_add_(0, pos[rows, slots].long(), g[rows])
+        if kind == "max":
+            # g / ties at each valid slot that reaches its column's max, as
+            # jnp.max's and amax's gradients split it
+            msgs = src[pos.long()].float()
+            valid = mask[..., None]
+            tie = valid & (msgs == torch.where(valid, msgs, -torch.inf).amax(1, keepdim=True))
+            contrib = torch.where(tie, g[:, None, :] / tie.sum(1, keepdim=True).clamp(min=1), 0.0)
+            out.index_add_(0, pos.reshape(-1).long(), contrib.reshape(-1, g.shape[1]))
+        else:
+            g = g / _count(mask, g.dtype) if kind == "mean" else g
+            rows, slots = mask.nonzero(as_tuple=True)
+            out.index_add_(0, pos[rows, slots].long(), g[rows])
     return out.to(ref.dtype)
 
 
@@ -179,8 +209,8 @@ def scatter_add_rows_plain(grad_out: torch.Tensor, ids: torch.Tensor,
 
 
 def gather_reduce_bwd_plain(grad_out, pos, mask, num_src: int,
-                            kind: str) -> torch.Tensor:
-    return block_gather_bwd_plain(None, None, grad_out, pos, mask, num_src, kind)
+                            kind: str, src=None) -> torch.Tensor:
+    return block_gather_bwd_plain(None, None, grad_out, pos, mask, num_src, kind, src)
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +316,7 @@ def _block_fwd_kernel(key: str, src, self_pos, pos, mask, kind: str):
     if (n_self or n_neigh) and d:
         _raise_on(_lib().pg_block_gather_fwd(
             src.data_ptr(), _ptr(self_pos), n_self, _ptr(pos), _ptr(mask), n_neigh,
-            fanout, _ptr(out_self), _ptr(out_neigh), d, int(kind == "mean"),
+            fanout, _ptr(out_self), _ptr(out_neigh), d, KIND_CODES[kind],
             _vec(d, src, *outs), ELEMENT_CODES[src.dtype], _stream(src.device)),
             "pg_block_gather_fwd")
         LAUNCHES[_key(key, src.dtype)] += 1
@@ -379,10 +409,11 @@ def assemble(cache_values: torch.Tensor, src_row: torch.Tensor,
 def gather_reduce(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
                   kind: str = "mean") -> torch.Tensor:
     """``out[n] = sum_k mask[n,k] * src[pos[n,k]]``, divided by
-    ``max(sum_k mask[n,k], 1)`` for ``kind="mean"``.  Masked slots are
-    never loaded.  ``src`` f32 or bf16 ``[S, D]``, the output at its dtype;
-    ``pos`` int32 and ``mask`` bool ``[N, fanout]`` (on the card, the block
-    forward kernel with its self half absent)."""
+    ``max(sum_k mask[n,k], 1)`` for ``kind="mean"``; for ``"max"`` the
+    per-column max over the valid slots (0 for a row with none).  Masked
+    slots are never loaded.  ``src`` f32 or bf16 ``[S, D]``, the output at
+    its dtype; ``pos`` int32 and ``mask`` bool ``[N, fanout]`` (on the card,
+    the block forward kernel with its self half absent)."""
     _check_kind(kind)
     _row_dtype(src)
     if not _use_kernel(src, pos, mask):
@@ -391,12 +422,13 @@ def gather_reduce(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
 
 
 def _block_bwd_kernel(key: str, g_self, self_pos, g_neigh, pos, mask,
-                      num_src: int, kind: str) -> torch.Tensor:
+                      num_src: int, kind: str, src=None) -> torch.Tensor:
     """Check the halves that are present, allocate the table with
     ``torch.empty`` at the gradients' dtype (and, for bf16, the f32 table the
     kernel adds into) and run ``pg_block_gather_bwd`` (memset + one launch,
     counted under ``LAUNCHES[key]``; for bf16 gradients under ``key_bf16``,
-    and the rounding launch under ``grad_to_bf16``)."""
+    and the rounding launch under ``grad_to_bf16``).  The max kind's
+    neighbor half reads ``src`` ``[num_src, D]``."""
     tables = [t for t in (g_self, g_neigh) if t is not None]
     dtype = tables[0].dtype
     n_self = n_neigh = fanout = 0
@@ -415,6 +447,11 @@ def _block_bwd_kernel(key: str, g_self, self_pos, g_neigh, pos, mask,
     d = tables[0].shape[1]
     if any(t.shape[1] != d for t in tables):
         raise ValueError(f"incoming gradients of widths {[t.shape[1] for t in tables]}")
+    reads_src = g_neigh is not None and kind == "max"
+    if reads_src:
+        _check(src, "src", dtype, 2)
+        if tuple(src.shape) != (num_src, d):
+            raise ValueError(f"src {tuple(src.shape)} is not [{num_src}, {d}]")
     dev = tables[0].device
     if not (n_self or n_neigh) or not d:
         return torch.zeros((num_src, d), dtype=dtype, device=dev)
@@ -422,9 +459,10 @@ def _block_bwd_kernel(key: str, g_self, self_pos, g_neigh, pos, mask,
     acc = out if dtype == torch.float32 else torch.empty(
         (num_src, d), dtype=torch.float32, device=dev)
     _raise_on(_lib().pg_block_gather_bwd(
-        _ptr(g_self), _ptr(self_pos), n_self, _ptr(g_neigh), _ptr(pos), _ptr(mask),
-        n_neigh, fanout, out.data_ptr(), None if acc is out else acc.data_ptr(),
-        num_src, d, int(kind == "mean"), _vec(d, *tables, acc), ELEMENT_CODES[dtype],
+        _ptr(src) if reads_src else None, _ptr(g_self), _ptr(self_pos), n_self,
+        _ptr(g_neigh), _ptr(pos), _ptr(mask), n_neigh, fanout, out.data_ptr(),
+        None if acc is out else acc.data_ptr(), num_src, d, KIND_CODES[kind],
+        _vec(d, *tables, acc, *([src] if reads_src else [])), ELEMENT_CODES[dtype],
         _stream(dev)), "pg_block_gather_bwd")
     LAUNCHES[_key(key, dtype)] += 1
     if acc is not out:
@@ -433,26 +471,31 @@ def _block_bwd_kernel(key: str, g_self, self_pos, g_neigh, pos, mask,
 
 
 def block_gather_bwd(g_self, self_pos, g_neigh, pos, mask, num_src: int,
-                     kind: str = "mean") -> torch.Tensor:
+                     kind: str = "mean", src=None) -> torch.Tensor:
     """Backward of :class:`BlockGather` w.r.t. its source table: a
     ``[num_src, D]`` table with ``g_self[r]`` added at row ``self_pos[r]`` and,
     for each valid slot, ``g_neigh[r]`` (divided by the row's count for
-    ``mean``) at row ``pos[r, k]``, at the gradients' dtype (f32 or bf16,
-    the same for both; bf16 adds in f32 and rounds once).  A ``None``
+    ``mean``; for ``max``, divided by the row's ties and added only at the
+    slots that reach the max, read from ``src``, the forward's table) at
+    row ``pos[r, k]``, at the gradients' dtype (f32 or bf16, the same for
+    both and for ``src``; bf16 adds in f32 and rounds once).  A ``None``
     gradient is an absent half, whose indices are not read.  On the card:
     one memset and one launch (vector reductions on 4-element units when
     D % 4 == 0), and for bf16 one more launch that rounds the table."""
     _check_kind(kind)
     if g_self is None and g_neigh is None:
         raise ValueError("block_gather_bwd needs at least one incoming gradient")
-    _row_dtype(g_self, g_neigh)
+    reads_src = g_neigh is not None and kind == "max"
+    if reads_src and src is None:
+        raise ValueError("the max kind's backward needs the source table src")
+    _row_dtype(g_self, g_neigh, src if reads_src else None)
     present = ([g_self, self_pos] if g_self is not None else []) + (
-        [g_neigh, pos, mask] if g_neigh is not None else [])
+        [g_neigh, pos, mask] if g_neigh is not None else []) + ([src] if reads_src else [])
     if not _use_kernel(*present):
         return block_gather_bwd_plain(g_self, self_pos, g_neigh, pos, mask,
-                                      num_src, kind)
+                                      num_src, kind, src)
     return _block_bwd_kernel("block_gather_bwd_" + kind, g_self, self_pos,
-                             g_neigh, pos, mask, num_src, kind)
+                             g_neigh, pos, mask, num_src, kind, src)
 
 
 def scatter_add_rows(grad_out: torch.Tensor, ids: torch.Tensor,
@@ -469,17 +512,20 @@ def scatter_add_rows(grad_out: torch.Tensor, ids: torch.Tensor,
 
 def gather_reduce_bwd(grad_out: torch.Tensor, pos: torch.Tensor,
                       mask: torch.Tensor, num_src: int,
-                      kind: str = "mean") -> torch.Tensor:
+                      kind: str = "mean", src=None) -> torch.Tensor:
     """Backward of :func:`gather_reduce`: for each valid slot,
     ``grad_src[pos[n,k]] += grad_out[n]`` (divided by the row's count for
-    ``mean``), into a zeroed ``[num_src, D]`` table at ``grad_out``'s dtype
-    (on the card, the block backward kernel with its self half absent)."""
+    ``mean``; for ``max`` by its ties, at the tied slots of ``src``), into a
+    zeroed ``[num_src, D]`` table at ``grad_out``'s dtype (on the card, the
+    block backward kernel with its self half absent)."""
+    if kind == "max" and src is None:
+        raise ValueError("the max kind's backward needs the source table src")
     _check_kind(kind)
-    _row_dtype(grad_out)
-    if not _use_kernel(grad_out, pos, mask):
-        return gather_reduce_bwd_plain(grad_out, pos, mask, num_src, kind)
+    _row_dtype(grad_out, src)
+    if not _use_kernel(grad_out, pos, mask, *([src] if src is not None else [])):
+        return gather_reduce_bwd_plain(grad_out, pos, mask, num_src, kind, src)
     return _block_bwd_kernel("gather_reduce_bwd_" + kind, None, None, grad_out,
-                             pos, mask, num_src, kind)
+                             pos, mask, num_src, kind, src)
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +565,8 @@ class GatherReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, src, pos, mask, kind):
-        ctx.save_for_backward(pos, mask)
+        # the max kind's backward reads the source rows
+        ctx.save_for_backward(pos, mask, src if kind == "max" else None)
         ctx.num_src = src.shape[0]
         ctx.kind = kind
         ctx.plain = _PLAIN_ON_CUDA.get()
@@ -527,12 +574,12 @@ class GatherReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        pos, mask = ctx.saved_tensors
+        pos, mask, src = ctx.saved_tensors
         grad_src = None
         if ctx.needs_input_grad[0]:
             with _mode(ctx.plain):
                 grad_src = gather_reduce_bwd(grad_out.contiguous(), pos, mask,
-                                             ctx.num_src, ctx.kind)
+                                             ctx.num_src, ctx.kind, src)
         return grad_src, None, None, None
 
 
@@ -542,11 +589,11 @@ class BlockGather(torch.autograd.Function):
     launch on the card, whose gradient w.r.t. ``src`` is one
     :func:`block_gather_bwd`: one memset and one kernel launch, where the two
     Functions above take two launches forward, and two memsets, two launches
-    and an add backward."""
+    and an add backward.  The max kind keeps ``src`` for its backward."""
 
     @staticmethod
     def forward(ctx, src, self_pos, pos, mask, kind):
-        ctx.save_for_backward(self_pos, pos, mask)
+        ctx.save_for_backward(self_pos, pos, mask, src if kind == "max" else None)
         ctx.num_src = src.shape[0]
         ctx.kind = kind
         ctx.plain = _PLAIN_ON_CUDA.get()
@@ -556,12 +603,12 @@ class BlockGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_self, g_neigh):
-        self_pos, pos, mask = ctx.saved_tensors
+        self_pos, pos, mask, src = ctx.saved_tensors
         grad_src = None
         if ctx.needs_input_grad[0] and (g_self is not None or g_neigh is not None):
             with _mode(ctx.plain):
                 grad_src = block_gather_bwd(
                     None if g_self is None else g_self.contiguous(), self_pos,
                     None if g_neigh is None else g_neigh.contiguous(), pos, mask,
-                    ctx.num_src, ctx.kind)
+                    ctx.num_src, ctx.kind, src)
         return grad_src, None, None, None, None

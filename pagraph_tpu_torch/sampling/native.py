@@ -1,6 +1,8 @@
-"""ctypes binding of the host library: the native sampler and the miss-row
-gathers (the port of the part of ``pagraph_tpu/sampling/native.py`` that the
-host path runs).
+"""ctypes binding of the host library: the native sampler, the miss-row
+gathers, the mean-aggregate SpMMs of the preprocess field, and the R-MAT
+generator and CSR builder (the port of the parts of
+``pagraph_tpu/sampling/native.py`` that the host path, the store and the
+synthetic data run).
 
 The library is the port's own ``csrc/host_native.cpp``, compiled with g++
 (OpenMP) at first use into ``_build/`` by :func:`ops._build.build_host`
@@ -46,6 +48,15 @@ SIGNATURES = {
                                   ctypes.c_int64, _f32p]),
     "pg_gather_rows_i8": (None, [_i8p, ctypes.c_int64, ctypes.c_int64, _i64p,
                                  ctypes.c_int64, _i8p]),
+    "pg_spmm_mean_f32": (None, [_i64p, _i32p, ctypes.c_int64, _f32p, ctypes.c_int64,
+                                _f32p, _f32p]),
+    "pg_spmm_mean_i8": (None, [_i64p, _i32p, _i8p, ctypes.c_int64, _f32p, _f32p,
+                               ctypes.c_int64, ctypes.c_int64, _f32p]),
+    "pg_rmat_gen": (None, [ctypes.c_int32, ctypes.c_int64, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_uint64,
+                           _i32p, _i32p]),
+    "pg_coo_to_csr": (ctypes.c_int64, [_i32p, _i32p, ctypes.c_int64, ctypes.c_int64,
+                                       ctypes.c_int32, _i64p, _i32p, _i64p, _i32p]),
 }
 
 
@@ -166,3 +177,96 @@ def _gather_rows(fn: str, dtype, ptype, src, ids, out):
                            ctypes.c_int64(src.shape[1]), _ptr(ids, _i64p),
                            ctypes.c_int64(len(ids)), _ptr(out, ptype))
     return out
+
+
+def _check_graph_rows(fn: str, graph: CSRGraph, rows: int) -> None:
+    """The SpMMs read ``x[u]`` for every in-neighbor ``u``: ``x`` needs a row
+    for each vertex of ``graph``."""
+    if rows != graph.num_nodes:
+        raise ValueError(f"{fn}: x has {rows} rows, the graph {graph.num_nodes} vertices")
+    if graph.num_edges and (graph.indices.min() < 0 or graph.indices.max() >= rows):
+        raise IndexError(f"{fn}: in-neighbor ids out of range [0, {rows})")
+
+
+def spmm_mean_native(graph: CSRGraph, x: np.ndarray, norm: np.ndarray) -> np.ndarray:
+    """``out[v] = norm[v] * sum of in-neighbor rows of x`` (f32, OpenMP)."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    norm = np.ascontiguousarray(norm, dtype=np.float32)
+    _check_graph_rows("pg_spmm_mean_f32", graph, x.shape[0])
+    if norm.shape != (graph.num_nodes,):
+        raise ValueError(f"pg_spmm_mean_f32: norm {norm.shape} for {graph.num_nodes} vertices")
+    out = np.empty_like(x)
+    get_lib().pg_spmm_mean_f32(
+        _ptr(graph.indptr, _i64p), _ptr(graph.indices, _i32p),
+        ctypes.c_int64(graph.num_nodes), _ptr(x, _f32p), ctypes.c_int64(x.shape[1]),
+        _ptr(norm, _f32p), _ptr(out, _f32p))
+    return out
+
+
+def spmm_mean_i8_native(graph: CSRGraph, x_i8: np.ndarray, scale: np.ndarray,
+                        norm: np.ndarray, row_lo: int, row_hi: int,
+                        out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Mean-aggregate rows ``[row_lo, row_hi)`` of the pre-quantized int8
+    feature matrix -> f32 ``[row_hi - row_lo, d]``: ``norm[v] * scale[k] *
+    sum of int8 in-neighbor rows`` (exact: the per-column scale factors out
+    of the neighbor sum; int64 accumulators)."""
+    if x_i8.dtype != np.int8 or x_i8.ndim != 2 or not x_i8.flags.c_contiguous:
+        raise ValueError("pg_spmm_mean_i8: x must be C-contiguous 2-D int8")
+    _check_graph_rows("pg_spmm_mean_i8", graph, x_i8.shape[0])
+    if not 0 <= row_lo <= row_hi <= graph.num_nodes:
+        raise IndexError(f"pg_spmm_mean_i8: rows [{row_lo}, {row_hi}) outside "
+                         f"[0, {graph.num_nodes}]")
+    d = x_i8.shape[1]
+    scale = np.ascontiguousarray(scale, dtype=np.float32)
+    norm = np.ascontiguousarray(norm, dtype=np.float32)
+    if scale.shape != (d,) or norm.shape != (graph.num_nodes,):
+        raise ValueError(f"pg_spmm_mean_i8: scale {scale.shape} and norm {norm.shape} "
+                         f"for [{graph.num_nodes}, {d}]")
+    if out is None:
+        out = np.empty((row_hi - row_lo, d), dtype=np.float32)
+    elif (out.dtype != np.float32 or out.shape != (row_hi - row_lo, d)
+          or not out.flags.c_contiguous):
+        raise ValueError(f"pg_spmm_mean_i8: out must be C-contiguous f32 {(row_hi - row_lo, d)}")
+    get_lib().pg_spmm_mean_i8(
+        _ptr(graph.indptr, _i64p), _ptr(graph.indices, _i32p), _ptr(x_i8, _i8p),
+        ctypes.c_int64(d), _ptr(norm, _f32p), _ptr(scale, _f32p),
+        ctypes.c_int64(row_lo), ctypes.c_int64(row_hi), _ptr(out, _f32p))
+    return out
+
+
+def rmat_edges_native(scale: int, num_edges: int, *, a: float = 0.57, b: float = 0.19,
+                      c: float = 0.19, seed: int = 0) -> tuple:
+    """R-MAT edge draw (OpenMP, one splitmix64 stream an edge) -> ``(src,
+    dst)`` int32 arrays of exactly ``num_edges`` (self-loops re-drawn;
+    duplicates removed at the CSR build)."""
+    src = np.empty(num_edges, dtype=np.int32)
+    dst = np.empty(num_edges, dtype=np.int32)
+    get_lib().pg_rmat_gen(ctypes.c_int32(scale), ctypes.c_int64(num_edges),
+                          ctypes.c_double(a), ctypes.c_double(b), ctypes.c_double(c),
+                          ctypes.c_uint64(seed & (2**64 - 1)),
+                          _ptr(src, _i32p), _ptr(dst, _i32p))
+    return src, dst
+
+
+def coo_to_csr_native(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
+                      drop_self: bool = False) -> CSRGraph:
+    """COO (src -> dst) to in-CSR with each row sorted and deduplicated (as
+    ``CSRGraph.from_coo``)."""
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    m, n = len(src), int(num_nodes)
+    if len(dst) != m:
+        raise ValueError(f"pg_coo_to_csr: {m} sources and {len(dst)} destinations")
+    for name, ids in (("src", src), ("dst", dst)):
+        if m and (ids.min() < 0 or ids.max() >= n):
+            raise IndexError(f"pg_coo_to_csr: {name} ids out of range [0, {n})")
+    indptr = np.empty(n + 1, dtype=np.int64)
+    indices = np.empty(m, dtype=np.int32)
+    cursor = np.empty(n, dtype=np.int64)
+    out_deg = np.empty(n, dtype=np.int32)
+    e = get_lib().pg_coo_to_csr(
+        _ptr(src, _i32p), _ptr(dst, _i32p), ctypes.c_int64(m), ctypes.c_int64(n),
+        ctypes.c_int32(1 if drop_self else 0), _ptr(indptr, _i64p),
+        _ptr(indices, _i32p), _ptr(cursor, _i64p), _ptr(out_deg, _i32p))
+    return CSRGraph(indptr=indptr, indices=np.ascontiguousarray(indices[:e]),
+                    out_degrees=out_deg)

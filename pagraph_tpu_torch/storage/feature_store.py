@@ -3,16 +3,18 @@
 
 Named per-vertex numpy arrays over the full graph id space with a fused row
 gather for the cache-miss path.  Fields follow the reference's store schema:
-``features`` and ``norm`` (1/in_degree).  A field is float32, or int8 with a
+``features`` (raw, or under ``preprocess="gcn"`` the full-graph mean
+aggregate), ``norm`` (1/in_degree) and, under ``preprocess="graphsage"``,
+``neigh``, the full-graph mean aggregate of the features
+(:func:`full_graph_mean_aggregate`, the host library's OpenMP SpMM).  A
+field is float32, or int8 with a
 per-column dequant scale: the pre-quantized tier (:func:`quantize_store`,
 :func:`build_prequantized`), whose miss rows the int8 cache gathers and
 ships as they are stored.  ``native=True`` (the default) gathers the miss
 rows of a single f32 field, and of each int8 field into the int8 tier's
 buffer, with the host library's OpenMP row copies
 (``sampling/native.py``), as the JAX package's store does; other gathers
-are ``np.take``.  Not ported yet: the preprocess fields, which need
-``full_graph_mean_aggregate`` and its int8 SpMM (ROADMAP queue 1 items 4
-and 8).
+are ``np.take``.
 """
 from __future__ import annotations
 
@@ -120,13 +122,20 @@ class FeatureStore:
     @classmethod
     def build(cls, graph: CSRGraph, features: np.ndarray, *,
               preprocess: Optional[str] = None) -> "FeatureStore":
-        """The serving fields: ``features`` and ``norm``."""
-        if preprocess is not None:
-            raise NotImplementedError(
-                "preprocess fields need full_graph_mean_aggregate, which is "
-                "not ported yet (ROADMAP queue 1)")
-        return cls({"features": np.asarray(features, dtype=np.float32),
-                    "norm": gcn_norm(graph)})
+        """The serving fields: ``features`` and ``norm``; ``preprocess``
+        ``"gcn"`` replaces ``features`` by their full-graph mean aggregate,
+        ``"graphsage"`` adds it as ``neigh`` (the reference server stores an
+        identity copy there; the JAX package, and so the port, the true
+        aggregate)."""
+        fields: Dict[str, np.ndarray] = {}
+        if preprocess == "gcn":
+            fields["features"] = full_graph_mean_aggregate(graph, features)
+        else:
+            fields["features"] = np.asarray(features, dtype=np.float32)
+            if preprocess == "graphsage":
+                fields["neigh"] = full_graph_mean_aggregate(graph, features)
+        fields["norm"] = gcn_norm(graph)
+        return cls(fields)
 
 
 def _quantize_chunked(f: np.ndarray, chunk: int):
@@ -165,18 +174,75 @@ def build_prequantized(graph: CSRGraph, feats_i8: np.ndarray, feat_scale, *,
                        chunk: int = 1 << 21) -> FeatureStore:
     """Serving store straight from int8 features, never materializing an
     ``[N, D]`` f32 matrix: ``features`` (int8, with ``feat_scale``, one
-    scale or one a column) and ``norm``.  ``preprocess`` needs the chunked
-    int8-input SpMM of the native library (``chunk`` is its row chunk),
-    which is not ported yet (ROADMAP queue 1 items 3-4)."""
-    if preprocess is not None:
-        raise NotImplementedError(
-            f"build_prequantized(preprocess={preprocess!r}) needs the native int8 "
-            "SpMM (spmm_mean_i8_native), which is not ported yet (ROADMAP queue 1 "
-            "items 3-4)")
+    scale or one a column) and ``norm``.  The preprocess field (``"gcn"``:
+    it replaces ``features``; ``"graphsage"``: it is ``neigh``) is the
+    int8-input SpMM (``spmm_mean_i8_native``: the per-column scale factors
+    out of the neighbor sum, so the aggregate is exact), ``chunk`` rows at a
+    time, re-quantized chunk by chunk with its own per-column scale."""
+    from ..sampling.native import spmm_mean_i8_native
+
     feats_i8 = np.ascontiguousarray(feats_i8, dtype=np.int8)
-    d = feats_i8.shape[1]
+    n, d = feats_i8.shape
     scale = np.broadcast_to(
         np.asarray(feat_scale, dtype=np.float32).reshape(-1), (d,)
     ).copy() if np.ndim(feat_scale) <= 1 else np.asarray(feat_scale)
-    return FeatureStore({"features": feats_i8, "norm": gcn_norm(graph)},
-                        scales={"features": scale})
+    norm = gcn_norm(graph)
+
+    def quantized_aggregate():
+        maxabs = np.zeros(d, dtype=np.float32)
+        for lo in range(0, n, chunk):
+            agg = spmm_mean_i8_native(graph, feats_i8, scale, norm, lo, min(lo + chunk, n))
+            np.maximum(maxabs, np.abs(agg).max(axis=0), out=maxabs)
+        nscale = maxabs / 127.0
+        nscale[nscale == 0.0] = 1.0
+        q = np.empty((n, d), dtype=np.int8)
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            agg = spmm_mean_i8_native(graph, feats_i8, scale, norm, lo, hi)
+            agg /= nscale[None, :]
+            np.rint(agg, out=agg)
+            q[lo:hi] = np.clip(agg, -127, 127).astype(np.int8)
+        return q, nscale
+
+    fields: Dict[str, np.ndarray] = {}
+    scales: Dict[str, np.ndarray] = {}
+    if preprocess == "gcn":
+        fields["features"], scales["features"] = quantized_aggregate()
+    else:
+        fields["features"], scales["features"] = feats_i8, scale
+        if preprocess == "graphsage":
+            fields["neigh"], scales["neigh"] = quantized_aggregate()
+    fields["norm"] = norm
+    return FeatureStore(fields, scales=scales)
+
+
+def full_graph_mean_aggregate(graph: CSRGraph, features: np.ndarray, *,
+                              backend: str = "auto") -> np.ndarray:
+    """One-shot exact layer-0 aggregation over the FULL graph: ``(sum of
+    in-neighbor features) * (1/in_degree)`` (0 for a vertex with none), the
+    reference server's ``update_all(copy_src, sum) * norm``.  ``backend``
+    ``"native"``: the host library's OpenMP SpMM (``pg_spmm_mean_f32``);
+    ``"scipy"``: a scipy CSR SpMM; ``"auto"``: native if the host library
+    builds, else scipy."""
+    if backend == "auto":
+        try:
+            from ..sampling.native import get_lib
+            get_lib()
+            backend = "native"
+        except (RuntimeError, OSError):
+            backend = "scipy"
+    if backend == "native":
+        from ..sampling.native import spmm_mean_native
+        return spmm_mean_native(graph, np.asarray(features, dtype=np.float32),
+                                gcn_norm(graph))
+    if backend != "scipy":
+        raise ValueError(f"unknown backend {backend!r}")
+    import scipy.sparse as spsp
+
+    n = graph.num_nodes
+    adj = spsp.csr_matrix(
+        (np.ones(graph.num_edges, dtype=np.float32), graph.indices, graph.indptr),
+        shape=(n, n))
+    agg = adj @ np.asarray(features, dtype=np.float32)
+    agg *= gcn_norm(graph)[:, None]
+    return agg

@@ -50,9 +50,25 @@ takes a pre-quantized store (``storage.feature_store.quantize_store`` or
 ``build_prequantized``) as well as an f32 one; the int8 cache then holds
 and ships the store's own rows, on the on-device path too.
 
+GraphSAGE preprocess (``model.preprocess=True``): ``from_dataset`` builds
+the store with its ``neigh`` field (``FeatureStore.build(preprocess=
+"graphsage")``), the cache holds and fetches ``features`` and ``neigh``
+side by side (``state.layer0_fields``), and the sampler expands one hop
+less, on both paths.
+
+Evaluation and checkpoints, on both paths: every ``train.eval_every``
+epochs the full-graph accuracy on ``eval_data`` (``models.inference.
+evaluate``, ``train.eval_backend``) goes into the epoch's ``val_acc``;
+every ``train.ckpt_every`` epochs the whole train state is saved to
+``train.ckpt_dir`` (``train/checkpoint.py``), and :meth:`Trainer.resume`
+restores the newest (or a given) checkpoint into the trainer's own tensors,
+in place, so CUDA graphs captured before it replay the restored state.
+Both read the parameters after the epoch's one sync, which waits for the
+stream that ran the epoch.
+
 Not ported yet, and refused with ``NotImplementedError``: remote
-(isolation-mode) sampling, evaluation and checkpoints during training, and
-every architecture but GraphSAGE (``models.get_model``), CV-GCN included.
+(isolation-mode) sampling and every architecture but GraphSAGE
+(``models.get_model``), CV-GCN included.
 """
 from __future__ import annotations
 
@@ -75,7 +91,8 @@ from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
 from .device_epoch import (DeviceData, DeviceEpochRunner, EpochInputs, epoch_draws,
                            epoch_seed, num_batches)
-from .state import GroupGraphs, create_state, make_multistep_train_step
+from .checkpoint import list_checkpoints, restore_checkpoint, save_checkpoint
+from .state import GroupGraphs, create_state, layer0_fields, make_multistep_train_step
 
 
 @dataclasses.dataclass
@@ -94,7 +111,10 @@ class EpochMetrics:
 
 class Trainer:
     """One-device trainer over a (partition of a) dataset.  ``store`` holds
-    the ``features`` field, f32 or pre-quantized int8 (with its scale)."""
+    the ``features`` field (and under GraphSAGE preprocess ``neigh``), f32
+    or pre-quantized int8 (with its scales).  ``eval_data``: ``(graph,
+    features, labels, mask)`` in the full graph's id space, which
+    ``train.eval_every`` evaluates on."""
 
     def __init__(
         self,
@@ -108,14 +128,15 @@ class Trainer:
         device=None,
         seed: int = 0,
         log: bool = False,
+        eval_data: Optional[tuple] = None,
     ):
         t = cfg.train
-        for flag, what in ((t.remote_sampling, "train.remote_sampling"),
-                           (t.eval_every, "train.eval_every"),
-                           (t.ckpt_dir and t.ckpt_every, "checkpointing")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP queue 1)")
+        if t.remote_sampling:
+            raise NotImplementedError(
+                "train.remote_sampling is not ported yet (ROADMAP queue 1)")
+        if t.eval_every and eval_data is None:
+            raise ValueError("cfg.train.eval_every is set but no eval_data was given "
+                             "(Trainer.from_dataset wires it)")
         if t.halo_pipeline:
             raise ValueError(
                 "train.halo_pipeline is a multi-device edge-mode knob; the "
@@ -124,7 +145,8 @@ class Trainer:
         self.store = store
         self.device = resolve_device(device)
         self.log = log
-        self.cache = FeatureCache(store, ["features"], local_graph, local2full,
+        self._eval_data = eval_data
+        self.cache = FeatureCache(store, layer0_fields(cfg), local_graph, local2full,
                                   device=self.device, dtype=cfg.cache.dtype)
         self.timers = PhaseTimers()
         self._cache_filled = False
@@ -166,10 +188,10 @@ class Trainer:
 
     @classmethod
     def from_dataset(cls, cfg: Config, ds: Dataset, **kw) -> "Trainer":
-        if cfg.model.preprocess:
-            raise NotImplementedError(
-                "preprocess mode is not ported yet (ROADMAP queue 1)")
-        store = FeatureStore.build(ds.graph, ds.features)
+        store = FeatureStore.build(ds.graph, ds.features,
+                                   preprocess="graphsage" if cfg.model.preprocess else None)
+        if cfg.train.eval_every and "eval_data" not in kw:
+            kw["eval_data"] = (ds.graph, ds.features, ds.labels, ds.val_mask)
         return cls(cfg, store, ds.graph, ds.train_nids, ds.labels, **kw)
 
     def _maybe_fill_cache(self) -> None:
@@ -350,22 +372,77 @@ class Trainer:
         return em
 
     def train(self, epochs: Optional[int] = None, *, start_epoch: int = 0) -> Dict:
+        """Epochs ``start_epoch .. epochs - 1`` (``resume``'s return value is
+        the ``start_epoch`` of a resumed run), each followed by the
+        evaluation and the checkpoint that ``train.eval_every`` and
+        ``train.ckpt_every`` ask for."""
         epochs = epochs or self.cfg.train.epochs
+        tc = self.cfg.train
         for e in range(start_epoch, epochs):
             self.run_epoch(e)
+            self._maybe_eval(e)
+            if tc.ckpt_dir and tc.ckpt_every and (e + 1) % tc.ckpt_every == 0:
+                # the host path's sampler random state too: a resumed run
+                # draws the uninterrupted run's batches
+                save_checkpoint(tc.ckpt_dir, self.cfg.model.arch, e, self.state,
+                                sampler=self.sampler)
         return self.summary()
 
+    def _maybe_eval(self, epoch: int) -> None:
+        """Validation accuracy by full-graph inference every
+        ``train.eval_every`` epochs, into the epoch's ``val_acc``."""
+        ev = self.cfg.train.eval_every
+        if not (ev and self._eval_data) or (epoch + 1) % ev != 0:
+            return
+        from ..models.inference import evaluate
+
+        graph, feats, labels, mask = self._eval_data
+        acc = evaluate(self.state.model, self.cfg.model, graph, feats, labels, mask,
+                       backend=self.cfg.train.eval_backend)
+        if self.epoch_metrics:
+            self.epoch_metrics[-1].val_acc = acc
+        if self.log:
+            print(f"  [eval] epoch {epoch}: val acc {acc:.3f}")
+
+    def resume(self, epoch: Optional[int] = None) -> int:
+        """Restore the train state from the newest (or the given) checkpoint
+        in ``train.ckpt_dir``, into the trainer's own tensors in place;
+        return the epoch to continue from (0 when there is none).  Under
+        ``epoch_dispatch="steps"`` the restored step count must be a
+        multiple of the epoch's batches, as the JAX package requires."""
+        tc = self.cfg.train
+        if not tc.ckpt_dir:
+            raise ValueError("cfg.train.ckpt_dir is not set")
+        have = list_checkpoints(tc.ckpt_dir, self.cfg.model.arch)
+        if not have:
+            return 0
+        epoch = have[-1] if epoch is None else epoch
+        graphs = self.epoch_runner if self._device_mode else self.group_graphs
+        restore_checkpoint(tc.ckpt_dir, self.cfg.model.arch, epoch, self.state,
+                           sampler=self.sampler,
+                           in_place_only=bool(graphs is not None and graphs.graphs))
+        if self._device_mode and tc.epoch_dispatch == "steps":
+            nb = self.epoch_inputs.num_batches
+            if self.state.step % nb != 0:
+                raise ValueError(
+                    f"epoch_dispatch='steps' requires epoch-aligned checkpoints: "
+                    f"restored step {self.state.step} is not a multiple of "
+                    f"num_batches={nb}")
+        return epoch + 1
+
     def summary(self) -> Dict:
-        """Mean epoch time excluding warm-up epochs."""
+        """Mean epoch time excluding warm-up epochs; ``val_acc`` the last
+        evaluation's."""
         w = self.cfg.train.warmup_epochs
         steady = self.epoch_metrics[w:] or self.epoch_metrics
         last = self.epoch_metrics[-1] if self.epoch_metrics else None
+        val_accs = [m.val_acc for m in self.epoch_metrics if m.val_acc is not None]
         return {
             "epochs": len(self.epoch_metrics),
             "mean_epoch_time_s": float(np.mean([m.time_s for m in steady])),
             "final_loss": last.mean_loss if last else None,
             "final_acc": last.mean_acc if last else None,
             "miss_rate": last.miss_rate if last else None,
-            "val_acc": None,
+            "val_acc": val_accs[-1] if val_accs else None,
             "phase_timers": self.timers.summary(),
         }

@@ -9,7 +9,11 @@ launch for each block whose source needs a gradient) and Adam: 4 kernel
 launches for the 2-layer model.  Nothing in a
 step waits for the device: loss and accuracy come back as device tensors.
 The on-device epoch (``train/device_epoch.py``) fetches its features
-otherwise and shares the rest, :func:`train_on_features`.
+otherwise and shares the rest, :func:`train_on_features`.  Under GraphSAGE
+preprocess the layer-0 table holds two store fields side by side,
+``features`` and ``neigh`` (:func:`layer0_fields`, fetched in the same
+launch, ``model.feat_dim`` columns each), which the step slices apart as
+the JAX package's steps slice ``fused[:, offsets[...]]``.
 
 ``train.dtype="bfloat16"`` is the JAX package's mixed precision
 (``cast_apply``): the forward, and so the backward, run on bf16 copies of
@@ -82,6 +86,13 @@ class TrainState:
                                       device=next(self.model.parameters()).device)
 
 
+def layer0_fields(cfg: Config) -> List[str]:
+    """The store fields the layer-0 table holds, in the cache's order:
+    ``features``, and ``neigh`` under GraphSAGE preprocess."""
+    m = cfg.model
+    return ["features", "neigh"] if m.arch == "graphsage" and m.preprocess else ["features"]
+
+
 def compute_dtype(cfg: Config) -> torch.dtype:
     """Activation/matmul dtype from ``TrainConfig.dtype``."""
     return torch.bfloat16 if cfg.train.dtype == "bfloat16" else torch.float32
@@ -99,6 +110,8 @@ def cast_apply(model: nn.Module, dtype: torch.dtype) -> Callable:
 
     def apply(mb: MiniBatch, feats: torch.Tensor, **kw) -> torch.Tensor:
         params = {name: p.to(dtype) for name, p in model.named_parameters()}
+        if kw.get("neigh_feats") is not None:
+            kw["neigh_feats"] = kw["neigh_feats"].to(dtype)
         return torch.func.functional_call(model, params, (mb, feats.to(dtype)), kw).float()
 
     return apply
@@ -169,10 +182,15 @@ def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
 def train_on_features(state: TrainState, mb: MiniBatch,
                       feats: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The step after the layer-0 fetch: forward, masked cross-entropy,
-    backward and Adam on features ``feats`` (f32, or bf16 at bf16 compute),
+    backward and Adam on the layer-0 table ``feats`` (f32, or bf16 at bf16
+    compute; under preprocess ``[features | neigh]``, :func:`layer0_fields`),
     through :func:`cast_apply`; ``{"loss", "acc"}`` as device scalars (no
     host sync)."""
-    logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator)
+    m = state.model.cfg
+    kw = {}
+    if m.preprocess:
+        feats, kw["neigh_feats"] = feats[:, :m.feat_dim], feats[:, m.feat_dim:]
+    logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator, **kw)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()

@@ -308,12 +308,15 @@ def test_block_gather_forward_is_one_block_gather_fwd_a_block(sampled, monkeypat
 def test_launch_counters_have_the_fused_forward():
     """The fused forward's keys sit beside every other key (the assembly
     has one a cache tier, and one a tier for its bf16 output; each block
-    kernel one for bf16 rows, and the bf16 backward's rounding launch one),
-    and reset_launch_counts zeroes them all."""
+    kernel one for bf16 rows, and the bf16 backward's rounding launch one;
+    and the max kind one a block kernel), and reset_launch_counts zeroes
+    them all."""
     block = {"block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
              "scatter_add_rows", "gather_reduce_mean",
              "gather_reduce_sum", "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
-             "block_gather_bwd_mean", "block_gather_bwd_sum"}
+             "block_gather_bwd_mean", "block_gather_bwd_sum",
+             "block_gather_fwd_max", "block_gather_bwd_max", "gather_reduce_max",
+             "gather_reduce_bwd_max"}
     assemble = {"assemble_f32", "assemble_bf16", "assemble_int8"}
     keys = block | {k + "_bf16" for k in block} | assemble | {k + "_to_bf16" for k in assemble}
     assert set(gk.LAUNCHES) == keys | {"grad_to_bf16"}
@@ -349,13 +352,17 @@ def test_block_gather_prefix_layout_matches_jax(kind):
 
 
 def test_wrappers_refuse_bad_input():
+    """An unknown kind raises at every entry; the max kind's backward
+    without its source table raises (it finds the maxima there)."""
     src = torch.zeros(10, 4)
     pos = torch.zeros(3, 2, dtype=torch.int32)
     mask = torch.ones(3, 2, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        tagg.block_aggregate(src, TBlock(pos, mask, pos[:, 0].contiguous()), "max")
-    with pytest.raises(NotImplementedError):
-        tagg.block_gather(src, TBlock(pos, mask, pos[:, 0].contiguous()), "max")
+    with pytest.raises(ValueError, match="kind"):
+        tagg.block_aggregate(src, TBlock(pos, mask, pos[:, 0].contiguous()), "median")
+    with pytest.raises(ValueError, match="kind"):
+        tagg.block_gather(src, TBlock(pos, mask, pos[:, 0].contiguous()), "median")
+    with pytest.raises(ValueError, match="source table"):
+        gk.block_gather_bwd(None, None, torch.zeros(3, 4), pos, mask, 10, "max")
     with pytest.raises(ValueError):
         gk.gather_reduce(src, pos, mask, "median")
     with pytest.raises(ValueError):     # no incoming gradient at all

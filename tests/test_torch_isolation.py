@@ -66,7 +66,8 @@ def test_source_imports_no_jax(path):
 
 def test_scan_covers_the_host_path_modules():
     for m in ("sampling/native.py", "sampling/pack.py", "sampling/sampler.py",
-              "storage/feature_store.py", "train/state.py", "train/loop.py"):
+              "storage/feature_store.py", "train/state.py", "train/loop.py",
+              "models/inference.py", "train/checkpoint.py", "ops/aggregate.py"):
         assert os.path.join("pagraph_tpu_torch", m) in SOURCES
     assert os.path.join("pagraph_tpu_torch", "csrc", "host_native.cpp") in ALL_SOURCES
 
@@ -109,15 +110,18 @@ def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
     assert PrefetchLoader(tr.sampler, tr.cache, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("train_kw", [dict(ckpt_dir="ckpt", ckpt_every=1),
+@pytest.mark.parametrize("train_kw", [dict(arch="gcn"),
                                       dict(remote_sampling=True),
-                                      dict(eval_every=1),
-                                      dict(eval_every=1, on_device_sampling=True),
-                                      dict(eval_every=1, eval_backend="device")])
+                                      dict(arch="gin"),
+                                      dict(arch="gat", on_device_sampling=True),
+                                      dict(arch="gcn_cv", preprocess=True)])
 def test_unported_paths_raise(train_kw):
+    """The paths still to port (ROADMAP queue 1) raise: the other model
+    families and remote sampling.  (Evaluation, checkpoints and preprocess
+    are ported: tests/test_torch_checkpoint.py, test_torch_preprocess.py.)"""
     ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
     cfg = _tiny_cfg()
     for k, v in train_kw.items():
-        setattr(cfg.train, k, v)
-    with pytest.raises(NotImplementedError):
+        setattr(cfg.model if hasattr(cfg.model, k) else cfg.train, k, v)
+    with pytest.raises(NotImplementedError, match="queue 1"):
         Trainer.from_dataset(cfg, ds, device="cpu")

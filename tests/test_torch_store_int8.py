@@ -83,8 +83,11 @@ def test_build_prequantized_matches_jax(small_ds, scale):
 
 @pytest.mark.parametrize("preprocess", ["gcn", "graphsage"])
 def test_build_prequantized_preprocess_raises(small_ds, preprocess):
-    feats_i8 = np.zeros((small_ds.num_nodes, 8), np.int8)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    """The preprocess field is ported (tests/test_torch_preprocess.py); its
+    int8 SpMM refuses features with fewer rows than the graph has vertices
+    (it reads a row of every in-neighbor)."""
+    feats_i8 = np.zeros((small_ds.num_nodes - 1, 8), np.int8)
+    with pytest.raises(ValueError, match="rows"):
         tfs.build_prequantized(_tgraph(small_ds.graph), feats_i8, 0.1, preprocess=preprocess)
 
 
