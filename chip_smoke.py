@@ -94,12 +94,14 @@ Phases, each printed as one JSON line:
 * ``sage_aggregators``: the ``pool`` and ``lstm`` aggregators, trained on
   the 2-hop teacher labels (``synthetic.neighborhood_labels``) of the same
   graph and features: each on the host path for 2 epochs (epoch 1
-  replayed) and on the on-device path for 1, pool also 1 host epoch at bf16
-  compute; epoch times, miss rates, losses (falling) and the launches a
-  step, which must be exactly 4 on the host path (pool: the assembly, two
-  ``block_gather_fwd_max``, one ``block_gather_bwd_max``; lstm: the
-  assembly, two ``gather_rows`` of a block's self and neighbor rows, one
-  ``scatter_add_rows``), 5 at bf16 compute, 1 on the device;
+  replayed) and on the on-device path for 1, pool and lstm also 1 host
+  epoch at bf16 compute; epoch times, miss rates, losses (falling) and the
+  launches a step, which must be exactly 4 on the host path (pool: the
+  assembly, two ``block_gather_fwd_max``, one ``block_gather_bwd_max``;
+  lstm: the assembly, two ``gather_rows`` of a block's self and neighbor
+  rows, one ``scatter_add_rows``), at bf16 compute 5 for pool (the
+  backward's ``grad_to_bf16``) and 4 for lstm (``scatter_add_rows_bf16``
+  rounds its table in its one launch), 1 on the device;
 * ``preprocess``: GraphSAGE preprocess (``model.preprocess=True``, one hop
   sampled): store build time of the f32 store (``FeatureStore.build``, the
   host library's SpMM) and of the pre-quantized one
@@ -151,21 +153,38 @@ Phases, each printed as one JSON line:
   (``block_gather_fwd_max[_bf16][block0|1]``,
   ``block_gather_bwd_max[_bf16][block1]``; block 1's rows concat(x,
   relu(x)), tied at 0) is exact forward at f32 and bf16 and within 1e-6 of
-  max|plain| backward at f32; ``window_reduce[sum|max, F=8|64|4096]`` (the
-  neighbor half, ``gather_reduce``) runs the window tables of device
-  inference at those fan-outs over the
-  features, the max exact and the sum within max(1e-6, F x 2^-24) of
+  max|plain| backward at f32; ``window_reduce[sum|max, <table>]``
+  (``gather_reduce``) runs device inference's RMAT-20 window tables over the
+  features: F = 8 (the block forward's unrolled instantiation), F = 64
+  (the window kernel, a warp a row), F = 512 and 4096 (a CTA a row), the hub
+  table (``hubs F=4096``) and F = 4096 at the hidden width (``F=4096,
+  D=16``), the max exact and the sum within max(1e-6, F x 2^-24) of
   max|plain| (F terms in another order);
+  ``scatter_add_rows[_bf16][block1 self bwd | lstm step ids]`` (one
+  cooperative launch) at block 1's self rows and at the lstm step's ids
+  (self rows, then every neighbor slot), f32 within 1e-5, bf16 as the
+  other bf16 tables;
 * ``fwd_branches``: the block forward and backward on the card, on f32 and
   on bf16 rows, at the branches the main path does not take -- D = 30
   (scalar rows), a table one element off its unit's alignment, fan-out 7
-  (no unrolled instantiation), each half absent -- against their plain
-  versions;
+  (no unrolled instantiation: the neighbor half alone is the window
+  kernel), each half absent -- against their plain versions;
 * ``assemble_branches``: the assembly at each tier, to f32 and to bf16,
   where the main path does not go -- D = 30 (scalar units), a table one
   element off its unit's alignment, D = 600 (several units a lane), no
   miss rows, every row a miss, every row a hit -- exact against its plain
   version;
+* ``window_branches``: ``gather_reduce`` through the window kernel where
+  inference's tables do not go -- D = 30 (scalar units), D = 16, a table one
+  element off its alignment, fan-outs 9, 32, 40, 48, 1001, 4096, 4100 and
+  8192 (indices staged by bulk copy, by the CTA's threads, or both; one
+  tile or several), random masks with all-masked rows, tables of 1 and 0
+  rows -- every kind, f32 and bf16, against its plain version;
+* ``scatter_branches``: ``scatter_add_rows`` at D = 30, every id one row,
+  one table row, no ids and a [1,048,576, 16] table (64 MB), f32 and bf16,
+  against its plain version; and one call at the lstm step's shape is
+  exactly one CUDA operation (``torch.profiler``), the scatter kernel, at
+  f32 and at bf16: no memset, no rounding launch;
 * ``graph_block_kernels``: the host path's block forward and backward
   (``ops.aggregate.block_gather``, the backward launched from autograd's
   thread) captured in a CUDA graph and replayed, against the eager call;
@@ -290,9 +309,9 @@ def fwd_branches(torch, gk, dev):
     main path does not go, on f32 and on bf16 rows: D = 30 (scalar rows), a
     source table and incoming gradients one element off their unit's
     alignment (scalar rows at D = 32), fan-out 7 (the runtime-fan-out
-    instantiation), each with both halves, the self half alone and the
-    neighbor half alone, every kind (mean, sum, max; the max backward reads
-    the source table).  Positions repeat and overlap; 10 rows have no valid
+    instantiation; the neighbor half alone there is the window kernel), each
+    with both halves, the self half alone and the neighbor half alone, every
+    kind (mean, sum, max; the max backward reads the source table).  Positions repeat and overlap; 10 rows have no valid
     slot."""
     gen = torch.Generator(device=dev).manual_seed(5)
     n_src, n = 3000, 2000
@@ -377,6 +396,93 @@ def assemble_branches(torch, gk, dev):
                     gk.assemble_plain(cv, src_row, mf, scale, out_dtype=out_dtype), "exact")
                 out.append({"case": f"assemble[{tag}{out_tag}] {label}", "max_abs_err": err,
                             "ok": ok, "tolerance": text})
+    return out
+
+
+def window_branches(torch, gk, dev):
+    """``gather_reduce`` at fan-outs with no unrolled instantiation (the
+    window kernel) against its plain version where device inference's
+    RMAT-20 tables do not go, every kind, f32 and bf16 rows: D = 30 (scalar
+    units), D = 16, D = 100 on a table one element off its alignment,
+    fan-outs 32 and 48 (a warp a row), 9 (positions and masks staged by the
+    CTA's threads), 40 (positions by bulk copy, masks by the threads), 1001
+    (a CTA a row, neither aligned), 4096, 4100 (a second tile of 4 slots) and
+    8192 (two tiles), random masks with all-masked rows, and tables of 1 and 0
+    rows.  Sums and means within max(1e-6, F x 2^-24) of max|plain| at f32
+    (F terms in another order), bf16 as the other bf16 reductions, max exact."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_src = 5000
+    out = []
+    for label, rows, f, d, off in (("D=30 F=32", 300, 32, 30, 0), ("D=16 F=48", 300, 48, 16, 0),
+                                   ("D=100 offset table F=64", 200, 64, 100, 1),
+                                   ("F=9", 300, 9, 32, 0), ("F=40", 300, 40, 100, 0),
+                                   ("F=1001", 40, 1001, 100, 0), ("F=4096", 20, 4096, 100, 0),
+                                   ("F=4100", 9, 4100, 30, 0), ("F=8192", 9, 8192, 16, 0),
+                                   ("1 row F=4096", 1, 4096, 100, 0), ("0 rows F=64", 0, 64, 100, 0),
+                                   ("0 rows F=4096", 0, 4096, 16, 0)):
+        pos = torch.randint(0, n_src, (rows, f), generator=gen, device=dev, dtype=torch.int32)
+        mask = torch.rand(rows, f, generator=gen, device=dev) > 0.3
+        mask[: min(3, rows // 3)] = False
+        for dtype in (torch.float32, torch.bfloat16):
+            flat = torch.rand(n_src * d + off, generator=gen, device=dev).to(dtype)
+            src = flat[off:].view(n_src, d)
+            plan = gk.window_plan(rows, f, d, d % 4 == 0 and off == 0)
+            for kind in gk.KINDS:
+                tol = ("exact" if kind == "max" else "bf16" if dtype == torch.bfloat16
+                       else max(1e-6, f * 2.0 ** -24))
+                err, ok, text = compare(torch, gk.gather_reduce(src, pos, mask, kind),
+                                        gk.gather_reduce_plain(src, pos, mask, kind), tol)
+                out.append({"case": f"window {kind} {label}"
+                                    f"{'' if dtype == torch.float32 else ' bf16'}",
+                            "plan": None if plan is None else list(plan),
+                            "max_abs_err": err, "ok": ok, "tolerance": text})
+    return out
+
+
+def cuda_kernels_of(torch, fn):
+    """Names of the CUDA kernels and memory operations one call of ``fn``
+    runs, from a torch.profiler trace (the second of two traced calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def scatter_branches(torch, gk, dev):
+    """``scatter_add_rows`` against its plain version where the main path
+    does not go, f32 (1e-5 of max|plain|: atomics in another order) and bf16:
+    D = 30 (scalar units), every id one row, one table row, no ids, and a
+    [1,048,576, 16] table (64 MB: each thread zeroes many units) with
+    200,000 ids (each thread adds items past its first kCoopItems); and the
+    CUDA operations of one call at the lstm step's shape: one kernel, no
+    memset, no second launch at bf16."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = []
+    for label, n, num_src, d in (("D=30", 6000, 12544, 30), ("one id repeated", 6000, 12544, 32),
+                                 ("num_src=1", 3000, 1, 32), ("no ids", 0, 12544, 32),
+                                 ("64 MB table", 200_000, 1 << 20, 16)):
+        ids = torch.randint(0, num_src, (n,), generator=gen, device=dev, dtype=torch.int32)
+        if label == "one id repeated":
+            ids[:] = 77
+        g = torch.randn(n, d, generator=gen, device=dev)
+        for dtype, tol in ((torch.float32, "atomic"), (torch.bfloat16, "bf16")):
+            g_t = g.to(dtype)
+            err, ok, text = compare(torch, gk.scatter_add_rows(g_t, ids, num_src),
+                                    gk.scatter_add_rows_plain(g_t, ids, num_src), tol)
+            out.append({"case": f"scatter {label}{'' if dtype == torch.float32 else ' bf16'}",
+                        "grid": gk.scatter_grid(n, num_src, d, d % 4 == 0, gk._sm_count(dev)),
+                        "max_abs_err": err, "ok": ok, "tolerance": text})
+    ids = torch.randint(0, 12544, (18000,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.randn(18000, 32, generator=gen, device=dev)
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        names = cuda_kernels_of(torch, lambda g_=g.to(dtype): gk.scatter_add_rows(g_, ids, 12544))
+        good = len(names) == 1 and "scatter_add_rows_kernel" in names[0]
+        out.append({"case": f"scatter one call {tag}: CUDA operations", "names": names,
+                    "ok": good, "max_abs_err": 0.0,
+                    "tolerance": "exactly one CUDA operation, the scatter kernel"})
     return out
 
 
@@ -1365,11 +1471,20 @@ def main() -> None:
         {"assemble_f32_to_bf16": 1, "block_gather_fwd_max_bf16": 2,
          "block_gather_bwd_max_bf16": 1, "grad_to_bf16": 1})
     free_memory()
+    # the lstm step at bf16 compute: scatter_add_rows writes the bf16 table
+    # itself (no grad_to_bf16), so 4 launches a step
+    _, agg_out["lstm_host_bf16"] = run_trainer(
+        "lstm host bf16", lambda: Trainer.from_dataset(config("lstm", compute="bfloat16"),
+                                                       ds_nb, seed=0), 1,
+        {"assemble_f32_to_bf16": 1, "gather_rows_bf16": 2, "scatter_add_rows_bf16": 1})
+    free_memory()
     pool_launches = agg_out["pool_host"]["launches"]
     pool_bf16_launches = agg_out["pool_host_bf16"]["launches"]
+    lstm_launches = agg_out["lstm_host"]["launches"]
+    lstm_bf16_launches = agg_out["lstm_host_bf16"]["launches"]
     agg_out["note"] = ("trained on neighborhood_labels(graph, features, 47, seed=1); host "
                        "runs 2 epochs (epoch 1 replayed), on-device runs 1 eager epoch, "
-                       "pool_host_bf16 1 eager epoch at bf16 compute")
+                       "pool_host_bf16 and lstm_host_bf16 1 eager epoch at bf16 compute")
     emit("sage_aggregators", agg_out)
 
     # -- preprocess: GraphSAGE preprocess (the store's neigh field) -----------
@@ -1699,16 +1814,30 @@ def main() -> None:
             agg = agg / w.sum(1, keepdim=True).clamp(min=1)
         return torch.index_select(src, 0, blk.self_pos), agg
 
-    sbuf = torch.zeros_like(h1)
-    cases.append(dict(
-        name="scatter_add_rows[block1 self bwd]", key="scatter_add_rows",
-        replaces=f"{PALLAS}:58 gather_rows_pallas (backward; JAX: autodiff of jnp.take)",
-        shape=f"grad_out {list(g1.shape)} -> [{s1}, {d1}]", tol="atomic",
-        kernel=lambda: gk.scatter_add_rows(g1, b1.self_pos, s1),
-        plain=lambda: gk.scatter_add_rows_plain(g1, b1.self_pos, s1),
-        library=lambda: sbuf.index_add_(0, ids1_l, g1),
-        same_fn=lambda: same_fn(g1, None, "sum"),
-        nbytes=4 * n1 + rows_bytes(n1, d1) + rows_bytes(s1, d1)))
+    # scatter_add_rows (its own kernel, one launch): at block 1's self rows,
+    # and at the lstm step's ids (block_gather_msgs: the self positions, then
+    # every neighbor slot), at f32 and bf16; launches: the lstm host runs
+    lstm_ids = torch.cat([b1.self_pos, b1.neigh_pos.reshape(-1)])
+    g_lstm = torch.randn(lstm_ids.shape[0], d1, generator=gen, device=dev)
+    for label, ids_s, g_s in (("block1 self bwd", b1.self_pos, g1),
+                              ("lstm step ids", lstm_ids, g_lstm)):
+        for dt, sfx, size, tol in ((torch.float32, "", 4, "atomic"),
+                                   (torch.bfloat16, "_bf16", 2, "bf16")):
+            g_t, ids_l, n_ids = g_s.to(dt), ids_s.long(), ids_s.shape[0]
+            sbuf = torch.zeros(s1, d1, dtype=dt, device=dev)
+            run = lstm_launches if sfx == "" else lstm_bf16_launches
+            cases.append(dict(
+                name=f"scatter_add_rows{sfx}[{label}]", key=f"scatter_add_rows{sfx}",
+                launches=run.get(f"scatter_add_rows{sfx}", 0) if label == "lstm step ids"
+                else launches.get(f"scatter_add_rows{sfx}", 0),
+                replaces=f"{PALLAS}:58 gather_rows_pallas (backward; JAX: autodiff of jnp.take)",
+                shape=f"grad_out [{n_ids}, {d1}] {dt} -> [{s1}, {d1}]", tol=tol,
+                kernel=lambda g_=g_t, i_=ids_s: gk.scatter_add_rows(g_, i_, s1),
+                plain=lambda g_=g_t, i_=ids_s: gk.scatter_add_rows_plain(g_, i_, s1),
+                library=lambda b_=sbuf, i_=ids_l, g_=g_t: b_.index_add_(0, i_, g_),
+                same_fn=lambda g_=g_t, i_=ids_s: torch.zeros(
+                    s1, d1, dtype=g_.dtype, device=dev).index_add_(0, i_, g_),
+                nbytes=4 * n_ids + rows_bytes(n_ids, d1, size) + rows_bytes(s1, d1, size)))
     for rk in ("mean", "sum"):
         for label, src, blk in (("block0", feats, b0), ("block1", h1, b1)):
             flat, offs, _ = reduce_inputs(blk.neigh_pos, blk.neigh_mask)
@@ -1830,14 +1959,24 @@ def main() -> None:
     max_cases("f32", feats, h1m, g1, g1n, 4, pool_launches, "reduce")
 
     # -- window_reduce: device inference's degree-bucketed window reduction ---
-    # the block forward's neighbor half, sum and max kinds, on the RMAT-20
-    # window tables at F = 8, 64 and 4096 (inference phase's bn), over the
-    # 100-dim features; the launches are the inference phase's (mean: sum,
-    # pool: max).  library: embedding_bag over the pre-flattened valid
-    # positions (mode sum or max); same fn: index_select, then the masked
-    # sum or amax over the slots
+    # the neighbor half alone (gather_reduce), sum and max kinds, on the
+    # RMAT-20 window tables of the inference phase's bn over the 100-dim
+    # features: the buckets F = 8 (the block forward's unrolled instantiation),
+    # 64 (the window kernel, a warp a row), 512 and 4096 (a CTA a row) and the
+    # hub table (the hubs' windows of 4096), and F = 4096 at the layer-1
+    # input width (hidden); the launches are the inference phase's (mean:
+    # sum, pool: max).  library: embedding_bag over the pre-flattened valid
+    # positions (mode sum or max); same fn: index_select, then the masked sum
+    # or amax over the slots.  bound_ms counts each distinct row once
     x_dev = torch.from_numpy(ds.features).to(dev)
+    x_hid = torch.rand(ds.num_nodes, cfg.model.hidden, generator=gen, device=dev)
     win = {p.shape[1]: (p, m) for lv, p, m in bn.tables() if lv == "bucket"}
+    hub_tables = [(p, m) for lv, p, m in bn.tables() if lv == "hubs"]
+    for wf in (8, 64, 512, 4096):
+        if wf not in win:
+            fail(f"no window table of fan-out {wf}: {sorted(win)}")
+    if not hub_tables:
+        fail("the RMAT-20 graph has no hub table")
 
     def window_same_fn(src, pos, mask, kind):
         msgs = torch.index_select(src, 0, pos.view(-1)).view(*pos.shape, src.shape[1])
@@ -1846,32 +1985,34 @@ def main() -> None:
         m = torch.where(mask[..., None], msgs, -1e30).amax(1)
         return torch.where(mask.any(1, keepdim=True), m, 0.0)
 
-    for wf in (8, 64, 4096):
-        if wf not in win:
-            fail(f"no window table of fan-out {wf}: {sorted(win)}")
-        pos_w, mask_w = win[wf]
-        flat_w, offs_w, _ = reduce_inputs(pos_w, mask_w)
-        rows_w = pos_w.shape[0]
+    for label, (pos_w, mask_w), x_w in (
+            *((f"F={wf}", win[wf], x_dev) for wf in (8, 64, 512, 4096)),
+            ("hubs F=4096", hub_tables[0], x_dev),
+            (f"F=4096, D={x_hid.shape[1]}", win[4096], x_hid)):
+        wf, rows_w, dw = pos_w.shape[1], pos_w.shape[0], x_w.shape[1]
+        flat_w, offs_w, n_valid = reduce_inputs(pos_w, mask_w)
         valid_w = pos_w[mask_w]
         for wk in ("sum", "max"):
             cases.append(dict(
-                name=f"window_reduce[{wk}, F={wf}]", key=f"gather_reduce_{wk}",
+                name=f"window_reduce[{wk}, {label}]", key=f"gather_reduce_{wk}",
                 launches=inf_launches["mean" if wk == "sum" else "pool"][f"gather_reduce_{wk}"],
                 replaces=f"{PALLAS}:132 gather_mean_pallas (device inference's window "
                          "reduction, pagraph_tpu/models/inference.py:152 _window_reduce)",
-                shape=f"src {list(x_dev.shape)} pos/mask [{rows_w}, {wf}] "
-                      f"({valid_w.numel()} valid slots)",
-                # a sum of F non-negative terms in another order: within
-                # F ulps of the sum (the recursive-summation bound), at least
-                # the other reductions' 1e-6; the max exact
+                shape=f"src {list(x_w.shape)} pos/mask [{rows_w}, {wf}] "
+                      f"({n_valid} valid slots), plan "
+                      f"{gk.window_plan(rows_w, wf, dw, True)}",
+                # a sum of F terms in another order: within F ulps of the sum
+                # (the recursive-summation bound), at least the other
+                # reductions' 1e-6; the max exact
                 tol=max(TOLERANCES["reduce"], wf * 2.0 ** -24) if wk == "sum" else "exact",
-                kernel=lambda p_=pos_w, m_=mask_w, k=wk: gk.gather_reduce(x_dev, p_, m_, k),
-                plain=lambda p_=pos_w, m_=mask_w, k=wk: gk.gather_reduce_plain(x_dev, p_, m_, k),
-                library=lambda fl=flat_w, of=offs_w, k=wk: torch.nn.functional.embedding_bag(
-                    fl, x_dev, of, mode=k),
-                same_fn=lambda p_=pos_w, m_=mask_w, k=wk: window_same_fn(x_dev, p_, m_, k),
-                nbytes=5 * rows_w * wf + rows_bytes(distinct(valid_w), x_dev.shape[1])
-                + rows_bytes(rows_w, x_dev.shape[1])))
+                kernel=lambda x_=x_w, p_=pos_w, m_=mask_w, k=wk: gk.gather_reduce(x_, p_, m_, k),
+                plain=lambda x_=x_w, p_=pos_w, m_=mask_w, k=wk: gk.gather_reduce_plain(
+                    x_, p_, m_, k),
+                library=lambda x_=x_w, fl=flat_w, of=offs_w, k=wk:
+                torch.nn.functional.embedding_bag(fl, x_, of, mode=k),
+                same_fn=lambda x_=x_w, p_=pos_w, m_=mask_w, k=wk: window_same_fn(x_, p_, m_, k),
+                nbytes=5 * rows_w * wf + rows_bytes(distinct(valid_w), dw)
+                + rows_bytes(rows_w, dw)))
 
     # -- bf16 compute: the block kernels on bf16 rows, the assembly to bf16 --
     # the same batch and blocks; block 0's rows are the f32 tier's assembly
@@ -2000,6 +2141,14 @@ def main() -> None:
     bad = [f"{b['case']}: {b['max_abs_err']}" for b in branches if not b["ok"]]
     if bad:
         fail("assembly branches disagree with their plain versions: " + "; ".join(bad))
+    for phase, fn in (("window_branches", window_branches),
+                      ("scatter_branches", scatter_branches)):
+        branches = fn(torch, gk, dev)
+        emit(phase, branches)
+        bad = [f"{b['case']}: {b['max_abs_err']} ({b['tolerance']})"
+               for b in branches if not b["ok"]]
+        if bad:
+            fail(f"{phase}: " + "; ".join(bad))
 
     # -- graph_block_kernels: the block kernels' forward and backward wrappers
     # captured in a CUDA graph (the backward launches from autograd's thread,

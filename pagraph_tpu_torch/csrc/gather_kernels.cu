@@ -1,14 +1,14 @@
 // The gather kernels of a GraphSAGE block for Hopper (sm_90a): one fused
 // forward and one fused backward of a block's two gathers of one source
-// table, and the two-source layer-0 assembly.
+// table, the two-source layer-0 assembly, the window reduction of long
+// neighbor windows, and the backward of a row gather alone.
 //
 // What they replace (the two Pallas TPU kernels of the JAX package):
 //   * pg_block_gather_fwd <- gather_rows_pallas (pagraph_tpu/ops/pallas_gather.py:58,
 //     body _gather_rows_kernel :29) and gather_mean_pallas (:132, body
 //     _gather_sum_kernel :86), with a 'sum' kind beside 'mean', and a 'max'
 //     kind (the pool aggregator's, XLA in the JAX package:
-//     pagraph_tpu/ops/aggregate.py:62-64), which device inference also runs
-//     as its degree-bucketed window reduction at fan-outs 8..4096.  A GraphSAGE
+//     pagraph_tpu/ops/aggregate.py:62-64).  A GraphSAGE
 //     block gathers the same source table twice, for its self rows and for
 //     its neighbor mean, so one launch writes both outputs; either half may
 //     be absent, which makes it the forward of one gather alone.  Both
@@ -20,6 +20,11 @@
 //     and the f32 promotion (int8: times a per-column scale) of its
 //     dequantize_fused, both of which the JAX package leaves to XLA, and, at
 //     bf16 compute, the cast of train/state.py cast_apply.
+//   * pg_window_reduce <- gather_mean_pallas's neighbor reduction alone at
+//     a fan-out with no unrolled instantiation of the block forward: device
+//     inference's degree-bucketed window reduction (pagraph_tpu/models/
+//     inference.py:152 _window_reduce, XLA in the JAX package) at fan-outs
+//     32..4096, the hubs' windows and their second level.
 //   * pg_block_gather_bwd: the backward of both halves.  The Pallas kernels
 //     are forward-only (JAX differentiates jnp.take); the port trains through
 //     these kernels, so their gradient is a kernel too: one launch takes both
@@ -30,6 +35,9 @@
 //     that reach it, and adds g / ties to each of those slots (JAX's
 //     gradient of jnp.max, and torch's of amax, split it equally among
 //     tied maxima; after a ReLU exact ties at 0 are common).
+//   * pg_scatter_add_rows: the backward of the self half alone (the lstm
+//     aggregator's row gather), one cooperative launch that zeroes its own
+//     table: no memset, and at bf16 no second launch.
 //
 // What bounds them: device-memory bytes and latency, not FLOPs.  A row gather
 // does no arithmetic; the reduction does fanout adds per output element.  The
@@ -51,7 +59,9 @@
 //   * a row's indices (its self position, its fan-out positions and mask
 //     bytes) are loaded once and held in registers, with the fan-out a
 //     template parameter so the slot loops unroll; fan-outs with no
-//     instantiation of their own (FANOUT = 0) re-read the slots from memory;
+//     instantiation of their own (FANOUT = 0) re-read the slots from memory
+//     (training at odd fan-outs; the neighbor half alone at such fan-outs
+//     is the window kernel, below);
 //   * every data load of a row (the self unit and every valid neighbor unit)
 //     is issued before its first add or store, so a row waits for memory
 //     once; masked slots issue no load, as in the Pallas kernel, where
@@ -84,7 +94,16 @@
 //     kernel in the same call.  Adding in bf16 (red.global.add.noftz.bf16x2)
 //     rounds every add, in an order the atomics choose: on the main path's
 //     block 1 that missed 1e-2 of the sum, so the port adds in f32 and
-//     rounds once (one more launch, PERF.md).
+//     rounds once (one more launch, PERF.md);
+//   * the window kernel gives a long row (F >= 512) a whole CTA: its
+//     indices staged in shared memory by the TMA's 1-D bulk copy, 8 unit
+//     loads in flight a lane, the warps' partials reduced in a fixed order;
+//     one group of lanes walking 4096 slots alone reached 3-4% of the bound;
+//   * the scatter kernel zeroes its table, waits at a grid barrier and adds,
+//     with its loads issued before the zeroing: the memset was a device
+//     operation of its own.  A kernel whose CTAs each own a slice of the
+//     table in shared memory (no barrier) measured slower: every CTA reads
+//     every id, and a slice of hot rows gets all their adds (PERF.md).
 //
 // Interface: plain C, loaded with ctypes.  Pointers and the stream are void*;
 // sizes are int64_t / int; element types are codes (0 f32, 1 bf16).  Kernels
@@ -93,6 +112,7 @@
 // the caller.  Indices must be in range; the Python wrappers check shapes,
 // dtypes, devices and contiguity.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -384,6 +404,263 @@ void launch_block_fwd(const BlockFwdArgs<T>& a, int kind, bool vec, cudaStream_t
     case kMax: launch_block_fwd_kind<T, FANOUT, kMax>(a, vec, st); break;
     default: launch_block_fwd_kind<T, FANOUT, kSum>(a, vec, st); break;
   }
+}
+
+// ---------------------------------------------------------------------------
+// shared-memory staging: the TMA's 1-D bulk copy, completed on an mbarrier
+// ---------------------------------------------------------------------------
+// Without __CUDA_ARCH__ (nvcc's host pass, or a serial CPU build of this
+// file) the copy is a byte loop and the barrier does nothing: the callers
+// follow every wait with __syncthreads().
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+#ifdef __CUDA_ARCH__
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#endif
+}
+
+// one thread: the barrier's phase completes once `bytes` have landed
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+#ifdef __CUDA_ARCH__
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(a), "r"(bytes)
+               : "memory");
+#endif
+}
+
+// dst (shared) and src (global) 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+#ifdef __CUDA_ARCH__
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const uint32_t b = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(d), "l"(src), "r"(bytes), "r"(b) : "memory");
+#else
+  for (uint32_t i = 0; i < bytes; ++i)
+    static_cast<unsigned char*>(dst)[i] = static_cast<const unsigned char*>(src)[i];
+#endif
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+#ifdef __CUDA_ARCH__
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(bar));
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  }
+#endif
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ __forceinline__ float shfl_xor(float v, int off) {
+  return __shfl_xor_sync(0xffffffffu, v, off);
+}
+__device__ __forceinline__ float4 shfl_xor(const float4& v, int off) {
+  return make_float4(shfl_xor(v.x, off), shfl_xor(v.y, off), shfl_xor(v.z, off),
+                     shfl_xor(v.w, off));
+}
+
+// ---------------------------------------------------------------------------
+// window reduction: the neighbor half alone at a fan-out with no unrolled
+// instantiation (device inference's degree buckets, 32 to 4096 and more)
+// ---------------------------------------------------------------------------
+
+constexpr int kWinBatch = 8;      // slots a worker loads before it reduces
+constexpr int kWinTile = 4096;    // slots of indices a CTA stages at a time
+
+// Shared memory of a window CTA with R rows and `tile` slots a stage: the
+// mbarrier (16 bytes), R x stride positions, R x stride mask bytes (stride =
+// tile rounded up to 16, so every row's staging is 16-byte aligned), then a
+// partial unit for each thread and a count for each warp.
+inline int window_smem_bytes(int rows_per_cta, int tile) {
+  const int stride = (tile + 15) & ~15;
+  return 16 + 5 * rows_per_cta * stride + kThreads * 16 + kWarpsPerBlock * 4;
+}
+
+// out[row] = the masked sum / mean / max over src[pos[row, k]] (kind as in
+// block_fwd_row), one row to 1 << wlg warps, 8 >> wlg rows a CTA.
+//   * the row's positions and mask bytes, `tile` slots at a time, are staged
+//     in shared memory: by 1-D bulk copies (cp.async.bulk, the TMA's 1-D
+//     form) completed on an mbarrier where the global slice is 16-byte
+//     aligned and a multiple of 16 bytes long, else by the CTA's threads
+//     (the threads alone measured 3-12% slower at F = 4096, PERF.md);
+//   * a group of G = 1 << lg lanes serves one unit column set (units sub,
+//     sub + G, ... a pass); a row has (warps a row) x (32 / G) such
+//     workers, and worker w takes the chunks of kWinBatch consecutive slots
+//     w, w + workers, ...: so the valid slots, a prefix of the window in
+//     every table inference builds, spread evenly over the workers;
+//   * a worker reads a chunk's kWinBatch positions and masks from shared
+//     memory, issues every valid slot's unit load, then reduces them: a lane
+//     has up to kWinBatch loads in flight, and no index round trip to
+//     global memory;
+//   * the workers' partials are reduced in a fixed order, with no atomics:
+//     a butterfly over the groups of a warp (__shfl_xor_sync), then the
+//     row's warps 0, 1, ... through shared memory; the count of valid slots
+//     likewise (mean divides by it, max writes 0 where it is 0);
+//   * a table wider than a tile (F > kWinTile / rows a CTA) is staged tile
+//     by tile; with more than G units a row, each pass re-reads the tiles.
+// Every thread reaches every barrier: rows past the end take no slot.
+template <typename T, int KIND, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+window_reduce_kernel(const T* __restrict__ src, const int32_t* __restrict__ pos,
+                     const uint8_t* __restrict__ mask, int64_t rows, int fanout,
+                     T* __restrict__ out, int d, int lg, int wlg, int tile) {
+  using Unit = UnitOf<T, VEC>;
+  using Val = ValOf<VEC>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int R = kWarpsPerBlock >> wlg;
+  const int stride = (tile + 15) & ~15;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int32_t* pos_s = reinterpret_cast<int32_t*>(smem + 16);
+  uint8_t* mask_s = smem + 16 + 4 * R * stride;
+  Val* part = reinterpret_cast<Val*>(smem + 16 + 5 * R * stride);
+  int* cnt_s = reinterpret_cast<int*>(smem + 16 + 5 * R * stride + kThreads * 16);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = warp >> wlg, wi = warp & ((1 << wlg) - 1);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int rows_here = static_cast<int>(rows - row0 < R ? rows - row0 : R);
+  const int64_t row = row0 + r;
+  const bool has_row = r < rows_here;
+  const int group = 1 << lg, sub = lane & (group - 1);
+  const int workers = (1 << wlg) << (5 - lg);
+  const int worker = (wi << (5 - lg)) + (lane >> lg);
+  const int units = VEC ? d / 4 : d;
+  const int32_t* ps = pos_s + r * stride;
+  const uint8_t* ms = mask_s + r * stride;
+
+  if (threadIdx.x == 0) mbar_init(bar);
+  uint32_t phase = 0;
+  // stage slots [t0, t0 + len) of the CTA's rows
+  auto stage = [&](int t0, int len) {
+    __syncthreads();    // the previous tile is read; the barrier is initialised
+    // a row's slice goes by bulk copy where its global start is 16-byte
+    // aligned and its length a multiple of 16 bytes
+    auto pos_bulk = [&](int64_t off) { return aligned16(pos + off) && len % 4 == 0; };
+    auto mask_bulk = [&](int64_t off) { return aligned16(mask + off) && len % 16 == 0; };
+    uint32_t bulk = 0;
+    for (int q = 0; q < rows_here; ++q) {
+      const int64_t off = (row0 + q) * fanout + t0;
+      bulk += (pos_bulk(off) ? 4u * len : 0u) + (mask_bulk(off) ? len : 0u);
+    }
+    if (threadIdx.x == 0 && bulk) {
+      mbar_expect(bar, bulk);
+      for (int q = 0; q < rows_here; ++q) {
+        const int64_t off = (row0 + q) * fanout + t0;
+        if (pos_bulk(off)) bulk_load(pos_s + q * stride, pos + off, 4u * len, bar);
+        if (mask_bulk(off)) bulk_load(mask_s + q * stride, mask + off, len, bar);
+      }
+    }
+    for (int q = 0; q < rows_here; ++q) {
+      const int64_t off = (row0 + q) * fanout + t0;
+      for (int k = threadIdx.x; k < len; k += kThreads) {
+        if (!pos_bulk(off)) pos_s[q * stride + k] = __ldg(pos + off + k);
+        if (!mask_bulk(off)) mask_s[q * stride + k] = __ldg(mask + off + k);
+      }
+    }
+    if (bulk) {
+      mbar_wait(bar, phase);
+      phase ^= 1;
+    }
+    __syncthreads();
+  };
+
+  const bool one_tile = fanout <= tile;
+  if (one_tile) stage(0, fanout);
+  for (int base = 0; base < units; base += group) {
+    const int i = base + sub;
+    Val acc;
+    splat(acc, KIND == kMax ? kNegInf : 0.f);
+    int cnt = 0;
+    for (int t0 = 0; t0 < fanout; t0 += tile) {
+      const int len = fanout - t0 < tile ? fanout - t0 : tile;
+      if (!one_tile) stage(t0, len);
+      if (!has_row) continue;
+      for (int c0 = worker * kWinBatch; c0 < len; c0 += workers * kWinBatch) {
+        int32_t p[kWinBatch];
+        bool m[kWinBatch];
+#pragma unroll
+        for (int j = 0; j < kWinBatch; ++j) {
+          const int k = c0 + j;
+          m[j] = k < len && ms[k] != 0;
+          p[j] = m[j] ? ps[k] : 0;
+        }
+        Unit v[kWinBatch];
+#pragma unroll
+        for (int j = 0; j < kWinBatch; ++j)
+          v[j] = m[j] && i < units ? __ldg(unit_row<T, VEC>(src, p[j], d) + i) : Unit{};
+#pragma unroll
+        for (int j = 0; j < kWinBatch; ++j) {
+          cnt += m[j] ? 1 : 0;
+          if (m[j]) reduce_to<KIND>(acc, widen(v[j]));
+        }
+      }
+    }
+    // the groups of a warp: a butterfly, the same order in every lane
+    for (int off = group; off < kWarp; off <<= 1) {
+      const Val o = shfl_xor(acc, off);
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+      reduce_to<KIND>(acc, o);
+    }
+    if (wlg > 0) {    // the row's warps, in order, through shared memory
+      if (lane < group) part[warp * kWarp + lane] = acc;
+      if (lane == 0) cnt_s[warp] = cnt;
+      __syncthreads();
+      if (wi == 0) {
+        for (int w = 1; w < (1 << wlg); ++w) {
+          if (lane < group) reduce_to<KIND>(acc, part[(warp + w) * kWarp + lane]);
+          cnt += cnt_s[warp + w];
+        }
+      }
+      __syncthreads();
+    }
+    if (has_row && wi == 0 && lane < group && i < units) {
+      if (KIND == kMax && cnt == 0) acc = Val{};    // DGL's empty-mailbox zero
+      if (KIND == kMean) acc = scaled(acc, cnt > 0 ? 1.f / static_cast<float>(cnt) : 1.f);
+      st_unit(unit_row<T, VEC>(out, row, d) + i, acc);
+    }
+  }
+}
+
+template <typename T, int KIND>
+void launch_window_kind(const T* src, const int32_t* pos, const uint8_t* mask, int64_t rows,
+                        int fanout, T* out, int d, bool vec, int wlg, int lg, int tile,
+                        int smem, cudaStream_t st) {
+  const dim3 grid(static_cast<unsigned>(ceil_div(rows, kWarpsPerBlock >> wlg)));
+  if (vec) {
+    window_reduce_kernel<T, KIND, true><<<grid, kThreads, smem, st>>>(
+        src, pos, mask, rows, fanout, out, d, lg, wlg, tile);
+  } else {
+    window_reduce_kernel<T, KIND, false><<<grid, kThreads, smem, st>>>(
+        src, pos, mask, rows, fanout, out, d, lg, wlg, tile);
+  }
+}
+
+template <typename T>
+int window_reduce(const void* src, const void* pos, const void* mask, int64_t rows, int fanout,
+                  void* out, int d, int kind, bool vec, int wlg, int lg, int tile, int smem,
+                  cudaStream_t st) {
+  const T* s = static_cast<const T*>(src);
+  const int32_t* p = static_cast<const int32_t*>(pos);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  T* o = static_cast<T*>(out);
+  switch (kind) {
+    case kMean: launch_window_kind<T, kMean>(s, p, m, rows, fanout, o, d, vec, wlg, lg, tile, smem, st); break;
+    case kMax: launch_window_kind<T, kMax>(s, p, m, rows, fanout, o, d, vec, wlg, lg, tile, smem, st); break;
+    default: launch_window_kind<T, kSum>(s, p, m, rows, fanout, o, d, vec, wlg, lg, tile, smem, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -721,6 +998,92 @@ void launch_to_bf16(const float* in, uint16_t* out, int64_t n, cudaStream_t st) 
   }
 }
 
+// ---------------------------------------------------------------------------
+// scatter_add_rows: the self half of the backward alone, in one launch
+// ---------------------------------------------------------------------------
+
+constexpr int kCoopItems = 8;   // (row, unit) items a thread loads before the barrier
+
+// out[s] = sum of g[r] over the r with ids[r] == s, for every s < num_src
+// (0 where none), in one cooperative launch and no memset:
+//   * every thread first loads its first kCoopItems (row, unit) items, item
+//     w = thread + k * (threads of the grid), row w / units, unit w % units
+//     (its id and its gradient unit, widened to f32), so their latency
+//     overlaps what follows;
+//   * the grid zeroes the f32 table (grid-stride, coalesced), then waits at
+//     one grid barrier (cooperative_groups::this_grid().sync());
+//   * each thread adds its items with one 16-byte reduction a unit
+//     (red.global.add.v4.f32, scalar f32 reductions otherwise), then the
+//     rest of its items in a grid-stride loop, as the block backward does;
+//   * a bf16 table is the f32 scratch `acc`, rounded once into out after a
+//     second grid barrier.
+// Ids must be in [0, num_src); the reductions add in no fixed order.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+scatter_add_rows_kernel(const T* __restrict__ g, const int32_t* __restrict__ ids,
+                        int64_t n, T* __restrict__ out, float* __restrict__ acc,
+                        int64_t num_src, int d) {
+  using Val = ValOf<VEC>;
+  using Acc = UnitOf<float, VEC>;
+  namespace cg = cooperative_groups;
+  const int units = VEC ? d / 4 : d;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t items = n * units, cells = num_src * units;
+  int32_t row[kCoopItems], col[kCoopItems];
+  Val v[kCoopItems];
+#pragma unroll
+  for (int j = 0; j < kCoopItems; ++j) {
+    const int64_t w = t + j * stride;
+    const int64_t r = w < items ? w / units : 0;
+    col[j] = w < items ? static_cast<int32_t>(w - r * units) : 0;
+    row[j] = w < items ? __ldg(ids + r) : -1;
+    v[j] = w < items ? widen(__ldg(unit_row<T, VEC>(g, r, d) + col[j])) : Val{};
+  }
+  Acc* table = reinterpret_cast<Acc*>(acc);
+  for (int64_t k = t; k < cells; k += stride) table[k] = Acc{};
+  cg::this_grid().sync();
+#pragma unroll
+  for (int j = 0; j < kCoopItems; ++j)
+    if (row[j] >= 0) red_unit(unit_row<float, VEC>(acc, row[j], d) + col[j], v[j]);
+  for (int64_t w = t + kCoopItems * stride; w < items; w += stride) {
+    const int64_t r = w / units;
+    const int i = static_cast<int>(w - r * units);
+    red_unit(unit_row<float, VEC>(acc, __ldg(ids + r), d) + i,
+             widen(__ldg(unit_row<T, VEC>(g, r, d) + i)));
+  }
+  if constexpr (!std::is_same<T, float>::value) {
+    cg::this_grid().sync();
+    UnitOf<T, VEC>* o = reinterpret_cast<UnitOf<T, VEC>*>(out);
+    for (int64_t k = t; k < cells; k += stride) st_unit(o + k, __ldcg(table + k));
+  }
+}
+
+template <typename T, bool VEC>
+int launch_scatter(const T* g, const int32_t* ids, int64_t n, T* out, float* acc,
+                   int64_t num_src, int d, int grid, cudaStream_t st) {
+  auto kernel = &scatter_add_rows_kernel<T, VEC>;
+  // a cooperative grid must be co-resident: refuse more CTAs than the card holds
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  if (grid > sms * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, g, ids, n, out, acc, num_src, d));
+}
+
 // Fan-outs the samplers use get an unrolled instantiation; others run the
 // runtime-fanout instantiation (FANOUT = 0).
 #define PG_FANOUT_SWITCH(fanout, LAUNCH)          \
@@ -860,6 +1223,63 @@ int pg_block_gather_bwd(const void* src, const void* g_self, const void* self_po
       if (rc != cudaSuccess || num_src * d == 0) return rc;
       launch_to_bf16(acc, static_cast<uint16_t*>(grad_src), num_src * d, st);
       return static_cast<int>(cudaGetLastError());
+    }
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// out [rows, d] = the masked reduction of kind kind (0 sum, 1 mean, 2 max: 0
+// for a row with no valid slot) of src over pos/mask [rows, fanout], at the
+// element type dtype (0 f32, 1 bf16), in one launch on the caller's stream:
+// the window reduction, 1 << wlg warps a row (wlg 0..3), 1 << lg lanes a
+// worker (lg 0..5), staging `tile` slots a row at a time (1 <= tile <=
+// kWinTile >> (3 - wlg)) in `smem` bytes of dynamic shared memory (at
+// least window_smem_bytes, at most 48 KB).
+int pg_window_reduce(const void* src, const void* pos, const void* mask, int64_t rows,
+                     int fanout, void* out, int d, int kind, int vec, int dtype, int wlg,
+                     int lg, int tile, int smem, void* stream) {
+  if (rows == 0 || d == 0) return static_cast<int>(cudaGetLastError());
+  const int rows_per_cta = kWarpsPerBlock >> (wlg < 0 || wlg > 3 ? 0 : wlg);
+  if (kind < kSum || kind > kMax || wlg < 0 || wlg > 3 || lg < 0 || lg > 5 || fanout < 0 ||
+      tile < 1 ||
+      tile > kWinTile / rows_per_cta || smem < window_smem_bytes(rows_per_cta, tile) ||
+      smem > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return window_reduce<float>(src, pos, mask, rows, fanout, out, d, kind, vec != 0,
+                                        wlg, lg, tile, smem, st);
+    case 1: return window_reduce<uint16_t>(src, pos, mask, rows, fanout, out, d, kind,
+                                           vec != 0, wlg, lg, tile, smem, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// out [num_src, d] = the zeroed table with g[r] [n, d] added at row ids[r],
+// at the element type dtype (0 f32, 1 bf16: summed in the f32 scratch acc
+// [num_src, d], then rounded once; acc is ignored at f32), in one
+// cooperative launch of `grid` CTAs (at most what the card holds at once)
+// on the caller's stream, with no memset.
+int pg_scatter_add_rows(const void* g, const void* ids, int64_t n, void* out, void* acc,
+                        int64_t num_src, int d, int vec, int dtype, int grid, void* stream) {
+  if (num_src == 0 || d == 0) return static_cast<int>(cudaGetLastError());
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* it = static_cast<const int32_t*>(ids);
+  switch (dtype) {
+    case 0: {
+      const float* gt = static_cast<const float*>(g);
+      float* o = static_cast<float*>(out);
+      return vec ? launch_scatter<float, true>(gt, it, n, o, o, num_src, d, grid, st)
+                 : launch_scatter<float, false>(gt, it, n, o, o, num_src, d, grid, st);
+    }
+    case 1: {
+      if (acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      const uint16_t* gt = static_cast<const uint16_t*>(g);
+      uint16_t* o = static_cast<uint16_t*>(out);
+      float* a = static_cast<float*>(acc);
+      return vec ? launch_scatter<uint16_t, true>(gt, it, n, o, a, num_src, d, grid, st)
+                 : launch_scatter<uint16_t, false>(gt, it, n, o, a, num_src, d, grid, st);
     }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -51,6 +51,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "pg_assemble": (_P, _P, _P, _P, _P, _I64, _I, _I, _I, _I, _P),
         "pg_block_gather_bwd": (_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P,
                                 _I64, _I, _I, _I, _I, _P),
+        "pg_window_reduce": (_P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "pg_scatter_add_rows": (_P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I, _P),
     },
 }
 

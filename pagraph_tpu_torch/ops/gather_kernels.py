@@ -27,13 +27,18 @@ equally among the valid slots that reach the max, as JAX's gradient of
 ``jnp.max`` and torch's of ``amax`` do, so it reads the source table too:
 :func:`block_gather_bwd` and :func:`gather_reduce_bwd` take ``src`` for it.
 
-The three forwards of a block's gathers are one kernel, ``pg_block_gather_fwd``:
+The forwards of a block's gathers are one kernel, ``pg_block_gather_fwd``:
 ``block_gather_fwd`` runs it with both halves (the forward of
 :class:`BlockGather`, the main path's), ``gather_rows`` and ``gather_reduce``
-with one half absent.  The three backwards are one kernel,
+with one half absent; the neighbor half alone at a fan-out with no
+unrolled instantiation (:data:`UNROLLED_FANOUTS`: device inference's
+windows of 32 to 4096 slots) runs the window kernel, ``pg_window_reduce``,
+instead (:func:`window_plan`).  The backwards of both halves are one kernel,
 ``pg_block_gather_bwd`` (a memset of the gradient table and one launch, in
-one C call), run the same way by ``block_gather_bwd``, ``scatter_add_rows``
-and ``gather_reduce_bwd``.  A train step launches 4 kernels: the assembly,
+one C call), run the same way by ``block_gather_bwd`` and
+``gather_reduce_bwd``; ``scatter_add_rows`` has a kernel of its own,
+``pg_scatter_add_rows``: one cooperative launch that zeroes its table
+(:func:`scatter_grid`).  A train step launches 4 kernels: the assembly,
 one block forward for each block, and one block backward for block 1 (the
 layer-0 features need no gradient); 5 at bf16 compute (below).  The
 assembly is one kernel, ``pg_assemble``, for the f32, bf16 and int8 cache
@@ -43,8 +48,9 @@ tiers (counted under ``assemble_f32``, ``assemble_bf16``,
 Like the Pallas kernels, the block kernels compute at their table's dtype,
 f32 or bf16 (``train.dtype="bfloat16"``): a bf16 table gives bf16 outputs
 (the neighbor sum in f32 registers, rounded once) and a bf16 gradient table
-(added in an f32 table, then rounded once by a second launch in the same C
-call, counted under ``grad_to_bf16``).  Every table of one call has one
+(added in an f32 table, then rounded once: by a second launch in the same C
+call, counted under ``grad_to_bf16``, for the block backward; inside its one
+launch for ``scatter_add_rows``).  Every table of one call has one
 dtype.  At bf16 compute the assembly writes bf16 (``out_dtype``): the f32 value
 rounded to nearest even, the JAX package's ``dequantize_fused`` followed by
 ``cast_apply``'s cast.  Each bf16 launch is counted under its own key: the
@@ -75,7 +81,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Dict, Iterator
+import functools
+from typing import Dict, Iterator, NamedTuple, Optional
 
 import torch
 
@@ -299,7 +306,12 @@ def _block_fwd_kernel(key: str, src, self_pos, pos, mask, kind: str):
     """Check the halves that are present, allocate their outputs with
     ``torch.empty`` at the table's dtype and run ``pg_block_gather_fwd``
     (one launch), counted under ``LAUNCHES[key]`` (``key_bf16`` for a bf16
-    table); an absent half (``None`` index) returns ``None``."""
+    table); an absent half (``None`` index) returns ``None``.  The neighbor
+    half alone at a fan-out outside :data:`UNROLLED_FANOUTS` runs the
+    window kernel instead (:func:`window_plan`)."""
+    if self_pos is None and pos is not None and pos.dim() == 2 \
+            and pos.shape[1] not in UNROLLED_FANOUTS:
+        return None, _window_kernel(key, src, pos, mask, kind)
     _check(src, "src", src.dtype, 2)
     d = src.shape[1]
     n_self = n_neigh = fanout = 0
@@ -406,14 +418,110 @@ def assemble(cache_values: torch.Tensor, src_row: torch.Tensor,
     return out[:n]
 
 
+# fan-outs with an unrolled instantiation of the block kernels
+# (PG_FANOUT_SWITCH in csrc/gather_kernels.cu)
+UNROLLED_FANOUTS = (1, 2, 3, 4, 5, 8, 10, 15, 16, 20, 25)
+THREADS, WARPS = 256, 8          # a CTA of the block kernels (kThreads)
+WINDOW_TILE = 4096               # slots of indices a window CTA stages (kWinTile)
+WINDOW_CTA_FANOUT = 512          # from this fan-out a window row takes a whole CTA
+
+
+class WindowPlan(NamedTuple):
+    """The window kernel's geometry: ``1 << warps_log2`` warps a row
+    (``WARPS >> warps_log2`` rows a CTA), ``1 << lanes_log2`` lanes a worker,
+    ``tile`` slots a row staged in shared memory at a time, ``grid`` CTAs,
+    ``smem`` bytes of dynamic shared memory."""
+    warps_log2: int
+    lanes_log2: int
+    tile: int
+    grid: int
+    smem: int
+
+    @property
+    def rows_per_cta(self) -> int:
+        return WARPS >> self.warps_log2
+
+    @property
+    def workers(self) -> int:
+        """Workers (groups of lanes) that share one row's slots."""
+        return (1 << self.warps_log2) << (5 - self.lanes_log2)
+
+
+def window_plan(rows: int, fanout: int, d: int, vec: bool) -> Optional[WindowPlan]:
+    """How :func:`gather_reduce` runs ``rows`` windows of ``fanout`` slots
+    of ``d``-column rows on the card (``vec``: 4-column units): ``None`` for
+    a fan-out with an unrolled instantiation (the block forward kernel),
+    else the window kernel's :class:`WindowPlan`.  From
+    :data:`WINDOW_CTA_FANOUT` slots a row takes the CTA's 8 warps, below it
+    one warp; a worker is the smallest power of two of lanes covering the
+    row's units, at most a warp.  A pure function of its arguments (the
+    element type does not change it: the partials take 16 bytes a thread)."""
+    if fanout in UNROLLED_FANOUTS:
+        return None
+    wlg = 3 if fanout >= WINDOW_CTA_FANOUT else 0
+    units = d // 4 if vec else d
+    lg = 0
+    while (1 << lg) < units and lg < 5:
+        lg += 1
+    per_cta = WARPS >> wlg
+    tile = max(1, min(fanout, WINDOW_TILE // per_cta))
+    stride = -(-tile // 16) * 16
+    # window_smem_bytes: the mbarrier, positions and mask bytes, partials, counts
+    smem = 16 + 5 * per_cta * stride + THREADS * 16 + WARPS * 4
+    return WindowPlan(wlg, lg, tile, -(-rows // per_cta), smem)
+
+
+# CTAs a SM of the cooperative scatter kernel (at most what a SM holds of it)
+SCATTER_CTAS_PER_SM = 1
+
+
+def scatter_grid(n_ids: int, num_src: int, d: int, vec: bool, sms: int = 132) -> int:
+    """CTAs of :func:`scatter_add_rows`'s cooperative launch for ``n_ids``
+    gradient rows into a ``[num_src, d]`` table (``vec``: 4-column units) on
+    a card of ``sms`` SMs: a thread a unit of the larger of the two, at most
+    :data:`SCATTER_CTAS_PER_SM` a SM (all must be resident at once), at
+    least one.  A pure function of its arguments; the element type does not
+    change it."""
+    units = d // 4 if vec else d
+    work = max(n_ids, num_src) * units
+    return max(1, min(SCATTER_CTAS_PER_SM * sms, -(-work // THREADS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _window_kernel(key: str, src, pos, mask, kind: str) -> torch.Tensor:
+    """Check, allocate the output with ``torch.empty`` and run
+    ``pg_window_reduce`` (one launch) by :func:`window_plan`, counted under
+    ``LAUNCHES[key]`` (``key_bf16`` for a bf16 table)."""
+    _check(src, "src", src.dtype, 2)
+    _check_reduce(pos, mask, kind)
+    rows, fanout = pos.shape
+    d = src.shape[1]
+    out = torch.empty((rows, d), dtype=src.dtype, device=src.device)
+    if rows and d:
+        vec = _vec(d, src, out)
+        plan = window_plan(rows, fanout, d, bool(vec))
+        _raise_on(_lib().pg_window_reduce(
+            src.data_ptr(), pos.data_ptr(), mask.data_ptr(), rows, fanout, out.data_ptr(), d,
+            KIND_CODES[kind], vec, ELEMENT_CODES[src.dtype], plan.warps_log2,
+            plan.lanes_log2, plan.tile, plan.smem, _stream(src.device)), "pg_window_reduce")
+        LAUNCHES[_key(key, src.dtype)] += 1
+    return out
+
+
 def gather_reduce(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
                   kind: str = "mean") -> torch.Tensor:
     """``out[n] = sum_k mask[n,k] * src[pos[n,k]]``, divided by
     ``max(sum_k mask[n,k], 1)`` for ``kind="mean"``; for ``"max"`` the
     per-column max over the valid slots (0 for a row with none).  Masked
     slots are never loaded.  ``src`` f32 or bf16 ``[S, D]``, the output at
-    its dtype; ``pos`` int32 and ``mask`` bool ``[N, fanout]`` (on the card,
-    the block forward kernel with its self half absent)."""
+    its dtype; ``pos`` int32 and ``mask`` bool ``[N, fanout]``.  On the
+    card: the block forward kernel with its self half absent at a fan-out
+    in :data:`UNROLLED_FANOUTS`, else the window kernel
+    (:func:`window_plan`), one launch either way."""
     _check_kind(kind)
     _row_dtype(src)
     if not _use_kernel(src, pos, mask):
@@ -501,13 +609,32 @@ def block_gather_bwd(g_self, self_pos, g_neigh, pos, mask, num_src: int,
 def scatter_add_rows(grad_out: torch.Tensor, ids: torch.Tensor,
                      num_src: int) -> torch.Tensor:
     """Backward of :func:`gather_rows`: a zeroed ``[num_src, D]`` table with
-    ``grad_out[r]`` added at row ``ids[r]``, at ``grad_out``'s dtype (on the
-    card, the block backward kernel with its neighbor half absent)."""
+    ``grad_out[r]`` added at row ``ids[r]``, at ``grad_out``'s dtype (bf16:
+    summed in an f32 scratch table, rounded once).  On the card: one
+    cooperative launch of the scatter kernel (:func:`scatter_grid` CTAs),
+    which zeroes the table itself, so no memset and no second launch at bf16;
+    counted under ``LAUNCHES["scatter_add_rows"]`` (``_bf16``)."""
     _row_dtype(grad_out)
     if not _use_kernel(grad_out, ids):
         return scatter_add_rows_plain(grad_out, ids, num_src)
-    return _block_bwd_kernel("scatter_add_rows", grad_out, ids, None, None, None,
-                             num_src, "sum")
+    _check(grad_out, "grad_out", grad_out.dtype, 2)
+    _check(ids, "ids", torch.int32, 1)
+    n, d = ids.shape[0], grad_out.shape[1]
+    if grad_out.shape[0] != n:
+        raise ValueError(f"grad_out has {grad_out.shape[0]} rows, ids {n}")
+    dev = grad_out.device
+    out = torch.empty((num_src, d), dtype=grad_out.dtype, device=dev)
+    if num_src and d:
+        acc = None if grad_out.dtype == torch.float32 else torch.empty(
+            (num_src, d), dtype=torch.float32, device=dev)
+        vec = _vec(d, grad_out, out, *([] if acc is None else [acc]))
+        _raise_on(_lib().pg_scatter_add_rows(
+            grad_out.data_ptr(), ids.data_ptr(), n, out.data_ptr(), _ptr(acc), num_src, d,
+            vec, ELEMENT_CODES[grad_out.dtype],
+            scatter_grid(n, num_src, d, bool(vec), _sm_count(dev)), _stream(dev)),
+            "pg_scatter_add_rows")
+        LAUNCHES[_key("scatter_add_rows", grad_out.dtype)] += 1
+    return out
 
 
 def gather_reduce_bwd(grad_out: torch.Tensor, pos: torch.Tensor,

@@ -1,6 +1,6 @@
-"""The port stands alone: ``pagraph_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of ``pagraph_tpu``, and its entry points refuse to
-fall back to the CPU silently."""
+"""The port stands alone: ``pagraph_tpu_torch``, ``chip_smoke.py`` and
+``ab_window.py`` import neither JAX nor anything of ``pagraph_tpu``, and its
+entry points refuse to fall back to the CPU silently."""
 import ast
 import os
 import subprocess
@@ -21,14 +21,14 @@ PKG = os.path.join(ROOT, "pagraph_tpu_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")]
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", "ab_window.py"])
 FORBIDDEN = ("jax", "jaxlib", "pagraph_tpu")
-# every source file of the port, C++ and CUDA included, and chip_smoke.py
+# every source file of the port, C++ and CUDA included, and the scripts
 ALL_SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, files in os.walk(PKG) for f in files
      if f.endswith((".py", ".cpp", ".cu", ".cuh", ".h"))]
-    + ["chip_smoke.py"])
+    + ["chip_smoke.py", "ab_window.py"])
 
 
 def test_import_loads_no_jax():
