@@ -54,7 +54,9 @@ Phases, each printed as one JSON line:
   sampler is native, every run launches 4 kernels a step (5 at bf16
   compute) and a replay those 4 (5), the runs' batches, edges and miss
   rates equal their graph run's (and bytes shipped at the same K), the
-  access-frequency graphs read the refilled cache, each replayed group's
+  access-frequency graphs read the refilled cache (and the refill freed
+  the first fill's rows: the script holds them weakly, so the run's peak
+  is the Trainer's own), each replayed group's
   loss is within 1e-6 relative of the eager form's (or the eager spread,
   if larger) and every parameter within 1e-5 of its norm (or the spread),
   the bf16 replayed run's losses and parameters equal the eager run's to
@@ -120,6 +122,24 @@ Phases, each printed as one JSON line:
   and so is a resume into the Trainer whose graphs replayed epoch 1, which
   replays it again (its tensors restored in place); at f32 the difference
   is reported beside the spread of two resumed runs;
+* ``model_families``: GCN, GIN and GAT through ``Trainer.from_dataset`` at
+  the JAX package's OGB-leaderboard width (2 hidden layers, 3 blocks,
+  hidden 256, GAT 4 heads of 64; batch 1024, fan-outs (15, 10, 5), dropout
+  0.5, Adam 1e-2) on the same graph and features with the 2-hop teacher
+  labels, the train set cut to its first 65,536 vertices (64 steps an
+  epoch). For each: the host path (cache at 40%, K = 8) 2 epochs at f32
+  (epoch 1 replayed) and 1 at bf16 compute, with exactly 6 launches a step
+  for GCN (the assembly, three ``gather_reduce_mean``, two
+  ``gather_reduce_bwd_mean``) and GIN (``block_gather_fwd_sum``,
+  ``block_gather_bwd_sum``), 8 at bf16 compute (two ``grad_to_bf16``), and
+  7 for GAT at either dtype (three ``gather_rows`` of the table ``[z |
+  att_s | att_n]``, three ``scatter_add_rows``); the on-device path
+  (``steps`` mode) 2 epochs, epoch 1 replayed, bit-equal to a fresh
+  Trainer's eager form, one assembly a step; device inference and
+  ``evaluate`` on RMAT-20 (validation accuracy); device logits within 1e-4
+  of each row's largest host logit on RMAT-16 (GAT: RMAT-14); the loss
+  finite and falling; then ``mlp_val_acc`` on the same labels, and the
+  phase's seconds;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -163,7 +183,13 @@ Phases, each printed as one JSON line:
   ``scatter_add_rows[_bf16][block1 self bwd | lstm step ids]`` (one
   cooperative launch) at block 1's self rows and at the lstm step's ids
   (self rows, then every neighbor slot), f32 within 1e-5, bf16 as the
-  other bf16 tables;
+  other bf16 tables; and at the model families' shapes (one host batch of
+  the GCN run: 1024 seeds, fan-outs 15/10/5): ``gather_reduce_mean[gcn
+  block0|1|2]`` and ``gather_reduce_bwd_mean[gcn block1|2]`` (its
+  ``library_ms`` ``index_add_``), ``block_gather_fwd_sum[gin block0|1|2]``
+  and ``block_gather_bwd_sum[gin block1|2]``, ``gather_rows`` and
+  ``scatter_add_rows[gat block0 table]`` (the 264-column table, against
+  ``index_select`` and ``index_add_``), with the families' launches;
 * ``fwd_branches``: the block forward and backward on the card, on f32 and
   on bf16 rows, at the branches the main path does not take -- D = 30
   (scalar rows), a table one element off its unit's alignment, fan-out 7
@@ -232,6 +258,8 @@ import os
 import subprocess
 import sys
 import time
+import types
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -486,6 +514,356 @@ def scatter_branches(torch, gk, dev):
     return out
 
 
+def executed_launches(counted, runner):
+    """The launches run since the counters' reset: ``counted`` (which counts
+    a launch captured into a graph once, at capture) with each of
+    ``runner``'s graphs' captured launches times its replays in place of that
+    once (its graphs captured since the reset).  ``runner``: a
+    ``DeviceEpochRunner``, a host Trainer's ``group_graphs``, or None."""
+    out = dict(counted)
+    for g in (runner.graphs if runner is not None else ()):
+        for k, v in g.launches.items():
+            out[k] += v * (g.replays - 1)
+    return out
+
+
+def epoch_rows(ms):
+    return [{"epoch": m.epoch, "time_s": m.time_s, "batches": m.num_batches,
+             "edges": m.edges, "edges_per_s": m.edges / m.time_s,
+             "mean_loss": m.mean_loss, "mean_acc": m.mean_acc,
+             "miss_rate": m.miss_rate, "h2d_bytes": m.h2d_bytes} for m in ms]
+
+
+def run_trainer(torch, gk, what, make, n_epochs, per_step):
+    """A fresh Trainer from ``make()`` for ``n_epochs``: setup, epochs,
+    launches run (eager ones plus each graph's replays), peak device bytes;
+    fails unless ``per_step`` (key -> launches a step) is exactly what ran,
+    every loss is finite and, over 2 epochs, the loss falls."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t_ = make()
+    t_._maybe_fill_cache()
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    gk.reset_launch_counts()
+    ms = [t_.run_epoch(e) for e in range(n_epochs)]
+    torch.cuda.synchronize()
+    runner = t_.epoch_runner if t_._device_mode else t_.group_graphs
+    counts = {k: v for k, v in executed_launches(gk.launch_counts(), runner).items() if v}
+    steps = sum(m.num_batches for m in ms)
+    out = {"setup_s": setup, "capture_s": t_.timers.total["capture"],
+           "epochs": epoch_rows(ms), "launches": counts,
+           "launches_per_step": sum(counts.values()) / steps,
+           "peak_device_bytes": torch.cuda.max_memory_allocated() - start_bytes}
+    losses = [m.mean_loss for m in ms]
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{what}: non-finite loss {losses}")
+    if counts != {k: v * steps for k, v in per_step.items()}:
+        fail(f"{what}: launches {counts} over {steps} steps, expected {per_step} a step")
+    if n_epochs > 1 and not losses[-1] < losses[0]:
+        fail(f"{what}: loss did not fall: {losses}")
+    return t_, out
+
+
+# -- model_families: GCN, GIN and GAT at the leaderboard width ----------------
+FAMILY_TRAIN_VERTICES = 65_536         # the one cut: 64 steps an epoch at batch 1024
+FAMILIES = ("gcn", "gin", "gat")
+# the RMAT scale of the graph where device logits are held against the host's:
+# a host pass stays within seconds (GAT's host edge softmax is np.add.at)
+FAMILY_HOST_SCALES = {"gcn": 16, "gin": 16, "gat": 14}
+
+
+def family_config(pt, arch: str, num_nodes: int, *, on_device: bool = False,
+                  compute: str = "float32", dispatch: str = "scan"):
+    """The JAX package's OGB-leaderboard shape (BENCH_NOTES.md): 2 hidden
+    layers (3 blocks) of width 256 (GAT: 4 heads of 64), 100-dim features,
+    47 classes, dropout 0.5, batch 1024, fan-outs (15, 10, 5), Adam 1e-2;
+    the host path's cache at 40% of the vertices, the device path's full."""
+    return pt.Config(
+        model=pt.ModelConfig(arch=arch, n_layers=2, hidden=64 if arch == "gat" else 256,
+                             num_heads=4, feat_dim=100, n_classes=47, dropout=0.5),
+        sampler=pt.SamplerConfig(batch_size=1024, fanouts=(15, 10, 5), num_hops=3, seed=0,
+                                 prefetch=3),
+        cache=pt.CacheConfig(enabled=True,
+                             capacity=None if on_device else int(num_nodes * 0.4)),
+        train=pt.TrainConfig(lr=1e-2, warmup_epochs=1, on_device_sampling=on_device,
+                             dtype=compute, epoch_dispatch=dispatch))
+
+
+def family_step_launches(arch: str, compute: str) -> dict:
+    """The gather-kernel launches one host step makes (3 blocks): the
+    assembly; GCN a gather_reduce (mean) a block and a gather_reduce_bwd for
+    blocks 1 and 2; GIN the fused block forward (sum) a block and the fused
+    backward for blocks 1 and 2; GAT a gather_rows a block and a
+    scatter_add_rows a block (block 0's too: z depends on w).  At bf16
+    compute every key has its _bf16 twin and each block backward a
+    grad_to_bf16; scatter_add_rows rounds inside its one launch."""
+    sfx = "_bf16" if compute == "bfloat16" else ""
+    fwd, bwd, n_bwd = {"gcn": ("gather_reduce_mean", "gather_reduce_bwd_mean", 2),
+                       "gin": ("block_gather_fwd_sum", "block_gather_bwd_sum", 2),
+                       "gat": ("gather_rows", "scatter_add_rows", 3)}[arch]
+    out = {"assemble_f32" + ("_to_bf16" if sfx else ""): 1, fwd + sfx: 3, bwd + sfx: n_bwd}
+    if sfx and arch != "gat":
+        out["grad_to_bf16"] = n_bwd
+    return out
+
+
+def model_families(env):
+    """GCN, GIN and GAT through ``Trainer.from_dataset`` at the leaderboard
+    width on the RMAT-20 graph with the 2-hop teacher labels, the train set
+    cut to its first :data:`FAMILY_TRAIN_VERTICES` vertices.  For each: the
+    host path 2 epochs at f32 (epoch 1 replayed from the host-step graphs)
+    and 1 at bf16 compute, exact launches a step (:func:`family_step_launches`);
+    the on-device path, ``steps`` mode, 2 epochs (epoch 1 replayed) against
+    a fresh Trainer's 2 epochs through the eager form, bit-equal; device
+    inference and ``evaluate`` on RMAT-20; device against host logits on a
+    smaller graph (RMAT-16, GAT RMAT-14) within 1e-4 of each row's largest.
+    Then ``mlp_val_acc`` on the same labels.  Returns the phase's line and
+    the kernel cases at the families' shapes for the ``kernels`` line."""
+    torch, np, gk, pt = env.torch, env.np, env.gk, env.pt
+    t_phase = time.perf_counter()
+    ds = env.ds_nb
+    train_ids = np.nonzero(ds.train_mask)[0][:FAMILY_TRAIN_VERTICES]
+    cut = np.zeros_like(ds.train_mask)
+    cut[train_ids] = True
+    data = env.Dataset(ds.graph, ds.features, ds.labels, cut, ds.val_mask, ds.test_mask)
+    small = {}
+    for scale in set(FAMILY_HOST_SCALES.values()):
+        g = env.CSRGraph.from_coo(env.synthetic.rmat_coo(scale, 16, seed=42))
+        small[scale] = (g, np.random.default_rng(7).random((g.num_nodes, 100),
+                                                           dtype=np.float32))
+    out, bad, trainers = {"train_vertices": len(train_ids)}, [], {}
+    n = ds.num_nodes
+    for arch in FAMILIES:
+        t_arch = time.perf_counter()
+        entry = {}
+        t_host, entry["host_f32"] = run_trainer(
+            torch, gk, f"{arch} host", lambda: env.Trainer.from_dataset(
+                family_config(pt, arch, n), data, seed=0), 2,
+            family_step_launches(arch, "float32"))
+        entry["host_f32"]["graphs"] = len(t_host.group_graphs.graphs) if t_host.group_graphs \
+            else 0
+        entry["host_f32"]["caps"] = list(t_host.sampler.caps)
+        _, entry["host_bf16"] = run_trainer(
+            torch, gk, f"{arch} host bf16", lambda: env.Trainer.from_dataset(
+                family_config(pt, arch, n, compute="bfloat16"), data, seed=0), 1,
+            family_step_launches(arch, "bfloat16"))
+        # the on-device path: the replayed epoch against the eager form
+        cfg_d = family_config(pt, arch, n, on_device=True, dispatch="steps")
+        t_dev, entry["device_steps"] = run_trainer(
+            torch, gk, f"{arch} on-device", lambda: env.Trainer.from_dataset(
+                cfg_d, data, seed=0), 2, {"assemble_f32": 1})
+        replayed = [m["mean_loss"] for m in entry["device_steps"]["epochs"]]
+        p_r = {k: p.detach().clone() for k, p in t_dev.state.model.named_parameters()}
+        del t_dev
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_e = env.Trainer.from_dataset(cfg_d, data, seed=0)
+        runner = env.DeviceEpochRunner(cfg_d, t_e.state, t_e.epoch_inputs, t_e.device_data())
+        eager = []
+        for e in range(2):
+            t_e.epoch_inputs.load(*t_e.epoch_randomness(e, out=t_e.epoch_inputs))
+            v = runner().values()
+            eager.append(v["loss_sum"] / max(v["steps"], 1))
+        equal = replayed == eager and all(torch.equal(p_r[k], p) for k, p in
+                                          t_e.state.model.named_parameters())
+        entry["device_steps"]["eager_losses"] = eager
+        entry["device_steps"]["replay_bit_equal_to_eager"] = equal
+        if not equal:
+            worst = max(float((p_r[k] - p).abs().max()) for k, p in
+                        t_e.state.model.named_parameters())
+            bad.append(f"{arch}: the on-device replay is not bit-equal to the eager form "
+                       f"(losses {replayed} vs {eager}, parameters {worst} apart)")
+        del t_e, runner, p_r
+        # inference: the device backend and evaluate on RMAT-20
+        model, mcfg = t_host.state.model, t_host.cfg.model
+        inf = {}
+        gk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = env.full_graph_logits(model, mcfg, ds.graph, ds.features, backend="device")
+        torch.cuda.synchronize()
+        inf["rmat20_device_s"] = time.perf_counter() - t0
+        inf["rmat20_device_launches"] = {k: v for k, v in gk.launch_counts().items() if v}
+        if not (logits.shape == (n, 47) and np.isfinite(logits).all()):
+            bad.append(f"{arch}: device logits of shape {logits.shape}, finite "
+                       f"{bool(np.isfinite(logits).all())}")
+        inf["val_acc"] = env.evaluate(model, mcfg, ds.graph, ds.features, ds.labels,
+                                      ds.val_mask, backend="device")
+        scale_s = FAMILY_HOST_SCALES[arch]
+        g, x = small[scale_s]
+        both = {}
+        for backend in ("host", "device"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            both[backend] = env.full_graph_logits(model, mcfg, g, x, backend=backend)
+            inf[f"rmat{scale_s}_{backend}_s"] = time.perf_counter() - t0
+        scale = 1.0 + np.abs(both["host"]).max(axis=1, keepdims=True)
+        inf["device_vs_host_max_row_rel_diff"] = float(
+            (np.abs(both["device"] - both["host"]) / scale).max())
+        if not inf["device_vs_host_max_row_rel_diff"] <= 1e-4:
+            bad.append(f"{arch}: device logits {inf['device_vs_host_max_row_rel_diff']} "
+                       "from the host's")
+        want = {"gcn": "gather_reduce_sum", "gin": "gather_reduce_sum"}.get(arch)
+        if want and inf["rmat20_device_launches"].get(want, 0) <= 0:
+            bad.append(f"{arch}: device inference launched no {want}")
+        entry["inference"] = inf
+        entry["seconds"] = time.perf_counter() - t_arch
+        out[arch] = entry
+        trainers[arch] = t_host
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["mlp_probe"] = {"val_acc": env.mlp_val_acc(ds.features, ds.labels, ds.train_mask,
+                                                   ds.val_mask, seed=0),
+                        "seconds": time.perf_counter() - t0}
+    out["val_acc"] = {arch: out[arch]["inference"]["val_acc"] for arch in FAMILIES}
+    out["note"] = (f"trained on neighborhood_labels(graph, features, 47, seed=1), the first "
+                   f"{FAMILY_TRAIN_VERTICES} train vertices; host f32 2 epochs (epoch 1 "
+                   "replayed), host bf16 1 eager epoch, on-device steps mode 2 epochs "
+                   "(epoch 1 replayed) against the eager form; mlp_probe on every train "
+                   "vertex (max_train 200000)")
+    out["seconds"] = time.perf_counter() - t_phase
+    cases = family_kernel_cases(env, trainers, out)
+    return out, cases, bad
+
+
+def family_kernel_cases(env, trainers, out):
+    """The kernel cases at the families' shapes, on one host batch of the
+    GCN trainer (the three share the sampler's configuration): the
+    ``gather_reduce`` (mean) forward at each GCN block and its backward at
+    blocks 1 and 2, the fused ``sum`` forward and backward at GIN's blocks,
+    and ``gather_rows`` and ``scatter_add_rows`` at GAT's block-0 table
+    ``[z | att_s | att_n]`` (264 columns).  Source rows: block 0 the
+    assembled features, deeper blocks random at the model's widths (256,
+    then 512 after the skip); gradients random.  Launches: the family's
+    host f32 run's."""
+    torch, gk, dev = env.torch, env.gk, env.dev
+    t_ = trainers["gcn"]
+    mb_h = t_.sampler.sample(t_.sampler.train_nids[:t_.cfg.sampler.batch_size])
+    mb = mb_h.to(dev)
+    plan = t_.cache.fetch_plan(mb_h.input_nids, mb_h.input_mask, track=False)
+    feats = gk.assemble(t_.cache.cache_values, torch.from_numpy(plan.src_row).to(dev),
+                        plan.miss_feats.to(dev))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    widths = (100, 256, 512)
+    srcs = [feats] + [torch.randn(mb.layer_nids[i].shape[0], w, generator=gen, device=dev)
+                      for i, w in enumerate(widths[1:], 1)]
+    cases = []
+
+    def distinct(*idx):
+        return int(torch.unique(torch.cat([i.reshape(-1) for i in idx])).numel())
+
+    def flat_of(b):
+        counts = b.neigh_mask.sum(1)
+        offsets = torch.zeros_like(counts)
+        offsets[1:] = torch.cumsum(counts, 0)[:-1]
+        return b.neigh_pos[b.neigh_mask].long(), offsets.long()
+
+    def launches_of(arch, key):
+        return out[arch]["host_f32"]["launches"].get(key, 0)
+
+    for bi, (b, src) in enumerate(zip(mb.blocks, srcs)):
+        n, f = b.neigh_pos.shape
+        s, d = src.shape
+        flat, offs = flat_of(b)
+        rows = distinct(b.neigh_pos[b.neigh_mask])
+        cases.append(dict(
+            name=f"gather_reduce_mean[gcn block{bi}]", key="gather_reduce_mean",
+            launches=launches_of("gcn", "gather_reduce_mean"),
+            replaces=f"{PALLAS}:132 gather_mean_pallas",
+            shape=f"src {list(src.shape)} pos/mask [{n}, {f}]", tol="reduce",
+            kernel=lambda s_=src, b_=b: gk.gather_reduce(s_, b_.neigh_pos, b_.neigh_mask,
+                                                          "mean"),
+            plain=lambda s_=src, b_=b: gk.gather_reduce_plain(s_, b_.neigh_pos,
+                                                               b_.neigh_mask, "mean"),
+            library=lambda s_=src, fl=flat, of=offs: torch.nn.functional.embedding_bag(
+                fl, s_, of, mode="mean"),
+            nbytes=5 * n * f + 4 * rows * d + 4 * n * d))
+        self_rows = distinct(b.self_pos, b.neigh_pos[b.neigh_mask])
+        cases.append(dict(
+            name=f"block_gather_fwd_sum[gin block{bi}]", key="block_gather_fwd_sum",
+            launches=launches_of("gin", "block_gather_fwd_sum"),
+            replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas",
+            shape=f"src {list(src.shape)} self_pos [{n}] pos/mask [{n}, {f}]",
+            tol=("exact", "reduce"),
+            kernel=lambda s_=src, b_=b: gk.block_gather_fwd(s_, b_.self_pos, b_.neigh_pos,
+                                                             b_.neigh_mask, "sum"),
+            plain=lambda s_=src, b_=b: gk.block_gather_fwd_plain(
+                s_, b_.self_pos, b_.neigh_pos, b_.neigh_mask, "sum"),
+            library=lambda s_=src, ids=b.self_pos.long(), fl=flat, of=offs: (
+                torch.index_select(s_, 0, ids),
+                torch.nn.functional.embedding_bag(fl, s_, of, mode="sum")),
+            nbytes=4 * n + 5 * n * f + 4 * self_rows * d + 8 * n * d))
+        if bi == 0:
+            continue
+        g_n = torch.randn(n, d, generator=gen, device=dev)
+        g_s = torch.randn(n, d, generator=gen, device=dev)
+        rows_b = b.neigh_mask.nonzero(as_tuple=True)[0]
+        cnt = b.neigh_mask.sum(1, keepdim=True).clamp(min=1).float()
+        ex_mean = (g_n / cnt)[rows_b].contiguous()
+        ex_sum = g_n[rows_b].contiguous()
+        buf, buf_s, buf_n = (torch.zeros(s, d, device=dev) for _ in range(3))
+        cases.append(dict(
+            name=f"gather_reduce_bwd_mean[gcn block{bi}]", key="gather_reduce_bwd_mean",
+            launches=launches_of("gcn", "gather_reduce_bwd_mean"),
+            replaces=f"{PALLAS}:132 gather_mean_pallas (backward; JAX: autodiff of jnp.take)",
+            shape=f"grad_out [{n}, {d}] pos/mask [{n}, {f}] -> [{s}, {d}]", tol="atomic",
+            kernel=lambda g_=g_n, b_=b, s_=s: gk.gather_reduce_bwd(
+                g_, b_.neigh_pos, b_.neigh_mask, s_, "mean"),
+            plain=lambda g_=g_n, b_=b, s_=s: gk.gather_reduce_bwd_plain(
+                g_, b_.neigh_pos, b_.neigh_mask, s_, "mean"),
+            library=lambda bb=buf, fl=flat, ex=ex_mean: bb.index_add_(0, fl, ex),
+            nbytes=5 * n * f + 4 * n * d + 4 * s * d))
+        cases.append(dict(
+            name=f"block_gather_bwd_sum[gin block{bi}]", key="block_gather_bwd_sum",
+            launches=launches_of("gin", "block_gather_bwd_sum"),
+            replaces=f"{PALLAS}:58 gather_rows_pallas + {PALLAS}:132 gather_mean_pallas "
+                     "(backward of both; JAX: autodiff of jnp.take)",
+            shape=f"g_self [{n}, {d}] self_pos [{n}], g_neigh [{n}, {d}] pos/mask "
+                  f"[{n}, {f}] -> [{s}, {d}]",
+            tol="atomic",
+            kernel=lambda gs=g_s, g_=g_n, b_=b, s_=s: gk.block_gather_bwd(
+                gs, b_.self_pos, g_, b_.neigh_pos, b_.neigh_mask, s_, "sum"),
+            plain=lambda gs=g_s, g_=g_n, b_=b, s_=s: gk.block_gather_bwd_plain(
+                gs, b_.self_pos, g_, b_.neigh_pos, b_.neigh_mask, s_, "sum"),
+            library=lambda bs=buf_s, bn=buf_n, gs=g_s, ids=b.self_pos.long(), fl=flat,
+            ex=ex_sum: (bs.index_add_(0, ids, gs), bn.index_add_(0, fl, ex)),
+            nbytes=4 * n + 5 * n * f + 8 * n * d + 4 * s * d))
+    # GAT block 0: one gather of [z | att_s | att_n] at the self rows and every
+    # neighbor slot, and its cooperative scatter backward
+    b0 = mb.blocks[0]
+    width = 4 * 64 + 2 * 4
+    table = torch.randn(srcs[0].shape[0], width, generator=gen, device=dev)
+    ids = torch.cat([b0.self_pos, b0.neigh_pos.reshape(-1)])
+    ids_l = ids.long()
+    n_ids, s0 = ids.shape[0], table.shape[0]
+    g_rows = torch.randn(n_ids, width, generator=gen, device=dev)
+    sbuf = torch.zeros(s0, width, device=dev)
+    cases.append(dict(
+        name="gather_rows[gat block0 table]", key="gather_rows",
+        launches=launches_of("gat", "gather_rows"),
+        replaces=f"{PALLAS}:58 gather_rows_pallas",
+        shape=f"src [{s0}, {width}] ids [{n_ids}]", tol="exact",
+        kernel=lambda: gk.gather_rows(table, ids),
+        plain=lambda: gk.gather_rows_plain(table, ids),
+        library=lambda: torch.index_select(table, 0, ids_l),
+        nbytes=4 * n_ids + 4 * distinct(ids) * width + 4 * n_ids * width))
+    cases.append(dict(
+        name="scatter_add_rows[gat block0 table]", key="scatter_add_rows",
+        launches=launches_of("gat", "scatter_add_rows"),
+        replaces=f"{PALLAS}:58 gather_rows_pallas (backward; JAX: autodiff of jnp.take)",
+        shape=f"grad_out [{n_ids}, {width}] -> [{s0}, {width}]", tol="atomic",
+        kernel=lambda: gk.scatter_add_rows(g_rows, ids, s0),
+        plain=lambda: gk.scatter_add_rows_plain(g_rows, ids, s0),
+        library=lambda: sbuf.index_add_(0, ids_l, g_rows),
+        nbytes=4 * n_ids + 4 * n_ids * width + 4 * s0 * width))
+    return cases
+
+
 def build_dataset(np, synthetic, Dataset, CSRGraph):
     """The bench.py graph: RMAT scale 20, edge factor 16, seed 42; 100-dim
     uniform features and 47-class labels argmax(feats @ proj) (seed 7);
@@ -518,6 +896,7 @@ def main() -> None:
                                                                sample_minibatch_device)
         from pagraph_tpu_torch.models.inference import (_BucketedNeighborhoods, evaluate,
                                                         full_graph_logits)
+        from pagraph_tpu_torch.models.mlp_probe import mlp_val_acc
         from pagraph_tpu_torch.storage.feature_store import (FeatureStore, build_prequantized,
                                                              quantize_store)
         from pagraph_tpu_torch.train.checkpoint import list_checkpoints
@@ -588,18 +967,6 @@ def main() -> None:
                                  lr_schedule="cosine" if cosine_steps else "none",
                                  lr_decay_steps=cosine_steps),
         )
-
-    def executed_launches(counted, runner):
-        """The launches run since the counters' reset: ``counted`` (which
-        counts a launch captured into a graph once, at capture) with each of
-        ``runner``'s graphs' captured launches times its replays in place of
-        that once (its graphs captured since the reset).  ``runner``: a
-        ``DeviceEpochRunner``, a host Trainer's ``group_graphs``, or None."""
-        out = dict(counted)
-        for g in (runner.graphs if runner is not None else ()):
-            for k, v in g.launches.items():
-                out[k] += v * (g.replays - 1)
-        return out
 
     def free_memory():
         gc.collect()
@@ -960,7 +1327,9 @@ def main() -> None:
         t_ = Trainer.from_dataset(cfg_h, ds, seed=0)
         t_.host_graphs = graphs
         t_._maybe_fill_cache()
-        first_fill = t_.cache.cache_values
+        # held weakly: a reference here would keep a refilled cache's old
+        # rows alive and charge them to the run's peak
+        first_fill = weakref.ref(t_.cache.cache_values)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
         gk.reset_launch_counts()
@@ -990,7 +1359,8 @@ def main() -> None:
                               if t_.group_graphs else []),
                "launches": {k: v for k, v in counts.items() if v},
                "run_peak_device_bytes": peak,
-               "cache_refilled": t_.cache.cache_values is not first_fill,
+               "cache_refilled": t_.cache.cache_values is not first_fill(),
+               "first_fill_released": first_fill() is None,
                "graphs_read_current_cache": (t_.group_graphs.cache_values
                                              is t_.cache.cache_values
                                              if t_.group_graphs else None),
@@ -1108,6 +1478,8 @@ def main() -> None:
                 hd_bad.append(f"{label}: the graphs do not read the cache's current rows")
             if out["cache_refilled"] != (pre == "access_freq"):
                 hd_bad.append(f"{label}: cache refilled: {out['cache_refilled']}")
+            if out["cache_refilled"] and not out["first_fill_released"]:
+                hd_bad.append(f"{label}: the refill kept the first fill's rows alive")
             if not all(math.isfinite(m.mean_loss) for m in ms):
                 hd_bad.append(f"{label}: non-finite loss")
             for m, r in zip(ms, runs[graph_k8][0]):
@@ -1418,64 +1790,31 @@ def main() -> None:
                     ds.test_mask)
     nb_labels_s = time.perf_counter() - t0
 
-    def epoch_rows(ms):
-        return [{"epoch": m.epoch, "time_s": m.time_s, "batches": m.num_batches,
-                 "edges": m.edges, "edges_per_s": m.edges / m.time_s,
-                 "mean_loss": m.mean_loss, "mean_acc": m.mean_acc,
-                 "miss_rate": m.miss_rate, "h2d_bytes": m.h2d_bytes} for m in ms]
-
-    def run_trainer(what, make, n_epochs, per_step):
-        """A fresh Trainer from ``make()`` for ``n_epochs``: setup, epochs,
-        launches run (eager ones plus each graph's replays); fails unless
-        ``per_step`` (key -> launches a step) is exactly what ran, every
-        loss is finite and, over 2 epochs, the loss falls."""
-        t0 = time.perf_counter()
-        t_ = make()
-        t_._maybe_fill_cache()
-        torch.cuda.synchronize()
-        setup = time.perf_counter() - t0
-        gk.reset_launch_counts()
-        ms = [t_.run_epoch(e) for e in range(n_epochs)]
-        torch.cuda.synchronize()
-        runner = t_.epoch_runner if t_._device_mode else t_.group_graphs
-        counts = {k: v for k, v in executed_launches(gk.launch_counts(), runner).items() if v}
-        steps = sum(m.num_batches for m in ms)
-        out = {"setup_s": setup, "capture_s": t_.timers.total["capture"],
-               "epochs": epoch_rows(ms), "launches": counts,
-               "launches_per_step": sum(counts.values()) / steps}
-        losses = [m.mean_loss for m in ms]
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"{what}: non-finite loss {losses}")
-        if counts != {k: v * steps for k, v in per_step.items()}:
-            fail(f"{what}: launches {counts} over {steps} steps, expected {per_step} a step")
-        if n_epochs > 1 and not losses[-1] < losses[0]:
-            fail(f"{what}: loss did not fall: {losses}")
-        return t_, out
-
     agg_tr, agg_out = {}, {"neighborhood_labels_s": nb_labels_s}
     host_keys = {"pool": ("block_gather_fwd_max", "block_gather_bwd_max"),
                  "lstm": ("gather_rows", "scatter_add_rows")}
     for agg in ("pool", "lstm"):
         fwd_key, bwd_key = host_keys[agg]
         agg_tr[agg], agg_out[f"{agg}_host"] = run_trainer(
-            f"{agg} host", lambda a=agg: Trainer.from_dataset(config(a), ds_nb, seed=0), 2,
+            torch, gk, f"{agg} host",
+            lambda a=agg: Trainer.from_dataset(config(a), ds_nb, seed=0), 2,
             {"assemble_f32": 1, fwd_key: 2, bwd_key: 1})
         free_memory()
         _, agg_out[f"{agg}_device"] = run_trainer(
-            f"{agg} on-device", lambda a=agg: Trainer.from_dataset(
+            torch, gk, f"{agg} on-device", lambda a=agg: Trainer.from_dataset(
                 config(a, on_device=True, paired=True), ds_nb, seed=0), 1, {"assemble_f32": 1})
         free_memory()
     _, agg_out["pool_host_bf16"] = run_trainer(
-        "pool host bf16", lambda: Trainer.from_dataset(config("pool", compute="bfloat16"),
-                                                       ds_nb, seed=0), 1,
+        torch, gk, "pool host bf16",
+        lambda: Trainer.from_dataset(config("pool", compute="bfloat16"), ds_nb, seed=0), 1,
         {"assemble_f32_to_bf16": 1, "block_gather_fwd_max_bf16": 2,
          "block_gather_bwd_max_bf16": 1, "grad_to_bf16": 1})
     free_memory()
     # the lstm step at bf16 compute: scatter_add_rows writes the bf16 table
     # itself (no grad_to_bf16), so 4 launches a step
     _, agg_out["lstm_host_bf16"] = run_trainer(
-        "lstm host bf16", lambda: Trainer.from_dataset(config("lstm", compute="bfloat16"),
-                                                       ds_nb, seed=0), 1,
+        torch, gk, "lstm host bf16",
+        lambda: Trainer.from_dataset(config("lstm", compute="bfloat16"), ds_nb, seed=0), 1,
         {"assemble_f32_to_bf16": 1, "gather_rows_bf16": 2, "scatter_add_rows_bf16": 1})
     free_memory()
     pool_launches = agg_out["pool_host"]["launches"]
@@ -1517,7 +1856,7 @@ def main() -> None:
             ("f32_device", store_pre, "float32", True, 1, {"assemble_f32": 1}),
             ("int8_device", store_pre_i8, "int8", True, 1, {"assemble_int8": 1})):
         t_, pre_out[label] = run_trainer(
-            f"preprocess {label}", lambda s_=store_, d_=dtype, o_=on_device: Trainer(
+            torch, gk, f"preprocess {label}", lambda s_=store_, d_=dtype, o_=on_device: Trainer(
                 pre_config(d_, o_), s_, ds.graph, ds.train_nids, ds.labels, seed=0),
             n_ep, per_step)
         pre_out[label]["cache_row_bytes"] = t_.cache.total_dim * t_.cache.cache_values.element_size()
@@ -1654,6 +1993,17 @@ def main() -> None:
     emit("checkpoint", ck_out)
     if bad:
         fail("checkpoint: " + "; ".join(bad))
+
+    # -- model_families: GCN, GIN and GAT at the leaderboard width ------------
+    fam_out, family_cases, bad = model_families(types.SimpleNamespace(
+        torch=torch, np=np, gk=gk, pt=pt, dev=dev, ds_nb=ds_nb, Dataset=Dataset, CSRGraph=CSRGraph,
+        synthetic=synthetic, Trainer=Trainer, DeviceEpochRunner=DeviceEpochRunner,
+        full_graph_logits=full_graph_logits, evaluate=evaluate, mlp_val_acc=mlp_val_acc))
+    fam_out["nvidia_smi"] = smi
+    emit("model_families", fam_out)
+    if bad:
+        fail("model_families: " + "; ".join(bad))
+    free_memory()
 
     # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
     dtr = dev_tr["f32"]
@@ -2101,6 +2451,7 @@ def main() -> None:
     h1m_bf = h1m.to(bf)
     max_cases("bf16", feats_bf, h1m_bf, g1_bf, g1n_bf, 2, pool_bf16_launches, "bf16")
 
+    cases.extend(family_cases)
     entries, bad = [], []
     for c in cases:
         err, ok, tol_text = compare(torch, c["kernel"](), c["plain"](), c["tol"])

@@ -1,30 +1,39 @@
-"""Full-graph layer-wise inference and evaluation, GraphSAGE (the port of
-``pagraph_tpu/models/inference.py``).
+"""Full-graph layer-wise inference and evaluation (the port of
+``pagraph_tpu/models/inference.py``), for GraphSAGE, GCN, GIN and GAT.
 
 The reference evaluates by building a full-neighborhood NodeFlow over the
 test set and running the ``*Infer`` model variants.  Two backends with the
 same semantics, as in the JAX package:
 
   * ``host``: exact aggregation over all in-neighbors on the host (a scipy
-    CSR SpMM for sum and mean, a segment max for pool), the linears on the
+    CSR SpMM for sum and mean, a segment max for pool; GAT's edge softmax
+    in numpy, ``np.maximum.at`` and ``np.add.at``), the linears on the
     model's device in row batches;
   * ``device``: the whole layer-wise propagation on the model's device.
-    Aggregation is scatter-free: each vertex reduces a padded window of its
-    in-neighbor rows (:class:`_BucketedNeighborhoods`, vertices bucketed by
-    power-of-two in-degree, hubs split into windows whose partials a second
-    level reduces), each bucket one launch of the block forward kernel's
-    neighbor half (``gather_kernels.gather_reduce``, sum or max kind) at its
-    fan-out, 8 to 4096.  The window tables and their masks are built once a
-    graph.
+    Sum, mean and max aggregation is scatter-free: each vertex reduces a
+    padded window of its in-neighbor rows (:class:`_BucketedNeighborhoods`,
+    vertices bucketed by power-of-two in-degree, hubs split into windows
+    whose partials a second level reduces), each bucket one
+    ``gather_kernels.gather_reduce`` launch (sum or max kind) at its
+    fan-out, 8 to 4096: the block forward kernel's neighbor half at a
+    fan-out it has an unrolled instantiation for (8 and 16), the window
+    kernel (``pg_window_reduce``) from 32 slots up.  The window tables and
+    their masks are built once a graph.  GAT's per-edge softmax needs the
+    edges themselves: three chunked scans of the edge list on the device
+    (:func:`_gat_device_layer`, library scatters, as the JAX package's XLA
+    scatters; the JAX package has no Pallas kernel there).
 
-GraphSAGE per layer: ``fc_self(h) + fc_neigh(agg(h))`` with mean, gcn
-(sum), pool (max) or lstm over every in-neighbor; under preprocess the
-``pre`` update reads the full-graph mean of the features, which is what
-training's ``neigh`` field holds.  The lstm aggregate runs the training
-op (``ops.aggregate.block_aggregate_lstm``) on vertices bucketed by
+Per architecture: GraphSAGE ``fc_self(h) + fc_neigh(agg(h))`` with mean,
+gcn (sum), pool (max) or lstm over every in-neighbor, and under preprocess
+the ``pre`` update on the full-graph mean of the features (training's
+``neigh`` field); GCN the sum over every in-neighbor times the
+destination's norm (the exact mean), through ``dense`` first under
+preprocess (whose layer-0 aggregate is the store's ``features`` field); GIN
+``(1 + eps) h + sum``; GAT the softmax over every in-edge and the self
+edge.  The lstm aggregate runs the training op
+(``ops.aggregate.block_aggregate_lstm``) on vertices bucketed by
 power-of-two in-degree, on the model's device, for both backends, as the
-JAX package does.  The other architectures wait for their models (ROADMAP
-queue 1).
+JAX package does.  CV-GCN waits for its model (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import numpy as np
 import scipy.sparse as spsp
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..config import ModelConfig
 from ..graph import CSRGraph, gcn_norm
@@ -211,23 +221,158 @@ class _BucketedNeighborhoods:
         return torch.cat(outs).index_select(0, self.inv_perm)
 
 
-def _linears(model: nn.Module):
-    """``(pre, updates, lstm)``: the model's ``pre`` update (``None``
-    without preprocess), its block updates, and each block's LSTM
-    parameters (empty unless the lstm aggregator)."""
-    return (getattr(model, "pre", None), list(model.updates),
-            [m.params() for m in model.lstm])
+class _Host:
+    """The host backend: aggregation on the host (a scipy CSR SpMM for sum
+    and mean, a segment max for max), on CPU tensors; the linears on the
+    model's device in row batches; the lstm aggregate on the model's
+    device."""
+
+    def __init__(self, graph: CSRGraph, device: torch.device, batch_rows: int):
+        self.graph, self.device, self.batch_rows = graph, device, batch_rows
+        self.adj = _adj_csr(graph)
+        self.norm = gcn_norm(graph)
+
+    def tensor(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(x, dtype=np.float32))
+
+    def aggregate(self, h: torch.Tensor, kind: str) -> torch.Tensor:
+        return torch.from_numpy(_aggregate(self.graph, self.adj, h.numpy(), kind, self.norm))
+
+    def lstm(self, h: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return _lstm_full_aggregate(self.graph, h.to(self.device), params).cpu()
+
+    def lin(self, fn, h: torch.Tensor) -> torch.Tensor:
+        return torch.cat([fn(h[i:i + self.batch_rows].to(self.device)).cpu()
+                          for i in range(0, h.shape[0], self.batch_rows)])
+
+
+class _Device:
+    """The device backend: every aggregation a window reduction on the
+    model's device (mean: the sum times ``norm``)."""
+
+    def __init__(self, graph: CSRGraph, device: torch.device):
+        self.graph, self.device = graph, device
+        self.windows = _BucketedNeighborhoods(graph, device)
+        self.norm = torch.from_numpy(gcn_norm(graph)).to(device)[:, None]
+
+    def tensor(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(self.device)
+
+    def aggregate(self, h: torch.Tensor, kind: str) -> torch.Tensor:
+        if kind == "mean":
+            return self.windows.aggregate(h, "sum") * self.norm
+        return self.windows.aggregate(h, kind)
+
+    def lstm(self, h: torch.Tensor, params: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return _lstm_full_aggregate(self.graph, h, params)
+
+    def lin(self, fn, h: torch.Tensor) -> torch.Tensor:
+        return fn(h)
+
+
+def _leaky(x):
+    return np.where(x > 0, x, 0.2 * x)
+
+
+def _gat_full_graph_host(model: nn.Module, graph: CSRGraph, h: np.ndarray) -> np.ndarray:
+    """Exact full-neighborhood GAT in numpy, as the JAX package's: per
+    destination a softmax over all its in-edges and the self edge."""
+    n = graph.num_nodes
+    indptr, indices = graph.indptr, graph.indices
+    dst_e = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    last = len(model.layers) - 1
+    for li, layer in enumerate(model.layers):
+        w, a_s, a_n = (t.detach().cpu().numpy() for t in (layer.w, layer.a_self,
+                                                            layer.a_neigh))
+        k = a_s.shape[0]
+        z = (h @ w).reshape(n, k, -1)                        # [N, K, H]
+        att_s = np.einsum("nkh,kh->nk", z, a_s)
+        att_n = np.einsum("nkh,kh->nk", z, a_n)
+        e = _leaky(att_s[dst_e] + att_n[indices])            # [E, K]
+        e_self = _leaky(att_s + att_n)                       # [N, K]
+        m = e_self.copy()
+        np.maximum.at(m, dst_e, e)
+        w_e = np.exp(e - m[dst_e])
+        w_s = np.exp(e_self - m)
+        den = w_s.copy()
+        np.add.at(den, dst_e, w_e)
+        out = (w_s / den)[:, :, None] * z
+        np.add.at(out, dst_e, (w_e / den[dst_e])[:, :, None] * z[indices])
+        if li == last:
+            h = out.mean(axis=1)
+        else:
+            o = out.reshape(n, -1)
+            h = np.where(o > 0, o, np.expm1(np.minimum(o, 0.0)))   # elu
+    return h
+
+
+class _DeviceEdges:
+    """The edge list on a device, ``(src, dst)`` int64, read in chunks of
+    ``edge_chunk`` edges (GAT's device inference: its per-edge softmax needs
+    the edges themselves)."""
+
+    def __init__(self, graph: CSRGraph, device, edge_chunk: int = 1 << 20):
+        self.num_nodes = graph.num_nodes
+        self.edge_chunk = edge_chunk
+        self.src = torch.from_numpy(graph.indices.astype(np.int64)).to(device)
+        self.dst = torch.from_numpy(np.repeat(np.arange(graph.num_nodes, dtype=np.int64),
+                                              np.diff(graph.indptr))).to(device)
+
+    def chunks(self):
+        for i in range(0, self.src.shape[0], self.edge_chunk):
+            yield self.src[i:i + self.edge_chunk], self.dst[i:i + self.edge_chunk]
+
+
+def _gat_device_layer(layer: nn.Module, h: torch.Tensor, edges: _DeviceEdges) -> torch.Tensor:
+    """One exact full-neighborhood GAT layer, ``[N, K, H]``, by three scans
+    of the edge chunks: the per-destination max of the edge logits
+    (``scatter_reduce_`` amax), the softmax denominator and the weighted
+    messages (``index_add_``), as the JAX package's XLA scatters compute
+    them.  An edge's logit is recomputed in each scan from two gathers."""
+    k = layer.a_self.shape[0]
+    z = (h @ layer.w).unflatten(1, (k, -1))                  # [N, K, H]
+    att_s = torch.einsum("nkh,kh->nk", z, layer.a_self)
+    att_n = torch.einsum("nkh,kh->nk", z, layer.a_neigh)
+
+    def logits(s, d):
+        return F.leaky_relu(att_s[d] + att_n[s], 0.2)
+
+    e_self = F.leaky_relu(att_s + att_n, 0.2)                # [N, K]
+    m = e_self.clone()
+    for s, d in edges.chunks():
+        m.scatter_reduce_(0, d[:, None].expand(-1, k), logits(s, d), "amax")
+    w_self = torch.exp(e_self - m)
+    den = w_self.clone()
+    for s, d in edges.chunks():
+        den.index_add_(0, d, torch.exp(logits(s, d) - m[d]))
+    out = (w_self / den)[:, :, None] * z
+    for s, d in edges.chunks():
+        w = torch.exp(logits(s, d) - m[d]) / den[d]
+        out.index_add_(0, d, w[:, :, None] * z[s])
+    return out
+
+
+def _gat_full_graph_device(model: nn.Module, graph: CSRGraph, features: np.ndarray,
+                           device: torch.device) -> torch.Tensor:
+    edges = _DeviceEdges(graph, device)
+    h = torch.from_numpy(np.asarray(features, dtype=np.float32)).to(device)
+    last = len(model.layers) - 1
+    for li, layer in enumerate(model.layers):
+        out = _gat_device_layer(layer, h, edges)
+        h = out.mean(dim=1) if li == last else F.elu(out.flatten(1))
+    return h
 
 
 def full_graph_logits(model: nn.Module, cfg: ModelConfig, graph: CSRGraph,
                       features: np.ndarray, *, batch_rows: int = 65536,
                       backend: str = "host") -> np.ndarray:
-    """Logits of every vertex, f32 ``[N, n_classes]``, from a GraphSAGE
-    ``model`` on its device.  ``backend``: ``"host"`` (aggregation on the
-    host), ``"device"`` (all of it on the model's device, the window
-    reductions on the block kernel) or ``"auto"`` (device from
-    :data:`AUTO_DEVICE_EDGES` edges up)."""
-    if cfg.arch != "graphsage":
+    """Logits of every vertex, f32 ``[N, n_classes]``, from ``model`` on its
+    device (GraphSAGE, GCN, GIN or GAT).  ``backend``: ``"host"``
+    (aggregation on the host), ``"device"`` (all of it on the model's
+    device: the window reductions on the block kernel; GAT's edge scans on
+    library scatters) or ``"auto"`` (device from :data:`AUTO_DEVICE_EDGES`
+    edges up)."""
+    if cfg.arch not in ("graphsage", "gcn", "gin", "gat"):
         raise NotImplementedError(
             f"full-graph inference for {cfg.arch!r} is not ported yet (ROADMAP queue 1)")
     if backend == "auto":
@@ -235,62 +380,45 @@ def full_graph_logits(model: nn.Module, cfg: ModelConfig, graph: CSRGraph,
     if backend not in ("host", "device"):
         raise ValueError(f"unknown inference backend {backend!r}")
     dev = next(model.parameters()).device
-    pre, updates, lstms = _linears(model)
-    nl = cfg.n_layers
-    off = 1 if cfg.preprocess else 0
-    kind = AGG_KIND.get(cfg.aggregator)
-    norm_np = gcn_norm(graph)
     with torch.no_grad():
-        if backend == "device":
-            edges = _BucketedNeighborhoods(graph, dev)
-            norm = torch.from_numpy(norm_np).to(dev)[:, None]
-            h = torch.from_numpy(np.asarray(features, dtype=np.float32)).to(dev)
+        if cfg.arch == "gat":
+            if backend == "host":
+                return _gat_full_graph_host(model, graph, np.asarray(features, np.float32))
+            return _gat_full_graph_device(model, graph, features, dev).cpu().numpy()
+        be = _Host(graph, dev, batch_rows) if backend == "host" else _Device(graph, dev)
+        nl = cfg.n_layers
+        off = 1 if cfg.preprocess else 0
 
-            def mean(x):
-                return edges.aggregate(x, "sum") * norm
+        def finish(out, gi):
+            if gi == nl - 1 and cfg.skip_connection:
+                return torch.cat([out, torch.relu(out)], dim=1)
+            return torch.relu(out) if gi < nl else out
 
-            def agg(x, li):
-                if cfg.aggregator == "lstm":
-                    return _lstm_full_aggregate(graph, x, lstms[li])
-                return mean(x) if kind == "mean" else edges.aggregate(x, kind)
-
-            def lin(p, x):
-                return p(x)
-
-            def finish(out, gi):
-                if gi == nl - 1 and cfg.skip_connection:
-                    return torch.cat([out, torch.relu(out)], dim=1)
-                return torch.relu(out) if gi < nl else out
+        h = be.tensor(features)
+        if cfg.arch == "gcn":
+            # training's mean over the sample; here the sum times the
+            # destination's norm, the exact mean (the store's preprocess
+            # field is this mean of the features)
+            if cfg.preprocess:
+                h = finish(be.lin(model.dense, be.aggregate(h, "mean")), 0)
+            for li, upd in enumerate(model.updates):
+                h = finish(be.lin(upd, be.aggregate(h, "mean")), li + off)
+        elif cfg.arch == "gin":
+            # training sums over the sampled fan-out; here over every in-neighbor
+            for li, upd in enumerate(model.updates):
+                pre = (1.0 + upd.eps.to(h.device)) * h + be.aggregate(h, "sum")
+                h = finish(be.lin(lambda x, u=upd: u.w2(torch.relu(u.w1(x))), pre), li)
         else:
-            adj = _adj_csr(graph)
-            h = np.asarray(features, dtype=np.float32)
-
-            def mean(x):
-                return (adj @ x) * norm_np[:, None]
-
-            def agg(x, li):
-                if cfg.aggregator == "lstm":
-                    return _lstm_full_aggregate(
-                        graph, torch.from_numpy(x).to(dev), lstms[li]).cpu().numpy()
-                return _aggregate(graph, adj, x, kind, norm_np)
-
-            def lin(p, x):
-                return np.concatenate([
-                    p(torch.from_numpy(np.ascontiguousarray(x[i:i + batch_rows])).to(dev)
-                      ).cpu().numpy()
-                    for i in range(0, x.shape[0], batch_rows)], axis=0)
-
-            def finish(out, gi):
-                if gi == nl - 1 and cfg.skip_connection:
-                    return np.concatenate([out, np.maximum(out, 0.0)], axis=1)
-                return np.maximum(out, 0.0) if gi < nl else out
-
-        if cfg.preprocess:
-            # training's neigh field is the full-graph mean aggregate
-            h = finish(lin(pre["self"], h) + lin(pre["neigh"], mean(h)), 0)
-        for li, upd in enumerate(updates):
-            h = finish(lin(upd["self"], h) + lin(upd["neigh"], agg(h, li)), li + off)
-    return h.cpu().numpy() if isinstance(h, torch.Tensor) else h
+            if cfg.preprocess:
+                # training's neigh field is the full-graph mean aggregate
+                h = finish(be.lin(model.pre["self"], h)
+                           + be.lin(model.pre["neigh"], be.aggregate(h, "mean")), 0)
+            kind = AGG_KIND.get(cfg.aggregator)
+            for li, upd in enumerate(model.updates):
+                h_agg = (be.lstm(h, model.lstm[li].params()) if cfg.aggregator == "lstm"
+                         else be.aggregate(h, kind))
+                h = finish(be.lin(upd["self"], h) + be.lin(upd["neigh"], h_agg), li + off)
+    return h.cpu().numpy()
 
 
 def evaluate(model: nn.Module, cfg: ModelConfig, graph: CSRGraph, features: np.ndarray,

@@ -126,11 +126,13 @@ class FeatureCache:
         *,
         device=None,                 # None: the GPU (RuntimeError without one)
         dtype: str = "float32",
+        reserve_bytes: int = 1 << 30,  # device memory a capacity=None fill leaves free
     ):
         if dtype not in ROW_DTYPES:
             raise ValueError(f"cache dtype must be one of {tuple(ROW_DTYPES)}, got {dtype!r}")
         self.dtype = dtype
         self.row_dtype = ROW_DTYPES[dtype]
+        self.reserve_bytes = reserve_bytes
         self.store = store
         self.field_names = list(field_names)
         self.graph = local_graph
@@ -181,10 +183,13 @@ class FeatureCache:
             raise ValueError(f"unknown rank_by {rank_by!r}")
         return np.argsort(-score, kind="stable")
 
-    def auto_capacity(self, reserve_bytes: int = 1 << 30) -> int:
-        """Vertices whose rows fit in the device's free memory, at the
+    def auto_capacity(self, reserve_bytes: Optional[int] = None) -> int:
+        """Vertices whose rows fit in the device's free memory less
+        ``reserve_bytes`` (the cache's ``reserve_bytes`` by default), at the
         tier's own row width: bf16 caches twice the vertices of f32, int8
         four times."""
+        if reserve_bytes is None:
+            reserve_bytes = self.reserve_bytes
         free = free_device_bytes(self.device)
         row_bytes = self.total_dim * self.row_dtype.itemsize
         return int(max(free - reserve_bytes, 0) // row_bytes)
@@ -210,8 +215,13 @@ class FeatureCache:
         """Size and populate the cache: everything if it fits, else the top
         ``capacity`` vertices by ``rank_by``.  A full fill keeps the identity
         map (cache row = vertex id), which the on-device path reads rows by;
-        ``fully_cached`` says it holds."""
+        ``fully_cached`` says it holds.  The rows of an earlier fill are
+        released first (and on CUDA handed back to the device), so a
+        ``capacity=None`` refill sizes itself without them."""
         n = self.graph.num_nodes
+        self.cache_values = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
         if capacity is None:
             capacity = self.auto_capacity()
         capacity = max(0, min(capacity, n))

@@ -50,11 +50,13 @@ takes a pre-quantized store (``storage.feature_store.quantize_store`` or
 ``build_prequantized``) as well as an f32 one; the int8 cache then holds
 and ships the store's own rows, on the on-device path too.
 
-GraphSAGE preprocess (``model.preprocess=True``): ``from_dataset`` builds
-the store with its ``neigh`` field (``FeatureStore.build(preprocess=
-"graphsage")``), the cache holds and fetches ``features`` and ``neigh``
-side by side (``state.layer0_fields``), and the sampler expands one hop
-less, on both paths.
+Architectures: GraphSAGE, GCN, GIN and GAT (``models.get_model``), on
+both paths.  Preprocess (``model.preprocess=True``, GraphSAGE and GCN): the
+sampler expands one hop less, on both paths, and ``from_dataset`` builds the
+store's layer-0 aggregate: for GraphSAGE its ``neigh`` field
+(``FeatureStore.build(preprocess="graphsage")``), which the cache holds and
+fetches beside ``features`` (``state.layer0_fields``); for GCN in place of
+``features`` (``preprocess="gcn"``), as the JAX package's does.
 
 Evaluation and checkpoints, on both paths: every ``train.eval_every``
 epochs the full-graph accuracy on ``eval_data`` (``models.inference.
@@ -67,8 +69,7 @@ Both read the parameters after the epoch's one sync, which waits for the
 stream that ran the epoch.
 
 Not ported yet, and refused with ``NotImplementedError``: remote
-(isolation-mode) sampling and every architecture but GraphSAGE
-(``models.get_model``), CV-GCN included.
+(isolation-mode) sampling and CV-GCN (``models.get_model``).
 """
 from __future__ import annotations
 
@@ -147,7 +148,8 @@ class Trainer:
         self.log = log
         self._eval_data = eval_data
         self.cache = FeatureCache(store, layer0_fields(cfg), local_graph, local2full,
-                                  device=self.device, dtype=cfg.cache.dtype)
+                                  device=self.device, dtype=cfg.cache.dtype,
+                                  reserve_bytes=cfg.cache.hbm_reserve_bytes)
         self.timers = PhaseTimers()
         self._cache_filled = False
         self.epoch_metrics: List[EpochMetrics] = []
@@ -188,8 +190,11 @@ class Trainer:
 
     @classmethod
     def from_dataset(cls, cfg: Config, ds: Dataset, **kw) -> "Trainer":
-        store = FeatureStore.build(ds.graph, ds.features,
-                                   preprocess="graphsage" if cfg.model.preprocess else None)
+        m = cfg.model
+        # GCN preprocess replaces the features field with the full-graph mean
+        # aggregate; GraphSAGE's keeps it and adds that aggregate as neigh
+        pre = ("gcn" if m.arch in ("gcn", "gcn_cv") else m.arch) if m.preprocess else None
+        store = FeatureStore.build(ds.graph, ds.features, preprocess=pre)
         if cfg.train.eval_every and "eval_data" not in kw:
             kw["eval_data"] = (ds.graph, ds.features, ds.labels, ds.val_mask)
         return cls(cfg, store, ds.graph, ds.train_nids, ds.labels, **kw)
@@ -251,14 +256,17 @@ class Trainer:
             torch.cuda.current_stream(self.device).wait_stream(side)
         tot_loss, tot_acc = self._acc.tolist()      # the epoch's one device sync
         self._host_epochs += 1
+        eager = None                # its reference to the cache rows goes before a refill
         c = self.cfg.cache
         if (epoch == 0 and c.enabled and c.rank_by == "access_freq"
                 and not self.cache.fully_cached):
             # refill by observed access frequency after the probe epoch.  The
             # loader's threads have been joined: every plan of this epoch
             # indexed the old fill, and the next epoch's index the new one
-            # (graphs, captured from the next epoch on, read the new rows)
-            self.cache.fill(capacity=c.capacity, rank_by="access_freq")
+            # (graphs, captured from the next epoch on, read the new rows).
+            # The refill keeps the first fill's capacity: at capacity=None,
+            # sizing again would count the first fill's rows as used
+            self.cache.fill(capacity=self.cache.capacity, rank_by="access_freq")
         em = EpochMetrics(
             epoch=epoch,
             mean_loss=tot_loss / max(nb, 1),

@@ -3,25 +3,30 @@
 
 One step: assemble the layer-0 features from the device cache and the
 shipped miss rows (one launch, which widens the bf16 and int8 cache tiers
-to f32), run GraphSAGE forward (one fused gather
-launch per block), the masked cross-entropy, backward (one fused scatter-add
-launch for each block whose source needs a gradient) and Adam: 4 kernel
-launches for the 2-layer model.  Nothing in a
-step waits for the device: loss and accuracy come back as device tensors.
-The on-device epoch (``train/device_epoch.py``) fetches its features
-otherwise and shares the rest, :func:`train_on_features`.  Under GraphSAGE
-preprocess the layer-0 table holds two store fields side by side,
-``features`` and ``neigh`` (:func:`layer0_fields`, fetched in the same
-launch, ``model.feat_dim`` columns each), which the step slices apart as
-the JAX package's steps slice ``fused[:, offsets[...]]``.
+to f32), run the model's forward (one gather launch per block), the masked
+cross-entropy, backward (one scatter-add launch for each block whose source
+needs a gradient) and Adam.  For the architectures of ``models.get_model``
+(GraphSAGE, GCN, GIN, GAT) that is 1 + blocks + the blocks that need a
+gradient: 4 for GraphSAGE with 2 blocks, 6 for GCN and GIN with 3 (layer 0
+needs none), 7 for GAT with 3 (its block 0 does: its messages are
+``h @ w``).  Nothing in a step waits for the device: loss and accuracy come
+back as device tensors.  The on-device epoch (``train/device_epoch.py``)
+fetches its features otherwise and shares the rest,
+:func:`train_on_features`.  Under GraphSAGE preprocess the layer-0 table
+holds two store fields side by side, ``features`` and ``neigh``
+(:func:`layer0_fields`, fetched in the same launch, ``model.feat_dim``
+columns each), which the step slices apart as the JAX package's steps slice
+``fused[:, offsets[...]]``; under GCN preprocess it holds ``features``
+alone, which the store built as their full-graph mean.
 
 ``train.dtype="bfloat16"`` is the JAX package's mixed precision
 (``cast_apply``): the forward, and so the backward, run on bf16 copies of
 the parameters and bf16 features, while the master parameters, the Adam
 state, the logits and the loss stay f32.  The assembly then writes its
 features as bf16 (the same launch), and the block kernels run on bf16 rows;
-the backward adds into an f32 table and rounds it in a second launch, so a
-bf16 step launches 5 kernels.
+the block backward adds into an f32 table and rounds it in a second
+launch, so a bf16 GraphSAGE step launches 5 kernels (GCN and GIN 8; GAT
+7, since ``scatter_add_rows`` rounds inside its one launch).
 
 The optimizer is Adam with its learning rate a 0-d f32 tensor on the
 parameters' device, under ``train.lr_schedule``: ``"none"`` keeps it
@@ -183,12 +188,13 @@ def train_on_features(state: TrainState, mb: MiniBatch,
                       feats: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The step after the layer-0 fetch: forward, masked cross-entropy,
     backward and Adam on the layer-0 table ``feats`` (f32, or bf16 at bf16
-    compute; under preprocess ``[features | neigh]``, :func:`layer0_fields`),
+    compute; under GraphSAGE preprocess ``[features | neigh]``,
+    :func:`layer0_fields`),
     through :func:`cast_apply`; ``{"loss", "acc"}`` as device scalars (no
     host sync)."""
     m = state.model.cfg
     kw = {}
-    if m.preprocess:
+    if m.arch == "graphsage" and m.preprocess:
         feats, kw["neigh_feats"] = feats[:, :m.feat_dim], feats[:, m.feat_dim:]
     logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator, **kw)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)

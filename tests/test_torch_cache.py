@@ -1,11 +1,18 @@
 """The port's feature store and device cache against ``pagraph_tpu.storage``:
 the same store and graph must give bit-equal fills, plans and (valid)
-assembled rows, at every cache tier (f32, bf16, int8)."""
+assembled rows, at every cache tier (f32, bf16, int8).  And two repairs of
+the port's own: the ``access_freq`` refill after epoch 0 keeps the first
+fill's capacity at ``capacity=None`` (the old table released first, on a
+device whose free memory counts every live table), and
+``cache.hbm_reserve_bytes`` sizes a ``capacity=None`` fill."""
+import weakref
+
 import numpy as np
 import pytest
 import torch
 
 import pagraph_tpu as pg
+import pagraph_tpu_torch as pt
 from pagraph_tpu.sampling.sampler import NeighborSampler as JSampler
 from pagraph_tpu.storage import cache as jcache
 from pagraph_tpu.storage.feature_store import FeatureStore as JStore
@@ -13,6 +20,7 @@ from pagraph_tpu.utils import platform as jplatform
 from pagraph_tpu_torch.graph import CSRGraph as TGraph
 from pagraph_tpu_torch.storage import cache as tcache
 from pagraph_tpu_torch.storage.feature_store import FeatureStore as TStore
+from pagraph_tpu_torch.train.loop import Trainer
 
 TIERS = ("float32", "bfloat16", "int8")
 
@@ -154,3 +162,71 @@ def test_unported_tiers_raise(pair):
     with pytest.raises(ValueError):      # capacity=None sizes from GPU memory
         tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph),
                             device="cpu").fill(None)
+
+
+def _charging_live_caches(monkeypatch, total):
+    """``free_device_bytes`` of a device with ``total`` bytes that every
+    live cache table of a ``FeatureCache.fill`` uses (a table is live while
+    anything references it), as ``mem_get_info`` sees a CUDA device."""
+    live = weakref.WeakSet()
+    fill = tcache.FeatureCache.fill
+
+    def tracking_fill(self, *a, **kw):
+        fill(self, *a, **kw)
+        live.add(self.cache_values)
+
+    monkeypatch.setattr(tcache.FeatureCache, "fill", tracking_fill)
+    monkeypatch.setattr(tcache, "free_device_bytes",
+                        lambda device: total - sum(t.nbytes for t in live))
+
+
+def _host_cfg(**cache):
+    return pt.Config(model=pt.ModelConfig(arch="graphsage", n_layers=1, hidden=8, feat_dim=32,
+                                          n_classes=10, dropout=0.0),
+                     sampler=pt.SamplerConfig(batch_size=256, fanout=3, num_hops=2, seed=1),
+                     cache=pt.CacheConfig(**cache),
+                     train=pt.TrainConfig(lr=1e-2))
+
+
+def test_access_freq_refill_keeps_the_first_capacity(small_ds, monkeypatch):
+    """``capacity=None`` with ``rank_by="access_freq"``: the refill after
+    epoch 0 holds as many vertices as the first fill, on a device whose
+    free memory counts every live cache table.  The old table is released
+    before the new one is sized and copied, so a second ``fill(None)`` of
+    the same cache sizes itself the same too."""
+    from pagraph_tpu_torch.data.synthetic import synthetic_dataset
+    ds = synthetic_dataset(num_nodes=2000, num_edges=16000, feat_dim=32, num_classes=10,
+                           seed=3)
+    reserve, room = 1 << 30, 32 * 4 * 700          # 700 f32 rows
+    _charging_live_caches(monkeypatch, reserve + room)
+    tr = Trainer.from_dataset(_host_cfg(capacity=None, rank_by="access_freq"), ds,
+                              device="cpu")
+    tr._maybe_fill_cache()
+    first = (tr.cache.capacity, tr.cache.cache_values.shape)
+    assert first == (700, (700, 32)) and not tr.cache.fully_cached
+    before = tr.cache.cache_map.copy()
+    tr.run_epoch(0)
+    assert (tr.cache.capacity, tr.cache.cache_values.shape) == first
+    assert not np.array_equal(tr.cache.cache_map, before)      # it did refill
+    tr.cache.fill(None, rank_by="access_freq")
+    assert tr.cache.capacity == 700
+
+
+def test_hbm_reserve_bytes_sizes_a_none_fill(small_ds, monkeypatch):
+    """``cache.hbm_reserve_bytes`` reaches the Trainer's cache: a
+    ``capacity=None`` fill leaves that many bytes free (here 1 MiB, not the
+    default 1 GiB); ``auto_capacity(reserve)`` still takes an explicit
+    reserve."""
+    from pagraph_tpu_torch.data.synthetic import synthetic_dataset
+    ds = synthetic_dataset(num_nodes=2000, num_edges=16000, feat_dim=32, num_classes=10,
+                           seed=3)
+    reserve, room = 1 << 20, 32 * 4 * 900
+    monkeypatch.setattr(tcache, "free_device_bytes", lambda device: reserve + room)
+    tr = Trainer.from_dataset(_host_cfg(capacity=None, hbm_reserve_bytes=reserve), ds,
+                              device="cpu")
+    tr._maybe_fill_cache()
+    assert tr.cache.capacity == 900
+    assert tr.cache.reserve_bytes == reserve
+    assert tr.cache.auto_capacity(reserve_bytes=reserve + 32 * 4 * 100) == 800
+    default = tcache.FeatureCache(tr.store, ["features"], _tgraph(ds.graph), device="cpu")
+    assert default.reserve_bytes == pt.CacheConfig().hbm_reserve_bytes == 1 << 30

@@ -121,4 +121,5 @@ def test_evaluate_matches_jax(hub_graph, backend):
     want = jinf.evaluate(jp, jcfg, g, x, labels, mask, backend="host")
     assert tinf.evaluate(model, tcfg, _tgraph(g), x, labels, mask, backend=backend) == want
     with pytest.raises(NotImplementedError, match="queue 1"):
-        tinf.full_graph_logits(model, pt.ModelConfig(arch="gcn"), _tgraph(g), x)
+        tinf.full_graph_logits(model, pt.ModelConfig(arch="gcn_cv", preprocess=True),
+                               _tgraph(g), x)

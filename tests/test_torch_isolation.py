@@ -110,15 +110,12 @@ def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
     assert PrefetchLoader(tr.sampler, tr.cache, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("train_kw", [dict(arch="gcn"),
-                                      dict(remote_sampling=True),
-                                      dict(arch="gin"),
-                                      dict(arch="gat", on_device_sampling=True),
+@pytest.mark.parametrize("train_kw", [dict(remote_sampling=True),
                                       dict(arch="gcn_cv", preprocess=True)])
 def test_unported_paths_raise(train_kw):
-    """The paths still to port (ROADMAP queue 1) raise: the other model
-    families and remote sampling.  (Evaluation, checkpoints and preprocess
-    are ported: tests/test_torch_checkpoint.py, test_torch_preprocess.py.)"""
+    """The paths still to port (ROADMAP queue 1) raise: CV-GCN and remote
+    sampling.  (GCN, GIN and GAT are ported: tests/test_torch_gcn.py,
+    test_torch_gin.py, test_torch_gat.py.)"""
     ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
     cfg = _tiny_cfg()
     for k, v in train_kw.items():

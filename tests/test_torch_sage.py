@@ -133,9 +133,12 @@ def test_dropout_keeps_rate_and_scale():
 @pytest.mark.parametrize("agg,kw", [("pool", {}), ("lstm", {}), ("mean", {"preprocess": True})])
 def test_unported_variants_raise(agg, kw):
     """Every GraphSAGE variant is ported (tests/test_torch_aggregators.py,
-    test_torch_preprocess.py); the same settings on the model families still
-    to port raise."""
+    test_torch_preprocess.py), and so are GCN, GIN and GAT
+    (tests/test_torch_gcn.py, test_torch_gin.py, test_torch_gat.py): the
+    same settings build them; CV-GCN, still to port, raises."""
     get_model(pt.ModelConfig(arch="graphsage", aggregator=agg, **kw))
     arch = {"pool": "gin", "lstm": "gat", "mean": "gcn"}[agg]
+    assert type(get_model(pt.ModelConfig(arch=arch, aggregator=agg, **kw))).__name__ == \
+        arch.upper()
     with pytest.raises(NotImplementedError, match="queue 1"):
-        get_model(pt.ModelConfig(arch=arch, aggregator=agg, **kw))
+        get_model(pt.ModelConfig(arch="gcn_cv", aggregator=agg, preprocess=True))
