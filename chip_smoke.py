@@ -140,6 +140,34 @@ Phases, each printed as one JSON line:
   of each row's largest host logit on RMAT-16 (GAT: RMAT-14); the loss
   finite and falling; then ``mlp_val_acc`` on the same labels, and the
   phase's seconds;
+* ``cv_gcn``: CV-GCN (``arch="gcn_cv"``, preprocess, 2 layers of 256,
+  fan-outs (15, 10), batch 1024, dropout 0.5, Adam 1e-2) on the same graph,
+  features, teacher labels and cut train set: the host path 2 epochs at
+  f32 and 1 at bf16 compute, exactly 5 launches a step (the assembly, two
+  ``gather_reduce_mean``, two ``gather_reduce_bwd_mean``), 7 at bf16
+  compute, and the ``cv-refresh`` seconds (the loss is reported, not held
+  to fall: at Adam 1e-2 CV-GCN's loss rises at epoch 1 in the JAX package
+  too, ``tests/test_torch_cv_gcn.py::test_cv_loss_rises_at_the_chip_shape_as_in_jax``);
+  the on-device path (``scan``)
+  2 epochs, epoch 1 replayed, bit-equal to a fresh Trainer's two eager
+  epochs in losses, parameters, histories and aggregates, with one
+  assembly a step and one ``gather_reduce_sum`` a window table a history
+  an epoch (the refresh), and the refresh's device time (a CUDA graph of
+  it, timed as the kernels are); a resume from epoch 0's checkpoint and
+  its ``.aux`` sidecar equal to the uninterrupted run to the bit (RMAT-16);
+  device logits within 1e-4 of each row's largest host logit on RMAT-16,
+  device inference and ``evaluate`` on RMAT-20;
+* ``partition``: the train set into 4 parts at 2 hops by ``dg_partition``
+  (native) and ``hash_partition``: seconds, vertices a part, replication
+  factor, train vertices a part (the first 262,144 train vertices when the
+  native dg stream, timed on 8,192 spread over the set, would take over 60
+  s for all of them); the native ``dg_assign`` equal to the numpy one on
+  RMAT-14; a ``save_partition``/``load_partition`` round trip of part 0
+  (the files the JAX package reads); part 0 through
+  ``Trainer.from_partition`` over the full store at the main path's shape,
+  the host path (cache at 40% of the part's vertices) 2 epochs at 4
+  launches a step and the on-device path 2 epochs, epoch 1 replayed and
+  bit-equal to the eager form;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -189,7 +217,12 @@ Phases, each printed as one JSON line:
   ``library_ms`` ``index_add_``), ``block_gather_fwd_sum[gin block0|1|2]``
   and ``block_gather_bwd_sum[gin block1|2]``, ``gather_rows`` and
   ``scatter_add_rows[gat block0 table]`` (the 264-column table, against
-  ``index_select`` and ``index_add_``), with the families' launches;
+  ``index_select`` and ``index_add_``), with the families' launches; and
+  at CV-GCN's shapes (one host batch of the ``cv_gcn`` run)
+  ``gather_reduce_mean[cv block0|1]`` and ``gather_reduce_bwd_mean[cv
+  block0|1]``, and the refresh's ``window_reduce[sum, cv refresh <table>,
+  D=256|512]`` over the on-device run's histories (F = 8, 64, 512, 4096
+  and the hub table), their launches that run's refreshes of the table;
 * ``fwd_branches``: the block forward and backward on the card, on f32 and
   on bf16 rows, at the branches the main path does not take -- D = 30
   (scalar rows), a table one element off its unit's alignment, fan-out 7
@@ -257,6 +290,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import types
 import weakref
@@ -534,11 +568,14 @@ def epoch_rows(ms):
              "miss_rate": m.miss_rate, "h2d_bytes": m.h2d_bytes} for m in ms]
 
 
-def run_trainer(torch, gk, what, make, n_epochs, per_step):
+def run_trainer(torch, gk, what, make, n_epochs, per_step, per_epoch=None,
+                must_fall=True):
     """A fresh Trainer from ``make()`` for ``n_epochs``: setup, epochs,
     launches run (eager ones plus each graph's replays), peak device bytes;
-    fails unless ``per_step`` (key -> launches a step) is exactly what ran,
-    every loss is finite and, over 2 epochs, the loss falls."""
+    fails unless ``per_step`` (key -> launches a step) plus ``per_epoch``
+    (key -> launches an epoch, such as CV-GCN's refresh) is exactly what
+    ran, every loss is finite and, over 2 epochs, the loss falls (reported
+    as ``loss_falls``, and not held when ``must_fall`` is false)."""
     gc.collect()
     torch.cuda.empty_cache()
     start_bytes = torch.cuda.memory_allocated()
@@ -561,9 +598,14 @@ def run_trainer(torch, gk, what, make, n_epochs, per_step):
     losses = [m.mean_loss for m in ms]
     if not all(math.isfinite(v) for v in losses):
         fail(f"{what}: non-finite loss {losses}")
-    if counts != {k: v * steps for k, v in per_step.items()}:
-        fail(f"{what}: launches {counts} over {steps} steps, expected {per_step} a step")
-    if n_epochs > 1 and not losses[-1] < losses[0]:
+    want = {k: v * steps for k, v in per_step.items()}
+    for k, v in (per_epoch or {}).items():
+        want[k] = want.get(k, 0) + v * n_epochs
+    if counts != want:
+        fail(f"{what}: launches {counts} over {steps} steps, expected {per_step} a step"
+             + (f" and {per_epoch} an epoch" if per_epoch else ""))
+    out["loss_falls"] = losses[-1] < losses[0]
+    if must_fall and n_epochs > 1 and not out["loss_falls"]:
         fail(f"{what}: loss did not fall: {losses}")
     return t_, out
 
@@ -864,6 +906,397 @@ def family_kernel_cases(env, trainers, out):
     return cases
 
 
+# -- cv_gcn: CV-GCN on both single-device paths ---------------------------------
+CV_HOST_SCALE = 16                     # the graph where device logits meet the host's
+CV_WINDOW_FANOUTS = (8, 64, 512, 4096)  # the refresh's window tables given kernel rows
+
+
+def cv_config(pt, num_nodes: int, *, on_device: bool = False, compute: str = "float32"):
+    """CV-GCN at the model families' shape: 2 layers (the second's input the
+    skip's 512 columns), hidden 256, preprocess (layer 0 the store's ``gcn``
+    aggregate of the 100-dim features), 2 sampled hops at fan-outs (15,
+    10), batch 1024, dropout 0.5, Adam 1e-2, 47 classes; the host path's
+    cache at 40% of the vertices, the device path's full (``scan``)."""
+    return pt.Config(
+        model=pt.ModelConfig(arch="gcn_cv", n_layers=2, hidden=256, feat_dim=100,
+                             n_classes=47, dropout=0.5, preprocess=True),
+        sampler=pt.SamplerConfig(batch_size=1024, fanouts=(15, 10), num_hops=2, seed=0,
+                                 prefetch=3),
+        cache=pt.CacheConfig(enabled=True,
+                             capacity=None if on_device else int(num_nodes * 0.4)),
+        train=pt.TrainConfig(lr=1e-2, warmup_epochs=1, on_device_sampling=on_device,
+                             dtype=compute, epoch_dispatch="scan"))
+
+
+def cv_host_launches(compute: str) -> dict:
+    """A CV host step (2 blocks): the assembly, a ``gather_reduce`` (mean) a
+    block and a ``gather_reduce_bwd`` a block (block 0's source depends on
+    ``dense``), and at bf16 compute a ``grad_to_bf16`` a backward."""
+    if compute == "bfloat16":
+        return {"assemble_f32_to_bf16": 1, "gather_reduce_mean_bf16": 2,
+                "gather_reduce_bwd_mean_bf16": 2, "grad_to_bf16": 2}
+    return {"assemble_f32": 1, "gather_reduce_mean": 2, "gather_reduce_bwd_mean": 2}
+
+
+def cv_state_equal(torch, a, b) -> bool:
+    """Two on-device CV trainers' parameters, histories and aggregates
+    equal to the bit."""
+    return (all(torch.equal(p, q) for p, q in zip(a.state.model.parameters(),
+                                                  b.state.model.parameters()))
+            and all(torch.equal(x, y) for x, y in zip(
+                a.cv_state.hist_views() + list(a.cv_state.aggs),
+                b.cv_state.hist_views() + list(b.cv_state.aggs))))
+
+
+def cv_eager_epochs(env, cfg, t_, n_epochs, save_after=None):
+    """``n_epochs`` of ``t_`` (a fresh on-device CV Trainer) through the
+    eager form of its epoch function; their mean losses.  ``save_after``:
+    ``(ckpt_dir, epoch)``, a checkpoint with its ``.aux`` after that
+    epoch."""
+    runner = env.DeviceEpochRunner(cfg, t_.state, t_.epoch_inputs, t_.device_data(),
+                                   cv=t_.cv_state)
+    losses = []
+    for e in range(n_epochs):
+        t_.epoch_inputs.load(*t_.epoch_randomness(e, out=t_.epoch_inputs))
+        v = runner().values()
+        losses.append(v["loss_sum"] / max(v["steps"], 1))
+        if save_after is not None and save_after[1] == e:
+            env.save_checkpoint(save_after[0], "gcn_cv", e, t_.state, aux=t_._cv_aux())
+    return losses
+
+
+def cv_gcn(env):
+    """CV-GCN through ``Trainer.from_dataset`` on the RMAT-20 graph with the
+    2-hop teacher labels, the train set cut to its first
+    :data:`FAMILY_TRAIN_VERTICES` vertices.  The host path 2 epochs at f32
+    and 1 at bf16 compute, exact launches a step (:func:`cv_host_launches`),
+    the ``"cv-refresh"`` seconds, the loss finite (whether it falls is
+    reported: at this learning rate it rises in the JAX package too); the
+    on-device path (``scan``) 2 epochs,
+    epoch 0 eager and epoch 1 replayed, against a fresh Trainer's two eager
+    epochs (losses, parameters, histories and aggregates bit-equal), one
+    assembly a step and one ``gather_reduce`` (sum) a window table a history
+    an epoch (the refresh), the refresh's device time; a resume with the
+    ``.aux`` sidecar against the uninterrupted run, bit-equal (on RMAT-16,
+    whose checkpoint holds 0.4 GB of histories, not RMAT-20's 6.4 GB);
+    device against host logits on RMAT-16 within 1e-4 of each row's
+    largest, and ``evaluate`` on RMAT-20.  Returns the phase's line, the
+    kernel cases at CV's shapes and the failures."""
+    torch, np, gk, pt = env.torch, env.np, env.gk, env.pt
+    t_phase = time.perf_counter()
+    ds = env.ds_nb
+    train_ids = np.nonzero(ds.train_mask)[0][:FAMILY_TRAIN_VERTICES]
+    cut = np.zeros_like(ds.train_mask)
+    cut[train_ids] = True
+    data = env.Dataset(ds.graph, ds.features, ds.labels, cut, ds.val_mask, ds.test_mask)
+    n, out, bad = ds.num_nodes, {"train_vertices": len(train_ids)}, []
+    t_host, out["host_f32"] = run_trainer(
+        torch, gk, "cv host", lambda: env.Trainer.from_dataset(cv_config(pt, n), data, seed=0),
+        2, cv_host_launches("float32"), must_fall=False)
+    out["host_f32"]["cv_refresh_s"] = t_host.timers.total["cv-refresh"]
+    out["host_f32"]["step_s"] = t_host.timers.total["step"]
+    out["host_f32"]["caps"] = list(t_host.sampler.caps)
+    t_bf, out["host_bf16"] = run_trainer(
+        torch, gk, "cv host bf16", lambda: env.Trainer.from_dataset(
+            cv_config(pt, n, compute="bfloat16"), data, seed=0), 1,
+        cv_host_launches("bfloat16"))
+    out["host_bf16"]["cv_refresh_s"] = t_bf.timers.total["cv-refresh"]
+    del t_bf
+    # the on-device path: epoch 1 replayed against a fresh Trainer's eager form
+    cfg_d = cv_config(pt, n, on_device=True)
+    probe = env.Trainer.from_dataset(cfg_d, data, seed=0)
+    tables = len(probe.cv_state.windows.tables())
+    del probe
+    t_dev, out["device_scan"] = run_trainer(
+        torch, gk, "cv on-device", lambda: env.Trainer.from_dataset(cfg_d, data, seed=0), 2,
+        {"assemble_f32": 1}, {"gather_reduce_sum": 2 * tables}, must_fall=False)
+    dev_counts = out["device_scan"]["launches"]
+    out["device_scan"]["window_tables"] = [[lv, list(p.shape)] for lv, p, _ in
+                                           t_dev.cv_state.windows.tables()]
+    replayed = [m["mean_loss"] for m in out["device_scan"]["epochs"]]
+    t_e = env.Trainer.from_dataset(cfg_d, data, seed=0)
+    eager = cv_eager_epochs(env, cfg_d, t_e, 2)
+    equal = replayed == eager and cv_state_equal(torch, t_dev, t_e)
+    out["device_scan"]["eager_losses"] = eager
+    out["device_scan"]["replay_bit_equal_to_eager"] = equal
+    if not equal:
+        bad.append(f"the on-device CV replay is not bit-equal to the eager form (losses "
+                   f"{replayed} vs {eager})")
+    del t_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    refresh = env.CapturedGraph(t_dev.cv_state.refresh)
+    out["device_scan"]["refresh_device_ms"] = time_ms(torch, refresh, env.flush, iters=10,
+                                                      warmup=2)
+    del refresh
+    # RMAT-16: the resume, and device against host logits
+    g16 = env.CSRGraph.from_coo(env.synthetic.rmat_coo(CV_HOST_SCALE, 16, seed=42))
+    x16 = np.random.default_rng(7).random((g16.num_nodes, 100), dtype=np.float32)
+    ds16 = env.Dataset(g16, x16, env.synthetic.neighborhood_labels(g16, x16, 47, seed=1),
+                       *env.synthetic.random_split_masks(g16.num_nodes, seed=11))
+    cfg16 = cv_config(pt, g16.num_nodes, on_device=True)
+    with tempfile.TemporaryDirectory() as ckpt:
+        t_full = env.Trainer.from_dataset(cfg16, ds16, seed=0)
+        full = cv_eager_epochs(env, cfg16, t_full, 2, save_after=(ckpt, 0))
+        cfg_r = copy.deepcopy(cfg16)
+        cfg_r.train.ckpt_dir = ckpt
+        t_r = env.Trainer.from_dataset(cfg_r, ds16, seed=0)
+        t0 = time.perf_counter()
+        start = t_r.resume()
+        resume_s = time.perf_counter() - t0
+        aux_bytes = os.path.getsize(os.path.join(ckpt, "gcn_cv_0.aux"))
+    m1 = t_r.run_epoch(start)
+    resumed_equal = start == 1 and m1.mean_loss == full[1] and cv_state_equal(torch, t_r,
+                                                                              t_full)
+    out["resume"] = {"graph_vertices": g16.num_nodes, "aux_bytes": aux_bytes,
+                     "resume_s": resume_s, "uninterrupted_losses": full,
+                     "resumed_epoch1_loss": m1.mean_loss, "bit_equal": resumed_equal}
+    if not resumed_equal:
+        bad.append(f"the CV resume from epoch 0 is not the uninterrupted run (start {start}, "
+                   f"loss {m1.mean_loss} vs {full[1]})")
+    del t_full, t_r
+    inf = {}
+    model, mcfg = t_host.state.model, t_host.cfg.model
+    gk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = env.full_graph_logits(model, mcfg, ds.graph, ds.features, backend="device")
+    torch.cuda.synchronize()
+    inf["rmat20_device_s"] = time.perf_counter() - t0
+    inf["rmat20_device_launches"] = {k: v for k, v in gk.launch_counts().items() if v}
+    if not (logits.shape == (n, 47) and np.isfinite(logits).all()):
+        bad.append(f"cv device logits of shape {logits.shape}")
+    if inf["rmat20_device_launches"].get("gather_reduce_sum", 0) <= 0:
+        bad.append("cv device inference launched no gather_reduce_sum")
+    inf["val_acc"] = env.evaluate(model, mcfg, ds.graph, ds.features, ds.labels, ds.val_mask,
+                                  backend="device")
+    both = {}
+    for backend in ("host", "device"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        both[backend] = env.full_graph_logits(model, mcfg, g16, x16, backend=backend)
+        inf[f"rmat{CV_HOST_SCALE}_{backend}_s"] = time.perf_counter() - t0
+    scale = 1.0 + np.abs(both["host"]).max(axis=1, keepdims=True)
+    inf["device_vs_host_max_row_rel_diff"] = float(
+        (np.abs(both["device"] - both["host"]) / scale).max())
+    if not inf["device_vs_host_max_row_rel_diff"] <= 1e-4:
+        bad.append(f"cv device logits {inf['device_vs_host_max_row_rel_diff']} from the host's")
+    out["inference"] = inf
+    out["note"] = (f"trained on neighborhood_labels(graph, features, 47, seed=1), the first "
+                   f"{FAMILY_TRAIN_VERTICES} train vertices; host f32 2 eager epochs (one "
+                   "step a batch, no graphs), host bf16 1 epoch, on-device scan 2 epochs "
+                   "(epoch 1 replayed) against the eager form; the resume on RMAT-16")
+    out["seconds"] = time.perf_counter() - t_phase
+    cases = cv_kernel_cases(env, t_host, t_dev, out, dev_counts, tables)
+    return out, cases, bad
+
+
+def cv_kernel_cases(env, t_host, t_dev, out, dev_counts, tables):
+    """The kernel cases at CV's shapes: on one host batch of the f32 host
+    trainer, ``gather_reduce`` (mean) and ``gather_reduce_bwd`` (mean) at
+    each block (sources random at the widths 256 and 512, gradients
+    random); and the refresh's window reductions, the on-device trainer's
+    window tables at F in :data:`CV_WINDOW_FANOUTS` and the hub table, over
+    its histories (widths 256 and 512).  Launches: the host f32 run's, and
+    for a refresh table the on-device run's refreshes of it."""
+    torch, gk, dev = env.torch, env.gk, env.dev
+    mb = t_host.sampler.sample(t_host.sampler.train_nids[:1024]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    widths = (256, 512)
+    srcs = [torch.randn(mb.layer_nids[i].shape[0], w, generator=gen, device=dev)
+            for i, w in enumerate(widths)]
+    host_launch = out["host_f32"]["launches"]
+    cases = []
+
+    def distinct(*idx):
+        return int(torch.unique(torch.cat([i.reshape(-1) for i in idx])).numel())
+
+    def flat_of(pos, mask):
+        counts = mask.sum(1)
+        offsets = torch.zeros_like(counts)
+        offsets[1:] = torch.cumsum(counts, 0)[:-1]
+        return pos[mask].long(), offsets.long()
+
+    for bi, (b, src) in enumerate(zip(mb.blocks, srcs)):
+        nr, f = b.neigh_pos.shape
+        s, d = src.shape
+        flat, offs = flat_of(b.neigh_pos, b.neigh_mask)
+        cases.append(dict(
+            name=f"gather_reduce_mean[cv block{bi}]", key="gather_reduce_mean",
+            launches=host_launch["gather_reduce_mean"],
+            replaces=f"{PALLAS}:132 gather_mean_pallas",
+            shape=f"src {list(src.shape)} pos/mask [{nr}, {f}]", tol="reduce",
+            kernel=lambda s_=src, b_=b: gk.gather_reduce(s_, b_.neigh_pos, b_.neigh_mask,
+                                                          "mean"),
+            plain=lambda s_=src, b_=b: gk.gather_reduce_plain(s_, b_.neigh_pos,
+                                                               b_.neigh_mask, "mean"),
+            library=lambda s_=src, fl=flat, of=offs: torch.nn.functional.embedding_bag(
+                fl, s_, of, mode="mean"),
+            nbytes=5 * nr * f + 4 * distinct(b.neigh_pos[b.neigh_mask]) * d + 4 * nr * d))
+        g_n = torch.randn(nr, d, generator=gen, device=dev)
+        rows_b = b.neigh_mask.nonzero(as_tuple=True)[0]
+        cnt = b.neigh_mask.sum(1, keepdim=True).clamp(min=1).float()
+        ex = (g_n / cnt)[rows_b].contiguous()
+        buf = torch.zeros(s, d, device=dev)
+        cases.append(dict(
+            name=f"gather_reduce_bwd_mean[cv block{bi}]", key="gather_reduce_bwd_mean",
+            launches=host_launch["gather_reduce_bwd_mean"],
+            replaces=f"{PALLAS}:132 gather_mean_pallas (backward; JAX: autodiff of jnp.take)",
+            shape=f"grad_out [{nr}, {d}] pos/mask [{nr}, {f}] -> [{s}, {d}]", tol="atomic",
+            kernel=lambda g_=g_n, b_=b, s_=s: gk.gather_reduce_bwd(
+                g_, b_.neigh_pos, b_.neigh_mask, s_, "mean"),
+            plain=lambda g_=g_n, b_=b, s_=s: gk.gather_reduce_bwd_plain(
+                g_, b_.neigh_pos, b_.neigh_mask, s_, "mean"),
+            library=lambda bb=buf, fl=flat, e_=ex: bb.index_add_(0, fl, e_),
+            nbytes=5 * nr * f + 4 * nr * d + 4 * s * d))
+    # the refresh: each table is reduced once a history an epoch
+    per_table = dev_counts["gather_reduce_sum"] // (2 * tables)
+    win = {p.shape[1]: (p, m) for lv, p, m in t_dev.cv_state.windows.tables()
+           if lv == "bucket"}
+    hubs = [(p, m) for lv, p, m in t_dev.cv_state.windows.tables() if lv == "hubs"]
+    picked = [(f"F={wf}", win[wf]) for wf in CV_WINDOW_FANOUTS if wf in win]
+    picked += [("hubs F=4096", hubs[0])] if hubs else []
+    for h in t_dev.cv_state.hist_views():
+        for label, (pos, mask) in picked:
+            rows_w, wf, dw = pos.shape[0], pos.shape[1], h.shape[1]
+            flat, offs = flat_of(pos, mask)
+            cases.append(dict(
+                name=f"window_reduce[sum, cv refresh {label}, D={dw}]",
+                key="gather_reduce_sum", launches=per_table,
+                replaces=f"{PALLAS}:132 gather_mean_pallas (the CV refresh's window "
+                         "reduction, pagraph_tpu/train/device_epoch.py:1236 "
+                         "bucketed_aggregate)",
+                shape=f"src {list(h.shape)} pos/mask [{rows_w}, {wf}] "
+                      f"({int(mask.sum())} valid slots), plan "
+                      f"{gk.window_plan(rows_w, wf, dw, True)}",
+                tol=max(TOLERANCES["reduce"], wf * 2.0 ** -24),
+                kernel=lambda x_=h, p_=pos, m_=mask: gk.gather_reduce(x_, p_, m_, "sum"),
+                plain=lambda x_=h, p_=pos, m_=mask: gk.gather_reduce_plain(x_, p_, m_, "sum"),
+                library=lambda x_=h, fl=flat, of=offs: torch.nn.functional.embedding_bag(
+                    fl, x_, of, mode="sum"),
+                nbytes=5 * rows_w * wf + 4 * distinct(pos[mask]) * dw + 4 * rows_w * dw))
+    return cases
+
+
+# -- partition: PaGraph's partition pipeline and Trainer.from_partition ---------
+PARTITION_PARTS, PARTITION_HOPS = 4, 2
+PARTITION_CUT = 262_144                 # the train vertices when the whole set is too slow
+DG_WHOLE_LIMIT_S = 60.0                 # the native dg stream's budget for the whole set
+DG_PROBE = 8192                         # train vertices the estimate is timed on
+
+
+def partition_phase(env):
+    """RMAT-20's train set into 4 parts at 2 hops with ``dg_partition``
+    (native) and ``hash_partition``: seconds and ``partition_stats`` of
+    each (vertices a part, the replication factor, train vertices a part).
+    The native dg stream is timed on :data:`DG_PROBE` train vertices
+    spread evenly over the set first; if the whole set would take over
+    :data:`DG_WHOLE_LIMIT_S` seconds at that rate, both partitioners take
+    the first :data:`PARTITION_CUT` train vertices (the line says which).
+    Then the native ``dg_assign`` against the numpy one on RMAT-14 (equal),
+    a ``save_partition``/``load_partition`` round trip of dg's part 0, and
+    part 0 through ``Trainer.from_partition`` at the ``bench.py`` GraphSAGE
+    shape over the full store: the host path (cache at 40% of the part's
+    vertices) 2 epochs, 4 launches a step; the on-device path 2 epochs,
+    epoch 1 replayed, bit-equal to a fresh Trainer's eager form."""
+    torch, np, gk, pt = env.torch, env.np, env.gk, env.pt
+    part_mod, fmt = env.partition, env.formats
+    t_phase = time.perf_counter()
+    ds, bad = env.ds, []
+    graph = ds.graph
+    train = ds.train_nids
+    # the probe: train vertices spread over the stream (its first ones are
+    # RMAT's hubs and their neighbors, the costliest to expand)
+    t0 = time.perf_counter()
+    part_mod.dg_assign(graph, train[::max(1, len(train) // DG_PROBE)][:DG_PROBE],
+                       PARTITION_PARTS, PARTITION_HOPS, backend="native")
+    probe_s = time.perf_counter() - t0
+    predicted = probe_s * len(train) / DG_PROBE
+    out = {"graph": {"vertices": graph.num_nodes, "edges": graph.num_edges},
+           "train_vertices_all": len(train), "dg_probe_s": probe_s,
+           "dg_probe_vertices": DG_PROBE, "dg_whole_predicted_s": predicted}
+    if predicted > DG_WHOLE_LIMIT_S:
+        train = train[:PARTITION_CUT]
+        out["cut"] = (f"the first {min(PARTITION_CUT, len(train))} train vertices: the native "
+                      "dg stream over "
+                      f"all {len(ds.train_nids)} was predicted at {predicted:.1f} s "
+                      f"(> {DG_WHOLE_LIMIT_S} s)")
+    out["train_vertices"] = len(train)
+    parts = {}
+    for method, fn in (("dg", lambda: part_mod.dg_partition(
+            graph, train, ds.labels, PARTITION_PARTS, PARTITION_HOPS, backend="native")),
+                       ("hash", lambda: part_mod.hash_partition(
+                           graph, train, ds.labels, PARTITION_PARTS, PARTITION_HOPS))):
+        t0 = time.perf_counter()
+        parts[method] = fn()
+        stats = part_mod.partition_stats(parts[method], graph.num_nodes)
+        tpp = stats["train_per_part"]
+        stats["train_balance_max_over_mean"] = max(tpp) / (sum(tpp) / len(tpp))
+        out[method] = {"seconds": time.perf_counter() - t0, **stats}
+        covered = np.sort(np.concatenate([p.local2full[p.train_nids]
+                                          for p in parts[method]]))
+        if not np.array_equal(covered, np.sort(train)):
+            bad.append(f"{method}: the parts' train vertices are not the train set")
+    g14 = env.CSRGraph.from_coo(env.synthetic.rmat_coo(14, 16, seed=42))
+    t14 = np.nonzero(env.synthetic.random_split_masks(g14.num_nodes, seed=11)[0])[0]
+    t0 = time.perf_counter()
+    a14 = part_mod.dg_assign(g14, t14, PARTITION_PARTS, PARTITION_HOPS, backend="numpy")
+    numpy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b14 = part_mod.dg_assign(g14, t14, PARTITION_PARTS, PARTITION_HOPS, backend="native")
+    out["rmat14_dg"] = {"train_vertices": len(t14), "numpy_s": numpy_s,
+                        "native_s": time.perf_counter() - t0,
+                        "native_equals_numpy": bool(np.array_equal(a14, b14))}
+    if not out["rmat14_dg"]["native_equals_numpy"]:
+        bad.append("RMAT-14: the native dg_assign differs from the numpy one")
+    with tempfile.TemporaryDirectory() as root:
+        d = fmt.partition_dir(root, PARTITION_PARTS, "dg")
+        t0 = time.perf_counter()
+        fmt.save_partition(d, 0, parts["dg"][0])
+        back = [fmt.load_partition(d, 0)]
+        fields = [("graph", k) for k in ("indptr", "indices", "out_degrees")] + [
+            (None, k) for k in ("train_nids", "local2full", "labels")]
+        same = all(np.array_equal(getattr(getattr(a, o) if o else a, k),
+                                  getattr(getattr(b, o) if o else b, k))
+                   for a, b in zip(back, parts["dg"]) for o, k in fields)
+        out["round_trip"] = {"seconds": time.perf_counter() - t0, "equal": same}
+    if not same:
+        bad.append("save_partition/load_partition changed a dg part")
+    # part 0 through Trainer.from_partition over the full store
+    part = parts["dg"][0]
+    store = env.FeatureStore.build(graph, ds.features)
+    cfg_h = env.config("mean")
+    cfg_h.cache.capacity = int(part.num_nodes * 0.4)
+    t_h, out["part0_host"] = run_trainer(
+        torch, gk, "partition host", lambda: env.Trainer.from_partition(cfg_h, part, store,
+                                                                        seed=0), 2,
+        {"assemble_f32": 1, "block_gather_fwd_mean": 2, "block_gather_bwd_mean": 1})
+    out["part0_host"]["part_vertices"] = part.num_nodes
+    out["part0_host"]["cache_capacity"] = t_h.cache.capacity
+    del t_h
+    cfg_d = env.config("mean", on_device=True)
+    t_d, out["part0_device"] = run_trainer(
+        torch, gk, "partition on-device", lambda: env.Trainer.from_partition(
+            cfg_d, part, store, seed=0), 2, {"assemble_f32": 1})
+    replayed = [m["mean_loss"] for m in out["part0_device"]["epochs"]]
+    t_e = env.Trainer.from_partition(cfg_d, part, store, seed=0)
+    runner = env.DeviceEpochRunner(cfg_d, t_e.state, t_e.epoch_inputs, t_e.device_data())
+    eager = []
+    for e in range(2):
+        t_e.epoch_inputs.load(*t_e.epoch_randomness(e, out=t_e.epoch_inputs))
+        v = runner().values()
+        eager.append(v["loss_sum"] / max(v["steps"], 1))
+    equal = replayed == eager and all(torch.equal(p, q) for p, q in zip(
+        t_d.state.model.parameters(), t_e.state.model.parameters()))
+    out["part0_device"]["eager_losses"] = eager
+    out["part0_device"]["replay_bit_equal_to_eager"] = equal
+    if not equal:
+        bad.append(f"partition: the on-device replay is not bit-equal to the eager form "
+                   f"({replayed} vs {eager})")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
 def build_dataset(np, synthetic, Dataset, CSRGraph):
     """The bench.py graph: RMAT scale 20, edge factor 16, seed 42; 100-dim
     uniform features and 47-class labels argmax(feats @ proj) (seed 7);
@@ -899,7 +1332,9 @@ def main() -> None:
         from pagraph_tpu_torch.models.mlp_probe import mlp_val_acc
         from pagraph_tpu_torch.storage.feature_store import (FeatureStore, build_prequantized,
                                                              quantize_store)
-        from pagraph_tpu_torch.train.checkpoint import list_checkpoints
+        from pagraph_tpu_torch import partition
+        from pagraph_tpu_torch.data import formats
+        from pagraph_tpu_torch.train.checkpoint import list_checkpoints, save_checkpoint
         from pagraph_tpu_torch.ops.aggregate import block_gather
         from pagraph_tpu_torch.sampling.block import Block
         from pagraph_tpu_torch.sampling.pack import PackedGroup
@@ -910,7 +1345,8 @@ def main() -> None:
                                                           make_device_step_fns,
                                                           train_batch)
         from pagraph_tpu_torch.train.loop import Trainer
-        from pagraph_tpu_torch.train.state import (TrainState, make_multistep_train_step,
+        from pagraph_tpu_torch.train.state import (CapturedGraph, TrainState,
+                                                   make_multistep_train_step,
                                                    make_optimizer, train_step)
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
@@ -2004,6 +2440,31 @@ def main() -> None:
     if bad:
         fail("model_families: " + "; ".join(bad))
     free_memory()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)   # time_ms's L2 flush
+
+    # -- cv_gcn: CV-GCN on both single-device paths ----------------------------
+    cv_out, cv_cases, bad = cv_gcn(types.SimpleNamespace(
+        torch=torch, np=np, gk=gk, pt=pt, dev=dev, ds_nb=ds_nb, Dataset=Dataset,
+        CSRGraph=CSRGraph, synthetic=synthetic, Trainer=Trainer,
+        DeviceEpochRunner=DeviceEpochRunner, CapturedGraph=CapturedGraph,
+        save_checkpoint=save_checkpoint, full_graph_logits=full_graph_logits,
+        evaluate=evaluate, flush=flush))
+    cv_out["nvidia_smi"] = smi
+    emit("cv_gcn", cv_out)
+    if bad:
+        fail("cv_gcn: " + "; ".join(bad))
+    free_memory()
+
+    # -- partition: the partition pipeline and Trainer.from_partition -----------
+    part_out, bad = partition_phase(types.SimpleNamespace(
+        torch=torch, np=np, gk=gk, pt=pt, ds=ds, CSRGraph=CSRGraph, synthetic=synthetic,
+        partition=partition, formats=formats, FeatureStore=FeatureStore, config=config,
+        Trainer=Trainer, DeviceEpochRunner=DeviceEpochRunner))
+    part_out["nvidia_smi"] = smi
+    emit("partition", part_out)
+    if bad:
+        fail("partition: " + "; ".join(bad))
+    free_memory()
 
     # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
     dtr = dev_tr["f32"]
@@ -2039,7 +2500,6 @@ def main() -> None:
     feats = gk.assemble(cv, src_row, miss_feats)
     h1 = torch.randn(b0.cap_dst, 2 * cfg.model.hidden, generator=gen, device=dev)
     g1 = torch.randn(b1.cap_dst, 2 * cfg.model.hidden, generator=gen, device=dev)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
     def rows_bytes(n, d, size=4):
         return size * n * d
@@ -2452,6 +2912,7 @@ def main() -> None:
     max_cases("bf16", feats_bf, h1m_bf, g1_bf, g1n_bf, 2, pool_bf16_launches, "bf16")
 
     cases.extend(family_cases)
+    cases.extend(cv_cases)
     entries, bad = [], []
     for c in cases:
         err, ok, tol_text = compare(torch, c["kernel"](), c["plain"](), c["tol"])

@@ -8,6 +8,7 @@ every architecture of ``models.get_model``:
 * GraphSAGE: ``updates[i].{self|neigh}.{w|b}``, ``pre.{self|neigh}.{w|b}``
   under preprocess and ``lstm[i].{w_ih|w_hh|b}``;
 * GCN: ``updates[i].{w|b}`` and ``dense.{w|b}`` under preprocess;
+* CV-GCN: ``dense.{w|b}`` and ``updates[i].{w|b}``;
 * GIN: ``updates[i].eps`` (0-d) and ``updates[i].{w1|w2}.{w|b}``;
 * GAT: ``layers[i].{w|a_self|a_neigh}``.
 

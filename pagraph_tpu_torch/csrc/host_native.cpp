@@ -1,15 +1,18 @@
 // Host kernels of the port: the neighbor sampler and the miss-row gathers
 // of the host path, the mean-aggregate SpMMs of GraphSAGE's preprocess
-// field, and the R-MAT generator and COO -> CSR builder of rmat_csr,
-// compiled with g++ at first use (sampling/native.py) and loaded with
-// ctypes.
+// field, the R-MAT generator and COO -> CSR conversion of rmat_csr, and the
+// partition pipeline's dg assignment, hop closure and sub-CSR fill
+// (partition/), compiled with g++ at first use (sampling/native.py) and
+// loaded with ctypes.
 //
-// The port's own copy of seven functions of the JAX package's native host
+// The port's own copy of twelve functions of the JAX package's native host
 // library (pg_sample_minibatch, pg_gather_rows_f32, pg_gather_rows_i8,
-// pg_spmm_mean_f32, pg_spmm_mean_i8, pg_rmat_gen, pg_coo_to_csr), with the
-// arithmetic unchanged, so that a batch drawn from the same seed is
-// bit-equal to the JAX package's native sampler, and a preprocess field or
-// an R-MAT graph to the JAX package's.
+// pg_spmm_mean_f32, pg_spmm_mean_i8, pg_rmat_gen, pg_coo_to_csr, and the
+// partition pipeline's pg_dg_assign, pg_hop_closure, pg_bitmap_extract,
+// pg_map_rows and pg_histogram_i32), with the arithmetic unchanged, so that
+// a batch drawn from the same seed is bit-equal to the JAX package's native
+// sampler, a preprocess field or an R-MAT graph to the JAX package's, and a
+// partition (assignment, closure, sub-CSR) to the JAX package's.
 // Build: g++ -O3 -march=native -shared -fPIC -fopenmp -std=c++17.
 //
 // Sampling semantics (numpy sampler's policy, native draws):
@@ -25,6 +28,10 @@
 #include <cstdint>
 #include <cstring>
 #include <vector>
+
+#if defined(_OPENMP)
+#include <omp.h>
+#endif
 
 namespace {
 
@@ -330,6 +337,238 @@ int64_t pg_coo_to_csr(const int32_t* src, const int32_t* dst, int64_t m,
       od[indices[i]].fetch_add(1, std::memory_order_relaxed);
   }
   return e;
+}
+
+// Streaming greedy dg assignment (the PaGraph partitioner): for each train
+// vertex in order, score every partition
+//   score[p] = (1 + |N_hops(v) & assigned_p|) * (avg - p_vnum[p]) / (r_vnum[p] + 1)
+// and pick the best, ties to the smallest partition (first on equal size).
+//   indptr/indices  in-CSR of the full graph
+//   train_nids      [num_train] int64, streamed in this order
+//   avg             balance target (train_frac * V / P, or sum(weights) / P)
+//   weights         per-train-vertex weight (NULL -> 1.0; in_deg + 1 is the
+//                   edge-balance mode)
+//   out             [num_train] int32 partition per train vertex
+// Returns 0, -1 on bad sizes, -2 on an out-of-range train id.
+//
+// A vertex's hop neighborhood does not depend on the assignments, so the
+// neighborhoods of a chunk of upcoming train vertices are expanded in
+// parallel (one BFS a vertex, a stamp array a thread), then the chunk is
+// scored one vertex after another, in stream order.  The scores are sums of
+// integer counts in doubles, independent of the order the neighborhood
+// lists its vertices in, so the assignment is the sequential stream's, bit
+// for bit.
+int pg_dg_assign(const int64_t* indptr, const int32_t* indices,
+                 int64_t num_nodes,
+                 const int64_t* train_nids, int64_t num_train,
+                 int32_t num_parts, int32_t hops, double avg,
+                 const double* weights,
+                 int32_t* out) {
+  if (num_parts <= 0 || hops < 0) return -1;
+  for (int64_t i = 0; i < num_train; ++i)
+    if (train_nids[i] < 0 || train_nids[i] >= num_nodes) return -2;
+  int threads = 1;
+#if defined(_OPENMP)
+  threads = omp_get_max_threads();
+#endif
+  const int64_t chunk = 16 * (int64_t)threads;
+  // stamp[t][u] == j + 1: u already reached from chunk slot j by thread t
+  std::vector<std::vector<int32_t>> stamps(threads, std::vector<int32_t>(num_nodes, 0));
+  std::vector<std::vector<int32_t>> neighs(chunk);
+  std::vector<int32_t> belongs(num_nodes, -1);
+  const int64_t words = (num_nodes + 63) / 64;
+  std::vector<uint64_t> closure((size_t)num_parts * words, 0);
+  std::vector<double> p_vnum(num_parts, 0.0);
+  std::vector<int64_t> r_vnum(num_parts, 0);
+  std::vector<double> com(num_parts), score(num_parts);
+  for (int64_t base = 0; base < num_train; base += chunk) {
+    const int64_t m = std::min(chunk, num_train - base);
+    // hops-level in-BFS of each vertex of the chunk, deduplicated, the
+    // vertex itself excluded
+#pragma omp parallel
+    {
+      int t = 0;
+#if defined(_OPENMP)
+      t = omp_get_thread_num();
+#endif
+      std::vector<int32_t>& stamp = stamps[t];
+      std::vector<int32_t> frontier, next;
+#pragma omp for schedule(dynamic, 1)
+      for (int64_t j = 0; j < m; ++j) {
+        const int32_t mark = (int32_t)(base + j) % 0x7FFFFFFF + 1;
+        const int32_t nid = (int32_t)train_nids[base + j];
+        std::vector<int32_t>& neigh = neighs[j];
+        neigh.clear();
+        frontier.assign(1, nid);
+        stamp[nid] = mark;
+        for (int32_t h = 0; h < hops; ++h) {
+          next.clear();
+          for (int32_t v : frontier) {
+            for (int64_t e = indptr[v]; e < indptr[v + 1]; ++e) {
+              const int32_t u = indices[e];
+              if (stamp[u] != mark) {
+                stamp[u] = mark;
+                next.push_back(u);
+                neigh.push_back(u);
+              }
+            }
+          }
+          if (next.empty()) break;
+          frontier.swap(next);
+        }
+      }
+    }
+    for (int64_t j = 0; j < m; ++j) {
+      const int64_t i = base + j;
+      const int64_t nid = train_nids[i];
+      const std::vector<int32_t>& neigh = neighs[j];
+      for (int32_t p = 0; p < num_parts; ++p) com[p] = 1.0;
+      for (int32_t u : neigh) {
+        const int32_t b = belongs[u];
+        if (b >= 0) com[b] += 1.0;
+      }
+      double best = -1.0 / 0.0;
+      for (int32_t p = 0; p < num_parts; ++p) {
+        score[p] = com[p] * (avg - p_vnum[p]) / ((double)r_vnum[p] + 1.0);
+        if (score[p] > best) best = score[p];
+      }
+      int32_t pick = 0;
+      double pick_vnum = 1.0 / 0.0;
+      for (int32_t p = 0; p < num_parts; ++p) {
+        if (score[p] == best && p_vnum[p] < pick_vnum) {
+          pick_vnum = p_vnum[p];
+          pick = p;
+        }
+      }
+      out[i] = pick;
+      belongs[nid] = pick;
+      p_vnum[pick] += weights ? weights[i] : 1.0;
+      uint64_t* bm = closure.data() + (size_t)pick * words;
+      int64_t fresh = 0;
+      auto touch = [&](int64_t v) {
+        const uint64_t mk = 1ULL << (v & 63);
+        uint64_t& w = bm[v >> 6];
+        if (!(w & mk)) {
+          w |= mk;
+          ++fresh;
+        }
+      };
+      for (int32_t u : neigh) touch(u);
+      touch(nid);
+      r_vnum[pick] += fresh;
+    }
+  }
+  return 0;
+}
+
+// Hop closure over the in-CSR: level-synchronous BFS from `seeds`, `hops`
+// levels, bitmap-visited: `visited` after all levels, `interior` after
+// hops-1 levels (the vertices that keep all their in-edges).  Bitmaps are
+// [(n+63)/64] uint64, caller-zeroed.
+void pg_hop_closure(const int64_t* indptr, const int32_t* indices, int64_t n,
+                    const int64_t* seeds, int64_t num_seeds, int32_t hops,
+                    uint64_t* visited, uint64_t* interior) {
+  std::atomic<uint64_t>* vis =
+      reinterpret_cast<std::atomic<uint64_t>*>(visited);
+  std::vector<int32_t> frontier;
+  frontier.reserve(num_seeds);
+  for (int64_t i = 0; i < num_seeds; ++i) {
+    const int64_t v = seeds[i];
+    const uint64_t bit = 1ULL << (v & 63);
+    if (!(vis[v >> 6].fetch_or(bit, std::memory_order_relaxed) & bit))
+      frontier.push_back((int32_t)v);
+  }
+  const int64_t words = (n + 63) / 64;
+  std::vector<int32_t> next;
+  bool interior_done = false;
+  for (int32_t depth = 0; depth < hops; ++depth) {
+    next.clear();
+#pragma omp parallel
+    {
+      std::vector<int32_t> local;
+#pragma omp for schedule(dynamic, 1024) nowait
+      for (int64_t i = 0; i < (int64_t)frontier.size(); ++i) {
+        const int32_t v = frontier[i];
+        for (int64_t e = indptr[v]; e < indptr[v + 1]; ++e) {
+          const int32_t u = indices[e];
+          const uint64_t bit = 1ULL << (u & 63);
+          if (!(vis[u >> 6].load(std::memory_order_relaxed) & bit)) {
+            if (!(vis[u >> 6].fetch_or(bit, std::memory_order_relaxed) & bit))
+              local.push_back(u);
+          }
+        }
+      }
+#pragma omp critical
+      next.insert(next.end(), local.begin(), local.end());
+    }
+    frontier.swap(next);
+    if (depth == hops - 2) {
+      std::memcpy(interior, visited, sizeof(uint64_t) * words);
+      interior_done = true;
+    }
+    if (frontier.empty()) break;
+  }
+  if (hops == 1) {
+    // interior is exactly the seed set (the caller zeroed the buffer)
+    for (int64_t i = 0; i < num_seeds; ++i) {
+      const int64_t v = seeds[i];
+      interior[v >> 6] |= 1ULL << (v & 63);
+    }
+  } else if (!interior_done) {
+    // BFS exhausted before hops-1 levels: visited is final
+    std::memcpy(interior, visited, sizeof(uint64_t) * words);
+  }
+}
+
+// Set bits of a bitmap as sorted int64 ids; returns the count.
+int64_t pg_bitmap_extract(const uint64_t* bm, int64_t words, int64_t* out) {
+  std::vector<int64_t> off(words + 1, 0);
+#pragma omp parallel for schedule(static)
+  for (int64_t w = 0; w < words; ++w)
+    off[w + 1] = __builtin_popcountll(bm[w]);
+  for (int64_t w = 0; w < words; ++w) off[w + 1] += off[w];
+#pragma omp parallel for schedule(static)
+  for (int64_t w = 0; w < words; ++w) {
+    uint64_t x = bm[w];
+    int64_t at = off[w];
+    while (x) {
+      out[at++] = (w << 6) + __builtin_ctzll(x);
+      x &= x - 1;
+    }
+  }
+  return off[words];
+}
+
+// Sub-CSR row fill of a partition: for each full-graph row r = rows[i], its
+// in-neighbors mapped through full2sub into out_indices from out_starts[i].
+// Returns -1 if a neighbor is outside the closure (full2sub < 0), else 0.
+int pg_map_rows(const int64_t* indptr, const int32_t* indices,
+                const int32_t* full2sub, const int64_t* rows,
+                const int64_t* out_starts, int64_t num_rows,
+                int32_t* out_indices) {
+  std::atomic<int> bad(0);
+#pragma omp parallel for schedule(dynamic, 4096)
+  for (int64_t i = 0; i < num_rows; ++i) {
+    const int64_t r = rows[i];
+    int64_t at = out_starts[i];
+    for (int64_t e = indptr[r]; e < indptr[r + 1]; ++e) {
+      const int32_t s = full2sub[indices[e]];
+      if (s < 0) bad.store(1, std::memory_order_relaxed);
+      out_indices[at++] = s;
+    }
+  }
+  return bad.load() ? -1 : 0;
+}
+
+// Atomic histogram of int32 values in [0, nbins) (a sub-CSR's out-degrees).
+void pg_histogram_i32(const int32_t* values, int64_t count, int64_t nbins,
+                      int32_t* out) {
+  std::atomic<int32_t>* o = reinterpret_cast<std::atomic<int32_t>*>(out);
+#pragma omp parallel for schedule(static)
+  for (int64_t b = 0; b < nbins; ++b) o[b].store(0, std::memory_order_relaxed);
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < count; ++i)
+    o[values[i]].fetch_add(1, std::memory_order_relaxed);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Model family: GraphSAGE, GCN, GIN and GAT.  CV-GCN is ROADMAP queue 1."""
+"""Model family: GraphSAGE, GCN, CV-GCN (``gcn_cv``), GIN and GAT."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,10 +9,11 @@ from torch import nn
 from ..config import ModelConfig
 from .gat import GAT
 from .gcn import GCN
+from .gcn_cv import GCNCV
 from .gin import GIN
 from .sage import GraphSAGE
 
-MODELS = {"graphsage": GraphSAGE, "gcn": GCN, "gin": GIN, "gat": GAT}
+MODELS = {"graphsage": GraphSAGE, "gcn": GCN, "gcn_cv": GCNCV, "gin": GIN, "gat": GAT}
 
 
 def get_model(cfg: ModelConfig, *,
@@ -21,7 +22,4 @@ def get_model(cfg: ModelConfig, *,
     ``generator``."""
     if cfg.arch in MODELS:
         return MODELS[cfg.arch](cfg, generator=generator)
-    if cfg.arch == "gcn_cv":
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} is not ported yet (ROADMAP queue 1)")
     raise ValueError(f"unknown arch {cfg.arch!r}")

@@ -1,5 +1,6 @@
 """Full-graph layer-wise inference and evaluation (the port of
-``pagraph_tpu/models/inference.py``), for GraphSAGE, GCN, GIN and GAT.
+``pagraph_tpu/models/inference.py``), for GraphSAGE, GCN, CV-GCN, GIN and
+GAT.
 
 The reference evaluates by building a full-neighborhood NodeFlow over the
 test set and running the ``*Infer`` model variants.  Two backends with the
@@ -33,7 +34,10 @@ preprocess (whose layer-0 aggregate is the store's ``features`` field); GIN
 edge.  The lstm aggregate runs the training op
 (``ops.aggregate.block_aggregate_lstm``) on vertices bucketed by
 power-of-two in-degree, on the model's device, for both backends, as the
-JAX package does.  CV-GCN waits for its model (ROADMAP queue 1).
+JAX package does.  CV-GCN evaluates as a preprocess GCN with the
+concat-skip on whatever ``skip_connection`` says (its output layer is
+always built for the doubled width): under exact full-neighborhood
+aggregation its control variate vanishes.
 """
 from __future__ import annotations
 
@@ -367,14 +371,13 @@ def full_graph_logits(model: nn.Module, cfg: ModelConfig, graph: CSRGraph,
                       features: np.ndarray, *, batch_rows: int = 65536,
                       backend: str = "host") -> np.ndarray:
     """Logits of every vertex, f32 ``[N, n_classes]``, from ``model`` on its
-    device (GraphSAGE, GCN, GIN or GAT).  ``backend``: ``"host"``
+    device (GraphSAGE, GCN, CV-GCN, GIN or GAT).  ``backend``: ``"host"``
     (aggregation on the host), ``"device"`` (all of it on the model's
     device: the window reductions on the block kernel; GAT's edge scans on
     library scatters) or ``"auto"`` (device from :data:`AUTO_DEVICE_EDGES`
     edges up)."""
-    if cfg.arch not in ("graphsage", "gcn", "gin", "gat"):
-        raise NotImplementedError(
-            f"full-graph inference for {cfg.arch!r} is not ported yet (ROADMAP queue 1)")
+    if cfg.arch not in ("graphsage", "gcn", "gcn_cv", "gin", "gat"):
+        raise ValueError(f"unknown arch {cfg.arch!r}")
     if backend == "auto":
         backend = "device" if graph.num_edges >= AUTO_DEVICE_EDGES else "host"
     if backend not in ("host", "device"):
@@ -388,14 +391,15 @@ def full_graph_logits(model: nn.Module, cfg: ModelConfig, graph: CSRGraph,
         be = _Host(graph, dev, batch_rows) if backend == "host" else _Device(graph, dev)
         nl = cfg.n_layers
         off = 1 if cfg.preprocess else 0
+        skip = cfg.skip_connection or cfg.arch == "gcn_cv"
 
         def finish(out, gi):
-            if gi == nl - 1 and cfg.skip_connection:
+            if gi == nl - 1 and skip:
                 return torch.cat([out, torch.relu(out)], dim=1)
             return torch.relu(out) if gi < nl else out
 
         h = be.tensor(features)
-        if cfg.arch == "gcn":
+        if cfg.arch in ("gcn", "gcn_cv"):
             # training's mean over the sample; here the sum times the
             # destination's norm, the exact mean (the store's preprocess
             # field is this mean of the features)

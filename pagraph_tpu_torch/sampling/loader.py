@@ -5,7 +5,10 @@ Producer threads run [sample -> cache hit/miss split -> host miss gather ->
 pack] while the main thread runs the step on an earlier batch.  A batch is
 packed into three flat host buffers (``sampling/pack.py``), the JAX
 package's packed, host-output mode: the item is ``(layout, i32, u8,
-miss)``.  Items carry sequence numbers and the consumer reorders them, so
+miss)``.  With ``packed=False`` (CV-GCN's
+loader, the JAX package's unpacked mode) the item is the host batch and its
+plan, ``(mb, plan)``, and the consumer ships them.  Items carry sequence
+numbers and the consumer reorders them, so
 the epoch order — and the training trajectory — is deterministic.  A
 bounded queue gives backpressure.
 
@@ -36,13 +39,15 @@ Item = Tuple[BatchLayout, torch.Tensor, torch.Tensor, torch.Tensor]  # layout, i
 class PrefetchLoader:
     """Iterates one epoch's packed host batches ``(layout, i32, u8,
     miss)``, the miss rows in the cache tier's dtype (:meth:`epoch`), or
-    groups of them (:meth:`groups`) for ``device``.  ``device=None`` is the
-    GPU (``RuntimeError`` without one)."""
+    groups of them (:meth:`groups`) for ``device``; with ``packed=False``
+    the host ``(mb, plan)`` pairs.  ``device=None`` is the GPU
+    (``RuntimeError`` without one)."""
 
     def __init__(self, sampler: NeighborSampler, cache: FeatureCache, *,
-                 prefetch: int = 2, device=None, workers: int = 2):
+                 prefetch: int = 2, device=None, workers: int = 2, packed: bool = True):
         self.sampler = sampler
         self.cache = cache
+        self.packed = packed
         self.prefetch = max(1, prefetch)
         self.device = resolve_device(device)
         self.workers = max(1, workers)
@@ -71,8 +76,10 @@ class PrefetchLoader:
         except BaseException as e:  # surface errors to the consumer
             q.put(e)
 
-    def _pack(self, mb: MiniBatch) -> Item:
+    def _pack(self, mb: MiniBatch):
         plan = self.cache.fetch_plan(mb.input_nids, mb.input_mask)
+        if not self.packed:
+            return mb, plan
         layout = make_layout(self.sampler.caps, self.sampler.config.block_fanouts(),
                              self.cache.total_dim, plan.miss_feats.shape[0])
         return (layout, *pack(mb, plan.src_row, plan.miss_feats, layout))

@@ -1,8 +1,9 @@
 """ctypes binding of the host library: the native sampler, the miss-row
-gathers, the mean-aggregate SpMMs of the preprocess field, and the R-MAT
-generator and CSR builder (the port of the parts of
-``pagraph_tpu/sampling/native.py`` that the host path, the store and the
-synthetic data run).
+gathers, the mean-aggregate SpMMs of the preprocess field, the R-MAT
+generator and CSR conversion, and the partition pipeline's dg assignment, hop
+closure, sub-CSR row fill and histogram (the port of the parts of
+``pagraph_tpu/sampling/native.py`` that the host path, the store, the
+synthetic data and ``partition/`` run).
 
 The library is the port's own ``csrc/host_native.cpp``, compiled with g++
 (OpenMP) at first use into ``_build/`` by :func:`ops._build.build_host`
@@ -33,6 +34,8 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i8p = ctypes.POINTER(ctypes.c_int8)
 _f32p = ctypes.POINTER(ctypes.c_float)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_u64p = ctypes.POINTER(ctypes.c_uint64)
 
 SIGNATURES = {
     "pg_sample_minibatch": (ctypes.c_int, [
@@ -57,6 +60,19 @@ SIGNATURES = {
                            _i32p, _i32p]),
     "pg_coo_to_csr": (ctypes.c_int64, [_i32p, _i32p, ctypes.c_int64, ctypes.c_int64,
                                        ctypes.c_int32, _i64p, _i32p, _i64p, _i32p]),
+    "pg_dg_assign": (ctypes.c_int, [
+        _i64p, _i32p, ctypes.c_int64,             # indptr, indices, num_nodes
+        _i64p, ctypes.c_int64,                    # train_nids, num_train
+        ctypes.c_int32, ctypes.c_int32,           # num_parts, hops
+        ctypes.c_double, _f64p,                   # avg, weights (NULL: 1.0)
+        _i32p,                                    # out: partition a train vertex
+    ]),
+    "pg_hop_closure": (None, [_i64p, _i32p, ctypes.c_int64, _i64p, ctypes.c_int64,
+                              ctypes.c_int32, _u64p, _u64p]),
+    "pg_bitmap_extract": (ctypes.c_int64, [_u64p, ctypes.c_int64, _i64p]),
+    "pg_map_rows": (ctypes.c_int, [_i64p, _i32p, _i32p, _i64p, _i64p, ctypes.c_int64,
+                                   _i32p]),
+    "pg_histogram_i32": (None, [_i32p, ctypes.c_int64, ctypes.c_int64, _i32p]),
 }
 
 
@@ -270,3 +286,94 @@ def coo_to_csr_native(src: np.ndarray, dst: np.ndarray, num_nodes: int, *,
         _ptr(indices, _i32p), _ptr(cursor, _i64p), _ptr(out_deg, _i32p))
     return CSRGraph(indptr=indptr, indices=np.ascontiguousarray(indices[:e]),
                     out_degrees=out_deg)
+
+
+# -- the partition pipeline ---------------------------------------------------
+
+def hop_closure_native(graph: CSRGraph, seeds: np.ndarray, hops: int) -> tuple:
+    """Bitmap BFS closure: ``(closure_ids, interior_ids)``, sorted int64,
+    the same sets as ``partition.utils.hop_closure``'s numpy backend."""
+    seeds = np.unique(np.asarray(seeds, dtype=np.int64))
+    n = graph.num_nodes
+    if len(seeds) and (seeds[0] < 0 or seeds[-1] >= n):
+        raise IndexError(f"pg_hop_closure: seeds out of range [0, {n})")
+    lib = get_lib()
+    words = (n + 63) // 64
+    visited = np.zeros(words, dtype=np.uint64)
+    interior = np.zeros(words, dtype=np.uint64)
+    lib.pg_hop_closure(_ptr(graph.indptr, _i64p), _ptr(graph.indices, _i32p),
+                       ctypes.c_int64(n), _ptr(seeds, _i64p), ctypes.c_int64(len(seeds)),
+                       ctypes.c_int32(hops), _ptr(visited, _u64p), _ptr(interior, _u64p))
+    if hops == 0:
+        interior = visited
+
+    def extract(bm: np.ndarray) -> np.ndarray:
+        out = np.empty(n, dtype=np.int64)
+        cnt = lib.pg_bitmap_extract(_ptr(bm, _u64p), ctypes.c_int64(words), _ptr(out, _i64p))
+        return np.ascontiguousarray(out[:cnt])
+
+    return extract(visited), extract(interior)
+
+
+def map_rows_native(graph: CSRGraph, full2sub: np.ndarray, rows: np.ndarray,
+                    out_starts: np.ndarray, total: int) -> np.ndarray:
+    """Sub-CSR row fill (OpenMP): ``out[out_starts[i]:...] =
+    full2sub[in-neighbors of rows[i]]``; raises ``ValueError`` if a
+    neighbor is outside the closure."""
+    full2sub = np.ascontiguousarray(full2sub, dtype=np.int32)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    out_starts = np.ascontiguousarray(out_starts, dtype=np.int64)
+    if full2sub.shape != (graph.num_nodes,) or rows.shape != out_starts.shape:
+        raise ValueError(f"pg_map_rows: full2sub {full2sub.shape} for {graph.num_nodes} "
+                         f"vertices, rows {rows.shape}, out_starts {out_starts.shape}")
+    if len(rows) and (rows.min() < 0 or rows.max() >= graph.num_nodes):
+        raise IndexError(f"pg_map_rows: rows out of range [0, {graph.num_nodes})")
+    lens = graph.indptr[rows + 1] - graph.indptr[rows]
+    if len(rows) and (out_starts.min() < 0 or (out_starts + lens).max() > total):
+        raise IndexError(f"pg_map_rows: rows do not fit in {total} output slots")
+    out = np.empty(total, dtype=np.int32)
+    rc = get_lib().pg_map_rows(_ptr(graph.indptr, _i64p), _ptr(graph.indices, _i32p),
+                               _ptr(full2sub, _i32p), _ptr(rows, _i64p),
+                               _ptr(out_starts, _i64p), ctypes.c_int64(len(rows)),
+                               _ptr(out, _i32p))
+    if rc != 0:
+        raise ValueError("closure must contain all interior in-neighbors")
+    return out
+
+
+def histogram_i32_native(values: np.ndarray, nbins: int) -> np.ndarray:
+    """``np.bincount(values, minlength=nbins)`` as int32, OpenMP atomics."""
+    values = np.ascontiguousarray(values, dtype=np.int32)
+    if len(values) and (values.min() < 0 or values.max() >= nbins):
+        raise IndexError(f"pg_histogram_i32: values out of range [0, {nbins})")
+    out = np.empty(nbins, dtype=np.int32)
+    get_lib().pg_histogram_i32(_ptr(values, _i32p), ctypes.c_int64(len(values)),
+                               ctypes.c_int64(nbins), _ptr(out, _i32p))
+    return out
+
+
+def dg_assign_native(graph: CSRGraph, train_nids: np.ndarray, num_parts: int, hops: int,
+                     avg: float, weights: Optional[np.ndarray] = None) -> np.ndarray:
+    """The greedy dg assignment in C++: the numpy stream of
+    ``partition.dg_part.dg_assign`` bit for bit (the same double arithmetic
+    and tie rule).  ``weights`` (float64 a train vertex, ``avg`` in the same
+    units) is the edge-balance mode."""
+    train_nids = np.ascontiguousarray(train_nids, dtype=np.int64)
+    out = np.empty(len(train_nids), dtype=np.int32)
+    if weights is not None:
+        weights = np.ascontiguousarray(weights, dtype=np.float64)
+        if weights.shape != train_nids.shape:
+            raise ValueError(f"pg_dg_assign: {len(weights)} weights for "
+                             f"{len(train_nids)} train vertices")
+        wp = _ptr(weights, _f64p)
+    else:
+        wp = ctypes.cast(None, _f64p)
+    rc = get_lib().pg_dg_assign(
+        _ptr(graph.indptr, _i64p), _ptr(graph.indices, _i32p),
+        ctypes.c_int64(graph.num_nodes), _ptr(train_nids, _i64p),
+        ctypes.c_int64(len(train_nids)), ctypes.c_int32(num_parts), ctypes.c_int32(hops),
+        ctypes.c_double(avg), wp, _ptr(out, _i32p))
+    if rc != 0:
+        raise ValueError(f"pg_dg_assign failed (rc={rc}): num_parts {num_parts}, hops "
+                         f"{hops}, train ids in [0, {graph.num_nodes})")
+    return out

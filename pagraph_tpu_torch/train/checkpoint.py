@@ -17,9 +17,16 @@ order).
 CUDA graphs captured over a train state read its tensors at their
 addresses, and replay the restored values.  A tensor that does not exist
 yet (Adam's moments before the first step) is created, unless
-``in_place_only`` says graphs hold the state, and then it raises.  The
-aux shards of the CV-GCN and multi-process runs are not ported (ROADMAP
-queue 1 items 6-7).
+``in_place_only`` says graphs hold the state, and then it raises.
+
+CV-GCN's histories live outside the train state and go into a sidecar,
+``<arch>_<epoch>.aux`` (the JAX package's name; :func:`list_checkpoints`
+does not list it): one ``torch.save`` file of ``{"hist": [...], "agg":
+[...]}``, f32 CPU tensors ``[N, w_b]`` a block (the JAX package writes an
+orbax directory there; neither package reads the other's).
+:func:`restore_aux` returns ``None`` for a checkpoint without one.  The
+multi-process aux shards wait for multi-device training (ROADMAP queue 1
+item 7b).
 """
 from __future__ import annotations
 
@@ -42,11 +49,20 @@ def _cpu(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def _save(obj, path: str) -> None:
+    """``torch.save`` to a temporary name moved into place."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
 def save_checkpoint(ckpt_dir: str, arch: str, epoch: int, state: TrainState, *,
-                    sampler=None) -> str:
+                    sampler=None, aux: Optional[Dict[str, list]] = None) -> str:
     """Write ``<ckpt_dir>/<arch>_<epoch>`` (to a temporary name moved into
     place) and return its path.  ``sampler``: a host-path
-    ``NeighborSampler``, whose random state is saved too."""
+    ``NeighborSampler``, whose random state is saved too.  ``aux``:
+    CV-GCN's ``{"hist": [...], "agg": [...]}`` (numpy arrays or tensors),
+    written to the ``.aux`` sidecar."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = _ckpt_path(ckpt_dir, arch, epoch)
     opt = state.optimizer
@@ -62,10 +78,20 @@ def save_checkpoint(ckpt_dir: str, arch: str, epoch: int, state: TrainState, *,
         "generator": state.generator.get_state(),
         "sampler": None if sampler is None else sampler.rng.bit_generator.state,
     }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(ckpt, tmp)
-    os.replace(tmp, path)
+    _save(ckpt, path)
+    if aux is not None:
+        _save({k: [_cpu(torch.as_tensor(t)) for t in v] for k, v in aux.items()},
+              path + ".aux")
     return path
+
+
+def restore_aux(ckpt_dir: str, arch: str, epoch: int) -> Optional[Dict[str, list]]:
+    """The ``.aux`` sidecar of checkpoint ``<arch>_<epoch>`` (CPU tensors),
+    or ``None`` when it has none."""
+    path = _ckpt_path(ckpt_dir, arch, epoch) + ".aux"
+    if not os.path.isfile(path):
+        return None
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def restore_checkpoint(ckpt_dir: str, arch: str, epoch: int, state: TrainState, *,

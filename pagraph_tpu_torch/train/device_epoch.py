@@ -41,8 +41,18 @@ are built), after ``zero_grad(set_to_none=True)``, with the dropout
 generator registered, so a replay draws what the eager form draws.
 ``train.scan_unroll`` has no meaning for a graph and is ignored.
 
-Not ported: the data-parallel, ici, edge and CV-GCN device epochs (ROADMAP
-queue 1).
+CV-GCN (:func:`make_cv_device_epoch_fn`, the JAX package's
+``make_cv_device_epoch_fn``; ``scan`` only): the histories and their
+aggregates are device tensors (:class:`CVDeviceState`).  Each step gathers
+its slices before the update and scatters the fresh activations after it
+(:func:`scatter_last`: the last occurrence of a repeated id in a layer
+wins, masked rows go to a spare row), and the epoch ends with the exact
+refresh ``agg[b] = window sum of hist[b] * inv_deg``
+(``models.inference._BucketedNeighborhoods``, one ``gather_reduce`` launch
+a window table).  The whole epoch, refresh included, is one graph.
+
+Not ported: the data-parallel, ici and edge device epochs (ROADMAP
+queue 1 item 7b).
 """
 from __future__ import annotations
 
@@ -53,6 +63,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..graph import CSRGraph
+from ..models.gcn_cv import layer_widths
+from ..models.inference import _BucketedNeighborhoods
 from ..ops.gather import take_rows
 from ..sampling.block import MiniBatch
 from ..sampling.device_sampler import (DeviceCSR, draw_width, hop_draws, hop_sizes,
@@ -199,11 +212,76 @@ def fetch_batch(cfg: Config, seeds: torch.Tensor, smask: torch.Tensor,
                          out_dtype=compute_dtype(cfg))
 
 
+@dataclasses.dataclass
+class CVDeviceState:
+    """CV-GCN's state on the device: ``hists[b]`` f32 ``[N + 1, w_b]`` (row
+    ``N`` is spare: masked rows and the losing occurrences of a repeated id
+    are written there, and nothing reads it), ``aggs[b]`` f32 ``[N, w_b]``,
+    the refresh's window tables (built on the host once, before any
+    capture) and ``inv_deg`` f32 ``[N, 1]``, ``1 / max(in_degree, 1)``."""
+
+    hists: Tuple[torch.Tensor, ...]
+    aggs: Tuple[torch.Tensor, ...]
+    windows: _BucketedNeighborhoods
+    inv_deg: torch.Tensor
+
+    @classmethod
+    def allocate(cls, cfg: Config, graph: CSRGraph, device) -> "CVDeviceState":
+        n, widths = graph.num_nodes, layer_widths(cfg.model)
+        inv = (1.0 / np.maximum(graph.in_degrees, 1)).astype(np.float32)
+        return cls(hists=tuple(torch.zeros((n + 1, w), device=device) for w in widths),
+                   aggs=tuple(torch.zeros((n, w), device=device) for w in widths),
+                   windows=_BucketedNeighborhoods(graph, device),
+                   inv_deg=torch.from_numpy(inv).to(device)[:, None])
+
+    @property
+    def num_nodes(self) -> int:
+        return self.aggs[0].shape[0]
+
+    def hist_views(self) -> List[torch.Tensor]:
+        """Each ``hists[b]`` without its spare row: ``[N, w_b]``."""
+        return [h[:self.num_nodes] for h in self.hists]
+
+    def refresh(self) -> None:
+        """``aggs[b] = (sum over in-neighbors of hist[b]) * inv_deg``, into
+        the aggregates' own tensors."""
+        for h, a in zip(self.hist_views(), self.aggs):
+            torch.mul(self.windows.aggregate(h, "sum"), self.inv_deg, out=a)
+
+
+def scatter_last(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                 values: torch.Tensor) -> None:
+    """``table[ids[i]] = values[i]`` for every valid ``i`` (``mask``), where
+    of the valid positions holding one id the last wins; every other
+    position writes the spare last row of ``table``.  Deterministic (the
+    winner is the int64 ``amax`` of the positions an id takes, one write a
+    winning id), with no host sync, so a CUDA graph replays it
+    bit-equal."""
+    spare = table.shape[0] - 1
+    pos = torch.arange(ids.shape[0], device=ids.device)
+    tgt = torch.where(mask, ids.long(), spare)
+    last = torch.full((table.shape[0],), -1, dtype=torch.int64, device=ids.device)
+    last.scatter_reduce_(0, tgt, pos, "amax")
+    win = (last.index_select(0, tgt) == pos) & mask
+    table.index_copy_(0, torch.where(win, tgt, spare), values)
+
+
 def train_batch(state: TrainState, acc: EpochAccumulator, mb: MiniBatch,
-                feats: torch.Tensor) -> None:
+                feats: torch.Tensor, cv: Optional[CVDeviceState] = None) -> None:
     """Forward, loss, backward and Adam on a fetched batch; its loss,
-    accuracy, valid edges and valid vertices are added to ``acc``."""
-    m = train_on_features(state, mb, feats)
+    accuracy, valid edges and valid vertices are added to ``acc``.  With
+    ``cv`` (CV-GCN) the batch's history slices are gathered before the
+    update and the fresh activations scattered after it."""
+    hists = None
+    if cv is not None:
+        nl = len(mb.blocks)
+        hists = ([cv.hists[b].index_select(0, mb.layer_nids[b]) for b in range(nl)],
+                 [cv.aggs[b].index_select(0, mb.layer_nids[b + 1]) for b in range(nl)])
+    m = train_on_features(state, mb, feats, hists)
+    if cv is not None:
+        with torch.no_grad():
+            for b, nh in enumerate(m["new_hists"]):
+                scatter_last(cv.hists[b], mb.layer_nids[b], mb.layer_mask[b], nh)
     edges = sum(b.neigh_mask.sum() for b in mb.blocks)
     verts = sum(msk.sum() for msk in mb.layer_mask)
     acc.sums += torch.stack([m["loss"], m["acc"]])
@@ -214,11 +292,13 @@ def device_batch_step(cfg: Config, state: TrainState, acc: EpochAccumulator,
                       seeds: torch.Tensor, smask: torch.Tensor,
                       draws: Sequence[torch.Tensor], labels: torch.Tensor,
                       csr: DeviceCSR, cache_values: torch.Tensor,
-                      dequant_scale: Optional[torch.Tensor] = None) -> None:
+                      dequant_scale: Optional[torch.Tensor] = None,
+                      cv: Optional[CVDeviceState] = None) -> None:
     """One step of the on-device epoch (the JAX package's
-    ``_make_batch_body``): sample, fetch, train, accumulate."""
+    ``_make_batch_body``, and with ``cv`` the body of its
+    ``make_cv_device_epoch_fn``): sample, fetch, train, accumulate."""
     train_batch(state, acc, *fetch_batch(cfg, seeds, smask, draws, labels, csr,
-                                         cache_values, dequant_scale))
+                                         cache_values, dequant_scale), cv)
 
 
 def _prepare(cfg: Config, inputs: EpochInputs, data: DeviceData) -> None:
@@ -254,6 +334,30 @@ def make_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
             device_batch_step(cfg, state, inputs.acc, inputs.seeds_all[i], inputs.mask_all[i],
                               [d[i] for d in inputs.draws], data.labels, data.csr,
                               data.cache_values, data.dequant_scale)
+        return inputs.acc
+
+    return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
+
+
+def make_cv_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
+                            data: DeviceData, cv: CVDeviceState, *, graph: bool = False,
+                            stream: Optional[torch.cuda.Stream] = None) -> Callable:
+    """CV-GCN's ``scan``: ``acc = epoch_fn()`` trains ``state`` and the
+    histories ``cv`` for one epoch over ``inputs`` and ends with the exact
+    refresh of every aggregate (:meth:`CVDeviceState.refresh`); returns
+    ``inputs.acc`` without waiting for the device.  ``graph=True`` captures
+    all of it on ``stream`` as one CUDA graph."""
+    if not cfg.sampler.include_self:
+        raise ValueError("on-device sampling requires include_self=True")
+    nb = inputs.num_batches
+
+    def epoch_fn() -> EpochAccumulator:
+        _prepare(cfg, inputs, data)
+        for i in range(nb):
+            device_batch_step(cfg, state, inputs.acc, inputs.seeds_all[i], inputs.mask_all[i],
+                              [d[i] for d in inputs.draws], data.labels, data.csr,
+                              data.cache_values, data.dequant_scale, cv)
+        cv.refresh()
         return inputs.acc
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
@@ -333,11 +437,19 @@ def make_device_pipelined_fns(cfg: Config, state: TrainState, inputs: EpochInput
 DISPATCH_FNS = {"scan": make_device_epoch_fn, "steps": make_device_step_fns,
             "pipelined": make_device_pipelined_fns}
 
+# the JAX package's refusal of the per-step dispatch modes for CV-GCN
+CV_DISPATCH_ERROR = ("epoch_dispatch={!r} does not support gcn_cv (the epoch-end "
+                     "aggregated-history refresh needs the whole-epoch dispatch); use "
+                     "epoch_dispatch='scan'")
+
 
 class DeviceEpochRunner:
     """One epoch of ``train.epoch_dispatch``'s function a call:
     ``acc = runner()`` enqueues it over ``inputs`` (the epoch's randomness
     loaded) and returns ``inputs.acc`` without waiting for the device.
+    ``cv``: CV-GCN's device state, whose epoch is
+    :func:`make_cv_device_epoch_fn` (``scan`` only: any other mode raises
+    ``ValueError``).
     ``graph`` picks the function's form; the graph form of ``pipelined``
     replays each gather on a stream of its own, ``stream`` is where graphs
     are captured.  ``graphs``: the captured graphs (none in the eager
@@ -345,11 +457,19 @@ class DeviceEpochRunner:
 
     def __init__(self, cfg: Config, state: TrainState, inputs: EpochInputs,
                  data: DeviceData, *, graph: bool = False,
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None,
+                 cv: Optional[CVDeviceState] = None):
         self.mode = cfg.train.epoch_dispatch
         self.graph = graph
         self.state, self.inputs = state, inputs
-        fns = DISPATCH_FNS[self.mode](cfg, state, inputs, data, graph=graph, stream=stream)
+        if cv is not None:
+            if self.mode != "scan":
+                raise ValueError(CV_DISPATCH_ERROR.format(self.mode))
+            fns = make_cv_device_epoch_fn(cfg, state, inputs, data, cv, graph=graph,
+                                          stream=stream)
+        else:
+            fns = DISPATCH_FNS[self.mode](cfg, state, inputs, data, graph=graph,
+                                          stream=stream)
         self.fns = fns if isinstance(fns, tuple) else (fns,)
         flat = [f for x in self.fns for f in (x if isinstance(x, tuple) else (x,))]
         self.graphs = [f for f in flat if isinstance(f, CapturedGraph)]

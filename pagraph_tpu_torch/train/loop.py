@@ -50,13 +50,35 @@ takes a pre-quantized store (``storage.feature_store.quantize_store`` or
 ``build_prequantized``) as well as an f32 one; the int8 cache then holds
 and ships the store's own rows, on the on-device path too.
 
-Architectures: GraphSAGE, GCN, GIN and GAT (``models.get_model``), on
-both paths.  Preprocess (``model.preprocess=True``, GraphSAGE and GCN): the
-sampler expands one hop less, on both paths, and ``from_dataset`` builds the
-store's layer-0 aggregate: for GraphSAGE its ``neigh`` field
-(``FeatureStore.build(preprocess="graphsage")``), which the cache holds and
-fetches beside ``features`` (``state.layer0_fields``); for GCN in place of
-``features`` (``preprocess="gcn"``), as the JAX package's does.
+Architectures: GraphSAGE, GCN, CV-GCN, GIN and GAT (``models.get_model``),
+on both paths.  Preprocess (``model.preprocess=True``, GraphSAGE, GCN and
+CV-GCN): the sampler expands one hop less, on both paths, and
+``from_dataset`` builds the store's layer-0 aggregate: for GraphSAGE its
+``neigh`` field (``FeatureStore.build(preprocess="graphsage")``), which the
+cache holds and fetches beside ``features`` (``state.layer0_fields``); for
+GCN and CV-GCN in place of ``features`` (``preprocess="gcn"``), as the JAX
+package's does.
+
+CV-GCN (``model.arch="gcn_cv"``) carries per-block histories beside the
+train state.  On the host path they are a :class:`models.gcn_cv.CVHistory`
+on the host, and an epoch runs as the JAX package's does: the loader hands
+over one unpacked ``(mb, plan)`` a batch (no packing, no
+``steps_per_dispatch``), the step (``state.train_step`` with the batch's
+history slices) runs eagerly, on the card too (no CUDA graph: its shapes
+change with the miss bucket, and it waits for the device each step to copy
+the fresh histories back), and the epoch ends with the exact refresh on
+the host (``"cv-refresh"`` timer, inside ``time_s``).  On the device path
+they are device tensors (``device_epoch.CVDeviceState``, allocated before
+the cache fill) and the epoch, refresh included, is ``scan``'s one function
+(``steps`` and ``pipelined`` raise ``ValueError``), a CUDA graph from the
+second epoch on.  A checkpoint writes them to its ``.aux`` sidecar and
+:meth:`Trainer.resume` restores them (zeros and a ``RuntimeWarning`` for a
+checkpoint without one).
+
+:meth:`Trainer.from_partition` builds one PaGraph trainer over a partition
+(``partition/``, ``data.formats.PartitionArtifact``): its local graph,
+train ids and labels, the cache reading the full store through
+``local2full``.
 
 Evaluation and checkpoints, on both paths: every ``train.eval_every``
 epochs the full-graph accuracy on ``eval_data`` (``models.inference.
@@ -69,7 +91,7 @@ Both read the parameters after the epoch's one sync, which waits for the
 stream that ran the epoch.
 
 Not ported yet, and refused with ``NotImplementedError``: remote
-(isolation-mode) sampling and CV-GCN (``models.get_model``).
+(isolation-mode) sampling (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -81,8 +103,9 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..data.formats import Dataset
+from ..data.formats import Dataset, PartitionArtifact
 from ..graph import CSRGraph
+from ..models.gcn_cv import CVHistory
 from ..sampling.device_sampler import DeviceCSR
 from ..sampling.loader import PrefetchLoader
 from ..sampling.sampler import NeighborSampler
@@ -90,10 +113,11 @@ from ..storage.cache import FeatureCache
 from ..storage.feature_store import FeatureStore
 from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
-from .device_epoch import (DeviceData, DeviceEpochRunner, EpochInputs, epoch_draws,
-                           epoch_seed, num_batches)
-from .checkpoint import list_checkpoints, restore_checkpoint, save_checkpoint
-from .state import GroupGraphs, create_state, layer0_fields, make_multistep_train_step
+from .device_epoch import (CV_DISPATCH_ERROR, CVDeviceState, DeviceData, DeviceEpochRunner,
+                           EpochInputs, epoch_draws, epoch_seed, num_batches)
+from .checkpoint import list_checkpoints, restore_aux, restore_checkpoint, save_checkpoint
+from .state import (GroupGraphs, create_state, layer0_fields, make_multistep_train_step,
+                    train_step)
 
 
 @dataclasses.dataclass
@@ -156,7 +180,12 @@ class Trainer:
         self._device_mode = t.on_device_sampling
         self._side_stream = (torch.cuda.Stream(device=self.device)
                              if self.device.type == "cuda" else None)
+        self._is_cv = cfg.model.arch == "gcn_cv"
+        self.cv_history: Optional[CVHistory] = None
+        self.cv_state: Optional[CVDeviceState] = None
         if self._device_mode:
+            if self._is_cv and t.epoch_dispatch != "scan":
+                raise ValueError(CV_DISPATCH_ERROR.format(t.epoch_dispatch))
             # no sampler or loader: the CSR, the train vertices and the labels
             # live on the device beside the full cache (filled before epoch 0)
             self.sampler = self.loader = None
@@ -168,6 +197,9 @@ class Trainer:
                 np.asarray(labels, dtype=np.int32)).to(self.device, copy=True)
             self.state = create_state(cfg, seed=seed, device=self.device)
             self.epoch_inputs = EpochInputs.allocate(cfg, len(train_nids), self.device)
+            if self._is_cv:
+                # allocated before the cache fill, which they must not lose to
+                self.cv_state = CVDeviceState.allocate(cfg, local_graph, self.device)
             # the eager form for the first epoch, then (on the card) the graphs
             self.epoch_runner: Optional[DeviceEpochRunner] = None
             self._device_epochs = 0             # epochs enqueued
@@ -178,9 +210,12 @@ class Trainer:
                                        labels=labels, seed=seed)
         if cfg.sampler.auto_caps:
             self.sampler.calibrate_caps()
+        # CV-GCN takes one unpacked batch a step, as the JAX package's does
         self.loader = PrefetchLoader(self.sampler, self.cache,
                                      prefetch=cfg.sampler.prefetch,
-                                     device=self.device)
+                                     device=self.device, packed=not self._is_cv)
+        if self._is_cv:
+            self.cv_history = CVHistory(cfg.model, local_graph, local_graph.num_nodes)
         self.state = create_state(cfg, seed=seed, device=self.device)
         self.steps_per_dispatch = max(1, t.steps_per_dispatch)
         self.host_graphs = self.device.type == "cuda"
@@ -198,6 +233,15 @@ class Trainer:
         if cfg.train.eval_every and "eval_data" not in kw:
             kw["eval_data"] = (ds.graph, ds.features, ds.labels, ds.val_mask)
         return cls(cfg, store, ds.graph, ds.train_nids, ds.labels, **kw)
+
+    @classmethod
+    def from_partition(cls, cfg: Config, part: PartitionArtifact, store: FeatureStore,
+                       **kw) -> "Trainer":
+        """One PaGraph trainer over a partition: its local graph, local
+        train ids and labels, reading the *full* ``store`` through
+        ``part.local2full``."""
+        return cls(cfg, store, part.graph, part.train_nids, part.labels, part.local2full,
+                   **kw)
 
     def _maybe_fill_cache(self) -> None:
         """Size and fill the cache once, before the first step (capacity 0
@@ -228,35 +272,13 @@ class Trainer:
         t_epoch = time.perf_counter()
         capture_s = self.timers.total["capture"]
         self.cache.reset_stats()
-        graphs = self._ready_group_graphs()
-        eager = side = None
-        if graphs is None:          # on the card on the side stream (None on the CPU)
-            eager = make_multistep_train_step(self.state, self.cache.cache_values,
-                                              self.cache.dequant_scale_dev)
-            side = self._side_stream
         self._acc.zero_()
-        if side:
-            side.wait_stream(torch.cuda.current_stream(self.device))
-        nb = h2d = 0
-        for group in self.loader.groups(self.steps_per_dispatch):
-            h2d += group.nbytes
-            if graphs is not None and graphs.needs_capture(group):
-                with self.timers.scope("capture"):
-                    graphs.capture(group, self._acc)
-            with self.timers.scope("step"):
-                if graphs is not None:
-                    graphs(group, self._acc)
-                else:
-                    with torch.cuda.stream(side):
-                        eager(group, self._acc)
-            nb += group.k
-            if self.log and nb % self.cfg.train.log_every < group.k:
-                print(f"  step {nb}")
-        if side:
-            torch.cuda.current_stream(self.device).wait_stream(side)
+        nb, h2d = self._run_cv_steps() if self._is_cv else self._run_group_steps()
         tot_loss, tot_acc = self._acc.tolist()      # the epoch's one device sync
         self._host_epochs += 1
-        eager = None                # its reference to the cache rows goes before a refill
+        if self._is_cv:
+            with self.timers.scope("cv-refresh"):
+                self.cv_history.refresh_agg()
         c = self.cfg.cache
         if (epoch == 0 and c.enabled and c.rank_by == "access_freq"
                 and not self.cache.fully_cached):
@@ -283,6 +305,63 @@ class Trainer:
             print(f"epoch {epoch}: loss={em.mean_loss:.4f} acc={em.mean_acc:.3f} "
                   f"time={em.time_s:.2f}s miss={em.miss_rate:.1%}")
         return em
+
+    def _run_group_steps(self):
+        """The epoch's groups of ``steps_per_dispatch`` batches, eager or
+        replayed (:meth:`_ready_group_graphs`): ``(batches, bytes
+        shipped)``.  The eager form's closure, which holds the cache rows,
+        is gone when this returns, before any refill."""
+        graphs = self._ready_group_graphs()
+        eager = side = None
+        if graphs is None:          # on the card on the side stream (None on the CPU)
+            eager = make_multistep_train_step(self.state, self.cache.cache_values,
+                                              self.cache.dequant_scale_dev)
+            side = self._side_stream
+        if side:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        nb = h2d = 0
+        for group in self.loader.groups(self.steps_per_dispatch):
+            h2d += group.nbytes
+            if graphs is not None and graphs.needs_capture(group):
+                with self.timers.scope("capture"):
+                    graphs.capture(group, self._acc)
+            with self.timers.scope("step"):
+                if graphs is not None:
+                    graphs(group, self._acc)
+                else:
+                    with torch.cuda.stream(side):
+                        eager(group, self._acc)
+            nb += group.k
+            if self.log and nb % self.cfg.train.log_every < group.k:
+                print(f"  step {nb}")
+        if side:
+            torch.cuda.current_stream(self.device).wait_stream(side)
+        return nb, h2d
+
+    def _run_cv_steps(self):
+        """CV-GCN's epoch on the host path, as the JAX package's: a batch at
+        a time, the history slices gathered on the host and shipped with
+        the batch, one eager step, the fresh histories copied back and
+        scattered (a device sync a step); ``(batches, bytes shipped)``."""
+        dev, nb, h2d = self.device, 0, 0
+        for mb, plan in self.loader.epoch():
+            h_hist, agg_hist = self.cv_history.gather(mb, dev)
+            shipped = [mb.to(dev), torch.from_numpy(plan.src_row).to(dev),
+                       plan.miss_feats.to(dev)]
+            h2d += sum(x.nbytes for x in (*mb.layer_nids, *mb.layer_mask, mb.labels,
+                                          plan.src_row, plan.miss_feats, *h_hist, *agg_hist))
+            h2d += sum(x.nbytes for b in mb.blocks
+                       for x in (b.neigh_pos, b.neigh_mask, b.self_pos))
+            with self.timers.scope("step"):
+                m = train_step(self.state, shipped[0], shipped[2], shipped[1],
+                               self.cache.cache_values, self.cache.dequant_scale_dev,
+                               (h_hist, agg_hist))
+                self._acc.add_(torch.stack([m["loss"], m["acc"]]))
+            self.cv_history.scatter(mb, m["new_hists"])
+            nb += 1
+            if self.log and nb % self.cfg.train.log_every == 0:
+                print(f"  step {nb}")
+        return nb, h2d
 
     def _ready_group_graphs(self) -> Optional[GroupGraphs]:
         """The host-step graphs from the second epoch on (``host_graphs``),
@@ -328,13 +407,13 @@ class Trainer:
         captured before the second (timed as ``"capture"``)."""
         if self.epoch_runner is None:
             self.epoch_runner = DeviceEpochRunner(self.cfg, self.state, self.epoch_inputs,
-                                                  self.device_data())
+                                                  self.device_data(), cv=self.cv_state)
         elif self._side_stream is not None and not self.epoch_runner.graph \
                 and self._device_epochs:
             with self.timers.scope("capture"):
                 self.epoch_runner = DeviceEpochRunner(
                     self.cfg, self.state, self.epoch_inputs, self.device_data(),
-                    graph=True, stream=self._side_stream)
+                    graph=True, stream=self._side_stream, cv=self.cv_state)
                 torch.cuda.synchronize(self.device)
 
     def enqueue_device_epoch(self, epoch: int):
@@ -391,9 +470,10 @@ class Trainer:
             self._maybe_eval(e)
             if tc.ckpt_dir and tc.ckpt_every and (e + 1) % tc.ckpt_every == 0:
                 # the host path's sampler random state too: a resumed run
-                # draws the uninterrupted run's batches
+                # draws the uninterrupted run's batches; CV-GCN's histories
+                # go into the .aux sidecar
                 save_checkpoint(tc.ckpt_dir, self.cfg.model.arch, e, self.state,
-                                sampler=self.sampler)
+                                sampler=self.sampler, aux=self._cv_aux())
         return self.summary()
 
     def _maybe_eval(self, epoch: int) -> None:
@@ -412,12 +492,50 @@ class Trainer:
         if self.log:
             print(f"  [eval] epoch {epoch}: val acc {acc:.3f}")
 
+    def _cv_aux(self) -> Optional[Dict[str, list]]:
+        """CV-GCN's histories, ``{"hist": [...], "agg": [...]}`` (numpy
+        arrays on the host path, the device tensors' ``[N, w_b]`` views on
+        the device path), for the checkpoint's ``.aux`` sidecar; ``None``
+        for every other architecture."""
+        if self.cv_state is not None:
+            return {"hist": self.cv_state.hist_views(), "agg": list(self.cv_state.aggs)}
+        if self.cv_history is not None:
+            return {"hist": list(self.cv_history.hist), "agg": list(self.cv_history.agg)}
+        return None
+
+    def _restore_cv_aux(self, epoch: int) -> None:
+        """CV-GCN's histories from the ``.aux`` sidecar of checkpoint
+        ``epoch``, on the device path into the history tensors in place.  A
+        checkpoint without one resumes with zero histories and warns, as
+        the JAX package does."""
+        aux = restore_aux(self.cfg.train.ckpt_dir, self.cfg.model.arch, epoch)
+        if aux is None:
+            import warnings
+            warnings.warn(
+                f"checkpoint {self.cfg.model.arch}_{epoch} has no .aux CV histories "
+                "(pre-aux checkpoint?): resuming with ZERO hist/agg; the control-variate "
+                "term is wrong until the first post-resume epoch refreshes them",
+                RuntimeWarning, stacklevel=3)
+            aux = self._cv_aux()
+            for t in aux["hist"] + aux["agg"]:
+                t[:] = 0
+            return
+        if self.cv_state is not None:
+            with torch.no_grad():
+                for dst, src in zip(self.cv_state.hist_views() + list(self.cv_state.aggs),
+                                    aux["hist"] + aux["agg"], strict=True):
+                    dst.copy_(src)
+        else:
+            self.cv_history.hist = [t.numpy().copy() for t in aux["hist"]]
+            self.cv_history.agg = [t.numpy().copy() for t in aux["agg"]]
+
     def resume(self, epoch: Optional[int] = None) -> int:
         """Restore the train state from the newest (or the given) checkpoint
         in ``train.ckpt_dir``, into the trainer's own tensors in place;
         return the epoch to continue from (0 when there is none).  Under
         ``epoch_dispatch="steps"`` the restored step count must be a
-        multiple of the epoch's batches, as the JAX package requires."""
+        multiple of the epoch's batches, as the JAX package requires.
+        CV-GCN restores its histories from the ``.aux`` sidecar too."""
         tc = self.cfg.train
         if not tc.ckpt_dir:
             raise ValueError("cfg.train.ckpt_dir is not set")
@@ -429,6 +547,8 @@ class Trainer:
         restore_checkpoint(tc.ckpt_dir, self.cfg.model.arch, epoch, self.state,
                            sampler=self.sampler,
                            in_place_only=bool(graphs is not None and graphs.graphs))
+        if self._is_cv:
+            self._restore_cv_aux(epoch)
         if self._device_mode and tc.epoch_dispatch == "steps":
             nb = self.epoch_inputs.num_batches
             if self.state.step % nb != 0:

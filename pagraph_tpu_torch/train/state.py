@@ -9,8 +9,10 @@ needs a gradient) and Adam.  For the architectures of ``models.get_model``
 (GraphSAGE, GCN, GIN, GAT) that is 1 + blocks + the blocks that need a
 gradient: 4 for GraphSAGE with 2 blocks, 6 for GCN and GIN with 3 (layer 0
 needs none), 7 for GAT with 3 (its block 0 does: its messages are
-``h @ w``).  Nothing in a step waits for the device: loss and accuracy come
-back as device tensors.  The on-device epoch (``train/device_epoch.py``)
+``h @ w``), and 1 + 2 x blocks for CV-GCN (every block's source needs a
+gradient, block 0's through ``dense``): 5 with 2 blocks, 7 at bf16 compute.
+Nothing in a step waits for the device: loss and accuracy come back as
+device tensors (CV-GCN's step also returns its fresh histories).  The on-device epoch (``train/device_epoch.py``)
 fetches its features otherwise and shares the rest,
 :func:`train_on_features`.  Under GraphSAGE preprocess the layer-0 table
 holds two store fields side by side, ``features`` and ``neigh``
@@ -122,6 +124,26 @@ def cast_apply(model: nn.Module, dtype: torch.dtype) -> Callable:
     return apply
 
 
+def cast_cv_apply(model: nn.Module, dtype: torch.dtype) -> Callable:
+    """:func:`cast_apply` for CV-GCN's ``(logits, new_hists)`` forward (the
+    JAX package's ``cast_cv_apply``): the history slices are cast to
+    ``dtype`` too, and the logits and the fresh histories come back f32
+    (they are scattered into f32 history state).  The model itself for
+    f32."""
+    if dtype == torch.float32:
+        return model
+
+    def apply(mb: MiniBatch, feats: torch.Tensor, *, h_hist, agg_hist, **kw):
+        params = {name: p.to(dtype) for name, p in model.named_parameters()}
+        kw.update(h_hist=[h.to(dtype) for h in h_hist],
+                  agg_hist=[a.to(dtype) for a in agg_hist])
+        logits, new_hists = torch.func.functional_call(model, params, (mb, feats.to(dtype)),
+                                                       kw)
+        return logits.float(), [h.float() for h in new_hists]
+
+    return apply
+
+
 def cosine_decay(count: torch.Tensor, lr: float, decay_steps: int,
                  alpha: float = COSINE_ALPHA) -> torch.Tensor:
     """``optax.cosine_decay_schedule(lr, decay_steps, alpha)`` at ``count``
@@ -173,30 +195,43 @@ def create_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
 
 def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
                src_row: torch.Tensor, cache_values: torch.Tensor,
-               dequant_scale: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               dequant_scale: Optional[torch.Tensor] = None,
+               hists: Optional[Tuple[List[torch.Tensor], List[torch.Tensor]]] = None,
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step on a device minibatch, its plan's miss rows and
     ``src_row`` (:class:`FetchPlan`), the cache rows and, for the int8
     tier, the cache's dequant scale; returns ``{"loss", "acc"}`` as device
     scalars (no host sync).  The features are assembled in the compute
-    dtype."""
+    dtype.  CV-GCN's step (the JAX package's ``make_cv_train_step``, one
+    eager dispatch a batch) also takes the batch's history slices,
+    ``hists``, and returns the fresh histories (:func:`train_on_features`)."""
     feats = assemble_features(cache_values, src_row, miss_feats, dequant_scale,
                               out_dtype=state.dtype)
-    return train_on_features(state, mb, feats)
+    return train_on_features(state, mb, feats, hists)
 
 
-def train_on_features(state: TrainState, mb: MiniBatch,
-                      feats: torch.Tensor) -> Dict[str, torch.Tensor]:
+def train_on_features(state: TrainState, mb: MiniBatch, feats: torch.Tensor,
+                      hists: Optional[Tuple[List[torch.Tensor], List[torch.Tensor]]] = None,
+                      ) -> Dict[str, torch.Tensor]:
     """The step after the layer-0 fetch: forward, masked cross-entropy,
     backward and Adam on the layer-0 table ``feats`` (f32, or bf16 at bf16
     compute; under GraphSAGE preprocess ``[features | neigh]``,
     :func:`layer0_fields`),
     through :func:`cast_apply`; ``{"loss", "acc"}`` as device scalars (no
-    host sync)."""
+    host sync).  CV-GCN takes ``hists``, its ``(h_hist, agg_hist)`` slices,
+    runs through :func:`cast_cv_apply` and adds ``"new_hists"``, the fresh
+    f32 activations a block (the JAX package's ``make_cv_train_step``)."""
     m = state.model.cfg
     kw = {}
     if m.arch == "graphsage" and m.preprocess:
         feats, kw["neigh_feats"] = feats[:, :m.feat_dim], feats[:, m.feat_dim:]
-    logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator, **kw)
+    new_hists = None
+    if hists is not None:
+        logits, new_hists = cast_cv_apply(state.model, state.dtype)(
+            mb, feats, generator=state.generator, h_hist=hists[0], agg_hist=hists[1])
+    else:
+        logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator,
+                                                      **kw)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -207,7 +242,10 @@ def train_on_features(state: TrainState, mb: MiniBatch,
     state.step += 1
     with torch.no_grad():
         acc = masked_accuracy(logits, mb.labels, mb.seed_mask)
-    return {"loss": loss.detach(), "acc": acc}
+    out = {"loss": loss.detach(), "acc": acc}
+    if new_hists is not None:
+        out["new_hists"] = new_hists
+    return out
 
 
 # -- CUDA graphs ---------------------------------------------------------------

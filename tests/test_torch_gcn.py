@@ -250,12 +250,14 @@ WRAPPERS = ("assemble", "gather_rows", "gather_reduce", "block_gather_fwd",
             "scatter_add_rows", "gather_reduce_bwd", "block_gather_bwd")
 
 
-def count_step_calls(datasets, model_kw, monkeypatch, compute="float32"):
+def count_step_calls(datasets, model_kw, monkeypatch, compute="float32", fanouts=None):
     """The gather-kernel wrappers one host train step calls (on the CPU each
-    runs its plain version; on the card each call is one launch)."""
+    runs its plain version; on the card each call is one launch); CV-GCN's
+    step with the batch's (zero) history slices."""
     _, tds = datasets
-    tcfg = trainer_cfgs(model_kw, compute=compute, fanouts=(3, 2, 2) if model_kw.get(
-        "n_layers") == 2 else (3, 2))[1]
+    if fanouts is None:
+        fanouts = (3, 2, 2) if model_kw.get("n_layers") == 2 else (3, 2)
+    tcfg = trainer_cfgs(model_kw, compute=compute, fanouts=fanouts)[1]
     tr = TTrainer.from_dataset(tcfg, tds, seed=0, device="cpu")
     tr._maybe_fill_cache()
     mb = tr.sampler.sample(tr.sampler.train_nids[:64])
@@ -273,8 +275,9 @@ def count_step_calls(datasets, model_kw, monkeypatch, compute="float32"):
         monkeypatch.setattr(gk, name, counted(name, getattr(gk, name)))
     monkeypatch.setattr(tcache, "assemble", gk.assemble)
     state = create_state(tcfg, seed=0, device="cpu")
+    hists = tr.cv_history.gather(mb, "cpu") if tr.cv_history is not None else None
     m = train_step(state, mb.to("cpu"), plan.miss_feats, torch.from_numpy(plan.src_row),
-                   tr.cache.cache_values)
+                   tr.cache.cache_values, hists=hists)
     assert torch.isfinite(m["loss"])
     return {k: v for k, v in calls.items() if v}
 

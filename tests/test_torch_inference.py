@@ -120,6 +120,5 @@ def test_evaluate_matches_jax(hub_graph, backend):
     mask = np.random.default_rng(6).random(g.num_nodes) < 0.3
     want = jinf.evaluate(jp, jcfg, g, x, labels, mask, backend="host")
     assert tinf.evaluate(model, tcfg, _tgraph(g), x, labels, mask, backend=backend) == want
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        tinf.full_graph_logits(model, pt.ModelConfig(arch="gcn_cv", preprocess=True),
-                               _tgraph(g), x)
+    with pytest.raises(ValueError, match="unknown arch"):
+        tinf.full_graph_logits(model, pt.ModelConfig(arch="sgc"), _tgraph(g), x)

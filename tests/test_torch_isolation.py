@@ -113,12 +113,21 @@ def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("train_kw", [dict(remote_sampling=True),
                                       dict(arch="gcn_cv", preprocess=True)])
 def test_unported_paths_raise(train_kw):
-    """The paths still to port (ROADMAP queue 1) raise: CV-GCN and remote
-    sampling.  (GCN, GIN and GAT are ported: tests/test_torch_gcn.py,
+    """The path still to port (ROADMAP queue 1) raises: remote sampling.
+    CV-GCN is ported (tests/test_torch_cv_gcn.py): it builds, and only its
+    per-step device dispatch modes raise, with the JAX package's
+    ``ValueError``.  (GCN, GIN and GAT are ported too: tests/test_torch_gcn.py,
     test_torch_gin.py, test_torch_gat.py.)"""
     ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
     cfg = _tiny_cfg()
     for k, v in train_kw.items():
         setattr(cfg.model if hasattr(cfg.model, k) else cfg.train, k, v)
+    if cfg.model.arch == "gcn_cv":
+        cfg.sync_hops()
+        assert Trainer.from_dataset(cfg, ds, device="cpu").cv_history is not None
+        cfg.train.on_device_sampling, cfg.train.epoch_dispatch = True, "steps"
+        with pytest.raises(ValueError, match="does not support gcn_cv"):
+            Trainer.from_dataset(cfg, ds, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="queue 1"):
         Trainer.from_dataset(cfg, ds, device="cpu")

@@ -134,11 +134,11 @@ def test_dropout_keeps_rate_and_scale():
 def test_unported_variants_raise(agg, kw):
     """Every GraphSAGE variant is ported (tests/test_torch_aggregators.py,
     test_torch_preprocess.py), and so are GCN, GIN and GAT
-    (tests/test_torch_gcn.py, test_torch_gin.py, test_torch_gat.py): the
-    same settings build them; CV-GCN, still to port, raises."""
+    (tests/test_torch_gcn.py, test_torch_gin.py, test_torch_gat.py) and
+    CV-GCN (tests/test_torch_cv_gcn.py): the same settings build them."""
     get_model(pt.ModelConfig(arch="graphsage", aggregator=agg, **kw))
     arch = {"pool": "gin", "lstm": "gat", "mean": "gcn"}[agg]
     assert type(get_model(pt.ModelConfig(arch=arch, aggregator=agg, **kw))).__name__ == \
         arch.upper()
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        get_model(pt.ModelConfig(arch="gcn_cv", aggregator=agg, preprocess=True))
+    assert type(get_model(pt.ModelConfig(arch="gcn_cv", aggregator=agg,
+                                         preprocess=True))).__name__ == "GCNCV"
