@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``pagraph_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --dp-gpus 4   # the dp phase's ranks across 4 cards (nccl)
 
 Phases, each printed as one JSON line:
 
@@ -168,6 +169,27 @@ Phases, each printed as one JSON line:
   the host path (cache at 40% of the part's vertices) 2 epochs at 4
   launches a step and the on-device path 2 epochs, epoch 1 replayed and
   bit-equal to the eager form;
+* ``dp``: data-parallel training through ``pagraph_tpu_torch.parallel``,
+  its ranks spawned from this script (``spawn_local``, the ``spawn``
+  method; a rank that fails fails the run) at the main path's shape,
+  dropout 0 for (a) and (b): (a) world size 1 on ``nccl``, the host path
+  over the whole graph for 2 epochs (epoch 1 replayed from the host-step
+  graphs with the all-reduces inside) against the single-device
+  ``Trainer``'s eager form from the same seed: bit-equal at bf16 compute,
+  and at f32 within 1e-4 of the loss and 1e-2 of each parameter's max|p|
+  (two single runs differ by up to 2.6e-6 and 6.1e-4 there: the block
+  backward's atomics add in their own order), the spread reported; (b)
+  world size 1 on ``nccl``, the on-device path for 3 epochs, epochs 1-2
+  replayed from one CUDA graph with the NCCL all-reduces inside,
+  bit-equal to their eager form from epoch 0's checkpoint; each with
+  exactly 4 gather launches a host step (5 at bf16 compute) or 1 a device
+  step and one gradient all-reduce a step; (c) 2 gloo ranks sharing the
+  card over RMAT-20's train set hash-partitioned at 2 hops (saved here,
+  each rank loading its own part), the cache at 40% of the larger part,
+  dropout 0.2, 2 host and 2 on-device epochs: the ranks' parameters
+  bit-equal after every epoch, one lockstep step count (the largest of
+  their own), the host loss falling, and per rank epoch seconds, edges/s,
+  its own miss rate and peak device bytes;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -201,7 +223,10 @@ Phases, each printed as one JSON line:
   (``block_gather_fwd_max[_bf16][block0|1]``,
   ``block_gather_bwd_max[_bf16][block1]``; block 1's rows concat(x,
   relu(x)), tied at 0) is exact forward at f32 and bf16 and within 1e-6 of
-  max|plain| backward at f32; ``window_reduce[sum|max, <table>]``
+  max|plain| backward at f32; the backward's ``library_same_fn_ms`` is
+  autograd of ``index_select`` and the masked ``amax`` (which splits ties
+  evenly, as the kernel does), its forward recorded outside the timed call,
+  and no one PyTorch call computes it (``library_ms`` null); ``window_reduce[sum|max, <table>]``
   (``gather_reduce``) runs device inference's RMAT-20 window tables over the
   features: F = 8 (the block forward's unrolled instantiation), F = 64
   (the window kernel, a warp a row), F = 512 and 4096 (a CTA a row), the hub
@@ -1295,6 +1320,419 @@ def partition_phase(env):
                    f"({replayed} vs {eager})")
     out["seconds"] = time.perf_counter() - t_phase
     return out, bad
+
+
+# -- dp: data-parallel training, one process a rank -----------------------------
+DP_DEVICE_EPOCHS = 3                    # (b): epoch 0 eager, then two replays
+DP_RANKS = 2                            # (c): gloo ranks sharing the one card
+DP_CACHE_SHARE = 0.4
+# (a) at f32: two single-device eager runs of 2 epochs differ by up to 2.6e-6
+# of the loss and 6.1e-4 of a parameter's max|p| on an H100 (the block
+# backward's atomics add in their own order, and Adam carries it on), so the
+# dp run is held well above that and well below what a wrong batch or a
+# wrong gradient moves (the loss by 1e-2 and more)
+DP_F32_LOSS_TOL = 1e-4
+DP_F32_PARAM_TOL = 1e-2
+
+
+def dp_config(pt, num_nodes: int, *, on_device: bool = False, compute: str = "float32",
+              dropout: float = 0.0, capacity=None):
+    """The main path's shape (``bench.py``'s GraphSAGE mean) for the dp
+    phase: the cache at 40% of ``num_nodes`` unless ``capacity`` is given,
+    full on the device path."""
+    return pt.Config(
+        model=pt.ModelConfig(arch="graphsage", n_layers=1, hidden=16, feat_dim=100,
+                             n_classes=47, aggregator="mean", dropout=dropout),
+        sampler=pt.SamplerConfig(batch_size=6000, fanout=2, num_hops=2, seed=0, prefetch=3),
+        cache=pt.CacheConfig(capacity=None if on_device else (
+            capacity if capacity is not None else int(num_nodes * DP_CACHE_SHARE))),
+        train=pt.TrainConfig(lr=1e-2, warmup_epochs=1, on_device_sampling=on_device,
+                             dtype=compute))
+
+
+DP_ARRAYS = ("indptr", "indices", "out_degrees", "features", "labels", "train_mask",
+             "val_mask", "test_mask")
+
+
+def dp_save_dataset(np, ds, root: str) -> None:
+    """The dataset's arrays, for the ranks to load (``dp_load_dataset``)."""
+    g = ds.graph
+    for name, arr in (("indptr", g.indptr), ("indices", g.indices),
+                      ("out_degrees", g.out_degrees), ("features", ds.features),
+                      ("labels", ds.labels), ("train_mask", ds.train_mask),
+                      ("val_mask", ds.val_mask), ("test_mask", ds.test_mask)):
+        np.save(os.path.join(root, name + ".npy"), arr)
+
+
+def dp_load_dataset(root: str):
+    import numpy as np
+
+    from pagraph_tpu_torch.data.formats import Dataset
+    from pagraph_tpu_torch.graph import CSRGraph
+
+    a = {k: np.load(os.path.join(root, k + ".npy")) for k in DP_ARRAYS}
+    return Dataset(CSRGraph(a["indptr"], a["indices"], a["out_degrees"]), a["features"],
+                   a["labels"], a["train_mask"], a["val_mask"], a["test_mask"])
+
+
+def dp_syncs_run(tr, steps_of) -> int:
+    """Gradient all-reduces run: the eager calls, with each graph's steps
+    times its replays in place of its capture's (``executed_launches``)."""
+    calls = tr.grad_sync.calls
+    runner = tr.epoch_runner if tr._device_mode else tr.group_graphs
+    if runner is not None:
+        for k, g in zip(steps_of(runner), runner.graphs):
+            calls += k * (g.replays - 1)
+    return calls
+
+
+def dp_run(torch, gk, tr, epochs, start=0):
+    """``epochs`` epochs of a dp trainer from ``start``: the epoch rows, the
+    gather launches and gradient all-reduces run a step, peak device bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gk.reset_launch_counts()
+    calls0 = tr.grad_sync.calls
+    ms = [tr.run_epoch(e) for e in range(start, start + epochs)]
+    torch.cuda.synchronize()
+    runner = tr.epoch_runner if tr._device_mode else tr.group_graphs
+    counts = {k: v for k, v in executed_launches(gk.launch_counts(), runner).items() if v}
+    steps = sum(m.num_batches for m in ms)
+    syncs = dp_syncs_run(tr, (lambda r: [tr.epoch_inputs.num_batches] * len(r.graphs))
+                         if tr._device_mode else (lambda r: [k for k, _ in r.keys])) - calls0
+    return ms, {"epochs": epoch_rows(ms), "launches": counts,
+                "launches_per_step": sum(counts.values()) / steps,
+                "all_reduces_per_step": syncs / steps,
+                "capture_s": tr.timers.total["capture"],
+                "peak_device_bytes": torch.cuda.max_memory_allocated() - base}
+
+
+def dp_params(tr):
+    return {k: v.detach().clone() for k, v in tr.state.model.state_dict().items()}
+
+
+def dp_max_diff(a, b) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def dp_rel_diffs(losses, params, ref_losses, ref_params):
+    """The largest loss difference relative to the reference loss, and the
+    largest parameter difference relative to that parameter's max|ref|."""
+    return (max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, ref_losses)),
+            max(float((params[k].float() - v.float()).abs().max())
+                / max(float(v.float().abs().max()), 1e-30) for k, v in ref_params.items()))
+
+
+def dp_rank_world1(rank, world, root, out_path) -> None:
+    """A world-size-1 ``nccl`` rank: (a) the host path at the main path's
+    shape (epoch 1 replayed from the host-step graphs, the all-reduces
+    inside) against the single-device Trainer's eager form from the same
+    seed (bf16 and f32 compute; at f32 beside the spread of two single
+    runs);
+    (b) the on-device path, epoch 0 eager and then replayed from the CUDA
+    graph with the NCCL all-reduce inside, against its eager form from
+    epoch 0's checkpoint.  Writes the results as JSON to ``out_path``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import pagraph_tpu_torch as pt
+    from pagraph_tpu_torch.data.formats import PartitionArtifact
+    from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.parallel import DataParallelTrainer
+    from pagraph_tpu_torch.storage.feature_store import FeatureStore
+    from pagraph_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = dp_load_dataset(root)
+    n = ds.num_nodes
+    store = FeatureStore.build(ds.graph, ds.features)
+    whole = PartitionArtifact(ds.graph, ds.train_nids, np.arange(n, dtype=np.int64),
+                              ds.labels)
+    out = {"backend": torch.distributed.get_backend(), "world_size": world}
+
+    def single(cfg):
+        t_ = Trainer(cfg, store, ds.graph, ds.train_nids, ds.labels, seed=0)
+        t_.host_graphs = False
+        ms = [t_.run_epoch(e) for e in range(2)]
+        return [m.mean_loss for m in ms], dp_params(t_)
+
+    for compute in ("bfloat16", "float32"):
+        cfg = dp_config(pt, n, compute=compute)
+        t0 = time.perf_counter()
+        dp = DataParallelTrainer(cfg, store, whole, seed=0)
+        dp._maybe_fill_cache()
+        setup = time.perf_counter() - t0
+        ms, row = dp_run(torch, gk, dp, 2)
+        row["setup_s"] = setup
+        row["graphs"] = len(dp.group_graphs.graphs) if dp.group_graphs else 0
+        losses, params = [m.mean_loss for m in ms], dp_params(dp)
+        del dp
+        gc.collect()
+        torch.cuda.empty_cache()
+        s_losses, s_params = single(cfg)
+        row["losses"], row["single_losses"] = losses, s_losses
+        row["bit_equal_to_single"] = losses == s_losses and all(
+            torch.equal(params[k], s_params[k]) for k in params)
+        row["max_param_diff_to_single"] = dp_max_diff(params, s_params)
+        if compute == "float32":
+            # two single-device eager runs differ at f32 (the block
+            # backward's atomics add in their own order): their spread
+            s2_losses, s2_params = single(cfg)
+            row["rel_diff_to_single"] = dp_rel_diffs(losses, params, s_losses, s_params)
+            row["single_rel_spread"] = dp_rel_diffs(s2_losses, s2_params, s_losses, s_params)
+        out[f"host_{compute}"] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = dp_config(pt, n, on_device=True)
+    with tempfile.TemporaryDirectory() as ck:
+        cfg.train.ckpt_dir = ck
+        t0 = time.perf_counter()
+        dp = DataParallelTrainer(cfg, store, whole, seed=0)
+        dp._maybe_fill_cache()
+        setup = time.perf_counter() - t0
+        ms0, _ = dp_run(torch, gk, dp, 1)
+        dp._checkpoint(0)
+        ms, row = dp_run(torch, gk, dp, DP_DEVICE_EPOCHS - 1, start=1)
+        runner = dp.epoch_runner
+        row.update(setup_s=setup, eager_epoch=epoch_rows(ms0)[0],
+                   graph_replays=[g.replays for g in runner.graphs] if runner.graph else [])
+        losses, params = [m.mean_loss for m in ms], dp_params(dp)
+        del dp, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        eager = DataParallelTrainer(cfg, store, whole, seed=0)
+        eager.device_graphs = False
+        start = eager.resume(0)
+        e_ms = [eager.run_epoch(e) for e in range(start, DP_DEVICE_EPOCHS)]
+        row["losses"], row["eager_losses"] = losses, [m.mean_loss for m in e_ms]
+        row["replay_bit_equal_to_eager"] = row["losses"] == row["eager_losses"] and all(
+            torch.equal(params[k], v) for k, v in dp_params(eager).items())
+        row["max_param_diff_to_eager"] = dp_max_diff(params, dp_params(eager))
+    out["device"] = row
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def dp_rank_shared(rank, world, root, part_dir, capacity, out_dir) -> None:
+    """A gloo rank of several on one card: its partition from ``part_dir``,
+    the host path (the cache at ``capacity``) and then the on-device path,
+    each 2 epochs at dropout 0.2; the parameters after each epoch to
+    ``out_dir``, and this rank's numbers as JSON."""
+    import gc
+
+    import torch
+
+    import pagraph_tpu_torch as pt
+    from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.parallel import DataParallelTrainer
+    from pagraph_tpu_torch.storage.feature_store import FeatureStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = dp_load_dataset(root)
+    store = FeatureStore.build(ds.graph, ds.features)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(), "world_size": world}
+    for path, cfg in (("host", dp_config(pt, 0, dropout=0.2, capacity=capacity)),
+                      ("device", dp_config(pt, 0, on_device=True, dropout=0.2))):
+        t0 = time.perf_counter()
+        tr = DataParallelTrainer.from_partition_dir(cfg, part_dir, store, seed=0)
+        tr._maybe_fill_cache()
+        setup = time.perf_counter() - t0
+        rows = []
+        for e in range(2):
+            m, row = dp_run(torch, gk, tr, 1, start=e)
+            row.update(row.pop("epochs")[0])
+            if path == "host":
+                row["own_miss_rate"] = tr.cache.miss_rate()
+                row["own_edges_per_s"] = tr.loader.epoch_edges / m[0].time_s
+            rows.append(row)
+            torch.save(dp_params(tr), os.path.join(out_dir, f"{path}_e{e}_rank{rank}.pt"))
+        own = -(-len(tr.part.train_nids) // cfg.sampler.batch_size)
+        out[path] = {"setup_s": setup, "epochs": rows, "lockstep_steps": tr.steps,
+                     "own_batches": own, "part_vertices": tr.part.num_nodes,
+                     "part_train_vertices": len(tr.part.train_nids),
+                     "cache_capacity": tr.cache.capacity,
+                     "graphs": bool(tr.epoch_runner.graph if tr._device_mode
+                                    else tr.group_graphs)}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_ranks(env, root: str, world: int, backend: str, label: str):
+    """``world`` ranks on ``backend`` over RMAT-20's train set
+    hash-partitioned at 2 hops (saved under ``root``, beside the dataset
+    ``dp_save_dataset`` wrote there; each rank loads its own part), through
+    :func:`dp_rank_shared`: the rows and the failed checks (each prefixed
+    ``label``): one lockstep step count, the largest of the ranks' own;
+    exactly 4 gather launches a host step and 1 a device step and one
+    all-reduce a step on every rank; CUDA graphs under ``nccl`` and none
+    under gloo; the ranks' parameters bit-equal after every epoch; the host
+    loss falling."""
+    torch, ds, bad = env.torch, env.ds, []
+    from pagraph_tpu_torch.parallel import spawn_local
+
+    t0 = time.perf_counter()
+    parts = env.partition.hash_partition(ds.graph, ds.train_nids, ds.labels, world, 2)
+    part_dir = os.path.join(root, "parts")
+    for r, p in enumerate(parts):
+        env.formats.save_partition(part_dir, r, p)
+    capacity = int(DP_CACHE_SHARE * max(p.num_nodes for p in parts))
+    out = {"world_size": world, "backend": backend, "capacity": capacity,
+           "partition_and_save_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    spawn_local(dp_rank_shared, world, root, part_dir, capacity, root, backend=backend,
+                timeout=600)
+    out["ranks_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["ranks"] = ranks
+    for path, per_step in (("host", {"assemble_f32": 1, "block_gather_fwd_mean": 2,
+                                     "block_gather_bwd_mean": 1}),
+                           ("device", {"assemble_f32": 1})):
+        rows = [rk[path] for rk in ranks]
+        lock = {rk["lockstep_steps"] for rk in rows}
+        if lock != {max(rk["own_batches"] for rk in rows)}:
+            bad.append(f"{label} {path}: lockstep steps {lock}, own batches "
+                       f"{[rk['own_batches'] for rk in rows]}")
+        if any(rk["graphs"] != (backend == "nccl") for rk in rows):
+            bad.append(f"{label} {path}: graphs {[rk['graphs'] for rk in rows]} on {backend}")
+        for rk in rows:
+            for e in rk["epochs"]:
+                want = {k: v * e["batches"] for k, v in per_step.items()}
+                if e["launches"] != want or e["all_reduces_per_step"] != 1:
+                    bad.append(f"{label} {path}: launches {e['launches']}, "
+                               f"{e['all_reduces_per_step']} all-reduces a step")
+        equal = []
+        for e in range(2):
+            ps = [torch.load(os.path.join(root, f"{path}_e{e}_rank{r}.pt"), map_location="cpu")
+                  for r in range(world)]
+            equal.append(all(torch.equal(ps[0][k], q[k]) for q in ps[1:] for k in ps[0]))
+        out[f"{path}_replicas_bit_equal"] = equal
+        if not all(equal):
+            bad.append(f"{label} {path}: the ranks' parameters differ after an epoch: {equal}")
+    host_losses = [e["mean_loss"] for e in ranks[0]["host"]["epochs"]]
+    out["host_loss_falls"] = host_losses[1] < host_losses[0]
+    if not out["host_loss_falls"]:
+        bad.append(f"{label} the host loss did not fall: {host_losses}")
+    return out, bad
+
+
+def dp_phase(env):
+    """Data-parallel training through ``pagraph_tpu_torch.parallel``, the
+    ranks spawned from here (``spawn_local``, the ``spawn`` method): (a) and
+    (b) in one ``nccl`` rank (:func:`dp_rank_world1`); (c) :data:`DP_RANKS`
+    gloo ranks on the one card over RMAT-20's train set hash-partitioned
+    at 2 hops and saved here (:func:`dp_rank_shared`).  Fails unless (a)
+    at bf16 compute is bit-equal to the single-device eager run (at f32,
+    where two single runs differ by the block backward's atomics, within
+    :data:`DP_F32_LOSS_TOL` of the loss and :data:`DP_F32_PARAM_TOL` of
+    each parameter's max|p|), (b)'s replay is
+    bit-equal to its eager form, every rank ran 4 gather launches and one
+    all-reduce a host step (5 at bf16 compute) and 1 and one a device step,
+    (c)'s ranks ran one lockstep step count, the largest of their own, with
+    bit-equal parameters after every epoch, and the host loss falls."""
+    np = env.np
+    from pagraph_tpu_torch.parallel import spawn_local
+
+    t_phase = time.perf_counter()
+    ds, bad, out = env.ds, [], {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dp_save_dataset(np, ds, root)
+        out["save_dataset_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spawn_local(dp_rank_world1, 1, root, os.path.join(root, "w1.json"),
+                    backend="nccl", timeout=600)
+        out["world1_s"] = time.perf_counter() - t0
+        with open(os.path.join(root, "w1.json")) as f:
+            w1 = json.load(f)
+        out["world1"] = w1
+        for compute, per_step in (("bfloat16", {"assemble_f32_to_bf16": 1,
+                                                "block_gather_fwd_mean_bf16": 2,
+                                                "block_gather_bwd_mean_bf16": 1,
+                                                "grad_to_bf16": 1}),
+                                  ("float32", {"assemble_f32": 1, "block_gather_fwd_mean": 2,
+                                               "block_gather_bwd_mean": 1})):
+            row = w1[f"host_{compute}"]
+            steps = sum(e["batches"] for e in row["epochs"])
+            if row["launches"] != {k: v * steps for k, v in per_step.items()}:
+                bad.append(f"(a) {compute}: launches {row['launches']} over {steps} steps, "
+                           f"expected {per_step} a step")
+            if row["all_reduces_per_step"] != 1:
+                bad.append(f"(a) {compute}: {row['all_reduces_per_step']} all-reduces a step")
+        if not w1["host_bfloat16"]["bit_equal_to_single"]:
+            bad.append("(a) bf16: the dp run is not bit-equal to the single-device eager run")
+        d_loss, d_par = w1["host_float32"]["rel_diff_to_single"]
+        if not (d_loss <= DP_F32_LOSS_TOL and d_par <= DP_F32_PARAM_TOL):
+            bad.append(f"(a) f32: the dp run differs from the single-device run by {d_loss} "
+                       f"(loss, relative) and {d_par} (parameters, of max|p|), over "
+                       f"{DP_F32_LOSS_TOL} and {DP_F32_PARAM_TOL}")
+        dev = w1["device"]
+        steps = sum(e["batches"] for e in dev["epochs"])
+        if dev["launches"] != {"assemble_f32": steps} or dev["all_reduces_per_step"] != 1:
+            bad.append(f"(b) launches {dev['launches']} and {dev['all_reduces_per_step']} "
+                       f"all-reduces a step over {steps} steps")
+        if dev["graph_replays"] != [DP_DEVICE_EPOCHS - 1]:
+            bad.append(f"(b) the epoch graph replayed {dev['graph_replays']} times")
+        if not dev["replay_bit_equal_to_eager"]:
+            bad.append("(b) the replayed epochs are not bit-equal to their eager form")
+
+        # (c): two gloo ranks on the one card
+        out["shared"], more = dp_ranks(env, root, DP_RANKS, "gloo", "(c)")
+        bad.extend(more)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
+def dp_gpus_main(world: int) -> None:
+    """``python3 chip_smoke.py --dp-gpus N``: the dp phase's ranks across N
+    cards on ``nccl``, one rank a card (a measurement of its own; the run
+    with no arguments needs one card): the build, RMAT-20, and
+    :func:`dp_ranks` over an N-way hash partition (host and on-device
+    epochs, epoch 1 replayed from CUDA graphs with the NCCL all-reduces
+    inside); its ``dp_gpus`` line, then the last line as :func:`main`'s."""
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        fail(f"--dp-gpus {world} needs {world} CUDA cards")
+    try:
+        import numpy as np
+
+        from pagraph_tpu_torch import partition
+        from pagraph_tpu_torch.data import formats, synthetic
+        from pagraph_tpu_torch.data.formats import Dataset
+        from pagraph_tpu_torch.graph import CSRGraph
+        from pagraph_tpu_torch.ops import _build
+    except ImportError as e:
+        fail(f"cannot import the port ({e}); run from the repository root")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    t0 = time.perf_counter()
+    _build.load("gather_kernels")
+    build_s = time.perf_counter() - t0
+    ds = build_dataset(np, synthetic, Dataset, CSRGraph)
+    with tempfile.TemporaryDirectory() as root:
+        dp_save_dataset(np, ds, root)
+        out, bad = dp_ranks(types.SimpleNamespace(torch=torch, ds=ds, partition=partition,
+                                                  formats=formats),
+                            root, world, "nccl", f"({world} cards)")
+    out.update(nvidia_smi=smi, build_s=build_s)
+    emit("dp_gpus", out)
+    if bad:
+        fail("dp_gpus: " + "; ".join(bad))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
 
 
 def build_dataset(np, synthetic, Dataset, CSRGraph):
@@ -2466,6 +2904,14 @@ def main() -> None:
         fail("partition: " + "; ".join(bad))
     free_memory()
 
+    # -- dp: data-parallel training, one process a rank -------------------------
+    dp_out, bad = dp_phase(types.SimpleNamespace(torch=torch, np=np, ds=ds,
+                                                 partition=partition, formats=formats))
+    dp_out["nvidia_smi"] = smi
+    emit("dp", dp_out)
+    if bad:
+        fail("dp: " + "; ".join(bad))
+
     # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
     dtr = dev_tr["f32"]
     dcfg = dtr.cfg
@@ -2722,6 +3168,15 @@ def main() -> None:
         return (torch.index_select(src, 0, blk.self_pos),
                 torch.where(blk.neigh_mask.any(1, keepdim=True), m, 0.0))
 
+    def max_bwd_same_fn(src, g_s, g_n):
+        """The max backward in PyTorch calls from the kernel's inputs:
+        autograd of ``max_same_fn`` (``index_select`` and the masked
+        ``amax``, which splits ties evenly, as the kernel does), its forward
+        recorded once outside the timed call."""
+        x = src.detach().requires_grad_(True)
+        outs = max_same_fn(x, b1)
+        return lambda: torch.autograd.grad(outs, x, (g_s, g_n), retain_graph=True)[0]
+
     def max_cases(tag, feats_t, h1_t, g_s, g_n, size, launches_, tol_bwd):
         sfx = "" if tag == "f32" else "_bf16"
         for label, src, blk in (("block0", feats_t, b0), ("block1", h1_t, b1)):
@@ -2763,6 +3218,7 @@ def main() -> None:
             plain=lambda: gk.block_gather_bwd_plain(g_s, b1.self_pos, g_n, b1.neigh_pos,
                                                     b1.neigh_mask, s1, "max", h1_t),
             library=None,
+            same_fn=max_bwd_same_fn(h1_t, g_s, g_n),
             nbytes=4 * n1 + 5 * n1 * f1 + 2 * rows_bytes(n1, d1, size)
             + rows_bytes(distinct(neigh1), d1, size) + rows_bytes(s1, d1, size)))
 
@@ -3272,4 +3728,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-gpus"]:
+        dp_gpus_main(int(sys.argv[2]))
+    else:
+        main()

@@ -12,6 +12,12 @@ numbers and the consumer reorders them, so
 the epoch order — and the training trajectory — is deterministic.  A
 bounded queue gives backpressure.
 
+``PrefetchLoader.num_batches`` set (the data-parallel trainer's lockstep
+step count), an epoch is that many batches: when the sampler's epoch ends
+first, the sampler's next epoch supplies the rest (the JAX package's
+make-up batches, ``DataParallelTrainer._next_round``), and the next loader
+epoch starts a fresh sampler epoch (:func:`lockstep_batches`).
+
 :meth:`PrefetchLoader.groups` stacks K items into one group
 (``pack.stack``), in pinned memory for a CUDA device: the only pinned copy
 a batch makes, from which its group crosses in one copy a buffer (the
@@ -21,7 +27,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -33,6 +39,22 @@ from .sampler import NeighborSampler
 
 _END = object()
 
+
+def lockstep_batches(sampler: NeighborSampler, n: int) -> Iterator[MiniBatch]:
+    """``n`` batches of ``sampler``: its epoch, and where that ends first,
+    its next epochs (each drawing its permutation when its first batch is
+    taken, as the JAX package's wrap-around does)."""
+    if n > 0 and not sampler.num_batches:
+        raise ValueError("a sampler with no train vertices cannot supply lockstep batches")
+    it = sampler.epoch()
+    for _ in range(n):
+        try:
+            mb = next(it)
+        except StopIteration:
+            it = sampler.epoch()
+            mb = next(it)
+        yield mb
+
 Item = Tuple[BatchLayout, torch.Tensor, torch.Tensor, torch.Tensor]  # layout, i32, u8, miss
 
 
@@ -41,11 +63,14 @@ class PrefetchLoader:
     miss)``, the miss rows in the cache tier's dtype (:meth:`epoch`), or
     groups of them (:meth:`groups`) for ``device``; with ``packed=False``
     the host ``(mb, plan)`` pairs.  ``device=None`` is the GPU
-    (``RuntimeError`` without one)."""
+    (``RuntimeError`` without one).  ``num_batches``: the batches an epoch
+    (:func:`lockstep_batches`), ``None`` for the sampler's epoch."""
 
     def __init__(self, sampler: NeighborSampler, cache: FeatureCache, *,
-                 prefetch: int = 2, device=None, workers: int = 2, packed: bool = True):
+                 prefetch: int = 2, device=None, workers: int = 2, packed: bool = True,
+                 num_batches: Optional[int] = None):
         self.sampler = sampler
+        self.num_batches = num_batches
         self.cache = cache
         self.packed = packed
         self.prefetch = max(1, prefetch)
@@ -89,7 +114,8 @@ class PrefetchLoader:
         self.epoch_vertices = 0
         q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, self.workers))
         stop = threading.Event()
-        it = self.sampler.epoch()
+        it = (self.sampler.epoch() if self.num_batches is None
+              else lockstep_batches(self.sampler, self.num_batches))
         it_lock = threading.Lock()
         done_counter = [0, 0]   # [workers finished, next sequence number]
         threads = [

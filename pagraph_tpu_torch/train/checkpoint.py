@@ -25,8 +25,13 @@ does not list it): one ``torch.save`` file of ``{"hist": [...], "agg":
 [...]}``, f32 CPU tensors ``[N, w_b]`` a block (the JAX package writes an
 orbax directory there; neither package reads the other's).
 :func:`restore_aux` returns ``None`` for a checkpoint without one.  The
-multi-process aux shards wait for multi-device training (ROADMAP queue 1
-item 7b).
+multi-process aux shards wait for multi-device CV-GCN (ROADMAP queue 1
+item 7c).
+
+Data-parallel training (``parallel/dp_trainer.py``) saves through
+:func:`save_checkpoint` from rank 0 alone, without sampler state (the JAX
+package's data-parallel checkpoint has none), and every rank restores the
+same file with :func:`restore_checkpoint`, in place.
 """
 from __future__ import annotations
 

@@ -51,8 +51,28 @@ refresh ``agg[b] = window sum of hist[b] * inv_deg``
 (``models.inference._BucketedNeighborhoods``, one ``gather_reduce`` launch
 a window table).  The whole epoch, refresh included, is one graph.
 
-Not ported: the data-parallel, ici and edge device epochs (ROADMAP
-queue 1 item 7b).
+Data parallel (:func:`make_dp_device_epoch_fn`, the JAX package's
+``make_dp_device_epoch_fn``): each rank of the process group runs this
+epoch over its own partition, its gradients averaged a step through the
+state's ``grad_sync`` (``parallel/train_step.py``).  Its schedule
+(:func:`dp_epoch_schedule`) runs ``num_batches``, the lockstep maximum
+over the ranks, and a rank with fewer train vertices wraps its permutation
+with every seed valid (the reference's make-up sends); only a rank with no
+train vertices masks everything.  Its randomness comes from a generator
+seeded by ``(seed, epoch, rank)`` (:func:`rank_epoch_seed`).  The epoch
+ends with one all-reduce of its metrics (:meth:`EpochAccumulator.
+all_reduce_`), after which the accumulator holds what the JAX package's
+does: loss and accuracy summed over the steps of their means over the
+ranks, the lockstep step count, and the edges and vertices of every rank.
+Under ``nccl`` both collectives are inside the epoch's CUDA graph; gloo is
+not stream-ordered (it waits for the device on the host), so under gloo
+the epoch runs in the eager form only.  ``epoch_dispatch="pipelined"`` runs
+this whole-epoch function, as the JAX package's data-parallel trainer
+runs its whole-epoch ``shard_map`` in every mode it accepts; ``"steps"`` is
+refused (``parallel/dp_trainer.py``).
+
+Not ported: the ici and edge device epochs, and multi-device CV-GCN
+(ROADMAP queue 1 item 7c).
 """
 from __future__ import annotations
 
@@ -97,6 +117,22 @@ class EpochAccumulator:
         """The metrics by :data:`METRIC_NAMES` (waits for the device)."""
         return dict(zip(METRIC_NAMES, self.sums.tolist() + self.counts.tolist()))
 
+    def all_reduce_(self) -> "EpochAccumulator":
+        """Each rank's sums to the process group's, in one ``all_reduce``
+        (of f64 copies: the counts stay exact below 2^53), then loss,
+        accuracy and steps divided by the world size: the means over the
+        ranks, as the JAX package ``pmean``s them a step, and the lockstep
+        step count.  No host sync: it can be captured under ``nccl``."""
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        both = torch.cat([self.sums.double(), self.counts.double()])
+        dist.all_reduce(both, op=dist.ReduceOp.SUM)
+        both[:3].div_(world)
+        self.sums.copy_(both[:2])
+        self.counts.copy_(both[2:].round())
+        return self
+
 
 @dataclasses.dataclass
 class DeviceData:
@@ -133,9 +169,13 @@ class EpochInputs:
     counter: torch.Tensor
 
     @classmethod
-    def allocate(cls, cfg: Config, n_train: int, device) -> "EpochInputs":
+    def allocate(cls, cfg: Config, n_train: int, device,
+                 steps: Optional[int] = None) -> "EpochInputs":
+        """``steps``: the batches an epoch (default: ``n_train``'s; the
+        data-parallel epoch's lockstep maximum over the ranks)."""
         s = cfg.sampler
-        nb, b = num_batches(n_train, s.batch_size), s.batch_size
+        b = s.batch_size
+        nb = num_batches(n_train, b) if steps is None else steps
         draws = tuple(torch.empty((nb, n, draw_width(f, s.paired_draws)), dtype=torch.int32,
                                   device=device)
                       for n, f in zip(hop_sizes(b, s.hop_fanouts()), s.hop_fanouts()))
@@ -161,6 +201,33 @@ def epoch_seed(seed: int, epoch: int) -> int:
     """The seed of an epoch's generator: a function of ``(seed, epoch)``
     only, so any epoch can be replayed alone."""
     return int(np.random.SeedSequence([seed ^ 0x5EED, epoch]).generate_state(1, np.uint64)[0])
+
+
+def rank_epoch_seed(seed: int, epoch: int, rank: int, stream: int = 0) -> int:
+    """The seed of a data-parallel rank's epoch generator, a function of
+    ``(seed, epoch, rank)`` only (the counterpart of the JAX package's
+    ``fold_in(fold_in(key, epoch), rank)``, ``host_fold_key``); ``stream``
+    tells apart generators of one epoch (0: the epoch's randomness, 1: the
+    rank's dropout)."""
+    return int(np.random.SeedSequence([seed ^ 0x5EED, epoch, rank, stream])
+               .generate_state(1, np.uint64)[0])
+
+
+def dp_epoch_schedule(perm: torch.Tensor, train_nids: torch.Tensor,
+                      out: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """A data-parallel rank's seeds and mask into ``out`` (``[nb, B]``,
+    ``nb`` the lockstep maximum): the permutation wrapped around with every
+    seed valid (the JAX package's make-up seeds); a rank with no train
+    vertices trains on vertex 0, every seed masked."""
+    seeds, mask = out
+    n_train = train_nids.shape[0]
+    if n_train == 0:
+        seeds.zero_()
+        mask.fill_(False)
+        return
+    idx = torch.arange(seeds.numel(), device=train_nids.device)
+    seeds.view(-1).copy_(train_nids.index_select(0, perm.index_select(0, idx % n_train)))
+    mask.fill_(True)
 
 
 def epoch_schedule(perm: torch.Tensor, train_nids: torch.Tensor, batch_size: int,
@@ -339,6 +406,33 @@ def make_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
 
 
+def make_dp_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
+                            data: DeviceData, *, graph: bool = False,
+                            stream: Optional[torch.cuda.Stream] = None) -> Callable:
+    """The data-parallel ``scan``: ``acc = epoch_fn()`` trains ``state``
+    (its ``grad_sync`` set) for one lockstep epoch over this rank's
+    ``inputs`` (:func:`dp_epoch_schedule`) and returns ``inputs.acc``
+    all-reduced over the ranks (:meth:`EpochAccumulator.all_reduce_`),
+    without waiting for the device.  ``graph=True`` captures it on
+    ``stream`` as one CUDA graph, the collectives inside (``nccl`` only)."""
+    if not cfg.sampler.include_self:
+        raise ValueError("on-device sampling requires include_self=True")
+    if state.grad_sync is None:
+        raise ValueError("the data-parallel epoch needs the state's grad_sync")
+    nb = inputs.num_batches
+
+    def epoch_fn() -> EpochAccumulator:
+        dp_epoch_schedule(inputs.perm, data.train_nids, out=(inputs.seeds_all, inputs.mask_all))
+        inputs.acc.zero_()
+        for i in range(nb):
+            device_batch_step(cfg, state, inputs.acc, inputs.seeds_all[i], inputs.mask_all[i],
+                              [d[i] for d in inputs.draws], data.labels, data.csr,
+                              data.cache_values, data.dequant_scale)
+        return inputs.acc.all_reduce_()
+
+    return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
+
+
 def make_cv_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
                             data: DeviceData, cv: CVDeviceState, *, graph: bool = False,
                             stream: Optional[torch.cuda.Stream] = None) -> Callable:
@@ -449,7 +543,8 @@ class DeviceEpochRunner:
     loaded) and returns ``inputs.acc`` without waiting for the device.
     ``cv``: CV-GCN's device state, whose epoch is
     :func:`make_cv_device_epoch_fn` (``scan`` only: any other mode raises
-    ``ValueError``).
+    ``ValueError``).  ``dp``: a data-parallel rank, whose epoch is
+    :func:`make_dp_device_epoch_fn` in every mode the trainer accepts.
     ``graph`` picks the function's form; the graph form of ``pipelined``
     replays each gather on a stream of its own, ``stream`` is where graphs
     are captured.  ``graphs``: the captured graphs (none in the eager
@@ -458,11 +553,15 @@ class DeviceEpochRunner:
     def __init__(self, cfg: Config, state: TrainState, inputs: EpochInputs,
                  data: DeviceData, *, graph: bool = False,
                  stream: Optional[torch.cuda.Stream] = None,
-                 cv: Optional[CVDeviceState] = None):
+                 cv: Optional[CVDeviceState] = None, dp: bool = False):
         self.mode = cfg.train.epoch_dispatch
         self.graph = graph
         self.state, self.inputs = state, inputs
-        if cv is not None:
+        if dp:
+            self.mode = "scan"
+            fns = make_dp_device_epoch_fn(cfg, state, inputs, data, graph=graph,
+                                          stream=stream)
+        elif cv is not None:
             if self.mode != "scan":
                 raise ValueError(CV_DISPATCH_ERROR.format(self.mode))
             fns = make_cv_device_epoch_fn(cfg, state, inputs, data, cv, graph=graph,

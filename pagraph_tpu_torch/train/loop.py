@@ -114,7 +114,7 @@ from ..storage.feature_store import FeatureStore
 from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
 from .device_epoch import (CV_DISPATCH_ERROR, CVDeviceState, DeviceData, DeviceEpochRunner,
-                           EpochInputs, epoch_draws, epoch_seed, num_batches)
+                           EpochInputs, epoch_draws, epoch_seed)
 from .checkpoint import list_checkpoints, restore_aux, restore_checkpoint, save_checkpoint
 from .state import (GroupGraphs, create_state, layer0_fields, make_multistep_train_step,
                     train_step)
@@ -140,6 +140,8 @@ class Trainer:
     or pre-quantized int8 (with its scales).  ``eval_data``: ``(graph,
     features, labels, mask)`` in the full graph's id space, which
     ``train.eval_every`` evaluates on."""
+
+    data_parallel = False   # a parallel.DataParallelTrainer rank
 
     def __init__(
         self,
@@ -201,6 +203,7 @@ class Trainer:
                 # allocated before the cache fill, which they must not lose to
                 self.cv_state = CVDeviceState.allocate(cfg, local_graph, self.device)
             # the eager form for the first epoch, then (on the card) the graphs
+            self.device_graphs = self._side_stream is not None
             self.epoch_runner: Optional[DeviceEpochRunner] = None
             self._device_epochs = 0             # epochs enqueued
             return
@@ -274,7 +277,7 @@ class Trainer:
         self.cache.reset_stats()
         self._acc.zero_()
         nb, h2d = self._run_cv_steps() if self._is_cv else self._run_group_steps()
-        tot_loss, tot_acc = self._acc.tolist()      # the epoch's one device sync
+        totals = self._host_epoch_totals()          # the epoch's one device sync
         self._host_epochs += 1
         if self._is_cv:
             with self.timers.scope("cv-refresh"):
@@ -291,13 +294,13 @@ class Trainer:
             self.cache.fill(capacity=self.cache.capacity, rank_by="access_freq")
         em = EpochMetrics(
             epoch=epoch,
-            mean_loss=tot_loss / max(nb, 1),
-            mean_acc=tot_acc / max(nb, 1),
+            mean_loss=totals["loss_sum"] / max(nb, 1),
+            mean_acc=totals["acc_sum"] / max(nb, 1),
             time_s=time.perf_counter() - t_epoch - (self.timers.total["capture"] - capture_s),
-            miss_rate=self.cache.miss_rate(),
+            miss_rate=totals["miss_rate"],
             num_batches=nb,
-            edges=self.loader.epoch_edges,
-            vertices=self.loader.epoch_vertices,
+            edges=int(totals["edges"]),
+            vertices=int(totals["vertices"]),
             h2d_bytes=h2d,
         )
         self.epoch_metrics.append(em)
@@ -305,6 +308,13 @@ class Trainer:
             print(f"epoch {epoch}: loss={em.mean_loss:.4f} acc={em.mean_acc:.3f} "
                   f"time={em.time_s:.2f}s miss={em.miss_rate:.1%}")
         return em
+
+    def _host_epoch_totals(self) -> Dict[str, float]:
+        """The host epoch's loss and accuracy sums (read from the device: the
+        epoch's one sync), miss rate, edges and vertices."""
+        tot_loss, tot_acc = self._acc.tolist()
+        return {"loss_sum": tot_loss, "acc_sum": tot_acc, "miss_rate": self.cache.miss_rate(),
+                "edges": self.loader.epoch_edges, "vertices": self.loader.epoch_vertices}
 
     def _run_group_steps(self):
         """The epoch's groups of ``steps_per_dispatch`` batches, eager or
@@ -384,17 +394,20 @@ class Trainer:
         generator seeded by ``(seed, epoch)``: the permutation of the train
         vertices and every step's random integers (``epoch_draws``), into
         ``out``'s buffers when given, else fresh tensors."""
-        gen = torch.Generator(device=self.device).manual_seed(epoch_seed(self._seed, epoch))
+        gen = torch.Generator(device=self.device).manual_seed(self._epoch_seed(epoch))
         s = self.cfg.sampler
         n_train = self._dev_train_nids.shape[0]
         if out is None:
             perm = torch.randperm(n_train, generator=gen, device=self.device)
         else:
             perm = torch.randperm(n_train, generator=gen, out=out.perm)
-        draws = epoch_draws(gen, num_batches(n_train, s.batch_size), s.batch_size,
+        draws = epoch_draws(gen, self.epoch_inputs.num_batches, s.batch_size,
                             s.hop_fanouts(), s.paired_draws, self.device,
                             out=None if out is None else out.draws)
         return perm, draws
+
+    def _epoch_seed(self, epoch: int) -> int:
+        return epoch_seed(self._seed, epoch)
 
     def device_data(self) -> DeviceData:
         """What the on-device epoch reads (the cache filled first)."""
@@ -402,18 +415,20 @@ class Trainer:
         return DeviceData(self._dev_train_nids, self._dev_labels, self._dev_csr,
                           self.cache.cache_values, self.cache.dequant_scale_dev)
 
+    def _make_device_runner(self, graph: bool) -> DeviceEpochRunner:
+        return DeviceEpochRunner(self.cfg, self.state, self.epoch_inputs, self.device_data(),
+                                 graph=graph, stream=self._side_stream if graph else None,
+                                 cv=self.cv_state, dp=self.data_parallel)
+
     def _ready_device_runner(self) -> None:
-        """The eager form before the first epoch; on the card, the graphs
-        captured before the second (timed as ``"capture"``)."""
+        """The eager form before the first epoch; on the card (while
+        ``device_graphs``), the graphs captured before the second (timed
+        as ``"capture"``)."""
         if self.epoch_runner is None:
-            self.epoch_runner = DeviceEpochRunner(self.cfg, self.state, self.epoch_inputs,
-                                                  self.device_data(), cv=self.cv_state)
-        elif self._side_stream is not None and not self.epoch_runner.graph \
-                and self._device_epochs:
+            self.epoch_runner = self._make_device_runner(graph=False)
+        elif self.device_graphs and not self.epoch_runner.graph and self._device_epochs:
             with self.timers.scope("capture"):
-                self.epoch_runner = DeviceEpochRunner(
-                    self.cfg, self.state, self.epoch_inputs, self.device_data(),
-                    graph=True, stream=self._side_stream, cv=self.cv_state)
+                self.epoch_runner = self._make_device_runner(graph=True)
                 torch.cuda.synchronize(self.device)
 
     def enqueue_device_epoch(self, epoch: int):
@@ -440,12 +455,17 @@ class Trainer:
         with self.timers.scope("enqueue"):          # the whole epoch's
             acc = self.enqueue_device_epoch(epoch)
         vals = acc.values()
+        return self._device_epoch_metrics(epoch, vals, time.perf_counter() - t_epoch)
+
+    def _device_epoch_metrics(self, epoch: int, vals: Dict[str, float],
+                              time_s: float) -> EpochMetrics:
+        """An on-device epoch's metrics from its accumulator's values."""
         steps = max(int(vals["steps"]), 1)
         em = EpochMetrics(
             epoch=epoch,
             mean_loss=vals["loss_sum"] / steps,
             mean_acc=vals["acc_sum"] / steps,
-            time_s=time.perf_counter() - t_epoch,
+            time_s=time_s,
             miss_rate=0.0,                  # fully cached by construction
             num_batches=int(vals["steps"]),
             edges=int(vals["edges"]),
@@ -469,12 +489,15 @@ class Trainer:
             self.run_epoch(e)
             self._maybe_eval(e)
             if tc.ckpt_dir and tc.ckpt_every and (e + 1) % tc.ckpt_every == 0:
-                # the host path's sampler random state too: a resumed run
-                # draws the uninterrupted run's batches; CV-GCN's histories
-                # go into the .aux sidecar
-                save_checkpoint(tc.ckpt_dir, self.cfg.model.arch, e, self.state,
-                                sampler=self.sampler, aux=self._cv_aux())
+                self._checkpoint(e)
         return self.summary()
+
+    def _checkpoint(self, epoch: int) -> None:
+        """Save the train state after ``epoch``, with the host path's sampler
+        random state (a resumed run draws the uninterrupted run's batches)
+        and CV-GCN's histories (the ``.aux`` sidecar)."""
+        save_checkpoint(self.cfg.train.ckpt_dir, self.cfg.model.arch, epoch, self.state,
+                        sampler=self.sampler, aux=self._cv_aux())
 
     def _maybe_eval(self, epoch: int) -> None:
         """Validation accuracy by full-graph inference every

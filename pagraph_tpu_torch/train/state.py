@@ -86,6 +86,10 @@ class TrainState:
     dtype: torch.dtype = torch.float32   # compute dtype (compute_dtype)
     lr_schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None   # make_lr_schedule
     step_t: Optional[torch.Tensor] = None
+    # data-parallel training: the gradients' mean over the process group
+    # (parallel/train_step.py GradSync), whose flat buffer the .grad views
+    # keep: zeroed in place, never set to None
+    grad_sync: Optional[object] = None
 
     def __post_init__(self):
         if self.step_t is None:
@@ -233,8 +237,10 @@ def train_on_features(state: TrainState, mb: MiniBatch, feats: torch.Tensor,
         logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator,
                                                       **kw)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
-    state.optimizer.zero_grad(set_to_none=True)
+    _zero_grads(state)
     loss.backward()
+    if state.grad_sync is not None:
+        state.grad_sync.sync()          # the mean over the ranks, before Adam
     if state.lr_schedule is not None:
         state.optimizer.param_groups[0]["lr"].copy_(state.lr_schedule(state.step_t))
     state.optimizer.step()
@@ -246,6 +252,15 @@ def train_on_features(state: TrainState, mb: MiniBatch, feats: torch.Tensor,
     if new_hists is not None:
         out["new_hists"] = new_hists
     return out
+
+
+def _zero_grads(state: TrainState) -> None:
+    """Gradients freed before a backward, or zeroed in place under a
+    ``grad_sync`` (its views must stay)."""
+    if state.grad_sync is None:
+        state.optimizer.zero_grad(set_to_none=True)
+    else:
+        state.grad_sync.zero_()
 
 
 # -- CUDA graphs ---------------------------------------------------------------
@@ -291,10 +306,12 @@ class CapturedGraph:
 
 def capture_train(state: TrainState, fn: Callable, steps: int, **kw) -> CapturedGraph:
     """Capture ``fn``, which makes ``steps`` optimizer steps: gradients
-    freed first (the graph allocates its own), the dropout generator
-    registered, and the host step count left as it was (the capture ran the
-    Python, not the kernels) and advanced by ``steps`` at each replay."""
-    state.optimizer.zero_grad(set_to_none=True)
+    freed first (the graph allocates its own; under a ``grad_sync`` they
+    stay its buffer's views, outside the graph's pool), the dropout
+    generator registered, and the host step count left as it was (the
+    capture ran the Python, not the kernels) and advanced by ``steps`` at
+    each replay."""
+    _zero_grads(state)
     step = state.step
     try:
         g = CapturedGraph(fn, generator=state.generator, after=lambda: _advance(state, steps),

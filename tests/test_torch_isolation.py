@@ -67,7 +67,9 @@ def test_source_imports_no_jax(path):
 def test_scan_covers_the_host_path_modules():
     for m in ("sampling/native.py", "sampling/pack.py", "sampling/sampler.py",
               "storage/feature_store.py", "train/state.py", "train/loop.py",
-              "models/inference.py", "train/checkpoint.py", "ops/aggregate.py"):
+              "models/inference.py", "train/checkpoint.py", "ops/aggregate.py",
+              "parallel/__init__.py", "parallel/dp_trainer.py", "parallel/multihost.py",
+              "parallel/train_step.py", "utils/sync.py"):
         assert os.path.join("pagraph_tpu_torch", m) in SOURCES
     assert os.path.join("pagraph_tpu_torch", "csrc", "host_native.cpp") in ALL_SOURCES
 
@@ -108,6 +110,25 @@ def test_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PrefetchLoader(tr.sampler, tr.cache)
     assert PrefetchLoader(tr.sampler, tr.cache, device="cpu").device.type == "cpu"
+
+
+def test_dp_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    """The data-parallel trainer, in a one-rank gloo group, takes
+    ``device=None`` as the GPU too."""
+    import torch.distributed as dist
+
+    from pagraph_tpu_torch.parallel import DataParallelTrainer, init_distributed
+
+    ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
+    cfg = _tiny_cfg()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    init_distributed(0, 1, backend="gloo")
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            DataParallelTrainer.from_dataset(cfg, ds)
+        assert DataParallelTrainer.from_dataset(cfg, ds, device="cpu").device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("train_kw", [dict(remote_sampling=True),
