@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``pagraph_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
-    python3 chip_smoke.py --dp-gpus 4   # the dp phase's ranks across 4 cards (nccl)
+    python3 chip_smoke.py --dp-gpus 4   # the dp and halo phases' ranks across 4 cards (nccl)
 
 Phases, each printed as one JSON line:
 
@@ -190,6 +190,31 @@ Phases, each printed as one JSON line:
   bit-equal after every epoch, one lockstep step count (the largest of
   their own), the host loss falling, and per rank epoch seconds, edges/s,
   its own miss rate and peak device bytes;
+* ``halo``: the halo feature sources (``DataParallelTrainer(feature_source=
+  "ici" | "edge")``, ``parallel/halo.py``: the features sharded across the
+  ranks, each step's layer-0 rows fetched from their owners over two
+  ``all_to_all_single``) at the main path's shape, dropout 0 for (a),
+  over the dataset and the 2-way hash parts the ``dp`` phase saved: (a)
+  world size 1 on ``nccl``: ``ici`` on the host path, 2 epochs (epoch 1
+  replayed from the host-step graphs, the all_to_alls and the all-reduce
+  inside) at bf16 and f32 compute, against the ``cache`` source's run from
+  the same seed: bit-equal at bf16, at f32 within ``dp``'s bounds; the
+  ``edge`` device epoch at bf16 compute for 3 epochs (epochs 1-2 replayed
+  from one CUDA graph with every collective inside) bit-equal to its eager
+  form from epoch 0's checkpoint, to the same run with
+  ``train.halo_pipeline`` (the fetches on a stream of their own inside the
+  graph) and to the ``cache`` source's device epoch; each with exactly the
+  gather launches of its path a step (the exchange's one assembly plus the
+  block kernels on the host, the exchange's assembly alone on the device),
+  1 all-reduce and 2 all_to_all a step and no halo request dropped; (b) 2
+  gloo ranks sharing the card: ``ici`` on the host path over the hash
+  parts, ``ici`` on the device over the whole graph and ``edge`` on the
+  device over the hash parts, at dropout 0.2, 2 host epochs and 3 device
+  epochs (the third the first replay with every rank in step): the ranks'
+  parameters bit-equal after every epoch, one lockstep step count, the
+  same launches and collectives a step, the host loss falling, and per
+  rank the epoch times, halo width, drops, bytes exchanged a step, the
+  shard's bytes and the wall ms of one eager exchange alone at that width;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -204,7 +229,12 @@ Phases, each printed as one JSON line:
   that tier's cache and plan of the batch; ``assemble_full[tier]`` is the
   on-device path's layer-0 fetch (``ops.gather.take_rows``: the assembly
   with no miss rows) from the full cache at a device-sampled batch's 54,000
-  rows, its ``library_ms`` ``index_select`` at f32.  No one PyTorch call
+  rows, its ``library_ms`` ``index_select`` at f32; ``assemble_halo[f32]``
+  and ``assemble_halo[f32->bf16]`` are the halo exchange's last step (the
+  received rows in batch order, a zero row for each dropped request) at
+  world size 1 over that batch (``H`` = 54,000 rows received), its
+  launches those of the ``halo`` phase's (a) runs, its ``library_same_fn_ms``
+  ``index_select`` then ``where``.  No one PyTorch call
   computes a fused case: its ``library_ms`` times the calls that compute
   each output from pre-flattened inputs (for the forward ``index_select`` +
   ``embedding_bag``; for the backwards the ``index_add_`` calls into a
@@ -1375,10 +1405,12 @@ def dp_load_dataset(root: str):
                    a["labels"], a["train_mask"], a["val_mask"], a["test_mask"])
 
 
-def dp_syncs_run(tr, steps_of) -> int:
-    """Gradient all-reduces run: the eager calls, with each graph's steps
-    times its replays in place of its capture's (``executed_launches``)."""
-    calls = tr.grad_sync.calls
+def dp_syncs_run(tr, steps_of, calls=None) -> int:
+    """Gradient all-reduces run (or, given ``calls``, the Python calls of
+    another collective made once a step, such as the halo exchange): the
+    eager calls, with each graph's steps times its replays in place of its
+    capture's (``executed_launches``)."""
+    calls = tr.grad_sync.calls if calls is None else calls
     runner = tr.epoch_runner if tr._device_mode else tr.group_graphs
     if runner is not None:
         for k, g in zip(steps_of(runner), runner.graphs):
@@ -1394,18 +1426,27 @@ def dp_run(torch, gk, tr, epochs, start=0):
     base = torch.cuda.memory_allocated()
     gk.reset_launch_counts()
     calls0 = tr.grad_sync.calls
+    ex = tr.exchange
+    ex0 = ex.calls if ex is not None else 0
     ms = [tr.run_epoch(e) for e in range(start, start + epochs)]
     torch.cuda.synchronize()
     runner = tr.epoch_runner if tr._device_mode else tr.group_graphs
     counts = {k: v for k, v in executed_launches(gk.launch_counts(), runner).items() if v}
     steps = sum(m.num_batches for m in ms)
-    syncs = dp_syncs_run(tr, (lambda r: [tr.epoch_inputs.num_batches] * len(r.graphs))
-                         if tr._device_mode else (lambda r: [k for k, _ in r.keys])) - calls0
-    return ms, {"epochs": epoch_rows(ms), "launches": counts,
-                "launches_per_step": sum(counts.values()) / steps,
-                "all_reduces_per_step": syncs / steps,
-                "capture_s": tr.timers.total["capture"],
-                "peak_device_bytes": torch.cuda.max_memory_allocated() - base}
+    steps_of = ((lambda r: [tr.epoch_inputs.num_batches] * len(r.graphs)) if tr._device_mode
+                else (lambda r: [k for k, _ in r.keys]))
+    syncs = dp_syncs_run(tr, steps_of) - calls0
+    out = {"epochs": epoch_rows(ms), "launches": counts,
+           "launches_per_step": sum(counts.values()) / steps,
+           "all_reduces_per_step": syncs / steps,
+           "capture_s": tr.timers.total["capture"],
+           "peak_device_bytes": torch.cuda.max_memory_allocated() - base}
+    if ex is not None:
+        # two all_to_all_single an exchange; the halo drops of every rank
+        out.update(all_to_alls_per_step=2 * (dp_syncs_run(tr, steps_of, ex.calls) - ex0) / steps,
+                   halo_drops=[m.halo_drops for m in ms], halo_width=tr.halo_width,
+                   halo_bytes_per_step=ex.bytes_per_step, shard_bytes=tr.shard.nbytes)
+    return ms, out
 
 
 def dp_params(tr):
@@ -1564,6 +1605,20 @@ def dp_rank_shared(rank, world, root, part_dir, capacity, out_dir) -> None:
         json.dump(out, f)
 
 
+def dp_parts(env, root: str, world: int):
+    """RMAT-20's train set hash-partitioned ``world`` ways at 2 hops, saved
+    under ``root`` for the ranks (once: a second call reuses them):
+    ``(directory, parts)``."""
+    ds = env.ds
+    part_dir = os.path.join(root, f"parts{world}")
+    if getattr(env, "parts", {}).get(world) is None:
+        parts = env.partition.hash_partition(ds.graph, ds.train_nids, ds.labels, world, 2)
+        for r, p in enumerate(parts):
+            env.formats.save_partition(part_dir, r, p)
+        env.parts = {**getattr(env, "parts", {}), world: parts}
+    return part_dir, env.parts[world]
+
+
 def dp_ranks(env, root: str, world: int, backend: str, label: str):
     """``world`` ranks on ``backend`` over RMAT-20's train set
     hash-partitioned at 2 hops (saved under ``root``, beside the dataset
@@ -1574,14 +1629,11 @@ def dp_ranks(env, root: str, world: int, backend: str, label: str):
     all-reduce a step on every rank; CUDA graphs under ``nccl`` and none
     under gloo; the ranks' parameters bit-equal after every epoch; the host
     loss falling."""
-    torch, ds, bad = env.torch, env.ds, []
+    torch, bad = env.torch, []
     from pagraph_tpu_torch.parallel import spawn_local
 
     t0 = time.perf_counter()
-    parts = env.partition.hash_partition(ds.graph, ds.train_nids, ds.labels, world, 2)
-    part_dir = os.path.join(root, "parts")
-    for r, p in enumerate(parts):
-        env.formats.save_partition(part_dir, r, p)
+    part_dir, parts = dp_parts(env, root, world)
     capacity = int(DP_CACHE_SHARE * max(p.num_nodes for p in parts))
     out = {"world_size": world, "backend": backend, "capacity": capacity,
            "partition_and_save_s": time.perf_counter() - t0}
@@ -1625,9 +1677,10 @@ def dp_ranks(env, root: str, world: int, backend: str, label: str):
     return out, bad
 
 
-def dp_phase(env):
+def dp_phase(env, root: str):
     """Data-parallel training through ``pagraph_tpu_torch.parallel``, the
-    ranks spawned from here (``spawn_local``, the ``spawn`` method): (a) and
+    ranks spawned from here (``spawn_local``, the ``spawn`` method), the
+    dataset and the partitions saved under ``root``: (a) and
     (b) in one ``nccl`` rank (:func:`dp_rank_world1`); (c) :data:`DP_RANKS`
     gloo ranks on the one card over RMAT-20's train set hash-partitioned
     at 2 hops and saved here (:func:`dp_rank_shared`).  Fails unless (a)
@@ -1644,50 +1697,354 @@ def dp_phase(env):
 
     t_phase = time.perf_counter()
     ds, bad, out = env.ds, [], {}
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        dp_save_dataset(np, ds, root)
-        out["save_dataset_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        spawn_local(dp_rank_world1, 1, root, os.path.join(root, "w1.json"),
-                    backend="nccl", timeout=600)
-        out["world1_s"] = time.perf_counter() - t0
-        with open(os.path.join(root, "w1.json")) as f:
-            w1 = json.load(f)
-        out["world1"] = w1
-        for compute, per_step in (("bfloat16", {"assemble_f32_to_bf16": 1,
-                                                "block_gather_fwd_mean_bf16": 2,
-                                                "block_gather_bwd_mean_bf16": 1,
-                                                "grad_to_bf16": 1}),
-                                  ("float32", {"assemble_f32": 1, "block_gather_fwd_mean": 2,
-                                               "block_gather_bwd_mean": 1})):
-            row = w1[f"host_{compute}"]
-            steps = sum(e["batches"] for e in row["epochs"])
-            if row["launches"] != {k: v * steps for k, v in per_step.items()}:
-                bad.append(f"(a) {compute}: launches {row['launches']} over {steps} steps, "
-                           f"expected {per_step} a step")
-            if row["all_reduces_per_step"] != 1:
-                bad.append(f"(a) {compute}: {row['all_reduces_per_step']} all-reduces a step")
-        if not w1["host_bfloat16"]["bit_equal_to_single"]:
-            bad.append("(a) bf16: the dp run is not bit-equal to the single-device eager run")
-        d_loss, d_par = w1["host_float32"]["rel_diff_to_single"]
-        if not (d_loss <= DP_F32_LOSS_TOL and d_par <= DP_F32_PARAM_TOL):
-            bad.append(f"(a) f32: the dp run differs from the single-device run by {d_loss} "
-                       f"(loss, relative) and {d_par} (parameters, of max|p|), over "
-                       f"{DP_F32_LOSS_TOL} and {DP_F32_PARAM_TOL}")
-        dev = w1["device"]
-        steps = sum(e["batches"] for e in dev["epochs"])
-        if dev["launches"] != {"assemble_f32": steps} or dev["all_reduces_per_step"] != 1:
-            bad.append(f"(b) launches {dev['launches']} and {dev['all_reduces_per_step']} "
-                       f"all-reduces a step over {steps} steps")
-        if dev["graph_replays"] != [DP_DEVICE_EPOCHS - 1]:
-            bad.append(f"(b) the epoch graph replayed {dev['graph_replays']} times")
-        if not dev["replay_bit_equal_to_eager"]:
-            bad.append("(b) the replayed epochs are not bit-equal to their eager form")
+    t0 = time.perf_counter()
+    dp_save_dataset(np, ds, root)
+    out["save_dataset_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spawn_local(dp_rank_world1, 1, root, os.path.join(root, "w1.json"),
+                backend="nccl", timeout=600)
+    out["world1_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "w1.json")) as f:
+        w1 = json.load(f)
+    out["world1"] = w1
+    for compute, per_step in (("bfloat16", {"assemble_f32_to_bf16": 1,
+                                            "block_gather_fwd_mean_bf16": 2,
+                                            "block_gather_bwd_mean_bf16": 1,
+                                            "grad_to_bf16": 1}),
+                              ("float32", {"assemble_f32": 1, "block_gather_fwd_mean": 2,
+                                           "block_gather_bwd_mean": 1})):
+        row = w1[f"host_{compute}"]
+        steps = sum(e["batches"] for e in row["epochs"])
+        if row["launches"] != {k: v * steps for k, v in per_step.items()}:
+            bad.append(f"(a) {compute}: launches {row['launches']} over {steps} steps, "
+                       f"expected {per_step} a step")
+        if row["all_reduces_per_step"] != 1:
+            bad.append(f"(a) {compute}: {row['all_reduces_per_step']} all-reduces a step")
+    if not w1["host_bfloat16"]["bit_equal_to_single"]:
+        bad.append("(a) bf16: the dp run is not bit-equal to the single-device eager run")
+    d_loss, d_par = w1["host_float32"]["rel_diff_to_single"]
+    if not (d_loss <= DP_F32_LOSS_TOL and d_par <= DP_F32_PARAM_TOL):
+        bad.append(f"(a) f32: the dp run differs from the single-device run by {d_loss} "
+                   f"(loss, relative) and {d_par} (parameters, of max|p|), over "
+                   f"{DP_F32_LOSS_TOL} and {DP_F32_PARAM_TOL}")
+    dev = w1["device"]
+    steps = sum(e["batches"] for e in dev["epochs"])
+    if dev["launches"] != {"assemble_f32": steps} or dev["all_reduces_per_step"] != 1:
+        bad.append(f"(b) launches {dev['launches']} and {dev['all_reduces_per_step']} "
+                   f"all-reduces a step over {steps} steps")
+    if dev["graph_replays"] != [DP_DEVICE_EPOCHS - 1]:
+        bad.append(f"(b) the epoch graph replayed {dev['graph_replays']} times")
+    if not dev["replay_bit_equal_to_eager"]:
+        bad.append("(b) the replayed epochs are not bit-equal to their eager form")
 
-        # (c): two gloo ranks on the one card
-        out["shared"], more = dp_ranks(env, root, DP_RANKS, "gloo", "(c)")
-        bad.extend(more)
+    # (c): two gloo ranks on the one card
+    out["shared"], more = dp_ranks(env, root, DP_RANKS, "gloo", "(c)")
+    bad.extend(more)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
+# -- halo: the halo feature sources, features sharded across the ranks ---------
+HALO_DEVICE_EPOCHS = 3                  # (a): epoch 0 eager, then two replays
+HALO_RANKS = 2                          # (b): gloo ranks sharing the one card
+# (b), (c): host epochs (0 eager, 1 replayed where graphs are), device
+# epochs (0 eager, 1 the first replay, which waits for every rank's
+# capture, 2 a replay with every rank in step: the one whose time is clean)
+HALO_SHARED_EPOCHS = {"ici_host": 2, "ici_device": 3, "edge_device": 3}
+HALO_HOST_STEP = {"float32": {"assemble_f32": 1, "block_gather_fwd_mean": 2,
+                              "block_gather_bwd_mean": 1},
+                  "bfloat16": {"assemble_f32_to_bf16": 1, "block_gather_fwd_mean_bf16": 2,
+                               "block_gather_bwd_mean_bf16": 1, "grad_to_bf16": 1}}
+
+
+def halo_check_collectives(row, label, per_step, bad) -> None:
+    """Exactly ``per_step`` gather launches, 1 all-reduce and 2 all_to_all
+    a step, and no halo request dropped."""
+    steps = sum(e["batches"] for e in row["epochs"])
+    if row["launches"] != {k: v * steps for k, v in per_step.items()}:
+        bad.append(f"{label}: launches {row['launches']} over {steps} steps, expected "
+                   f"{per_step} a step")
+    if row["all_reduces_per_step"] != 1 or row["all_to_alls_per_step"] != 2:
+        bad.append(f"{label}: {row['all_reduces_per_step']} all-reduces and "
+                   f"{row['all_to_alls_per_step']} all_to_all a step, expected 1 and 2")
+    if any(row["halo_drops"]):
+        bad.append(f"{label}: halo drops {row['halo_drops']}")
+
+
+def halo_rank_world1(rank, world, root, out_path) -> None:
+    """A world-size-1 ``nccl`` rank of the halo phase, its features one
+    shard: (a) ``ici`` on the host path (epoch 1 replayed from the host-step
+    graphs, the all_to_alls and the all-reduce inside) against the
+    ``cache`` source's run from the same seed, at bf16 and f32 compute;
+    the ``edge`` device epoch at bf16 compute (epoch 0 eager, then replayed
+    from one CUDA graph) against its eager form from epoch 0's checkpoint,
+    against the ``cache`` source's device epoch and against itself with
+    ``train.halo_pipeline``.  Writes the results as JSON to ``out_path``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import pagraph_tpu_torch as pt
+    from pagraph_tpu_torch.data.formats import PartitionArtifact
+    from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.parallel import DataParallelTrainer
+    from pagraph_tpu_torch.storage.feature_store import FeatureStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = dp_load_dataset(root)
+    n = ds.num_nodes
+    store = FeatureStore.build(ds.graph, ds.features)
+    whole = PartitionArtifact(ds.graph, ds.train_nids, np.arange(n, dtype=np.int64),
+                              ds.labels)
+    out = {"backend": torch.distributed.get_backend(), "world_size": world}
+
+    def run(cfg, source, epochs, start=0, tr=None):
+        t0 = time.perf_counter()
+        if tr is None:
+            tr = DataParallelTrainer(cfg, store, whole, seed=0, feature_source=source)
+            tr._maybe_fill_cache()
+        setup = time.perf_counter() - t0
+        ms, row = dp_run(torch, gk, tr, epochs, start=start)
+        row["setup_s"] = setup
+        return tr, [m.mean_loss for m in ms], row
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for compute in ("bfloat16", "float32"):
+        cfg = dp_config(pt, n, compute=compute)
+        tr, losses, row = run(cfg, "ici", 2)
+        row["graphs"] = len(tr.group_graphs.graphs) if tr.group_graphs else 0
+        params = dp_params(tr)
+        del tr
+        release()
+        tr, c_losses, c_row = run(cfg, "cache", 2)
+        c_params = dp_params(tr)
+        del tr
+        release()
+        row.update(losses=losses, cache_losses=c_losses,
+                   cache_epochs=c_row["epochs"],
+                   bit_equal_to_cache=losses == c_losses and all(
+                       torch.equal(params[k], c_params[k]) for k in params),
+                   rel_diff_to_cache=dp_rel_diffs(losses, params, c_losses, c_params))
+        out[f"ici_host_{compute}"] = row
+
+    cfg = dp_config(pt, n, on_device=True, compute="bfloat16")
+    with tempfile.TemporaryDirectory() as ck:
+        cfg.train.ckpt_dir = ck
+        tr, l0, _ = run(cfg, "edge", 1)
+        tr._checkpoint(0)
+        tr, losses, row = run(cfg, "edge", HALO_DEVICE_EPOCHS - 1, start=1, tr=tr)
+        runner = tr.epoch_runner
+        row["graph_replays"] = [g.replays for g in runner.graphs] if runner.graph else []
+        losses, params = l0 + losses, dp_params(tr)
+        del runner, tr
+        release()
+        eager = DataParallelTrainer(cfg, store, whole, seed=0, feature_source="edge")
+        eager.device_graphs = False
+        start = eager.resume(0)
+        e_losses = [eager.run_epoch(e).mean_loss for e in range(start, HALO_DEVICE_EPOCHS)]
+        e_params = dp_params(eager)
+        del eager
+        release()
+    row.update(losses=losses, eager_losses=e_losses,
+               replay_bit_equal_to_eager=losses[1:] == e_losses and all(
+                   torch.equal(params[k], e_params[k]) for k in params))
+    pipe_cfg = copy.deepcopy(cfg)
+    pipe_cfg.train.halo_pipeline = True
+    for label, c_, source in (("pipelined", pipe_cfg, "edge"), ("cache", cfg, "cache")):
+        tr, o_losses, o_row = run(c_, source, HALO_DEVICE_EPOCHS)
+        o_params = dp_params(tr)
+        del tr
+        release()
+        o_row.update(losses=o_losses, bit_equal_to_edge=o_losses == losses and all(
+            torch.equal(params[k], o_params[k]) for k in params))
+        row[label] = o_row
+    out["edge_device_bfloat16"] = row
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def halo_exchange_ms(torch, tr, iters: int = 20) -> float:
+    """Wall ms of one eager exchange at ``tr``'s width (every rank at once,
+    after a barrier; each request reads row 0 of its owner's shard): the
+    exchange's own share of a halo step, apart from sampling and training."""
+    ex = tr.exchange
+    req = torch.zeros((ex.world_size, ex.halo_width), dtype=torch.int32,
+                      device=ex.shard.device)
+    src = torch.arange(ex.world_size * ex.halo_width, dtype=torch.int32,
+                       device=ex.shard.device)
+    ex(req, src)
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        ex(req, src)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def halo_rank_shared(rank, world, root, part_dir, out_dir) -> None:
+    """A rank of several (gloo ranks on one card, or one ``nccl`` rank a
+    card): ``ici`` on the host path over its partition from ``part_dir``,
+    ``ici`` on the device over the whole graph, and ``edge`` on the device
+    over its partition, :data:`HALO_SHARED_EPOCHS` epochs each at dropout
+    0.2; the parameters after each epoch to ``out_dir``, and this rank's
+    numbers as JSON."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import pagraph_tpu_torch as pt
+    from pagraph_tpu_torch.data.formats import PartitionArtifact, load_partition
+    from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.parallel import DataParallelTrainer
+    from pagraph_tpu_torch.storage.feature_store import FeatureStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = dp_load_dataset(root)
+    store = FeatureStore.build(ds.graph, ds.features)
+    whole = PartitionArtifact(ds.graph, ds.train_nids,
+                              np.arange(ds.num_nodes, dtype=np.int64), ds.labels)
+    mine = load_partition(part_dir, rank)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(), "world_size": world}
+    for run, source, cfg, part in (
+            ("ici_host", "ici", dp_config(pt, 0, dropout=0.2, capacity=0), mine),
+            ("ici_device", "ici", dp_config(pt, 0, on_device=True, dropout=0.2), whole),
+            ("edge_device", "edge", dp_config(pt, 0, on_device=True, dropout=0.2), mine)):
+        t0 = time.perf_counter()
+        tr = DataParallelTrainer(cfg, store, part, seed=0, feature_source=source)
+        setup = time.perf_counter() - t0
+        rows = []
+        for e in range(HALO_SHARED_EPOCHS[run]):
+            m, row = dp_run(torch, gk, tr, 1, start=e)
+            row.update(row.pop("epochs")[0])
+            rows.append(row)
+            torch.save(dp_params(tr), os.path.join(out_dir, f"halo_{run}_e{e}_rank{rank}.pt"))
+        out[run] = {"setup_s": setup, "epochs": rows, "lockstep_steps": tr.steps,
+                    "batch_size": cfg.sampler.batch_size, "train_vertices": len(part.train_nids),
+                    "own_batches": -(-len(tr.part.train_nids) // cfg.sampler.batch_size),
+                    "part_vertices": tr.part.num_nodes, "cache_filled": tr._cache_filled,
+                    "graphs": bool(tr.epoch_runner.graph if tr._device_mode
+                                   else tr.group_graphs),
+                    "exchange_ms": halo_exchange_ms(torch, tr)}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"halo_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def halo_ranks(env, root: str, world: int, backend: str, label: str):
+    """``world`` ranks on ``backend`` through :func:`halo_rank_shared`, over
+    the ``world``-way hash partition :func:`dp_parts` saved: the rows and
+    the failed checks (each prefixed ``label``): one lockstep step count on
+    every rank (the largest of the ranks' own batches over the partitions,
+    ``ceil(n_train / (P * B))`` over the whole graph); exactly 4 gather
+    launches, 1 all-reduce and 2 all_to_all a host step, 1 launch and the
+    same collectives a device step; CUDA graphs under ``nccl`` and none
+    under gloo; the ranks' parameters bit-equal after every epoch; the host
+    loss falling."""
+    torch, bad = env.torch, []
+    from pagraph_tpu_torch.parallel import spawn_local
+
+    part_dir, _ = dp_parts(env, root, world)
+    out = {"world_size": world, "backend": backend}
+    t0 = time.perf_counter()
+    spawn_local(halo_rank_shared, world, root, part_dir, root, backend=backend, timeout=600)
+    out["ranks_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"halo_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["ranks"] = ranks
+    for run, per_step in (("ici_host", HALO_HOST_STEP["float32"]),
+                          ("ici_device", {"assemble_f32": 1}),
+                          ("edge_device", {"assemble_f32": 1})):
+        rows = [rk[run] for rk in ranks]
+        want = (-(-rows[0]["train_vertices"] // (world * rows[0]["batch_size"]))
+                if run == "ici_device" else max(rk["own_batches"] for rk in rows))
+        lock = {rk["lockstep_steps"] for rk in rows}
+        if lock != {want}:
+            bad.append(f"{label} {run}: lockstep steps {lock}, expected {want}")
+        if any(rk["graphs"] != (backend == "nccl") or rk["cache_filled"] for rk in rows):
+            bad.append(f"{label} {run}: graphs {[rk['graphs'] for rk in rows]} on {backend}, "
+                       f"caches filled {[rk['cache_filled'] for rk in rows]}")
+        for r, rk in enumerate(rows):
+            for e in rk["epochs"]:
+                halo_check_collectives(dict(e, epochs=[e]),
+                                       f"{label} {run} rank {r}", per_step, bad)
+        equal = []
+        for e in range(HALO_SHARED_EPOCHS[run]):
+            ps = [torch.load(os.path.join(root, f"halo_{run}_e{e}_rank{r}.pt"),
+                             map_location="cpu") for r in range(world)]
+            equal.append(all(torch.equal(ps[0][k], q[k]) for q in ps[1:] for k in ps[0]))
+        out[f"{run}_replicas_bit_equal"] = equal
+        if not all(equal):
+            bad.append(f"{label} {run}: the ranks' parameters differ after an epoch: {equal}")
+    host_losses = [e["mean_loss"] for e in ranks[0]["ici_host"]["epochs"]]
+    out["host_loss_falls"] = host_losses[1] < host_losses[0]
+    if not out["host_loss_falls"]:
+        bad.append(f"{label} the ici host loss did not fall: {host_losses}")
+    return out, bad
+
+
+def halo_phase(env, root: str):
+    """The halo feature sources through ``DataParallelTrainer(feature_source=
+    "ici" | "edge")``, the ranks spawned from here over the dataset and the
+    partitions the ``dp`` phase saved under ``root``: (a) one ``nccl`` rank
+    (:func:`halo_rank_world1`), (b) :data:`HALO_RANKS` gloo ranks on the one
+    card (:func:`halo_ranks`).  Fails unless (a)'s ``ici`` host run replays
+    from graphs and is bit-equal to the ``cache`` source at bf16 compute
+    (at f32 within :data:`DP_F32_LOSS_TOL` of the loss and
+    :data:`DP_F32_PARAM_TOL` of each parameter's max|p|), its ``edge``
+    device epoch replays from one graph bit-equal to its eager form, to the
+    ``cache`` source's device epoch and to its pipelined form, every run
+    makes exactly the gather launches of its path, 1 all-reduce and 2
+    all_to_all a step and drops no halo request, and (b) holds as
+    :func:`halo_ranks` says."""
+    from pagraph_tpu_torch.parallel import spawn_local
+
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    t0 = time.perf_counter()
+    spawn_local(halo_rank_world1, 1, root, os.path.join(root, "halo_w1.json"),
+                backend="nccl", timeout=600)
+    out["world1_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "halo_w1.json")) as f:
+        w1 = json.load(f)
+    out["world1"] = w1
+    for compute in ("bfloat16", "float32"):
+        row = w1[f"ici_host_{compute}"]
+        halo_check_collectives(row, f"(a) ici host {compute}", HALO_HOST_STEP[compute], bad)
+        if not row["graphs"]:
+            bad.append(f"(a) ici host {compute}: no host-step graph replayed")
+    if not w1["ici_host_bfloat16"]["bit_equal_to_cache"]:
+        bad.append("(a) ici host bf16: not bit-equal to the cache source's run")
+    d_loss, d_par = w1["ici_host_float32"]["rel_diff_to_cache"]
+    if not (d_loss <= DP_F32_LOSS_TOL and d_par <= DP_F32_PARAM_TOL):
+        bad.append(f"(a) ici host f32: {d_loss} (loss, relative) and {d_par} (parameters, of "
+                   f"max|p|) from the cache source's run, over {DP_F32_LOSS_TOL} and "
+                   f"{DP_F32_PARAM_TOL}")
+    dev = w1["edge_device_bfloat16"]
+    per_step = {"assemble_f32_to_bf16": 1}
+    halo_check_collectives(dev, "(a) edge device", per_step, bad)
+    halo_check_collectives(dev["pipelined"], "(a) edge device pipelined", per_step, bad)
+    if dev["graph_replays"] != [HALO_DEVICE_EPOCHS - 1]:
+        bad.append(f"(a) edge device: the epoch graph replayed {dev['graph_replays']} times")
+    for what, ok in (("replayed epochs against their eager form",
+                      dev["replay_bit_equal_to_eager"]),
+                     ("pipelined epochs against the unpipelined",
+                      dev["pipelined"]["bit_equal_to_edge"]),
+                     ("the cache source's device epochs against edge's",
+                      dev["cache"]["bit_equal_to_edge"])):
+        if not ok:
+            bad.append(f"(a) edge device: {what} are not bit-equal")
+    out["shared"], more = halo_ranks(env, root, HALO_RANKS, "gloo", "(b)")
+    bad.extend(more)
     out["seconds"] = time.perf_counter() - t_phase
     return out, bad
 
@@ -1698,7 +2055,9 @@ def dp_gpus_main(world: int) -> None:
     with no arguments needs one card): the build, RMAT-20, and
     :func:`dp_ranks` over an N-way hash partition (host and on-device
     epochs, epoch 1 replayed from CUDA graphs with the NCCL all-reduces
-    inside); its ``dp_gpus`` line, then the last line as :func:`main`'s."""
+    inside), then :func:`halo_ranks` (the ``ici`` host, ``ici`` device and
+    ``edge`` device runs, their all_to_alls inside the graphs too); its
+    ``dp_gpus`` line, then the last line as :func:`main`'s."""
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < world:
         fail(f"--dp-gpus {world} needs {world} CUDA cards")
@@ -1720,12 +2079,13 @@ def dp_gpus_main(world: int) -> None:
     _build.load("gather_kernels")
     build_s = time.perf_counter() - t0
     ds = build_dataset(np, synthetic, Dataset, CSRGraph)
+    env = types.SimpleNamespace(torch=torch, ds=ds, partition=partition, formats=formats)
     with tempfile.TemporaryDirectory() as root:
         dp_save_dataset(np, ds, root)
-        out, bad = dp_ranks(types.SimpleNamespace(torch=torch, ds=ds, partition=partition,
-                                                  formats=formats),
-                            root, world, "nccl", f"({world} cards)")
-    out.update(nvidia_smi=smi, build_s=build_s)
+        out, bad = dp_ranks(env, root, world, "nccl", f"({world} cards)")
+        halo, more = halo_ranks(env, root, world, "nccl", f"(halo, {world} cards)")
+    out.update(nvidia_smi=smi, build_s=build_s, halo=halo)
+    bad.extend(more)
     emit("dp_gpus", out)
     if bad:
         fail("dp_gpus: " + "; ".join(bad))
@@ -2905,12 +3265,21 @@ def main() -> None:
     free_memory()
 
     # -- dp: data-parallel training, one process a rank -------------------------
-    dp_out, bad = dp_phase(types.SimpleNamespace(torch=torch, np=np, ds=ds,
-                                                 partition=partition, formats=formats))
-    dp_out["nvidia_smi"] = smi
-    emit("dp", dp_out)
-    if bad:
-        fail("dp: " + "; ".join(bad))
+    # -- halo: the halo feature sources, features sharded across the ranks ------
+    dp_env = types.SimpleNamespace(torch=torch, np=np, ds=ds, partition=partition,
+                                   formats=formats)
+    with tempfile.TemporaryDirectory() as dp_root:
+        dp_out, bad = dp_phase(dp_env, dp_root)
+        dp_out["nvidia_smi"] = smi
+        emit("dp", dp_out)
+        if bad:
+            fail("dp: " + "; ".join(bad))
+        halo_out, bad = halo_phase(dp_env, dp_root)
+        halo_out["nvidia_smi"] = smi
+        emit("halo", halo_out)
+        if bad:
+            fail("halo: " + "; ".join(bad))
+    del dp_env
 
     # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
     dtr = dev_tr["f32"]
@@ -3031,6 +3400,43 @@ def main() -> None:
             same_fn=lambda c=cv_f, s=sc_f: full_same_fn(c, s),
             nbytes=4 * nd + nd_distinct * dd * cv_f.element_size() + rows_bytes(nd, dd)
             + (0 if sc_f is None else 4 * dd)))
+    # the halo exchange's assembly (parallel/halo.py step 5) at its world-1
+    # shape: the received rows are the one shard's rows of the plan's
+    # requests (an all_to_all over one rank is a copy), H = cap0; its
+    # launches are the halo phase's (a) runs'
+    from pagraph_tpu_torch.parallel.halo import device_halo_plan, halo_width_for, src_rows
+    hw = halo_width_for(nd, 1)
+    h_plan = device_halo_plan(d_ids, d_mb.input_mask, 1, hw)
+    h_recv = d_full["f32"][0].index_select(0, h_plan.req.view(-1))
+    h_zero = torch.zeros((1, dd), device=dev)
+    h_src = src_rows(h_plan)
+    h_distinct = distinct(h_src[h_src >= 0])
+    w1h = halo_out["world1"]
+
+    def halo_same_fn(out_dtype):
+        """Step 5 in PyTorch calls: index_select of the received rows (no
+        scale at f32), then the dropped rows' zeros, then the cast."""
+        rows = torch.index_select(h_recv, 0, h_src.clamp(min=0))
+        return torch.where((h_src >= 0)[:, None], rows, 0.0).to(out_dtype)
+
+    for out_dtype, tag, hlaunch in (
+            (torch.float32, "f32", w1h["ici_host_float32"]["launches"]["assemble_f32"]),
+            (torch.bfloat16, "f32->bf16",
+             w1h["edge_device_bfloat16"]["launches"]["assemble_f32_to_bf16"])):
+        cases.append(dict(
+            name=f"assemble_halo[{tag}]", key="assemble_f32" + gk.ASSEMBLE_OUT[out_dtype],
+            launches=hlaunch,
+            replaces=f"{PALLAS}:58 gather_rows_pallas (the halo exchange's batch order: "
+                     "parallel/halo.py:152 jnp.take + :155 where + storage/cache.py:69 "
+                     "dequantize_fused)",
+            shape=f"received {list(h_recv.shape)} f32 src_row [{nd}] (H = {hw}), one zero "
+                  f"row -> {tag.split('->')[-1]}",
+            tol="exact",
+            kernel=lambda o=out_dtype: gk.assemble(h_recv, h_src, h_zero, None, o),
+            plain=lambda o=out_dtype: gk.assemble_plain(h_recv, h_src, h_zero, None, o),
+            library=None, same_fn=lambda o=out_dtype: halo_same_fn(o),
+            nbytes=4 * nd + h_distinct * dd * 4 + 4 * dd
+            + rows_bytes(nd, dd, 4 if out_dtype == torch.float32 else 2)))
     # -- the backwards: the fused block backward and its single-half uses ----
     s1, d1 = h1.shape
     n1, f1 = b1.neigh_pos.shape

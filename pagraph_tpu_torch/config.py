@@ -2,9 +2,10 @@
 
 A copy of ``pagraph_tpu/config.py``: the same five dataclasses, fields,
 defaults and ``validate`` rules, so one JSON config drives either package.
-Knobs that the port does not read (``scan_unroll``, ``halo_slack``) are
-kept for parity; the port's ``Trainer`` says which paths it does not run
-yet.
+``scan_unroll`` is kept for parity and not read (a CUDA graph has nothing
+to unroll); ``halo_slack`` and ``halo_pipeline`` are read by the
+data-parallel trainer's halo feature sources (``parallel/halo.py``).  The
+port's trainers say which paths they do not run yet.
 """
 from __future__ import annotations
 
@@ -126,8 +127,8 @@ class TrainConfig:
     steps_per_dispatch: int = 8       # host path: K batches per dispatch (a CUDA graph)
     epoch_dispatch: str = "scan"      # scan | steps | pipelined: CUDA graphs on the card
     scan_unroll: int = 1              # JAX package: minibatches per scan step (ignored)
-    halo_slack: float = 1.5           # multi-device halo width factor
-    halo_pipeline: bool = False       # multi-device edge mode only
+    halo_slack: float = 1.5           # ici/edge: static halo width = slack x cap0 / P
+    halo_pipeline: bool = False       # edge mode: exchange of batch i+1 before batch i trains
     dtype: str = "float32"            # compute dtype: float32 | bfloat16
 
 

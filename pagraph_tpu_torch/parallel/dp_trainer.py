@@ -1,6 +1,6 @@
 """Data-parallel trainer: one graph partition, its cache and its device a
-rank (the port of ``pagraph_tpu/parallel/dp_trainer.py``, its ``cache``
-feature source).
+rank (the port of ``pagraph_tpu/parallel/dp_trainer.py``: the ``cache``,
+``ici`` and ``edge`` feature sources).
 
 The reference's topology (examples/profile/pa_gcn.py:117-157,
 ``mp.spawn(trainer, nprocs=gpus)`` + DDP/NCCL): every trainer process owns
@@ -48,10 +48,29 @@ none), the other ranks wait at a barrier; :meth:`resume` restores it into
 every rank's tensors in place.  ``train.eval_every``: rank 0 evaluates the
 full graph (``eval_data``) and broadcasts the accuracy.
 
-Refused, with the ROADMAP queue 1 item that ports them:
-``feature_source="ici"`` and ``"edge"``, ``train.halo_pipeline`` and
-``gcn_cv`` (item 7c); ``train.remote_sampling`` and ``dispatch="one2all"``
-(item 8); ``epoch_dispatch="steps"`` as the JAX package refuses it.
+The halo feature sources (``parallel/halo.py``): the full feature matrix
+is sharded across the ranks, each holding only its cyclic shard
+(``np.arange(rank, N, P)`` gathered from the store, in the cache tier's
+dtype), and each step's layer-0 rows come from their owners over two
+``all_to_all_single`` collectives; the cache is never filled and the miss
+rate is 0.  ``ici`` on the host path samples the rank's partition as the
+``cache`` source does and plans the exchange on the host (the loader's
+producers, the plan travelling in the packed batch; the static halo width
+from the calibrated layer-0 capacity); ``ici`` on the device samples the
+full graph on every rank (``from_dataset`` gives each rank the whole graph)
+over a shared permutation; ``edge`` (on the device only) samples the rank's
+partition and maps its ids through ``local2full``.  The device paths size
+the width from ``cap0 = B * prod(f + 1)``; both from ``train.halo_slack``.
+Requests past the width are dropped and train on zero rows: ``halo_drops``
+counts them (summed over the ranks) and an epoch that drops any warns.
+``train.halo_pipeline`` (``edge`` only) pipelines the exchange one batch
+deep, in a process group of its own.
+
+Refused, with the ROADMAP queue 1 item that ports them: multi-device
+``gcn_cv`` (item 7c, step 4); ``train.remote_sampling`` and
+``dispatch="one2all"`` (item 8); ``epoch_dispatch="steps"`` as the JAX
+package refuses it; ``edge`` without ``train.on_device_sampling`` and
+``train.halo_pipeline`` without ``edge``, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -71,13 +90,15 @@ from ..sampling.loader import PrefetchLoader
 from ..sampling.sampler import NeighborSampler
 from ..storage.cache import FeatureCache
 from ..storage.feature_store import FeatureStore
-from ..train.device_epoch import METRIC_NAMES, EpochInputs, num_batches, rank_epoch_seed
+from ..train.device_epoch import (METRIC_NAMES, DeviceData, EpochInputs, HaloEpoch,
+                                  epoch_seed, num_batches, rank_epoch_seed)
 from ..train.checkpoint import save_checkpoint
 from ..train.loop import Trainer
 from ..train.state import create_state, layer0_fields
 from ..utils.device import resolve_device
 from ..utils.timers import PhaseTimers
-from .train_step import attach_grad_sync
+from . import halo
+from .train_step import attach_grad_sync, make_dp_halo_train_step
 
 # the JAX package's refusal of the per-step dispatch (dp_trainer.py:114-120),
 # and the ROADMAP item that keeps it refused
@@ -92,24 +113,25 @@ _DROPOUT_STREAM = 1
 def refuse_unported(cfg: Config, feature_source: str = "cache",
                     dispatch: str = "one2one") -> None:
     """Raise for a configuration the port's data-parallel trainer does not
-    run, naming the ROADMAP queue 1 item that ports it."""
+    run: the JAX package's own validation, and what the port has not ported
+    yet, naming the ROADMAP queue 1 item that ports it."""
     t = cfg.train
     if feature_source not in ("cache", "ici", "edge"):
         raise ValueError(f"unknown feature_source {feature_source!r}")
     if dispatch not in ("one2one", "one2all"):
         raise ValueError(f"unknown dispatch {dispatch!r}")
-    if feature_source in ("ici", "edge"):
+    if feature_source == "edge" and not t.on_device_sampling:
         raise NotImplementedError(
-            f"feature_source={feature_source!r} (the halo exchange over all_to_all) is "
-            "not ported yet (ROADMAP queue 1 item 7c); the port runs feature_source='cache'")
-    if t.halo_pipeline:
-        raise NotImplementedError(
-            "train.halo_pipeline pipelines the edge mode's halo exchange, which is not "
-            "ported yet (ROADMAP queue 1 item 7c)")
+            "feature_source='edge' (partition CSR + features sharded across the ranks) is "
+            "an on-device mode: set train.on_device_sampling=True")
+    if t.halo_pipeline and feature_source != "edge":
+        raise ValueError(
+            "train.halo_pipeline pipelines the EDGE mode's halo exchange: set "
+            "feature_source='edge' (it is a no-op everywhere else)")
     if cfg.model.arch == "gcn_cv":
         raise NotImplementedError(
             "multi-device gcn_cv (per-partition histories and their multi-process aux "
-            "shards) is not ported yet (ROADMAP queue 1 item 7c)")
+            "shards) is not ported yet (ROADMAP queue 1 item 7c, step 4)")
     if t.remote_sampling:
         raise NotImplementedError(
             "train.remote_sampling (isolation-mode sampling) is not ported yet (ROADMAP "
@@ -153,6 +175,7 @@ class DataParallelTrainer(Trainer):
             raise ValueError("cfg.train.eval_every is set but rank 0 has no eval_data "
                              "(DataParallelTrainer.from_dataset wires it)")
         self.cfg, self.store, self.log, self.part = cfg, store, log, part
+        self.feature_source = feature_source
         self._eval_data = eval_data
         self._seed = seed
         self.timers = PhaseTimers()
@@ -177,6 +200,9 @@ class DataParallelTrainer(Trainer):
         self.state = create_state(cfg, seed=seed, device=self.device)
         self._broadcast_state()
         self.grad_sync = attach_grad_sync(self.state)
+        self.exchange = None
+        if feature_source != "cache":
+            self._shard_features()
         if self._device_mode:
             self._init_device_mode(n_train)
             return
@@ -191,10 +217,15 @@ class DataParallelTrainer(Trainer):
             caps = self._all_reduce_ints(self.sampler.calibrate_caps(), dist.ReduceOp.MAX)
             self.sampler.set_caps(tuple(caps))
         self.caps = self.sampler.caps
-        if cfg.cache.rank_by == "access_freq":
+        planner = None
+        if feature_source == "ici":
+            # the host pipeline's plans are [P, H] a batch: H from the
+            # calibrated layer-0 capacity
+            planner = self._make_exchange(self.caps[0])
+        elif cfg.cache.rank_by == "access_freq":
             self.cache.track_access = True
         self.loader = PrefetchLoader(self.sampler, self.cache, prefetch=cfg.sampler.prefetch,
-                                     device=self.device, num_batches=self.steps)
+                                     device=self.device, num_batches=self.steps, halo=planner)
         self.steps_per_dispatch = max(1, t.steps_per_dispatch)
         # gloo waits for the device on the host: no CUDA graph can hold it
         self.host_graphs = self.device.type == "cuda" and self.backend == "nccl"
@@ -204,9 +235,33 @@ class DataParallelTrainer(Trainer):
 
     def _init_device_mode(self, n_train: int) -> None:
         """This rank's CSR, train ids and labels on the device, the epoch's
-        buffers for the lockstep step count; warns on a large edge skew."""
-        part, dev = self.part, self.device
+        buffers for the lockstep step count; warns on a large edge skew.
+        The halo sources: the exchange at the width of ``cap0 = B *
+        prod(f + 1)``; ``ici`` runs ``ceil(n_train / (P * B))`` steps over
+        the whole graph, which every rank must hold."""
+        part, dev, s = self.part, self.device, self.cfg.sampler
         self.sampler = self.loader = None
+        self._halo = None
+        if self.feature_source != "cache":
+            l2f = None
+            if self.feature_source == "ici":
+                if (part.num_nodes != self.store.num_nodes
+                        or not np.array_equal(part.local2full, np.arange(part.num_nodes))):
+                    raise ValueError(
+                        "on_device_sampling with feature_source='ici' samples the FULL graph "
+                        "on every rank: give each rank the whole graph as its part "
+                        "(from_dataset does this)")
+                self.steps = max(1, -(-n_train // (self.world_size * s.batch_size)))
+            else:
+                if part.local2full.max(initial=0) >= np.iinfo(np.int32).max:
+                    raise ValueError("full vertex id overflows int32")
+                l2f = torch.from_numpy(part.local2full.astype(np.int32)).to(dev, copy=True)
+            cap0 = s.batch_size
+            for f in s.hop_fanouts():
+                cap0 *= f + 1
+            self._make_exchange(cap0)
+            self._halo = HaloEpoch(self.exchange, self.rank, self.world_size, l2f,
+                                   self.cfg.train.halo_pipeline)
         self._dev_csr = DeviceCSR.from_graph(part.graph, dev)
         self._dev_train_nids = torch.from_numpy(
             np.asarray(part.train_nids, dtype=np.int32)).to(dev, copy=True)
@@ -248,6 +303,76 @@ class DataParallelTrainer(Trainer):
                 dist.broadcast(buf, src=0)
                 t.copy_(buf)
 
+    # -- the halo exchange ---------------------------------------------------------
+
+    def _shard_features(self) -> None:
+        """This rank's cyclic shard of the full feature matrix on its device
+        (``halo.shard_features``' row ``rank``): the store's rows of
+        ``np.arange(rank, N, P)`` in the cache tier's dtype (quantized with
+        the store-wide scale at the int8 tier, or read as stored from a
+        pre-quantized store), zero-padded to ``ceil(N / P)`` rows."""
+        n, world = self.store.num_nodes, self.world_size
+        mine = halo.shard_ids(self.rank, world, n)
+        self.shard_rows = -(-n // world)
+        self.shard = torch.zeros((self.shard_rows, self.cache.total_dim),
+                                 dtype=self.cache.row_dtype, device=self.device)
+        self.shard[:len(mine)].copy_(self.cache.tier_rows(mine))
+        self._halo_group = dist.new_group() if self.cfg.train.halo_pipeline else None
+
+    def _make_exchange(self, cap0: int):
+        """The exchange at the static halo width for ``cap0`` layer-0 rows
+        (``halo.halo_width_for`` at ``train.halo_slack``); returns the host
+        planner of that width."""
+        self.halo_width = halo.halo_width_for(cap0, self.world_size,
+                                              slack=self.cfg.train.halo_slack)
+        self.exchange = halo.HaloExchange(self.shard, self.halo_width, group=self._halo_group,
+                                          scale=self.cache.dequant_scale_dev)
+        if self.log and self.rank == 0:
+            print(f"[{self.feature_source}] {self.store.num_nodes} x {self.cache.total_dim} "
+                  f"features sharded {self.world_size} ways ({self.shard.nbytes / 1e6:.1f} "
+                  f"MB a rank), halo width {self.halo_width}")
+        return halo.HaloPlanner(self.world_size, self.shard_rows, self.halo_width)
+
+    def _warn_halo_drops(self, epoch: int, drops: int) -> None:
+        """One warning an epoch whose requests overflowed the static halo
+        width: they trained on zero rows."""
+        if drops <= 0:
+            return
+        warnings.warn(
+            f"epoch {epoch}: {drops} halo requests overflowed the static halo width "
+            f"{self.halo_width} and trained on zeroed features; raise cfg.train.halo_slack "
+            f"(currently {self.cfg.train.halo_slack}) or rebalance partitions",
+            RuntimeWarning, stacklevel=3)
+
+    def _count_halo_drops(self, em, drops: int) -> None:
+        em.halo_drops = drops
+        self.halo_drops += drops
+        self._warn_halo_drops(em.epoch, drops)
+
+    def _layer0_table(self) -> torch.Tensor:
+        return self.shard if self.feature_source == "ici" else self.cache.cache_values
+
+    def _group_step(self, graph: bool):
+        if self.feature_source != "ici":
+            return super()._group_step(graph)
+        return make_dp_halo_train_step(self.state, self.exchange, graph=graph,
+                                       stream=self._side_stream if graph else None)
+
+    def _halo_epoch(self) -> Optional[HaloEpoch]:
+        return self._halo
+
+    def _perm_generator(self, epoch: int, gen: torch.Generator) -> torch.Generator:
+        """``ici``'s permutation is shared by the ranks: from ``(seed,
+        epoch)`` alone; the other sources draw it from the rank's own."""
+        if self.feature_source != "ici":
+            return gen
+        return torch.Generator(device=self.device).manual_seed(epoch_seed(self._seed, epoch))
+
+    def device_data(self) -> DeviceData:
+        if self.feature_source == "cache":
+            return super().device_data()
+        return DeviceData(self._dev_train_nids, self._dev_labels, self._dev_csr, None)
+
     # -- construction helpers ---------------------------------------------------
 
     @classmethod
@@ -257,12 +382,18 @@ class DataParallelTrainer(Trainer):
         """Partition ``ds`` into one part a rank (``partition.method``: dg,
         kl or hash, at ``partition.num_hops``), deterministically on every
         rank, and train this rank's part over the full store (built with
-        the preprocess the model asks for, as ``Trainer.from_dataset``)."""
+        the preprocess the model asks for, as ``Trainer.from_dataset``).
+        ``ici`` on the device samples the full graph: each rank's part is
+        the whole graph."""
         refuse_unported(cfg, feature_source, dispatch)
         world, rank = dist.get_world_size(), dist.get_rank()
         hops = cfg.partition.num_hops
         method = cfg.partition.method
-        if method == "dg":
+        if feature_source == "ici" and cfg.train.on_device_sampling:
+            whole = PartitionArtifact(ds.graph, ds.train_nids,
+                                      np.arange(ds.num_nodes, dtype=np.int64), ds.labels)
+            parts = [whole] * world
+        elif method == "dg":
             parts = dg_partition(ds.graph, ds.train_nids, ds.labels, world, hops,
                                  edge_balance=cfg.partition.edge_balance)
         elif method == "kl":
@@ -297,12 +428,13 @@ class DataParallelTrainer(Trainer):
     # -- cache --------------------------------------------------------------------
 
     def _maybe_fill_cache(self) -> None:
-        """Fill this rank's cache once.  Host path: one capacity for every
-        rank (``cache.capacity``, or the smallest of the ranks'
-        ``auto_capacity``), bounded by the largest partition; each rank
-        fills ``min(capacity, its vertices)``.  On-device path: every
-        vertex of the partition, as the JAX package's."""
-        if self._cache_filled:
+        """Fill this rank's cache once (never under a halo source).  Host
+        path: one capacity for every rank (``cache.capacity``, or the
+        smallest of the ranks' ``auto_capacity``), bounded by the largest
+        partition; each rank fills ``min(capacity, its vertices)``.
+        On-device path: every vertex of the partition, as the JAX
+        package's."""
+        if self._cache_filled or self.feature_source != "cache":
             return
         c = self.cfg.cache
         if self._device_mode:
@@ -329,7 +461,10 @@ class DataParallelTrainer(Trainer):
     def run_epoch(self, epoch: int = 0):
         """One lockstep epoch on every rank (each rank calls it)."""
         self._reseed_dropout(epoch)
-        return super().run_epoch(epoch)
+        em = super().run_epoch(epoch)
+        if self.feature_source == "ici" and not self._device_mode:
+            self._count_halo_drops(em, em.halo_drops)
+        return em
 
     def train(self, epochs: Optional[int] = None, *, start_epoch: int = 0) -> Dict:
         """``Trainer.train`` on every rank; on the device path with neither
@@ -375,13 +510,20 @@ class DataParallelTrainer(Trainer):
         self._device_epoch_metrics(epoch, dict(zip(METRIC_NAMES, snap.tolist())), now - t_prev)
         return now
 
+    def _device_epoch_metrics(self, epoch: int, vals: Dict[str, float], time_s: float):
+        em = super()._device_epoch_metrics(epoch, vals, time_s)
+        if self.feature_source != "cache":
+            self._count_halo_drops(em, int(vals["halo_drops"]))
+        return em
+
     def _host_epoch_totals(self) -> Dict[str, float]:
         """The epoch's metrics over every rank, in one ``all_reduce``: loss
         and accuracy sums divided by the world size (the means over the
-        ranks a step, as the JAX package ``pmean``s them), edges and
-        vertices summed, the miss rate the mean of the ranks' rates."""
+        ranks a step, as the JAX package ``pmean``s them), edges, vertices
+        and halo drops summed, the miss rate the mean of the ranks' rates."""
         own = super()._host_epoch_totals()
-        keys = ("loss_sum", "acc_sum", "miss_rate", "edges", "vertices")
+        own["halo_drops"] = self.loader.epoch_halo_drops
+        keys = ("loss_sum", "acc_sum", "miss_rate", "edges", "vertices", "halo_drops")
         t = torch.tensor([float(own[k]) for k in keys], dtype=torch.float64,
                          device=self._host_side)
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
@@ -423,8 +565,8 @@ class DataParallelTrainer(Trainer):
 
     def summary(self) -> Dict:
         """The JAX package's summary keys: ``num_devices`` and
-        ``num_processes`` are the world size, ``halo_drops`` 0 (no halo
-        exchange on the cache source)."""
+        ``num_processes`` are the world size, ``halo_drops`` the requests
+        dropped over every epoch and rank (0 on the cache source)."""
         out = super().summary()
         last = self.epoch_metrics[-1] if self.epoch_metrics else None
         out.update(num_devices=self.world_size, num_processes=self.world_size,

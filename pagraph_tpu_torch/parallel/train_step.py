@@ -18,6 +18,13 @@ the step zeroes them in place (``GradSync.zero_``), never
 The host path's dispatch is the single-device one
 (``make_multistep_train_step``, K steps a group) over a state that carries
 the sync; K only changes dispatch, not numbers.
+
+:func:`make_dp_halo_train_step` is the ``ici`` feature source's step (the
+JAX package's ``make_dp_halo_train_step``): its layer-0 rows come from the
+halo exchange (``parallel/halo.py``) over the plan that travels in the
+packed batch, in place of the cache assembly; the rest is the same body.
+Under ``nccl`` a group's CUDA graph holds K x (2 ``all_to_all_single`` + 1
+``all_reduce``).
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from ..train.state import TrainState, make_multistep_train_step
+from ..sampling.pack import PackedGroup, halo_req, unpack
+from ..train.state import GroupGraphs, TrainState, make_multistep_train_step, train_on_features
 
 
 class GradSync:
@@ -81,3 +89,34 @@ def make_dp_train_step(state: TrainState, cache_values: torch.Tensor,
     attach_grad_sync(state)
     return make_multistep_train_step(state, cache_values, dequant_scale, graph=graph,
                                      stream=stream)
+
+
+def make_dp_halo_train_step(state: TrainState, exchange, *, graph: bool = False,
+                            stream: Optional[torch.cuda.Stream] = None) -> Callable:
+    """``steps(group, acc)`` of the ``ici`` feature source: per packed batch
+    of ``group`` (its layout's ``halo`` requests last), unpack it, fetch its
+    layer-0 rows through ``exchange`` (a ``parallel.halo.HaloExchange``) in
+    the compute dtype, and train on them with the gradients averaged over
+    the process group; loss and accuracy are added into ``acc``.  Both
+    forms copy the group to the shard's device first; ``graph=True`` is a
+    ``GroupGraphs`` (``nccl`` only), its K-step body captured with its
+    collectives."""
+    attach_grad_sync(state)
+
+    def step(layout, acc: torch.Tensor, i32: torch.Tensor, u8: torch.Tensor) -> None:
+        mb, src_row, _ = unpack(layout, i32, u8)
+        feats = exchange(halo_req(layout, i32), src_row, state.dtype)
+        m = train_on_features(state, mb, feats)
+        acc.add_(torch.stack([m["loss"], m["acc"]]))
+
+    def on_device(group: PackedGroup, acc: torch.Tensor) -> None:
+        for k in range(group.k):
+            step(group.layout, acc, group.i32[k], group.u8[k])
+
+    if graph:
+        return GroupGraphs(on_device, state, exchange.shard, stream=stream)
+
+    def steps(group: PackedGroup, acc: torch.Tensor) -> None:
+        on_device(group.to(exchange.shard.device, non_blocking=True), acc)
+
+    return steps

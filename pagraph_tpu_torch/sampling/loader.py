@@ -18,6 +18,14 @@ first, the sampler's next epoch supplies the rest (the JAX package's
 make-up batches, ``DataParallelTrainer._next_round``), and the next loader
 epoch starts a fresh sampler epoch (:func:`lockstep_batches`).
 
+With ``halo`` (a ``parallel.halo.HaloPlanner``: the data-parallel
+trainer's ``ici`` feature source) a producer maps the batch's layer-0 ids
+through the cache's ``local2full`` and plans the halo exchange on the host
+in place of the cache's fetch plan: the item carries no miss rows, and its
+int32 buffer ends in the plan's requests (``pack.halo_req``).  The
+requests dropped past the static halo width are counted in
+``epoch_halo_drops``.
+
 :meth:`PrefetchLoader.groups` stacks K items into one group
 (``pack.stack``), in pinned memory for a CUDA device: the only pinned copy
 a batch makes, from which its group crosses in one copy a buffer (the
@@ -29,6 +37,7 @@ import queue
 import threading
 from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..storage.cache import FeatureCache
@@ -64,11 +73,12 @@ class PrefetchLoader:
     groups of them (:meth:`groups`) for ``device``; with ``packed=False``
     the host ``(mb, plan)`` pairs.  ``device=None`` is the GPU
     (``RuntimeError`` without one).  ``num_batches``: the batches an epoch
-    (:func:`lockstep_batches`), ``None`` for the sampler's epoch."""
+    (:func:`lockstep_batches`), ``None`` for the sampler's epoch.
+    ``halo``: a ``HaloPlanner``, whose plan replaces the cache's."""
 
     def __init__(self, sampler: NeighborSampler, cache: FeatureCache, *,
                  prefetch: int = 2, device=None, workers: int = 2, packed: bool = True,
-                 num_batches: Optional[int] = None):
+                 num_batches: Optional[int] = None, halo=None):
         self.sampler = sampler
         self.num_batches = num_batches
         self.cache = cache
@@ -76,9 +86,15 @@ class PrefetchLoader:
         self.prefetch = max(1, prefetch)
         self.device = resolve_device(device)
         self.workers = max(1, workers)
-        # per-epoch accounting: valid sampled edges and loaded vertices
+        self.halo = halo
+        if halo is not None and not packed:
+            raise ValueError("the halo exchange's plan travels in the packed layout")
+        # per-epoch accounting: valid sampled edges and loaded vertices, and
+        # the halo requests dropped
         self.epoch_edges = 0
         self.epoch_vertices = 0
+        self.epoch_halo_drops = 0
+        self._drops_lock = threading.Lock()
 
     def _produce(self, q: queue.Queue, stop: threading.Event, it,
                  it_lock: threading.Lock, done_counter: list) -> None:
@@ -102,6 +118,8 @@ class PrefetchLoader:
             q.put(e)
 
     def _pack(self, mb: MiniBatch):
+        if self.halo is not None:
+            return self._pack_halo(mb)
         plan = self.cache.fetch_plan(mb.input_nids, mb.input_mask)
         if not self.packed:
             return mb, plan
@@ -109,9 +127,24 @@ class PrefetchLoader:
                              self.cache.total_dim, plan.miss_feats.shape[0])
         return (layout, *pack(mb, plan.src_row, plan.miss_feats, layout))
 
+    def _pack_halo(self, mb: MiniBatch):
+        """The batch with its host-planned halo exchange in place of a fetch
+        plan: ``src_row`` the exchange's, no miss rows, the requests last."""
+        from ..parallel.halo import src_rows
+
+        mask = np.asarray(mb.input_mask)
+        plan = self.halo.plan(self.cache.local2full[np.asarray(mb.input_nids)], mask)
+        with self._drops_lock:
+            self.epoch_halo_drops += int(mask.sum() - plan.valid.sum())
+        layout = make_layout(self.sampler.caps, self.sampler.config.block_fanouts(),
+                             self.cache.total_dim, 0, halo=plan.req.size)
+        miss = torch.empty((0, self.cache.total_dim), dtype=self.cache.row_dtype)
+        return (layout, *pack(mb, src_rows(plan), miss, layout, halo_req=plan.req))
+
     def epoch(self) -> Iterator[Item]:
         self.epoch_edges = 0
         self.epoch_vertices = 0
+        self.epoch_halo_drops = 0
         q: queue.Queue = queue.Queue(maxsize=max(self.prefetch, self.workers))
         stop = threading.Event()
         it = (self.sampler.epoch() if self.num_batches is None

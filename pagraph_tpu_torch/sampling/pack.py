@@ -13,6 +13,12 @@ multiple of 8 ends in a zero-padded byte (the JAX layout requires caps
 divisible by 8).  The device unpacks with static slices and views
 (:func:`unpack`); inner-layer ids and masks never cross, as in JAX.
 
+The halo exchange's layout (``halo`` > 0, the ``ici`` feature source,
+``parallel/halo.py``) carries no miss rows (``bucket`` 0): ``src_row`` is
+the exchange's (:func:`parallel.halo.src_rows`) and the plan's requests,
+``halo`` int32 (``P x H``), close the int32 buffer (:func:`halo_req`), so
+a replayed graph finds them in its static buffers.
+
 A batch packs into pageable memory; a group of K batches stacks into
 ``[K, ...]`` buffers (:func:`stack`), pinned for the card, their miss rows
 padded to the group's largest bucket, and crosses in one copy a buffer.
@@ -40,6 +46,7 @@ class BatchLayout:
     fanouts: Tuple[int, ...]    # per-block fanout, outermost block first
     total_dim: int              # feature width
     bucket: int                 # miss rows (a power-of-two bucket, or 0)
+    halo: int = 0               # halo requests (P x H; 0 without the exchange)
 
     @property
     def hops(self) -> int:
@@ -51,7 +58,8 @@ class BatchLayout:
 
     def i32_sections(self):
         return [("src_row", self.caps[0]), ("labels", self.caps[-1]),
-                ("self_pos", sum(self.caps[1:])), ("neigh_pos", sum(self.block_sizes()))]
+                ("self_pos", sum(self.caps[1:])), ("neigh_pos", sum(self.block_sizes()))
+                ] + ([("halo_req", self.halo)] if self.halo else [])
 
     def u8_sections(self):
         return [("input_mask", _bytes(self.caps[0])), ("seed_mask", _bytes(self.caps[-1])),
@@ -67,14 +75,15 @@ class BatchLayout:
 
 
 def make_layout(caps: Sequence[int], fanouts: Sequence[int], total_dim: int,
-                bucket: int) -> BatchLayout:
+                bucket: int, halo: int = 0) -> BatchLayout:
     """``fanouts``: per block, outermost block first
-    (``SamplerConfig.block_fanouts()``)."""
+    (``SamplerConfig.block_fanouts()``); ``halo``: the exchange's requests
+    a batch."""
     caps = tuple(int(c) for c in caps)
     fanouts = tuple(int(f) for f in fanouts)
     if len(fanouts) != len(caps) - 1:
         raise ValueError(f"need {len(caps) - 1} block fanouts, got {fanouts}")
-    return BatchLayout(caps, fanouts, int(total_dim), int(bucket))
+    return BatchLayout(caps, fanouts, int(total_dim), int(bucket), int(halo))
 
 
 def _packbits(arr) -> np.ndarray:
@@ -82,17 +91,22 @@ def _packbits(arr) -> np.ndarray:
 
 
 def pack(mb: MiniBatch, src_row: np.ndarray, miss_feats: torch.Tensor,
-         layout: BatchLayout) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+         layout: BatchLayout, halo_req: Optional[np.ndarray] = None,
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A host MiniBatch and its plan -> ``(i32, u8, miss)`` host tensors in
     pageable memory (``miss`` is ``miss_feats`` itself); :func:`stack`
-    makes the one pinned copy."""
+    makes the one pinned copy.  ``halo_req``: the exchange's requests
+    (``layout.halo`` of them)."""
     if tuple(miss_feats.shape) != (layout.bucket, layout.total_dim):
         raise ValueError(f"miss rows {tuple(miss_feats.shape)} do not match the layout's "
                          f"{(layout.bucket, layout.total_dim)}")
     i32 = np.empty(layout.i32_size, dtype=np.int32)
     u8 = np.empty(layout.u8_size, dtype=np.uint8)
+    if (halo_req is None) != (layout.halo == 0) or (
+            halo_req is not None and np.asarray(halo_req).size != layout.halo):
+        raise ValueError(f"halo requests do not match the layout's {layout.halo}")
     parts = ([src_row, mb.labels] + [b.self_pos for b in mb.blocks]
-             + [b.neigh_pos for b in mb.blocks])
+             + [b.neigh_pos for b in mb.blocks] + ([] if halo_req is None else [halo_req]))
     at = 0
     for a in parts:
         flat = np.asarray(a).ravel()
@@ -176,7 +190,7 @@ def unpack(layout: BatchLayout, i32: torch.Tensor, u8: torch.Tensor,
     masks of the layers between input and seeds all true, as in JAX."""
     caps, fanouts = layout.caps, layout.fanouts
     src_row, labels, self_flat, npos_flat = _split(
-        i32, [n for _, n in layout.i32_sections()])
+        i32, [n for _, n in layout.i32_sections()])[:4]
     in_bits, seed_bits, nmask_bits = _split(u8, [n for _, n in layout.u8_sections()])
     sizes = layout.block_sizes()
     nmask = _unpackbits(nmask_bits, sum(sizes))
@@ -193,3 +207,9 @@ def unpack(layout: BatchLayout, i32: torch.Tensor, u8: torch.Tensor,
     mb = MiniBatch(layer_nids=tuple(zeros[:c] for c in caps), layer_mask=layer_mask,
                    blocks=blocks, labels=labels)
     return mb, src_row, miss
+
+
+def halo_req(layout: BatchLayout, i32: torch.Tensor) -> torch.Tensor:
+    """One batch's halo requests (a view of its int32 buffer): int32
+    ``[layout.halo]``."""
+    return i32[layout.i32_size - layout.halo:]

@@ -210,6 +210,13 @@ class FeatureCache:
         return self.store.gather(self.field_names, self.local2full[nids], out=out,
                                  quantized=self._store_i8)
 
+    def tier_rows(self, full_ids: np.ndarray) -> torch.Tensor:
+        """The store's rows of full-graph ``full_ids`` as a host tensor in
+        the tier's dtype (the halo exchange's shard, ``parallel/halo.py``)."""
+        rows = self.store.gather(self.field_names, np.asarray(full_ids, dtype=np.int64),
+                                 quantized=self._store_i8)
+        return self._to_rows(rows)
+
     def fill(self, capacity: Optional[int] = None,
              rank_by: str = "out_degree") -> None:
         """Size and populate the cache: everything if it fits, else the top

@@ -71,8 +71,30 @@ this whole-epoch function, as the JAX package's data-parallel trainer
 runs its whole-epoch ``shard_map`` in every mode it accepts; ``"steps"`` is
 refused (``parallel/dp_trainer.py``).
 
-Not ported: the ici and edge device epochs, and multi-device CV-GCN
-(ROADMAP queue 1 item 7c).
+The halo feature sources (:func:`make_halo_device_epoch_fn`, the JAX
+package's ``make_ici_device_epoch_fn`` and ``make_edge_device_epoch_fn``):
+the features are sharded across the ranks and each step's layer-0 rows
+come from their owners over the halo exchange (``parallel/halo.py``), its
+plan built on the device (``device_halo_plan``) from the sampled ids.
+``ici`` samples the full graph on every rank: the permutation of the full
+train set is shared (drawn from ``(seed, epoch)`` alone), rank ``r`` trains
+column ``r`` of the ``[num_batches, P, B]`` seed grid, and the seeds past
+the train set are masked (:func:`ici_epoch_schedule`; it does not wrap).
+``edge`` samples the rank's own partition with the dp schedule and maps its
+layer-0 ids to full ids through ``local2full`` before the exchange.  Both
+draw each rank's random integers from ``(seed, epoch, rank)``, count the
+dropped requests in the accumulator, and end with its all-reduce.  With
+``train.halo_pipeline`` (``edge``) the epoch is a one-deep pipeline: the
+sampling and exchange of batch i+1 are issued before batch i trains.  Its
+eager form runs them in that order on one stream; its graph form runs the
+fetches on a stream of their own inside the one graph, fetch i+1 after
+the training of batch i-1 and the training of batch i after fetch i, with
+the exchange in a process group of its own (an ``all_to_all`` must not run
+beside the step's ``all_reduce`` on one NCCL communicator).  A fetched
+batch lives until the graph's end.  The trajectory is the unpipelined
+one's to the bit (the fetch draws nothing from the dropout generator).
+
+Not ported: multi-device CV-GCN (ROADMAP queue 1 item 7c, step 4).
 """
 from __future__ import annotations
 
@@ -92,21 +114,23 @@ from ..sampling.device_sampler import (DeviceCSR, draw_width, hop_draws, hop_siz
                                        sample_minibatch_device)
 from .state import CapturedGraph, TrainState, capture_train, compute_dtype, train_on_features
 
-METRIC_NAMES = ("loss_sum", "acc_sum", "steps", "edges", "vertices")
+METRIC_NAMES = ("loss_sum", "acc_sum", "steps", "edges", "vertices", "halo_drops")
 
 
 @dataclasses.dataclass
 class EpochAccumulator:
     """Device-side metric sums: ``loss_sum`` and ``acc_sum`` in f32;
-    ``steps``, ``edges`` and ``vertices`` in int64 (exact at any count)."""
+    ``steps``, ``edges``, ``vertices`` and ``halo_drops`` (the halo
+    requests dropped past the static width) in int64 (exact at any
+    count)."""
 
     sums: torch.Tensor      # f32 [2]
-    counts: torch.Tensor    # int64 [3]
+    counts: torch.Tensor    # int64 [4]
 
     @classmethod
     def zeros(cls, device) -> "EpochAccumulator":
         return cls(torch.zeros(2, dtype=torch.float32, device=device),
-                   torch.zeros(3, dtype=torch.int64, device=device))
+                   torch.zeros(4, dtype=torch.int64, device=device))
 
     def zero_(self) -> "EpochAccumulator":
         self.sums.zero_()
@@ -138,13 +162,33 @@ class EpochAccumulator:
 class DeviceData:
     """What every step of the on-device epoch reads and never writes:
     ``train_nids`` int32 ``[n_train]``, ``labels`` int32 ``[N]``, the CSR,
-    the full cache (cache row = vertex id) and its int8 dequant scale."""
+    the full cache (cache row = vertex id) and its int8 dequant scale (the
+    halo epochs read no cache: ``None``)."""
 
     train_nids: torch.Tensor
     labels: torch.Tensor
     csr: DeviceCSR
-    cache_values: torch.Tensor
+    cache_values: Optional[torch.Tensor]
     dequant_scale: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class HaloEpoch:
+    """What a halo device epoch adds to :class:`DeviceData`: the rank's
+    ``exchange`` (``parallel.halo.HaloExchange``), its ``rank`` and the
+    ``world_size``; ``local2full`` int32 ``[N_local]`` for ``edge``
+    (``None``: ``ici``, whose ids are full ids and whose schedule is
+    :func:`ici_epoch_schedule`); ``pipeline``: ``train.halo_pipeline``."""
+
+    exchange: object
+    rank: int
+    world_size: int
+    local2full: Optional[torch.Tensor] = None
+    pipeline: bool = False
+
+    @property
+    def ici(self) -> bool:
+        return self.local2full is None
 
 
 def num_batches(n_train: int, batch_size: int) -> int:
@@ -228,6 +272,23 @@ def dp_epoch_schedule(perm: torch.Tensor, train_nids: torch.Tensor,
     idx = torch.arange(seeds.numel(), device=train_nids.device)
     seeds.view(-1).copy_(train_nids.index_select(0, perm.index_select(0, idx % n_train)))
     mask.fill_(True)
+
+
+def ici_epoch_schedule(perm: torch.Tensor, train_nids: torch.Tensor, rank: int, world: int,
+                       out: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """An ``ici`` rank's seeds and mask into ``out`` (``[nb, B]``): column
+    ``rank`` of the ``[nb, world, B]`` grid of the shared permutation of
+    the full train set, wrapped to fill the grid, the wrapped seeds masked
+    (the JAX package's one2all round robin inside
+    ``make_ici_device_epoch_fn``)."""
+    seeds, mask = out
+    nb, b = seeds.shape
+    n_train = train_nids.shape[0]
+    dev = train_nids.device
+    idx = ((torch.arange(nb, device=dev)[:, None] * world + rank) * b
+           + torch.arange(b, device=dev)[None, :]).view(-1)
+    seeds.view(-1).copy_(train_nids.index_select(0, perm.index_select(0, idx % n_train)))
+    torch.lt(idx, n_train, out=mask.view(-1))
 
 
 def epoch_schedule(perm: torch.Tensor, train_nids: torch.Tensor, batch_size: int,
@@ -334,11 +395,13 @@ def scatter_last(table: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
 
 
 def train_batch(state: TrainState, acc: EpochAccumulator, mb: MiniBatch,
-                feats: torch.Tensor, cv: Optional[CVDeviceState] = None) -> None:
+                feats: torch.Tensor, cv: Optional[CVDeviceState] = None,
+                drops: Optional[torch.Tensor] = None) -> None:
     """Forward, loss, backward and Adam on a fetched batch; its loss,
-    accuracy, valid edges and valid vertices are added to ``acc``.  With
-    ``cv`` (CV-GCN) the batch's history slices are gathered before the
-    update and the fresh activations scattered after it."""
+    accuracy, valid edges and valid vertices (and the halo requests it
+    dropped, ``drops``) are added to ``acc``.  With ``cv`` (CV-GCN) the
+    batch's history slices are gathered before the update and the fresh
+    activations scattered after it."""
     hists = None
     if cv is not None:
         nl = len(mb.blocks)
@@ -352,7 +415,8 @@ def train_batch(state: TrainState, acc: EpochAccumulator, mb: MiniBatch,
     edges = sum(b.neigh_mask.sum() for b in mb.blocks)
     verts = sum(msk.sum() for msk in mb.layer_mask)
     acc.sums += torch.stack([m["loss"], m["acc"]])
-    acc.counts += torch.stack([edges.new_ones(()), edges, verts])
+    acc.counts += torch.stack([edges.new_ones(()), edges, verts,
+                               edges.new_zeros(()) if drops is None else drops])
 
 
 def device_batch_step(cfg: Config, state: TrainState, acc: EpochAccumulator,
@@ -428,6 +492,97 @@ def make_dp_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
             device_batch_step(cfg, state, inputs.acc, inputs.seeds_all[i], inputs.mask_all[i],
                               [d[i] for d in inputs.draws], data.labels, data.csr,
                               data.cache_values, data.dequant_scale)
+        return inputs.acc.all_reduce_()
+
+    return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
+
+
+def fetch_halo_batch(cfg: Config, seeds: torch.Tensor, smask: torch.Tensor,
+                     draws: Sequence[torch.Tensor], labels: torch.Tensor, csr: DeviceCSR,
+                     halo: HaloEpoch) -> Tuple[MiniBatch, torch.Tensor, torch.Tensor]:
+    """Sample one batch on the device and fetch its layer-0 rows from their
+    owners (the plan built on the device, one exchange) in the compute
+    dtype: ``(mb, feats, drops)``, ``drops`` the valid rows whose request
+    was dropped (int64, 0-d)."""
+    from ..parallel.halo import device_halo_plan, src_rows
+
+    s = cfg.sampler
+    mb = sample_minibatch_device(csr, seeds, smask, s.num_hops, s.hop_fanouts(), draws,
+                                 labels=labels, paired=s.paired_draws)
+    ids = mb.input_nids if halo.ici else halo.local2full.index_select(0, mb.input_nids)
+    ex = halo.exchange
+    plan = device_halo_plan(ids, mb.input_mask, ex.world_size, ex.halo_width)
+    feats = ex(plan.req, src_rows(plan), compute_dtype(cfg))
+    return mb, feats, (mb.input_mask & ~plan.valid).sum()
+
+
+def make_halo_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
+                              data: DeviceData, halo: HaloEpoch, *, graph: bool = False,
+                              stream: Optional[torch.cuda.Stream] = None) -> Callable:
+    """The halo feature sources' ``scan`` (``ici`` or ``edge``, :class:`HaloEpoch`):
+    ``acc = epoch_fn()`` trains ``state`` (its ``grad_sync`` set) for one
+    lockstep epoch and returns ``inputs.acc`` all-reduced over the ranks,
+    without waiting for the device; with ``halo.pipeline`` one-deep
+    pipelined.  ``graph=True`` captures it on ``stream`` as one CUDA graph,
+    every collective inside (``nccl`` only)."""
+    if not cfg.sampler.include_self:
+        raise ValueError("on-device sampling requires include_self=True")
+    if state.grad_sync is None:
+        raise ValueError("the data-parallel epoch needs the state's grad_sync")
+    nb = inputs.num_batches
+    fetch_stream = (torch.cuda.Stream(device=inputs.perm.device)
+                    if graph and halo.pipeline else None)
+
+    def fetch(i: int):
+        return fetch_halo_batch(cfg, inputs.seeds_all[i], inputs.mask_all[i],
+                                [d[i] for d in inputs.draws], data.labels, data.csr, halo)
+
+    def train(batch) -> None:
+        mb, feats, drops = batch
+        train_batch(state, inputs.acc, mb, feats, drops=drops)
+
+    def pipelined_on_streams() -> None:
+        """Fetch i+1 on ``fetch_stream`` once batch i-1 has trained; train
+        i on the current stream once fetch i is done."""
+        main = torch.cuda.current_stream()
+        fetched = [torch.cuda.Event() for _ in range(nb)]
+        trained = [torch.cuda.Event() for _ in range(nb)]
+        batches = []
+        fetch_stream.wait_stream(main)
+        with torch.cuda.stream(fetch_stream):
+            batches.append(fetch(0))
+            fetched[0].record()
+        for i in range(nb):
+            if i + 1 < nb:
+                with torch.cuda.stream(fetch_stream):
+                    if i:
+                        fetch_stream.wait_event(trained[i - 1])
+                    batches.append(fetch(i + 1))
+                    fetched[i + 1].record()
+            main.wait_event(fetched[i])
+            train(batches[i])
+            trained[i].record()
+        main.wait_stream(fetch_stream)
+
+    def epoch_fn() -> EpochAccumulator:
+        if halo.ici:
+            ici_epoch_schedule(inputs.perm, data.train_nids, halo.rank, halo.world_size,
+                               out=(inputs.seeds_all, inputs.mask_all))
+        else:
+            dp_epoch_schedule(inputs.perm, data.train_nids,
+                              out=(inputs.seeds_all, inputs.mask_all))
+        inputs.acc.zero_()
+        if fetch_stream is not None:
+            pipelined_on_streams()
+        elif halo.pipeline:
+            batch = fetch(0)
+            for i in range(nb):
+                nxt = fetch(i + 1) if i + 1 < nb else None
+                train(batch)
+                batch = nxt
+        else:
+            for i in range(nb):
+                train(fetch(i))
         return inputs.acc.all_reduce_()
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
@@ -544,7 +699,8 @@ class DeviceEpochRunner:
     ``cv``: CV-GCN's device state, whose epoch is
     :func:`make_cv_device_epoch_fn` (``scan`` only: any other mode raises
     ``ValueError``).  ``dp``: a data-parallel rank, whose epoch is
-    :func:`make_dp_device_epoch_fn` in every mode the trainer accepts.
+    :func:`make_dp_device_epoch_fn` in every mode the trainer accepts, or
+    with ``halo`` (:class:`HaloEpoch`) :func:`make_halo_device_epoch_fn`.
     ``graph`` picks the function's form; the graph form of ``pipelined``
     replays each gather on a stream of its own, ``stream`` is where graphs
     are captured.  ``graphs``: the captured graphs (none in the eager
@@ -553,11 +709,16 @@ class DeviceEpochRunner:
     def __init__(self, cfg: Config, state: TrainState, inputs: EpochInputs,
                  data: DeviceData, *, graph: bool = False,
                  stream: Optional[torch.cuda.Stream] = None,
-                 cv: Optional[CVDeviceState] = None, dp: bool = False):
+                 cv: Optional[CVDeviceState] = None, dp: bool = False,
+                 halo: Optional[HaloEpoch] = None):
         self.mode = cfg.train.epoch_dispatch
         self.graph = graph
         self.state, self.inputs = state, inputs
-        if dp:
+        if halo is not None:
+            self.mode = "scan"
+            fns = make_halo_device_epoch_fn(cfg, state, inputs, data, halo, graph=graph,
+                                            stream=stream)
+        elif dp:
             self.mode = "scan"
             fns = make_dp_device_epoch_fn(cfg, state, inputs, data, graph=graph,
                                           stream=stream)

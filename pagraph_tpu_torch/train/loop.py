@@ -132,6 +132,7 @@ class EpochMetrics:
     vertices: int = 0       # valid vertices loaded this epoch
     val_acc: Optional[float] = None
     h2d_bytes: int = 0      # batch bytes shipped host -> device this epoch
+    halo_drops: int = 0     # halo requests dropped (parallel/halo.py; 0 without one)
 
 
 class Trainer:
@@ -142,6 +143,7 @@ class Trainer:
     ``train.eval_every`` evaluates on."""
 
     data_parallel = False   # a parallel.DataParallelTrainer rank
+    feature_source = "cache"   # where layer 0 comes from (a rank's: also ici, edge)
 
     def __init__(
         self,
@@ -284,7 +286,7 @@ class Trainer:
                 self.cv_history.refresh_agg()
         c = self.cfg.cache
         if (epoch == 0 and c.enabled and c.rank_by == "access_freq"
-                and not self.cache.fully_cached):
+                and self.feature_source == "cache" and not self.cache.fully_cached):
             # refill by observed access frequency after the probe epoch.  The
             # loader's threads have been joined: every plan of this epoch
             # indexed the old fill, and the next epoch's index the new one
@@ -302,6 +304,7 @@ class Trainer:
             edges=int(totals["edges"]),
             vertices=int(totals["vertices"]),
             h2d_bytes=h2d,
+            halo_drops=int(totals.get("halo_drops", 0)),
         )
         self.epoch_metrics.append(em)
         if self.log:
@@ -324,8 +327,7 @@ class Trainer:
         graphs = self._ready_group_graphs()
         eager = side = None
         if graphs is None:          # on the card on the side stream (None on the CPU)
-            eager = make_multistep_train_step(self.state, self.cache.cache_values,
-                                              self.cache.dequant_scale_dev)
+            eager = self._group_step(graph=False)
             side = self._side_stream
         if side:
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -381,13 +383,22 @@ class Trainer:
         if not self.host_graphs or not self._host_epochs:
             return None
         if self.group_graphs is None:
-            self.group_graphs = make_multistep_train_step(
-                self.state, self.cache.cache_values, self.cache.dequant_scale_dev,
-                graph=True, stream=self._side_stream)
-        elif self.group_graphs.cache_values is not self.cache.cache_values:
+            self.group_graphs = self._group_step(graph=True)
+        elif self.group_graphs.cache_values is not self._layer0_table():
             raise RuntimeError("the cache was refilled after the host-step graphs "
                                "were captured: they read the old rows")
         return self.group_graphs
+
+    def _layer0_table(self) -> torch.Tensor:
+        """The device table the host steps read layer 0 from: the cache's."""
+        return self.cache.cache_values
+
+    def _group_step(self, graph: bool):
+        """The host path's K-step dispatch over the cache (its graph form a
+        ``GroupGraphs`` captured on the side stream)."""
+        return make_multistep_train_step(self.state, self.cache.cache_values,
+                                         self.cache.dequant_scale_dev, graph=graph,
+                                         stream=self._side_stream if graph else None)
 
     def epoch_randomness(self, epoch: int, out: Optional[EpochInputs] = None):
         """``(perm, draws)`` of an epoch, drawn on the device from a
@@ -395,12 +406,13 @@ class Trainer:
         vertices and every step's random integers (``epoch_draws``), into
         ``out``'s buffers when given, else fresh tensors."""
         gen = torch.Generator(device=self.device).manual_seed(self._epoch_seed(epoch))
+        perm_gen = self._perm_generator(epoch, gen)
         s = self.cfg.sampler
         n_train = self._dev_train_nids.shape[0]
         if out is None:
-            perm = torch.randperm(n_train, generator=gen, device=self.device)
+            perm = torch.randperm(n_train, generator=perm_gen, device=self.device)
         else:
-            perm = torch.randperm(n_train, generator=gen, out=out.perm)
+            perm = torch.randperm(n_train, generator=perm_gen, out=out.perm)
         draws = epoch_draws(gen, self.epoch_inputs.num_batches, s.batch_size,
                             s.hop_fanouts(), s.paired_draws, self.device,
                             out=None if out is None else out.draws)
@@ -408,6 +420,10 @@ class Trainer:
 
     def _epoch_seed(self, epoch: int) -> int:
         return epoch_seed(self._seed, epoch)
+
+    def _perm_generator(self, epoch: int, gen: torch.Generator) -> torch.Generator:
+        """The generator of the epoch's permutation: the epoch's own."""
+        return gen
 
     def device_data(self) -> DeviceData:
         """What the on-device epoch reads (the cache filled first)."""
@@ -418,7 +434,13 @@ class Trainer:
     def _make_device_runner(self, graph: bool) -> DeviceEpochRunner:
         return DeviceEpochRunner(self.cfg, self.state, self.epoch_inputs, self.device_data(),
                                  graph=graph, stream=self._side_stream if graph else None,
-                                 cv=self.cv_state, dp=self.data_parallel)
+                                 cv=self.cv_state, dp=self.data_parallel,
+                                 halo=self._halo_epoch())
+
+    def _halo_epoch(self):
+        """The halo exchange of a data-parallel rank's device epoch
+        (``device_epoch.HaloEpoch``); ``None`` here."""
+        return None
 
     def _ready_device_runner(self) -> None:
         """The eager form before the first epoch; on the card (while

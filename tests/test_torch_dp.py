@@ -28,7 +28,9 @@ dropout 0, on the same partitions.
   uninterrupted run to the bit (dropout 0.2: each rank's dropout stream is
   reseeded an epoch).
 * ``train.eval_every``: ``val_acc`` equals JAX's.
-* Every refusal raises with its ROADMAP item, a failed rank fails
+* Every refusal raises: the JAX package's own validation of the halo
+  sources (``edge`` off the device, ``halo_pipeline`` off ``edge``) and
+  the paths still to port with their ROADMAP item; a failed rank fails
   ``spawn_local``, and ``nccl`` with more ranks than GPUs is a
   ``ValueError`` before any process group exists.
 """
@@ -273,16 +275,18 @@ def test_device_checkpoint_resume_equals_uninterrupted(runs):
             assert torch.equal(res["params"][k], v), k
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(feature_source="ici"), "item 7c"),
-    (dict(feature_source="edge"), "item 7c"),
-    (dict(halo_pipeline=True), "item 7c"),
-    (dict(arch="gcn_cv"), "item 7c"),
-    (dict(remote_sampling=True), "item 8"),
-    (dict(dispatch="one2all"), "item 8"),
-    (dict(epoch_dispatch="steps"), "single-chip Trainer mode.*item 7b"),
+@pytest.mark.parametrize("change,exc,match", [
+    (dict(feature_source="edge"), NotImplementedError, "is an on-device mode"),
+    (dict(halo_pipeline=True), ValueError, "pipelines the EDGE mode"),
+    (dict(feature_source="ici", halo_pipeline=True), ValueError, "pipelines the EDGE mode"),
+    (dict(feature_source="edge", on_device_sampling=True, arch="gcn_cv"), NotImplementedError,
+     "item 7c, step 4"),
+    (dict(arch="gcn_cv"), NotImplementedError, "item 7c"),
+    (dict(remote_sampling=True), NotImplementedError, "item 8"),
+    (dict(dispatch="one2all"), NotImplementedError, "item 8"),
+    (dict(epoch_dispatch="steps"), NotImplementedError, "single-chip Trainer mode.*item 7b"),
 ])
-def test_refusals(change, match):
+def test_refusals(change, exc, match):
     cfg = make_config(sections())
     kw = {}
     for k, v in change.items():
@@ -293,7 +297,7 @@ def test_refusals(change, match):
         else:
             setattr(cfg.train, k, v)
     ds = tsynthetic(**DATA)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         DataParallelTrainer.from_dataset(cfg, ds, device="cpu", **kw)
 
 

@@ -69,7 +69,7 @@ def test_scan_covers_the_host_path_modules():
               "storage/feature_store.py", "train/state.py", "train/loop.py",
               "models/inference.py", "train/checkpoint.py", "ops/aggregate.py",
               "parallel/__init__.py", "parallel/dp_trainer.py", "parallel/multihost.py",
-              "parallel/train_step.py", "utils/sync.py"):
+              "parallel/train_step.py", "parallel/halo.py", "utils/sync.py"):
         assert os.path.join("pagraph_tpu_torch", m) in SOURCES
     assert os.path.join("pagraph_tpu_torch", "csrc", "host_native.cpp") in ALL_SOURCES
 
