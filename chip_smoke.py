@@ -160,8 +160,8 @@ Phases, each printed as one JSON line:
   device inference and ``evaluate`` on RMAT-20;
 * ``partition``: the train set into 4 parts at 2 hops by ``dg_partition``
   (native) and ``hash_partition``: seconds, vertices a part, replication
-  factor, train vertices a part (the first 262,144 train vertices when the
-  native dg stream, timed on 8,192 spread over the set, would take over 60
+  factor, train vertices a part (the first 65,536 train vertices when the
+  native dg stream, timed on 8,192 spread over the set, would take over 20
   s for all of them); the native ``dg_assign`` equal to the numpy one on
   RMAT-14; a ``save_partition``/``load_partition`` round trip of part 0
   (the files the JAX package reads); part 0 through
@@ -215,6 +215,35 @@ Phases, each printed as one JSON line:
   same launches and collectives a step, the host loss falling, and per
   rank the epoch times, halo width, drops, bytes exchanged a step, the
   shard's bytes and the wall ms of one eager exchange alone at that width;
+* ``dp_cv``: data-parallel CV-GCN (``DataParallelTrainer`` with
+  ``model.arch="gcn_cv"`` on the device, a ``CVDeviceState`` a rank over
+  its partition) at ``cv_gcn``'s shape on RMAT-20's cut train set, the
+  features the store's ``gcn`` aggregate: (a) world size 1 on ``nccl``,
+  dropout 0, the single-device Trainer's random integers: the ``cache``
+  epochs at bf16 compute (epoch 0 eager, epochs 1-2 replayed from one CUDA
+  graph with the all-reduces and the refresh inside) bit-equal to their
+  eager form and to the single-device CV device epochs (losses,
+  parameters, histories, aggregates), ``edge`` bit-equal to ``cache``,
+  f32 within ``dp``'s bounds of the single-device run; one assembly a step
+  and one window reduction a table a history an epoch, one all-reduce a
+  step; a run on RMAT-16 resumed from epoch 0's checkpoint (its
+  ``.aux.p<rank>`` shard) bit-equal to the uninterrupted run; (b) 2 gloo
+  ranks on the card over 2-way hash parts of the cut train set, ``cache``
+  2 epochs and ``edge`` 1 at dropout 0.5: replicas bit-equal after every
+  epoch, one lockstep count, the same launches, and on RMAT-16 every rank's
+  shard written and its resume bit-equal;
+* ``service``: isolation-mode sampling (``train.remote_sampling``, 2
+  worker processes over the graph in shared memory; ``/dev/shm``'s size
+  printed) at ``bench.py``'s shape on RMAT-20 with the cache at 40%: (a) a
+  ``Trainer`` (K = 8) for 3 epochs, epoch 0 eager and then replayed: 4
+  launches a step, the loss falling, every epoch's seeds the train set
+  once, the first 3 batches equal to the native sampler's in-process
+  batches of the same seeds and batch seeds, the loader alone through the
+  service and in process (in turns), ``close()`` leaving no worker and no
+  shared-memory segment; (b) 2 gloo ranks, one2one over the 2-way hash
+  parts and one2all over the whole graph, 2 epochs each: replicas
+  bit-equal, one lockstep count (one2all's the round robin's share),
+  one2all's ranks sharing only make-up seeds, every service closed clean;
 * ``kernels``: every kernel on a batch of that run at its main-path shapes,
   against its plain PyTorch version on the card (gathered rows exact,
   reductions within 1e-6 of the output's scale, the atomic backwards within
@@ -278,6 +307,12 @@ Phases, each printed as one JSON line:
   block0|1]``, and the refresh's ``window_reduce[sum, cv refresh <table>,
   D=256|512]`` over the on-device run's histories (F = 8, 64, 512, 4096
   and the hub table), their launches that run's refreshes of the table;
+  and on rank 0's part of ``dp_cv``'s (b) run (launches that run's):
+  ``assemble_full[dp cv cache f32]`` (the dp ``cache`` source's
+  ``take_rows`` at a device-sampled CV batch, 180,224 ids),
+  ``assemble_halo[dp cv edge f32, P=2]`` (the ``edge`` CV exchange's
+  assembly over two owners' rows) and ``window_reduce[sum, cv_refresh_dp
+  rank0 <table>, D=256|512]`` (the rank's refresh over its part's tables);
 * ``fwd_branches``: the block forward and backward on the card, on f32 and
   on bf16 rows, at the branches the main path does not take -- D = 30
   (scalar rows), a table one element off its unit's alignment, fan-out 7
@@ -1235,8 +1270,8 @@ def cv_kernel_cases(env, t_host, t_dev, out, dev_counts, tables):
 
 # -- partition: PaGraph's partition pipeline and Trainer.from_partition ---------
 PARTITION_PARTS, PARTITION_HOPS = 4, 2
-PARTITION_CUT = 262_144                 # the train vertices when the whole set is too slow
-DG_WHOLE_LIMIT_S = 60.0                 # the native dg stream's budget for the whole set
+PARTITION_CUT = FAMILY_TRAIN_VERTICES   # the train vertices when the whole set is too slow
+DG_WHOLE_LIMIT_S = 20.0                 # the native dg stream's budget for the whole set
 DG_PROBE = 8192                         # train vertices the estimate is timed on
 
 
@@ -2045,6 +2080,696 @@ def halo_phase(env, root: str):
             bad.append(f"(a) edge device: {what} are not bit-equal")
     out["shared"], more = halo_ranks(env, root, HALO_RANKS, "gloo", "(b)")
     bad.extend(more)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
+# -- dp_cv: data-parallel CV-GCN, per-rank histories and their shards ---------
+DP_CV_EPOCHS = 3                        # (a): epoch 0 eager, then two replays
+DP_CV_RANKS = 2                         # (b): gloo ranks sharing the one card
+DP_CV_SHARED_EPOCHS = {"cache": 2, "edge": 1}   # (b): gloo moves edge's 144 MB a step
+
+
+def dp_cv_save(env, root: str) -> str:
+    """CV-GCN's dataset for the ranks, under ``root/cv``: RMAT-20 with the
+    store's ``gcn`` aggregate as its features (``FeatureStore.build`` of it
+    is the ``preprocess="gcn"`` store, without a full-graph SpMM in every
+    rank), the 2-hop teacher labels and the train set cut to its first
+    :data:`FAMILY_TRAIN_VERTICES`; and its 2-way hash parts at 2 hops."""
+    np, ds = env.np, env.ds_nb
+    cv_root = os.path.join(root, "cv")
+    os.makedirs(cv_root, exist_ok=True)
+    train_ids = np.nonzero(ds.train_mask)[0][:FAMILY_TRAIN_VERTICES]
+    cut = np.zeros_like(ds.train_mask)
+    cut[train_ids] = True
+    agg = env.FeatureStore.build(ds.graph, ds.features, preprocess="gcn").fields["features"]
+    cv_ds = env.Dataset(ds.graph, agg, ds.labels, cut, ds.val_mask, ds.test_mask)
+    dp_save_dataset(np, cv_ds, cv_root)
+    parts = env.partition.hash_partition(ds.graph, train_ids, ds.labels, DP_CV_RANKS, 2)
+    for r, p in enumerate(parts):
+        env.formats.save_partition(os.path.join(cv_root, f"parts{DP_CV_RANKS}"), r, p)
+    return cv_root
+
+
+def dp_cv_rmat16(np, synthetic, Dataset, CSRGraph):
+    """The RMAT-16 graph of ``cv_gcn``'s resume (its checkpoint holds 0.4 GB
+    of histories, RMAT-20's 6.4 GB)."""
+    g16 = CSRGraph.from_coo(synthetic.rmat_coo(CV_HOST_SCALE, 16, seed=42))
+    x16 = np.random.default_rng(7).random((g16.num_nodes, 100), dtype=np.float32)
+    return Dataset(g16, x16, synthetic.neighborhood_labels(g16, x16, 47, seed=1),
+                   *synthetic.random_split_masks(g16.num_nodes, seed=11))
+
+
+def dp_cv_resume(torch, pt, DataParallelTrainer, ds16, ckpt_dir):
+    """CV-GCN on RMAT-16 through ``DataParallelTrainer.from_dataset`` (each
+    rank partitions it) at dropout 0.5: epoch 0, the checkpoint (every
+    rank's shard), epoch 1; then a fresh trainer resumed from the shards
+    runs epoch 1.  The row: shard bytes, resume seconds, whether the
+    resumed epoch equals the uninterrupted one to the bit (loss,
+    parameters, histories, aggregates)."""
+    cfg = cv_config(pt, ds16.num_nodes, on_device=True)
+    cfg.partition = pt.PartitionConfig(method="hash", num_hops=2)
+    cfg.train.ckpt_dir = ckpt_dir
+    full = DataParallelTrainer.from_dataset(cfg, ds16, seed=0)
+    full.run_epoch(0)
+    full._checkpoint(0)
+    m1 = full.run_epoch(1)
+    shard = os.path.join(ckpt_dir, f"gcn_cv_0.aux.p{full.rank}")
+    again = DataParallelTrainer.from_dataset(cfg, ds16, seed=0)
+    t0 = time.perf_counter()
+    start = again.resume(0)
+    resume_s = time.perf_counter() - t0
+    r1 = again.run_epoch(start)
+    equal = (start == 1 and r1.mean_loss == m1.mean_loss
+             and all(torch.equal(p, q) for p, q in zip(full.state.model.parameters(),
+                                                       again.state.model.parameters()))
+             and all(torch.equal(x, y) for x, y in zip(
+                 full.cv_state.hist_views() + list(full.cv_state.aggs),
+                 again.cv_state.hist_views() + list(again.cv_state.aggs))))
+    return {"graph_vertices": ds16.num_nodes, "part_vertices": full.part.num_nodes,
+            "shard_bytes": os.path.getsize(shard), "resume_s": resume_s,
+            "losses": [full.epoch_metrics[0].mean_loss, m1.mean_loss],
+            "resumed_loss": r1.mean_loss, "bit_equal": equal}
+
+
+def dp_cv_snapshot(tr):
+    """Losses, parameters, histories and aggregates of a CV trainer (on
+    its device)."""
+    return ([m.mean_loss for m in tr.epoch_metrics], dp_params(tr),
+            [t.clone() for t in tr.cv_state.hist_views() + list(tr.cv_state.aggs)])
+
+
+def dp_cv_equal(torch, a, b) -> bool:
+    return a[0] == b[0] and all(torch.equal(a[1][k], b[1][k]) for k in a[1]) and all(
+        torch.equal(x, y) for x, y in zip(a[2], b[2], strict=True))
+
+
+def dp_cv_rank_world1(rank, world, root, out_path) -> None:
+    """A world-size-1 ``nccl`` rank of the ``dp_cv`` phase over the whole
+    RMAT-20 graph (the cut train set, dropout 0): the ``cache`` CV epoch at
+    bf16 compute replayed from one CUDA graph against its eager form and
+    against the single-device Trainer's CV device epoch from the same
+    random integers; ``edge`` at bf16 against ``cache``; ``cache`` at f32
+    against the single-device run; the RMAT-16 resume from the shards.
+    Writes the results as JSON to ``out_path``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import pagraph_tpu_torch as pt
+    from pagraph_tpu_torch.data import synthetic
+    from pagraph_tpu_torch.data.formats import Dataset, PartitionArtifact
+    from pagraph_tpu_torch.graph import CSRGraph
+    from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.parallel import DataParallelTrainer
+    from pagraph_tpu_torch.storage.feature_store import FeatureStore
+    from pagraph_tpu_torch.train.device_epoch import epoch_seed
+    from pagraph_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = dp_load_dataset(os.path.join(root, "cv"))
+    n = ds.num_nodes
+    store = FeatureStore.build(ds.graph, ds.features)      # the features: the gcn aggregate
+    whole = PartitionArtifact(ds.graph, ds.train_nids, np.arange(n, dtype=np.int64),
+                              ds.labels)
+    out = {"backend": torch.distributed.get_backend(), "world_size": world}
+
+    def cfg_of(compute):
+        cfg = cv_config(pt, n, on_device=True, compute=compute)
+        cfg.model.dropout = 0.0
+        return cfg
+
+    def release():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def dp(compute, source, epochs, graphs=True):
+        t0 = time.perf_counter()
+        tr = DataParallelTrainer(cfg_of(compute), store, whole, seed=0, feature_source=source)
+        tr._epoch_seed = lambda e: epoch_seed(0, e)     # the single-device Trainer's draws
+        tr.device_graphs = tr.device_graphs and graphs
+        tr.device_data()
+        setup = time.perf_counter() - t0
+        _, row = dp_run(torch, gk, tr, epochs)
+        row.update(setup_s=setup, window_tables=len(tr.cv_state.windows.tables()),
+                   graph_replays=([g.replays for g in tr.epoch_runner.graphs]
+                                  if tr.epoch_runner.graph else []))
+        snap = dp_cv_snapshot(tr)
+        del tr
+        release()
+        return snap, row
+
+    def single(compute, epochs):
+        t_ = Trainer(cfg_of(compute), store, ds.graph, ds.train_nids, ds.labels, seed=0)
+        for e in range(epochs):
+            t_.run_epoch(e)
+        snap = dp_cv_snapshot(t_)
+        del t_
+        release()
+        return snap
+
+    runs = {}
+    runs["cache_bf16"], row = dp("bfloat16", "cache", DP_CV_EPOCHS)
+    runs["cache_bf16_eager"], eager_row = dp("bfloat16", "cache", DP_CV_EPOCHS, graphs=False)
+    row["eager_epochs"] = eager_row["epochs"]
+    row["replay_bit_equal_to_eager"] = dp_cv_equal(torch, runs["cache_bf16"],
+                                                    runs["cache_bf16_eager"])
+    del runs["cache_bf16_eager"]
+    single_bf16 = single("bfloat16", DP_CV_EPOCHS)
+    row["single_losses"] = single_bf16[0]
+    row["bit_equal_to_single"] = dp_cv_equal(torch, runs["cache_bf16"], single_bf16)
+    del single_bf16
+    out["cache_bfloat16"] = row
+    edge, row = dp("bfloat16", "edge", DP_CV_EPOCHS)
+    row["bit_equal_to_cache"] = dp_cv_equal(torch, edge, runs["cache_bf16"])
+    out["edge_bfloat16"] = row
+    del edge, runs
+    release()
+    f32, row = dp("float32", "cache", 2)
+    s32 = single("float32", 2)
+    row["single_losses"] = s32[0]
+    row["bit_equal_to_single"] = dp_cv_equal(torch, f32, s32)
+    row["rel_diff_to_single"] = dp_rel_diffs(f32[0], f32[1], s32[0], s32[1])
+    row["max_cv_diff_to_single"] = max(float((x - y).abs().max())
+                                       for x, y in zip(f32[2], s32[2]))
+    out["cache_float32"] = row
+    del f32, s32
+    release()
+    with tempfile.TemporaryDirectory() as ck:
+        out["resume_rmat16"] = dp_cv_resume(
+            torch, pt, DataParallelTrainer, dp_cv_rmat16(np, synthetic, Dataset, CSRGraph), ck)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def dp_cv_rank_shared(rank, world, root, out_dir) -> None:
+    """A gloo rank of several on one card: its part of the cut RMAT-20
+    train set (``root/cv/parts<world>``), the ``cache`` and the ``edge`` CV
+    epochs (:data:`DP_CV_SHARED_EPOCHS`) at dropout 0.5; the parameters
+    after each epoch to ``out_dir``; then the RMAT-16 resume from every
+    rank's shard (a checkpoint directory shared by the ranks).  This
+    rank's numbers as JSON."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import pagraph_tpu_torch as pt
+    from pagraph_tpu_torch.data import synthetic
+    from pagraph_tpu_torch.data.formats import Dataset, load_partition
+    from pagraph_tpu_torch.graph import CSRGraph
+    from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.parallel import DataParallelTrainer
+    from pagraph_tpu_torch.storage.feature_store import FeatureStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cv_root = os.path.join(root, "cv")
+    ds = dp_load_dataset(cv_root)
+    store = FeatureStore.build(ds.graph, ds.features)
+    part = load_partition(os.path.join(cv_root, f"parts{world}"), rank)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(), "world_size": world}
+    for source in ("cache", "edge"):
+        t0 = time.perf_counter()
+        tr = DataParallelTrainer(cv_config(pt, ds.num_nodes, on_device=True), store, part,
+                                 seed=0, feature_source=source)
+        tr.device_data()
+        setup = time.perf_counter() - t0
+        rows = []
+        for e in range(DP_CV_SHARED_EPOCHS[source]):
+            _, row = dp_run(torch, gk, tr, 1, start=e)
+            row.update(row.pop("epochs")[0])
+            rows.append(row)
+            torch.save(dp_params(tr), os.path.join(out_dir, f"cv_{source}_e{e}_rank{rank}.pt"))
+        out[source] = {"setup_s": setup, "epochs": rows, "lockstep_steps": tr.steps,
+                       "own_batches": -(-len(part.train_nids) // tr.cfg.sampler.batch_size),
+                       "part_vertices": part.num_nodes,
+                       "window_tables": len(tr.cv_state.windows.tables()),
+                       "history_bytes": sum(t.nbytes for t in tr.cv_state.hists
+                                            + tr.cv_state.aggs),
+                       "graphs": bool(tr.epoch_runner.graph)}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["resume_rmat16"] = dp_cv_resume(torch, pt, DataParallelTrainer,
+                                        dp_cv_rmat16(np, synthetic, Dataset, CSRGraph),
+                                        os.path.join(out_dir, "cv_ck"))
+    with open(os.path.join(out_dir, f"cv_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_cv_phase(env, root: str):
+    """Data-parallel CV-GCN (``DataParallelTrainer``, ``model.arch="gcn_cv"``
+    on the device, the ``cache`` and ``edge`` sources) at ``cv_config``'s
+    shape on RMAT-20's cut train set: (a) one ``nccl`` rank
+    (:func:`dp_cv_rank_world1`), (b) :data:`DP_CV_RANKS` gloo ranks on the
+    one card over 2-way hash parts (:func:`dp_cv_rank_shared`).  Fails
+    unless (a)'s replayed ``cache`` epochs (one graph, the all-reduces and
+    the refresh inside) are bit-equal to their eager form and, at bf16
+    compute, to the single-device CV epoch, ``edge`` is bit-equal to
+    ``cache``, f32 is within ``dp``'s bounds of the single-device run,
+    every run launches one assembly a step and one window reduction a
+    table a history an epoch with one all-reduce a step, (b)'s replicas
+    are bit-equal after every epoch with one lockstep count, and every
+    rank's RMAT-16 resume from its shard is bit-equal.  Returns the line,
+    the rows a kernel case needs and the failures."""
+    from pagraph_tpu_torch.parallel import spawn_local
+
+    t_phase = time.perf_counter()
+    bad, out = [], {}
+    t0 = time.perf_counter()
+    cv_root = dp_cv_save(env, root)
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spawn_local(dp_cv_rank_world1, 1, root, os.path.join(root, "cv_w1.json"),
+                backend="nccl", timeout=600)
+    out["world1_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "cv_w1.json")) as f:
+        w1 = json.load(f)
+    out["world1"] = w1
+
+    def check(row, label, per_step, epochs):
+        steps = sum(e["batches"] for e in row["epochs"])
+        tables = row["window_tables"]
+        want = {k: v * steps for k, v in per_step.items()}
+        want["gather_reduce_sum"] = 2 * tables * epochs
+        if row["launches"] != want or row["all_reduces_per_step"] != 1:
+            bad.append(f"{label}: launches {row['launches']} and {row['all_reduces_per_step']} "
+                       f"all-reduces a step, expected {want} and 1")
+
+    for key, per_step, epochs in (("cache_bfloat16", {"assemble_f32_to_bf16": 1}, DP_CV_EPOCHS),
+                                  ("edge_bfloat16", {"assemble_f32_to_bf16": 1}, DP_CV_EPOCHS),
+                                  ("cache_float32", {"assemble_f32": 1}, 2)):
+        check(w1[key], f"(a) {key}", per_step, epochs)
+        if w1[key]["graph_replays"] != [epochs - 1]:
+            bad.append(f"(a) {key}: the epoch graph replayed {w1[key]['graph_replays']} times")
+    for what, ok in (("the replayed cache epochs against their eager form",
+                      w1["cache_bfloat16"]["replay_bit_equal_to_eager"]),
+                     ("the cache epochs against the single-device CV epochs (bf16)",
+                      w1["cache_bfloat16"]["bit_equal_to_single"]),
+                     ("edge against cache (bf16)", w1["edge_bfloat16"]["bit_equal_to_cache"]),
+                     ("the RMAT-16 resume from the shard",
+                      w1["resume_rmat16"]["bit_equal"])):
+        if not ok:
+            bad.append(f"(a) {what}: not bit-equal")
+    d_loss, d_par = w1["cache_float32"]["rel_diff_to_single"]
+    if not (d_loss <= DP_F32_LOSS_TOL and d_par <= DP_F32_PARAM_TOL):
+        bad.append(f"(a) f32: {d_loss} (loss, relative) and {d_par} (parameters, of max|p|) "
+                   f"from the single-device run, over {DP_F32_LOSS_TOL} and {DP_F32_PARAM_TOL}")
+
+    # (b): gloo ranks on the one card
+    world = DP_CV_RANKS
+    t0 = time.perf_counter()
+    spawn_local(dp_cv_rank_shared, world, root, root, backend="gloo", timeout=600)
+    out["shared_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"cv_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["shared"] = ranks
+    for source in ("cache", "edge"):
+        rows = [rk[source] for rk in ranks]
+        if {rk["lockstep_steps"] for rk in rows} != {max(rk["own_batches"] for rk in rows)}:
+            bad.append(f"(b) {source}: lockstep steps {[rk['lockstep_steps'] for rk in rows]}, "
+                       f"own batches {[rk['own_batches'] for rk in rows]}")
+        if any(rk["graphs"] for rk in rows):
+            bad.append(f"(b) {source}: a CUDA graph under gloo")
+        for r, rk in enumerate(rows):
+            check(dict(rk, epochs=rk["epochs"], launches=sum_launches(rk["epochs"]),
+                       all_reduces_per_step=max(e["all_reduces_per_step"]
+                                                for e in rk["epochs"])),
+                  f"(b) {source} rank {r}", {"assemble_f32": 1}, DP_CV_SHARED_EPOCHS[source])
+        equal = []
+        for e in range(DP_CV_SHARED_EPOCHS[source]):
+            ps = [env.torch.load(os.path.join(root, f"cv_{source}_e{e}_rank{r}.pt"),
+                                 map_location="cpu") for r in range(world)]
+            equal.append(all(env.torch.equal(ps[0][k], q[k]) for q in ps[1:] for k in ps[0]))
+        out[f"{source}_replicas_bit_equal"] = equal
+        if not all(equal):
+            bad.append(f"(b) {source}: the ranks' parameters differ after an epoch: {equal}")
+    for r, rk in enumerate(ranks):
+        if not rk["resume_rmat16"]["bit_equal"]:
+            bad.append(f"(b) rank {r}: the RMAT-16 resume from its shard is not bit-equal")
+    out["cv_root"] = cv_root
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
+def sum_launches(epochs) -> dict:
+    """The launches of several epoch rows, summed by key."""
+    out: dict = {}
+    for e in epochs:
+        for k, v in e["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def dp_cv_kernel_cases(env, cv_root, dp_cv_out):
+    """The kernel cases of the ``dp_cv`` phase's paths, on rank 0's part of
+    its (b) run (the 2-way hash part of the cut train set, the ``gcn``
+    aggregate): the ``cache`` source's layer-0 fetch (``take_rows``) at a
+    device-sampled CV batch of the part; the ``edge`` source's exchange
+    assembly at that batch over 2 shards (the received rows of the two
+    owners in plan order, one zero row); the rank's refresh, the window
+    reduction over the part's window tables at F in
+    :data:`CV_WINDOW_FANOUTS` and the hub table, over a history of each
+    width the rank refreshes (``hist[b]``, b over the layers).  Launches:
+    rank 0's runs in (b); each table is reduced once a history an epoch,
+    so a table's count is the rank's ``gather_reduce_sum`` launches over
+    ``2 * len(tables)``."""
+    torch, np, gk, dev = env.torch, env.np, env.gk, env.dev
+    from pagraph_tpu_torch.data.formats import load_partition
+    from pagraph_tpu_torch.models.gcn_cv import layer_widths
+    from pagraph_tpu_torch.models.inference import _BucketedNeighborhoods
+    from pagraph_tpu_torch.ops.gather import take_rows
+    from pagraph_tpu_torch.parallel.halo import device_halo_plan, halo_width_for, src_rows
+    from pagraph_tpu_torch.sampling.device_sampler import DeviceCSR, sample_minibatch_device
+    from pagraph_tpu_torch.train.device_epoch import epoch_draws
+
+    part = load_partition(os.path.join(cv_root, f"parts{DP_CV_RANKS}"), 0)
+    full = torch.from_numpy(np.load(os.path.join(cv_root, "features.npy"))).to(dev)
+    l2f = torch.from_numpy(part.local2full.astype(np.int64)).to(dev)
+    cache = full.index_select(0, l2f)
+    cv_cfg = cv_config(env.pt, 0, on_device=True)
+    s = cv_cfg.sampler
+    gen = torch.Generator(device=dev).manual_seed(3)
+    draws = [d[0] for d in epoch_draws(gen, 1, s.batch_size, s.hop_fanouts(), s.paired_draws,
+                                       dev)]
+    seeds = torch.from_numpy(part.train_nids[:s.batch_size].astype(np.int32)).to(dev)
+    mb = sample_minibatch_device(DeviceCSR.from_graph(part.graph, dev), seeds,
+                                 torch.ones_like(seeds, dtype=torch.bool), s.num_hops,
+                                 s.hop_fanouts(), draws)
+    ids, d = mb.input_nids, cache.shape[1]
+    nd = ids.shape[0]
+    n_ids = int(torch.unique(ids).numel())
+    rank0 = dp_cv_out["shared"][0]
+    cache_launch = sum_launches(rank0["cache"]["epochs"])
+    edge_launch = sum_launches(rank0["edge"]["epochs"])
+    cases = [dict(
+        name="assemble_full[dp cv cache f32]", key="assemble_f32",
+        launches=cache_launch.get("assemble_f32", 0),
+        replaces=f"{PALLAS}:58 gather_rows_pallas (the dp CV layer-0 fetch: "
+                 "pagraph_tpu/train/device_epoch.py:869 chunked_take + dequantize_fused)",
+        shape=f"cache {list(cache.shape)} f32 ids [{nd}] ({n_ids} distinct), no miss rows",
+        tol="exact",
+        kernel=lambda: take_rows(cache, ids),
+        plain=lambda: gk.assemble_plain(cache, ids, cache[:0]),
+        library=lambda: torch.index_select(cache, 0, ids),
+        same_fn=lambda: torch.index_select(cache, 0, ids),
+        nbytes=4 * nd + 4 * n_ids * d + 4 * nd * d)]
+    # the edge exchange at 2 shards: owner p's request j is its shard row
+    # req[p, j], the full row req * P + p
+    world = DP_CV_RANKS
+    hw = halo_width_for(nd, world)
+    plan = device_halo_plan(l2f.int().index_select(0, ids), mb.input_mask, world, hw)
+    owner = torch.arange(world, device=dev)[:, None]
+    recv = full.index_select(0, (plan.req.long() * world + owner).view(-1))
+    zero = torch.zeros((1, d), device=dev)
+    src = src_rows(plan)
+    h_distinct = int(torch.unique(src[src >= 0]).numel())
+    cases.append(dict(
+        name=f"assemble_halo[dp cv edge f32, P={world}]", key="assemble_f32",
+        launches=edge_launch.get("assemble_f32", 0),
+        replaces=f"{PALLAS}:58 gather_rows_pallas (the edge CV exchange's batch order: "
+                 "pagraph_tpu/parallel/halo.py:152 jnp.take + :155 where)",
+        shape=f"received {list(recv.shape)} f32 src_row [{nd}] (P = {world}, H = {hw}), "
+              "one zero row",
+        tol="exact",
+        kernel=lambda: gk.assemble(recv, src, zero),
+        plain=lambda: gk.assemble_plain(recv, src, zero),
+        library=None,
+        same_fn=lambda: torch.where((src >= 0)[:, None],
+                                    torch.index_select(recv, 0, src.clamp(min=0)), 0.0),
+        nbytes=4 * nd + 4 * h_distinct * d + 4 * d + 4 * nd * d))
+    # the rank's refresh: each table reduced once a history an epoch
+    windows = _BucketedNeighborhoods(part.graph, dev)
+    tables = windows.tables()
+    per_table = cache_launch.get("gather_reduce_sum", 0) // (2 * len(tables))
+    win = {p.shape[1]: (p, m) for lv, p, m in tables if lv == "bucket"}
+    hubs = [(p, m) for lv, p, m in tables if lv == "hubs"]
+    picked = [(f"F={wf}", win[wf]) for wf in CV_WINDOW_FANOUTS if wf in win]
+    picked += [("hubs F=4096", hubs[0])] if hubs else []
+    for dw in layer_widths(cv_cfg.model):
+        hist = torch.randn(part.num_nodes, dw, generator=gen, device=dev)
+        for label, (pos, mask) in picked:
+            rows_w, wf = pos.shape
+            counts = mask.sum(1)
+            offs = torch.zeros_like(counts)
+            offs[1:] = torch.cumsum(counts, 0)[:-1]
+            flat = pos[mask].long()
+            cases.append(dict(
+                name=f"window_reduce[sum, cv_refresh_dp rank0 {label}, D={dw}]",
+                key="gather_reduce_sum", launches=per_table,
+                replaces=f"{PALLAS}:132 gather_mean_pallas (a dp rank's CV refresh: "
+                         "pagraph_tpu/train/device_epoch.py:923 refresh)",
+                shape=f"src {list(hist.shape)} pos/mask [{rows_w}, {wf}] "
+                      f"({int(mask.sum())} valid slots), plan "
+                      f"{gk.window_plan(rows_w, wf, dw, True)}",
+                tol=max(TOLERANCES["reduce"], wf * 2.0 ** -24),
+                kernel=lambda x_=hist, p_=pos, m_=mask: gk.gather_reduce(x_, p_, m_, "sum"),
+                plain=lambda x_=hist, p_=pos, m_=mask: gk.gather_reduce_plain(
+                    x_, p_, m_, "sum"),
+                library=lambda x_=hist, fl=flat, of=offs.long():
+                    torch.nn.functional.embedding_bag(fl, x_, of, mode="sum"),
+                nbytes=5 * rows_w * wf + 4 * int(torch.unique(pos[mask]).numel()) * dw
+                + 4 * rows_w * dw))
+    return cases
+
+
+# -- service: isolation-mode sampling, worker processes and shared memory ------
+SERVICE_EPOCHS = 3
+SERVICE_RESAMPLED = 3                   # batches re-sampled in-process and compared
+SERVICE_RANKS = 2
+
+
+def service_recorder(tr, keep: int = SERVICE_RESAMPLED):
+    """Wrap a service-backed trainer's sampler: each epoch's batch seeds,
+    and the first ``keep`` batches of epoch 0 (copied)."""
+    epochs, kept, epoch = [], [], tr.sampler.epoch
+
+    def recorded():
+        seen = []
+        epochs.append(seen)
+        for mb in epoch():
+            seen.append(mb.layer_nids[-1][:int(mb.seed_mask.sum())].copy())
+            if len(epochs) == 1 and len(kept) < keep:
+                kept.append(mb)
+            yield mb
+
+    tr.sampler.epoch = recorded
+    return epochs, kept
+
+
+def service_closed(tr) -> dict:
+    """Close the trainer's service: whether a worker outlived it, and the
+    shared-memory segments left."""
+    workers, names = list(tr.sampler.workers), [m.name for m in tr.sampler._registry]
+    tr.close()
+    return {"workers": len(workers), "segments": len(names),
+            "alive_after_close": any(w.is_alive() for w in workers),
+            "segments_left": [n for n in names if os.path.exists(os.path.join("/dev/shm", n))]}
+
+
+def service_rank_shared(rank, world, root, part_dir, capacity, out_dir) -> None:
+    """A gloo rank of the ``service`` phase: the host path at ``bench.py``'s
+    shape with ``train.remote_sampling``, one2one over its part from
+    ``part_dir`` (cache at ``capacity``) and one2all over the whole graph
+    (cache at 40%), 2 epochs each at dropout 0.2; the parameters after each
+    epoch and the batch seeds to ``out_dir``, and this rank's numbers as
+    JSON."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import pagraph_tpu_torch as pt
+    from pagraph_tpu_torch.data.formats import PartitionArtifact, load_partition
+    from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.parallel import DataParallelTrainer
+    from pagraph_tpu_torch.storage.feature_store import FeatureStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = dp_load_dataset(root)
+    store = FeatureStore.build(ds.graph, ds.features)
+    whole = PartitionArtifact(ds.graph, ds.train_nids, np.arange(ds.num_nodes, dtype=np.int64),
+                              ds.labels)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(), "world_size": world}
+    for dispatch, part, cap in (("one2one", load_partition(part_dir, rank), capacity),
+                                ("one2all", whole, int(ds.num_nodes * DP_CACHE_SHARE))):
+        cfg = dp_config(pt, 0, dropout=0.2, capacity=cap)
+        cfg.train.remote_sampling = True
+        t0 = time.perf_counter()
+        tr = DataParallelTrainer(cfg, store, part, seed=0, dispatch=dispatch)
+        tr._maybe_fill_cache()
+        setup = time.perf_counter() - t0
+        seeds, _ = service_recorder(tr, keep=0)
+        rows = []
+        for e in range(2):
+            _, row = dp_run(torch, gk, tr, 1, start=e)
+            row.update(row.pop("epochs")[0])
+            rows.append(row)
+            torch.save(dp_params(tr), os.path.join(out_dir, f"svc_{dispatch}_e{e}_rank{rank}.pt"))
+        np.save(os.path.join(out_dir, f"svc_{dispatch}_seeds_rank{rank}.npy"),
+                np.array([np.concatenate(s) for s in seeds], dtype=object), allow_pickle=True)
+        out[dispatch] = {"setup_s": setup, "epochs": rows, "lockstep_steps": tr.steps,
+                         "service_batches": tr.sampler.num_batches,
+                         "train_vertices": len(part.train_nids),
+                         "closed": service_closed(tr)}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"svc_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def service_phase(env, root: str):
+    """Isolation-mode sampling (``train.remote_sampling``:
+    ``sampling/service.py`` ``SampleService``, 2 worker processes over the
+    graph in shared memory) at ``bench.py``'s shape on RMAT-20, the cache
+    at 40%: (a) a ``Trainer`` (K = 8, epoch 0 eager, then the host-step
+    graphs) for :data:`SERVICE_EPOCHS` epochs: 4 launches a step, the loss
+    falling, every epoch's seeds the train set once, the first batches
+    equal to the native sampler's in-process batches of the same seeds and
+    batch seeds, the loader alone through the service beside the
+    in-process native loader (in turns), and ``close()`` leaving no worker
+    and no segment; (b) :data:`SERVICE_RANKS` gloo ranks through
+    :func:`service_rank_shared`, one2one and one2all: replicas bit-equal,
+    one lockstep count (one2all's the round robin's share), one2all's
+    ranks' seeds covering the train set and shared only through make-up
+    chunks, every service closed clean."""
+    torch, np, gk, pt = env.torch, env.np, env.gk, env.pt
+    import shutil
+
+    from pagraph_tpu_torch.parallel import spawn_local
+    from pagraph_tpu_torch.sampling.loader import PrefetchLoader
+    from pagraph_tpu_torch.sampling.native import NativeSampler
+    from pagraph_tpu_torch.sampling.sampler import NeighborSampler
+
+    t_phase = time.perf_counter()
+    ds, bad = env.ds, []
+    shm = shutil.disk_usage("/dev/shm")
+    out = {"dev_shm": {"total_bytes": shm.total, "free_bytes": shm.free},
+           "graph_share_bytes": ds.graph.indptr.nbytes + ds.graph.indices.nbytes
+           + 4 * ds.num_nodes}
+    if shm.free < 2 * out["graph_share_bytes"]:
+        bad.append(f"/dev/shm has {shm.free} bytes free: too small for the service's "
+                   f"{out['graph_share_bytes']} bytes of graph")
+        return out, bad
+    cfg = dp_config(pt, ds.num_nodes, dropout=0.2)
+    cfg.train.remote_sampling = True
+    rec = {}
+
+    def make():
+        t_ = env.Trainer.from_dataset(cfg, ds, seed=0)
+        rec["seeds"], rec["kept"] = service_recorder(t_)
+        return t_
+
+    tr, out["trainer"] = run_trainer(
+        torch, gk, "service trainer", make, SERVICE_EPOCHS,
+        {"assemble_f32": 1, "block_gather_fwd_mean": 2, "block_gather_bwd_mean": 1})
+    out["trainer"].update(caps=list(tr.sampler.caps),
+                          graphs=len(tr.group_graphs.graphs) if tr.group_graphs else 0,
+                          workers=len(tr.sampler.workers))
+    train = np.sort(ds.train_nids)
+    covers = [bool(np.array_equal(np.sort(np.concatenate(s)), train)) for s in rec["seeds"]]
+    out["trainer"]["epochs_cover_train_set"] = covers
+    if not all(covers) or len(covers) != SERVICE_EPOCHS:
+        bad.append(f"(a) the service's seeds do not cover the train set each epoch: {covers}")
+    # the first batches again, in this process: epoch 0's chunks and the
+    # batch seeds drawn in chunk order (SampleService._epoch_chunks, _epoch)
+    svc = tr.sampler
+    b = cfg.sampler.batch_size
+    order = np.random.default_rng(np.random.SeedSequence((0, 0))).permutation(len(ds.train_nids))
+    chunks = [ds.train_nids[order][i:i + b] for i in range(0, len(order), b)]
+    rng = np.random.default_rng(np.random.SeedSequence((0, 0, 0, 7)))
+    batch_seeds = [int(rng.integers(0, 2**31 - 1)) for _ in chunks]
+    first = {int(c[0]): i for i, c in enumerate(chunks)}
+    native = NativeSampler(ds.graph, cfg.sampler, svc.caps)
+    same = []
+    for mb in rec["kept"]:
+        i = first[int(mb.layer_nids[-1][0])]
+        again = native.sample(chunks[i], ds.labels, batch_seeds[i])
+        same.append(all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(
+            [*mb.layer_nids, *mb.layer_mask, mb.labels,
+             *(a for blk in mb.blocks for a in (blk.neigh_pos, blk.neigh_mask, blk.self_pos))],
+            [*again.layer_nids, *again.layer_mask, again.labels,
+             *(a for blk in again.blocks for a in (blk.neigh_pos, blk.neigh_mask, blk.self_pos))],
+            strict=True)))
+    out["trainer"]["resampled_in_process_equal"] = same
+    if len(same) != SERVICE_RESAMPLED or not all(same):
+        bad.append(f"(a) the service's batches differ from the native sampler's: {same}")
+    # the loader alone: through the service and in process, in turns
+    in_proc = NeighborSampler(ds.graph, ds.train_nids, cfg.sampler, labels=ds.labels, seed=0,
+                              caps=svc.caps)
+    loaders = {"service": tr.loader,
+               "in_process": PrefetchLoader(in_proc, tr.cache, prefetch=cfg.sampler.prefetch)}
+    times = {k: [] for k in loaders}
+    for name in ("service", "in_process", "service", "in_process"):
+        t0 = time.perf_counter()
+        for _ in loaders[name].groups(tr.steps_per_dispatch):
+            pass
+        times[name].append(time.perf_counter() - t0)
+    out["loader_only_s"] = times
+    out["trainer"]["closed"] = closed = service_closed(tr)
+    if closed["alive_after_close"] or closed["segments_left"]:
+        bad.append(f"(a) close(): {closed}")
+    del tr, loaders
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b): gloo ranks, one2one over the 2-way hash parts and one2all
+    world = SERVICE_RANKS
+    part_dir, parts = dp_parts(env, root, world)
+    capacity = int(DP_CACHE_SHARE * max(p.num_nodes for p in parts))
+    t0 = time.perf_counter()
+    spawn_local(service_rank_shared, world, root, part_dir, capacity, root, backend="gloo",
+                timeout=600)
+    out["shared_s"] = time.perf_counter() - t0
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"svc_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    out["shared"] = ranks
+    per_step = {"assemble_f32": 1, "block_gather_fwd_mean": 2, "block_gather_bwd_mean": 1}
+    n_train = len(ds.train_nids)
+    for dispatch in ("one2one", "one2all"):
+        rows = [rk[dispatch] for rk in ranks]
+        lock = {rk["lockstep_steps"] for rk in rows}
+        total = -(-n_train // cfg.sampler.batch_size)
+        want = (-(-total // world) if dispatch == "one2all"
+                else max(-(-rk["train_vertices"] // cfg.sampler.batch_size) for rk in rows))
+        if lock != {want}:
+            bad.append(f"(b) {dispatch}: lockstep steps {lock}, expected {want}")
+        for r, rk in enumerate(rows):
+            for e in rk["epochs"]:
+                if e["launches"] != {k: v * e["batches"] for k, v in per_step.items()} or \
+                        e["all_reduces_per_step"] != 1:
+                    bad.append(f"(b) {dispatch} rank {r}: launches {e['launches']}, "
+                               f"{e['all_reduces_per_step']} all-reduces a step")
+            if rk["closed"]["alive_after_close"] or rk["closed"]["segments_left"]:
+                bad.append(f"(b) {dispatch} rank {r}: close(): {rk['closed']}")
+        equal = []
+        for e in range(2):
+            ps = [torch.load(os.path.join(root, f"svc_{dispatch}_e{e}_rank{r}.pt"),
+                             map_location="cpu") for r in range(world)]
+            equal.append(all(torch.equal(ps[0][k], q[k]) for q in ps[1:] for k in ps[0]))
+        out[f"{dispatch}_replicas_bit_equal"] = equal
+        if not all(equal):
+            bad.append(f"(b) {dispatch}: the ranks' parameters differ after an epoch: {equal}")
+    seeds = [np.load(os.path.join(root, f"svc_one2all_seeds_rank{r}.npy"), allow_pickle=True)
+             for r in range(world)]
+    makeup = (world * ranks[0]["one2all"]["lockstep_steps"]
+              - -(-n_train // cfg.sampler.batch_size)) * cfg.sampler.batch_size
+    shared_seeds = []
+    for e in range(2):
+        mine = [s[e] for s in seeds]
+        shared_seeds.append(len(np.intersect1d(mine[0], mine[1])))
+        if not (np.array_equal(np.unique(np.concatenate(mine)), train)
+                and shared_seeds[-1] <= makeup):
+            bad.append(f"(b) one2all epoch {e}: the ranks' seeds do not split the train set "
+                       f"({shared_seeds[-1]} shared, make-up {makeup})")
+    out["one2all_shared_seeds"] = shared_seeds
+    out["one2all_makeup_seeds"] = makeup
     out["seconds"] = time.perf_counter() - t_phase
     return out, bad
 
@@ -3266,8 +3991,11 @@ def main() -> None:
 
     # -- dp: data-parallel training, one process a rank -------------------------
     # -- halo: the halo feature sources, features sharded across the ranks ------
+    # -- dp_cv: data-parallel CV-GCN, per-rank histories and shards -----------
+    # -- service: isolation-mode sampling, one2one and one2all -----------------
     dp_env = types.SimpleNamespace(torch=torch, np=np, ds=ds, partition=partition,
-                                   formats=formats)
+                                   formats=formats, ds_nb=ds_nb, FeatureStore=FeatureStore,
+                                   Dataset=Dataset, gk=gk, pt=pt, dev=dev, Trainer=Trainer)
     with tempfile.TemporaryDirectory() as dp_root:
         dp_out, bad = dp_phase(dp_env, dp_root)
         dp_out["nvidia_smi"] = smi
@@ -3279,7 +4007,19 @@ def main() -> None:
         emit("halo", halo_out)
         if bad:
             fail("halo: " + "; ".join(bad))
+        dp_cv_out, bad = dp_cv_phase(dp_env, dp_root)
+        dp_cv_out["nvidia_smi"] = smi
+        emit("dp_cv", dp_cv_out)
+        if bad:
+            fail("dp_cv: " + "; ".join(bad))
+        dp_cv_cases = dp_cv_kernel_cases(dp_env, dp_cv_out["cv_root"], dp_cv_out)
+        svc_out, bad = service_phase(dp_env, dp_root)
+        svc_out["nvidia_smi"] = smi
+        emit("service", svc_out)
+        if bad:
+            fail("service: " + "; ".join(bad))
     del dp_env
+    free_memory()
 
     # one device-sampled batch of the f32 run's epoch 0: the on-device path's shapes
     dtr = dev_tr["f32"]
@@ -3775,6 +4515,7 @@ def main() -> None:
 
     cases.extend(family_cases)
     cases.extend(cv_cases)
+    cases.extend(dp_cv_cases)
     entries, bad = [], []
     for c in cases:
         err, ok, tol_text = compare(torch, c["kernel"](), c["plain"](), c["tol"])

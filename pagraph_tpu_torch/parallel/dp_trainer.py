@@ -66,11 +66,30 @@ counts them (summed over the ranks) and an epoch that drops any warns.
 ``train.halo_pipeline`` (``edge`` only) pipelines the exchange one batch
 deep, in a process group of its own.
 
-Refused, with the ROADMAP queue 1 item that ports them: multi-device
-``gcn_cv`` (item 7c, step 4); ``train.remote_sampling`` and
-``dispatch="one2all"`` (item 8); ``epoch_dispatch="steps"`` as the JAX
-package refuses it; ``edge`` without ``train.on_device_sampling`` and
-``train.halo_pipeline`` without ``edge``, as the JAX package does.
+CV-GCN (``model.arch="gcn_cv"``) runs on the device with the ``cache``
+and ``edge`` sources: each rank keeps a ``CVDeviceState`` over its own
+partition's vertices (``train/device_epoch.py`` ``make_dp_device_epoch_fn``
+and ``make_halo_device_epoch_fn`` given it), which no collective touches.  A checkpoint adds one history file a rank
+(``train/checkpoint.py`` ``save_aux_shards``: every rank writes its own,
+rank 0 the train state too), and :meth:`resume` restores each rank's from
+the one complete set of the same world size.
+
+Isolation-mode sampling (``train.remote_sampling``, the host path): the
+rank's batches come from worker processes (``sampling/service.py``
+``SampleService``) in place of the in-process sampler; the loader packs
+and plans them as before (``cache`` and ``ici``).  ``dispatch="one2one"``
+runs a pool a rank over its partition (seeded ``seed + 31 * rank``);
+``"one2all"`` samples the full graph (``from_dataset`` gives every rank the
+whole graph as its part) with the JAX package's round-robin split of each
+epoch's batches across the ranks, each rank running its own pool for its
+own share (the JAX package runs one pool for every consumer in one
+process; the port has one process a rank), so the lockstep step count is
+``ceil(batches / P)``.  :meth:`close` shuts the workers down.
+
+Refused as the JAX package refuses them: ``epoch_dispatch="steps"``;
+``edge`` without ``train.on_device_sampling``; ``train.halo_pipeline``
+without ``edge`` or with ``gcn_cv``; ``gcn_cv`` on the host path or with
+``ici``; ``dispatch="one2all"`` without ``train.remote_sampling``.
 """
 from __future__ import annotations
 
@@ -90,9 +109,9 @@ from ..sampling.loader import PrefetchLoader
 from ..sampling.sampler import NeighborSampler
 from ..storage.cache import FeatureCache
 from ..storage.feature_store import FeatureStore
-from ..train.device_epoch import (METRIC_NAMES, DeviceData, EpochInputs, HaloEpoch,
-                                  epoch_seed, num_batches, rank_epoch_seed)
-from ..train.checkpoint import save_checkpoint
+from ..train.checkpoint import open_aux_shards, save_aux_shards, save_checkpoint
+from ..train.device_epoch import (METRIC_NAMES, CVDeviceState, DeviceData, EpochInputs,
+                                  HaloEpoch, epoch_seed, num_batches, rank_epoch_seed)
 from ..train.loop import Trainer
 from ..train.state import create_state, layer0_fields
 from ..utils.device import resolve_device
@@ -112,14 +131,16 @@ _DROPOUT_STREAM = 1
 
 def refuse_unported(cfg: Config, feature_source: str = "cache",
                     dispatch: str = "one2one") -> None:
-    """Raise for a configuration the port's data-parallel trainer does not
-    run: the JAX package's own validation, and what the port has not ported
-    yet, naming the ROADMAP queue 1 item that ports it."""
+    """Raise for a configuration the data-parallel trainer does not run:
+    the JAX package's own validation, with its messages."""
     t = cfg.train
     if feature_source not in ("cache", "ici", "edge"):
         raise ValueError(f"unknown feature_source {feature_source!r}")
     if dispatch not in ("one2one", "one2all"):
         raise ValueError(f"unknown dispatch {dispatch!r}")
+    if dispatch == "one2all" and not t.remote_sampling:
+        raise ValueError("dispatch='one2all' is an isolation-mode knob: set "
+                         "train.remote_sampling=True")
     if feature_source == "edge" and not t.on_device_sampling:
         raise NotImplementedError(
             "feature_source='edge' (partition CSR + features sharded across the ranks) is "
@@ -128,18 +149,18 @@ def refuse_unported(cfg: Config, feature_source: str = "cache",
         raise ValueError(
             "train.halo_pipeline pipelines the EDGE mode's halo exchange: set "
             "feature_source='edge' (it is a no-op everywhere else)")
-    if cfg.model.arch == "gcn_cv":
+    if t.halo_pipeline and cfg.model.arch == "gcn_cv":
         raise NotImplementedError(
-            "multi-device gcn_cv (per-partition histories and their multi-process aux "
-            "shards) is not ported yet (ROADMAP queue 1 item 7c, step 4)")
-    if t.remote_sampling:
+            "halo_pipeline is not implemented for the gcn_cv edge epoch "
+            "(make_edge_cv_device_epoch_fn runs unpipelined; CV history reads would have to "
+            "be pipelined with the batch too)")
+    if cfg.model.arch == "gcn_cv" and (not t.on_device_sampling or feature_source == "ici"):
         raise NotImplementedError(
-            "train.remote_sampling (isolation-mode sampling) is not ported yet (ROADMAP "
-            "queue 1 item 8)")
-    if dispatch == "one2all":
-        raise NotImplementedError(
-            "dispatch='one2all' (one sampler service for every rank) is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+            "multi-chip gcn_cv needs device-resident per-partition histories: set "
+            "train.on_device_sampling=True with feature_source='cache' or 'edge' (ici samples "
+            "the FULL graph on every chip, so chips would write divergent histories for the "
+            "same vertex; see the design note on "
+            "train/device_epoch.make_edge_cv_device_epoch_fn)")
     if t.epoch_dispatch == "steps":
         raise NotImplementedError(STEPS_DISPATCH_ERROR)
 
@@ -184,7 +205,7 @@ class DataParallelTrainer(Trainer):
         self._device_mode = t.on_device_sampling
         self._side_stream = (torch.cuda.Stream(device=self.device)
                              if self.device.type == "cuda" else None)
-        self._is_cv = False
+        self._is_cv = cfg.model.arch == "gcn_cv"
         self.cv_history = self.cv_state = None
         self.halo_drops = 0
         self.cache = FeatureCache(store, layer0_fields(cfg), part.graph, part.local2full,
@@ -209,14 +230,33 @@ class DataParallelTrainer(Trainer):
         if neg_min_train == 0:
             raise ValueError("a rank's partition has no train vertices: the host path needs "
                              "at least one on every rank")
+        one2all = t.remote_sampling and dispatch == "one2all"
+        if one2all and (part.num_nodes != store.num_nodes
+                        or not np.array_equal(part.local2full, np.arange(part.num_nodes))):
+            raise ValueError("dispatch='one2all' samples FULL-graph vertex ids: partitions "
+                             "must be identity full-graph views (use from_dataset, which "
+                             "builds them)")
+        sampler_seed = seed if one2all else seed + 31 * self.rank
         self.sampler = NeighborSampler(part.graph, part.train_nids, cfg.sampler,
-                                       labels=part.labels, seed=seed + 31 * self.rank,
+                                       labels=part.labels, seed=sampler_seed,
                                        caps=cfg.sampler.layer_capacities(self.max_nodes))
         if cfg.sampler.auto_caps:
             # uniform caps across ranks: the elementwise max of their probes
             caps = self._all_reduce_ints(self.sampler.calibrate_caps(), dist.ReduceOp.MAX)
             self.sampler.set_caps(tuple(caps))
         self.caps = self.sampler.caps
+        if t.remote_sampling:
+            from ..sampling.service import SampleService
+
+            # one2one: a pool over this rank's partition; one2all: this
+            # rank's share of the full graph's round robin, from its own pool
+            self.sampler = SampleService(
+                part.graph, part.train_nids, cfg.sampler, labels=part.labels,
+                seed=sampler_seed, caps=self.caps,
+                num_consumers=self.world_size if one2all else 1,
+                consumer=self.rank if one2all else 0)
+            if one2all:
+                self.steps = self.sampler.num_batches
         planner = None
         if feature_source == "ici":
             # the host pipeline's plans are [P, H] a batch: H from the
@@ -263,6 +303,9 @@ class DataParallelTrainer(Trainer):
             self._halo = HaloEpoch(self.exchange, self.rank, self.world_size, l2f,
                                    self.cfg.train.halo_pipeline)
         self._dev_csr = DeviceCSR.from_graph(part.graph, dev)
+        if self._is_cv:
+            # the rank's histories over its partition, before the cache fill
+            self.cv_state = CVDeviceState.allocate(self.cfg, part.graph, dev)
         self._dev_train_nids = torch.from_numpy(
             np.asarray(part.train_nids, dtype=np.int32)).to(dev, copy=True)
         self._dev_labels = torch.from_numpy(
@@ -383,13 +426,15 @@ class DataParallelTrainer(Trainer):
         kl or hash, at ``partition.num_hops``), deterministically on every
         rank, and train this rank's part over the full store (built with
         the preprocess the model asks for, as ``Trainer.from_dataset``).
-        ``ici`` on the device samples the full graph: each rank's part is
-        the whole graph."""
+        ``ici`` on the device and ``one2all`` sample the full graph: each
+        rank's part is the whole graph."""
         refuse_unported(cfg, feature_source, dispatch)
         world, rank = dist.get_world_size(), dist.get_rank()
         hops = cfg.partition.num_hops
         method = cfg.partition.method
-        if feature_source == "ici" and cfg.train.on_device_sampling:
+        t = cfg.train
+        if (feature_source == "ici" and t.on_device_sampling) or (
+                t.remote_sampling and dispatch == "one2all"):
             whole = PartitionArtifact(ds.graph, ds.train_nids,
                                       np.arange(ds.num_nodes, dtype=np.int64), ds.labels)
             parts = [whole] * world
@@ -403,7 +448,7 @@ class DataParallelTrainer(Trainer):
         else:
             raise ValueError(f"unknown partition method {method!r}")
         m = cfg.model
-        pre = ("gcn" if m.arch == "gcn" else m.arch) if m.preprocess else None
+        pre = ("gcn" if m.arch in ("gcn", "gcn_cv") else m.arch) if m.preprocess else None
         store = FeatureStore.build(ds.graph, ds.features, preprocess=pre)
         if cfg.train.eval_every and "eval_data" not in kw:
             kw["eval_data"] = (ds.graph, ds.features, ds.labels, ds.val_mask)
@@ -538,11 +583,43 @@ class DataParallelTrainer(Trainer):
     # -- checkpoints and evaluation ---------------------------------------------------
 
     def _checkpoint(self, epoch: int) -> None:
-        """Rank 0 writes the replicated train state; every rank waits until
-        it is written."""
+        """Rank 0 writes the replicated train state, and under CV-GCN every
+        rank its own histories (``save_aux_shards``); every rank waits
+        until all are written."""
+        tc, arch = self.cfg.train, self.cfg.model.arch
         if self.rank == 0:
-            save_checkpoint(self.cfg.train.ckpt_dir, self.cfg.model.arch, epoch, self.state)
+            save_checkpoint(tc.ckpt_dir, arch, epoch, self.state)
+        if self.cv_state is not None:
+            save_aux_shards(tc.ckpt_dir, arch, epoch, self._cv_aux(), self.rank,
+                            self.world_size)
         dist.barrier()
+
+    def _restore_cv_aux(self, epoch: int) -> None:
+        """This rank's histories from the complete shard set of checkpoint
+        ``epoch``, in place; a set written at another world size raises
+        ``ValueError``, and none at all resumes with zero histories and a
+        ``RuntimeWarning``, as the JAX package does."""
+        shards = open_aux_shards(self.cfg.train.ckpt_dir, self.cfg.model.arch, epoch)
+        if shards is None:
+            self._zero_cv_aux(epoch)
+            return
+        mine = shards.get(self.rank)
+        if len(shards) != self.world_size or mine is None:
+            raise ValueError(
+                f"CV aux shard files for epoch {epoch} are missing row {self.rank} -- was "
+                f"the checkpoint written with a different mesh size? ({len(shards)} shards "
+                f"for {self.world_size} ranks; rows are keyed by rank, the world size must "
+                "match)")
+        with torch.no_grad():
+            for name, dsts in (("hist", self.cv_state.hist_views()),
+                               ("agg", self.cv_state.aggs)):
+                for b, dst in enumerate(dsts):
+                    src = mine[f"{name}{b}"]
+                    if src.shape != dst.shape:
+                        raise ValueError(f"CV aux shard {name}{b} of rank {self.rank} is "
+                                         f"{tuple(src.shape)}, this rank's is "
+                                         f"{tuple(dst.shape)}: another partition")
+                    dst.copy_(src)
 
     def _maybe_eval(self, epoch: int) -> None:
         """Every ``train.eval_every`` epochs: rank 0's full-graph accuracy,

@@ -19,17 +19,23 @@ Invariants:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import TYPE_CHECKING, Tuple, Union
 
 import numpy as np
-import torch
 
-Array = Union[np.ndarray, torch.Tensor]
+if TYPE_CHECKING:
+    import torch
+
+# torch is imported where a batch is shipped: the sampling service's workers
+# build host batches without loading it
+Array = Union[np.ndarray, "torch.Tensor"]
 
 
 def _ship(x: Array, device: torch.device, non_blocking: bool) -> torch.Tensor:
     """numpy or torch -> tensor on ``device``.  A host array bound for a GPU
     goes through a pinned buffer so a non-blocking copy is truly async."""
+    import torch
+
     t = torch.from_numpy(x) if isinstance(x, np.ndarray) else x
     if non_blocking and device.type == "cuda" and t.device.type == "cpu":
         t = t.pin_memory()
@@ -58,6 +64,8 @@ class Block:
         return self.neigh_pos.shape[1]
 
     def to(self, device, non_blocking: bool = False) -> "Block":
+        import torch
+
         device = torch.device(device)
         return Block(
             neigh_pos=_ship(self.neigh_pos, device, non_blocking),
@@ -103,6 +111,8 @@ class MiniBatch:
         return int(sum(int(m.sum()) for m in self.layer_mask))
 
     def to(self, device, non_blocking: bool = False) -> "MiniBatch":
+        import torch
+
         device = torch.device(device)
         return MiniBatch(
             layer_nids=tuple(_ship(x, device, non_blocking)

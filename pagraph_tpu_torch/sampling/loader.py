@@ -52,17 +52,22 @@ _END = object()
 def lockstep_batches(sampler: NeighborSampler, n: int) -> Iterator[MiniBatch]:
     """``n`` batches of ``sampler``: its epoch, and where that ends first,
     its next epochs (each drawing its permutation when its first batch is
-    taken, as the JAX package's wrap-around does)."""
+    taken, as the JAX package's wrap-around does).  The sampler's last
+    epoch is closed when this one is (a sampling service's waits for its
+    batches in flight)."""
     if n > 0 and not sampler.num_batches:
         raise ValueError("a sampler with no train vertices cannot supply lockstep batches")
     it = sampler.epoch()
-    for _ in range(n):
-        try:
-            mb = next(it)
-        except StopIteration:
-            it = sampler.epoch()
-            mb = next(it)
-        yield mb
+    try:
+        for _ in range(n):
+            try:
+                mb = next(it)
+            except StopIteration:
+                it = sampler.epoch()
+                mb = next(it)
+            yield mb
+    finally:
+        it.close()
 
 Item = Tuple[BatchLayout, torch.Tensor, torch.Tensor, torch.Tensor]  # layout, i32, u8, miss
 
@@ -185,6 +190,7 @@ class PrefetchLoader:
                     pass
             for t in threads:
                 t.join()
+            it.close()
 
     def groups(self, k: int) -> Iterator[PackedGroup]:
         """One epoch in groups of ``k`` batches (the last one shorter),

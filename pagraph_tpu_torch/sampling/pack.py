@@ -22,16 +22,26 @@ a replayed graph finds them in its static buffers.
 A batch packs into pageable memory; a group of K batches stacks into
 ``[K, ...]`` buffers (:func:`stack`), pinned for the card, their miss rows
 padded to the group's largest bucket, and crosses in one copy a buffer.
+
+The sampling service's slots (``sampling/service.py``) hold a whole host
+MiniBatch, every layer's ids and masks included, in the JAX package's full
+layout less its plan sections (a worker has no cache, so its plan is
+empty): :class:`SlotLayout`, written by :func:`pack_slot` and read back by
+:func:`unpack_numpy` as numpy views (the JAX package's ``unpack_numpy``).
+Those run without torch, which the functions that make tensors import
+themselves: the service's workers import this module and never load it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from .block import Block, MiniBatch
+
+if TYPE_CHECKING:
+    import torch
 
 
 def _bytes(flags: int) -> int:
@@ -97,6 +107,8 @@ def pack(mb: MiniBatch, src_row: np.ndarray, miss_feats: torch.Tensor,
     pageable memory (``miss`` is ``miss_feats`` itself); :func:`stack`
     makes the one pinned copy.  ``halo_req``: the exchange's requests
     (``layout.halo`` of them)."""
+    import torch
+
     if tuple(miss_feats.shape) != (layout.bucket, layout.total_dim):
         raise ValueError(f"miss rows {tuple(miss_feats.shape)} do not match the layout's "
                          f"{(layout.bucket, layout.total_dim)}")
@@ -149,6 +161,8 @@ def stack(items: List[Tuple[BatchLayout, torch.Tensor, torch.Tensor, torch.Tenso
     """Stack packed batches ``(layout, i32, u8, miss)`` into one group, the
     miss rows padded with zeros to the largest bucket (as the JAX package's
     loop does), in new buffers, pinned with ``pin_memory``."""
+    import torch
+
     layout0 = items[0][0]
     bucket = max(it[0].bucket for it in items)
     layout = dataclasses.replace(layout0, bucket=bucket)
@@ -177,6 +191,8 @@ def _split(arr: torch.Tensor, sizes):
 
 def _unpackbits(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Little-endian bit unpack on the tensor's device -> bool ``[n]``."""
+    import torch
+
     shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
     return ((packed[:, None] >> shifts) & 1).reshape(-1)[:n].bool()
 
@@ -188,6 +204,8 @@ def unpack(layout: BatchLayout, i32: torch.Tensor, u8: torch.Tensor,
     device: static slices and views, and one bit unpack a mask section.
     Inner-layer ids and masks were not shipped: the ids are zeros, the
     masks of the layers between input and seeds all true, as in JAX."""
+    import torch
+
     caps, fanouts = layout.caps, layout.fanouts
     src_row, labels, self_flat, npos_flat = _split(
         i32, [n for _, n in layout.i32_sections()])[:4]
@@ -213,3 +231,67 @@ def halo_req(layout: BatchLayout, i32: torch.Tensor) -> torch.Tensor:
     """One batch's halo requests (a view of its int32 buffer): int32
     ``[layout.halo]``."""
     return i32[layout.i32_size - layout.halo:]
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotLayout:
+    """Layout of a sampling-service slot: int32 ``layer_nids`` (every
+    layer), ``labels``, ``self_pos``, ``neigh_pos``; uint8 ``layer_mask``
+    (every layer) and ``neigh_mask``, a byte a flag."""
+
+    caps: Tuple[int, ...]
+    fanouts: Tuple[int, ...]
+
+    def block_sizes(self) -> Tuple[int, ...]:
+        return tuple(c * f for c, f in zip(self.caps[1:], self.fanouts))
+
+    def i32_sections(self):
+        return [("layer_nids", sum(self.caps)), ("labels", self.caps[-1]),
+                ("self_pos", sum(self.caps[1:])), ("neigh_pos", sum(self.block_sizes()))]
+
+    def u8_sections(self):
+        return [("layer_mask", sum(self.caps)), ("neigh_mask", sum(self.block_sizes()))]
+
+    @property
+    def i32_size(self) -> int:
+        return sum(n for _, n in self.i32_sections())
+
+    @property
+    def u8_size(self) -> int:
+        return sum(n for _, n in self.u8_sections())
+
+
+def make_slot_layout(caps: Sequence[int], fanouts: Sequence[int]) -> SlotLayout:
+    """``fanouts``: per block, outermost block first."""
+    layout = make_layout(caps, fanouts, 0, 0)
+    return SlotLayout(layout.caps, layout.fanouts)
+
+
+def pack_slot(mb: MiniBatch, layout: SlotLayout, i32: np.ndarray, u8: np.ndarray) -> None:
+    """Write a host MiniBatch into a slot's ``i32`` and ``u8`` rows."""
+    at = 0
+    for a in (*mb.layer_nids, mb.labels, *(b.self_pos for b in mb.blocks),
+              *(b.neigh_pos for b in mb.blocks)):
+        flat = np.asarray(a).ravel()
+        i32[at:at + flat.size] = flat
+        at += flat.size
+    at = 0
+    for a in (*mb.layer_mask, *(b.neigh_mask for b in mb.blocks)):
+        flat = np.asarray(a).ravel()
+        u8[at:at + flat.size] = flat
+        at += flat.size
+
+
+def unpack_numpy(layout: SlotLayout, i32: np.ndarray, u8: np.ndarray) -> MiniBatch:
+    """A slot's rows -> a host MiniBatch of numpy views into them (no
+    copy: the caller owns ``i32`` and ``u8``)."""
+    caps, fanouts, sizes = layout.caps, layout.fanouts, layout.block_sizes()
+    nids, labels, self_flat, npos_flat = _split(i32, [n for _, n in layout.i32_sections()])
+    lmask, nmask_flat = (x.view(bool) for x in _split(u8, [n for _, n in layout.u8_sections()]))
+    blocks = tuple(
+        Block(neigh_pos=p.reshape(caps[b + 1], fanouts[b]),
+              neigh_mask=m.reshape(caps[b + 1], fanouts[b]), self_pos=sp)
+        for b, (p, m, sp) in enumerate(zip(_split(npos_flat, sizes), _split(nmask_flat, sizes),
+                                           _split(self_flat, caps[1:]))))
+    return MiniBatch(layer_nids=tuple(_split(nids, caps)), layer_mask=tuple(_split(lmask, caps)),
+                     blocks=blocks, labels=labels)

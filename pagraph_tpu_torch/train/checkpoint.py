@@ -24,14 +24,18 @@ CV-GCN's histories live outside the train state and go into a sidecar,
 does not list it): one ``torch.save`` file of ``{"hist": [...], "agg":
 [...]}``, f32 CPU tensors ``[N, w_b]`` a block (the JAX package writes an
 orbax directory there; neither package reads the other's).
-:func:`restore_aux` returns ``None`` for a checkpoint without one.  The
-multi-process aux shards wait for multi-device CV-GCN (ROADMAP queue 1
-item 7c).
+:func:`restore_aux` returns ``None`` for a checkpoint without one.
 
 Data-parallel training (``parallel/dp_trainer.py``) saves through
 :func:`save_checkpoint` from rank 0 alone, without sampler state (the JAX
 package's data-parallel checkpoint has none), and every rank restores the
-same file with :func:`restore_checkpoint`, in place.
+same file with :func:`restore_checkpoint`, in place.  Data-parallel CV-GCN
+keeps one history set a rank, over the rank's own partition: every rank
+writes its own to ``<arch>_<epoch>.aux.p<rank>`` (:func:`save_aux_shards`,
+a ``torch.save`` file of ``hist{b}`` and ``agg{b}`` and the manifest
+``__nproc__`` / ``__pidx__``, the JAX package's names), and
+:func:`open_aux_shards` indexes the one complete set of one world size,
+ignoring leftovers of another with a warning, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -142,6 +146,55 @@ def restore_checkpoint(ckpt_dir: str, arch: str, epoch: int, state: TrainState, 
     if sampler is not None and ckpt.get("sampler") is not None:
         sampler.rng.bit_generator.state = ckpt["sampler"]
     return state
+
+
+def save_aux_shards(ckpt_dir: str, arch: str, epoch: int, aux: Dict[str, list], rank: int,
+                    world_size: int) -> str:
+    """Write this rank's CV-GCN histories, ``aux`` ``{"hist": [...], "agg":
+    [...]}`` over its partition's vertices, to
+    ``<ckpt_dir>/<arch>_<epoch>.aux.p<rank>`` (f32 CPU tensors ``hist{b}``
+    and ``agg{b}``, and the writer's manifest ``__nproc__`` and
+    ``__pidx__``); returns its path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = f"{_ckpt_path(ckpt_dir, arch, epoch)}.aux.p{rank}"
+    out = {"__nproc__": int(world_size), "__pidx__": int(rank)}
+    for name, arrs in aux.items():
+        for b, a in enumerate(arrs):
+            out[f"{name}{b}"] = _cpu(torch.as_tensor(a)).float()
+    _save(out, path)
+    return path
+
+
+def open_aux_shards(ckpt_dir: str, arch: str, epoch: int) -> Optional[Dict[int, dict]]:
+    """The complete set of :func:`save_aux_shards` files of checkpoint
+    ``<arch>_<epoch>``: ``{rank: {"hist0": tensor, ...}}`` (memory-mapped:
+    a rank reads only its own rows), or ``None`` when there is none.  Only
+    the one set that holds every index ``0..N-1`` of one claimed world size
+    ``N`` is indexed; files written under another world size are ignored
+    with a ``RuntimeWarning``, as the JAX package ignores them."""
+    import glob
+    import warnings
+
+    base = _ckpt_path(ckpt_dir, arch, epoch)
+    files = sorted(f for f in glob.glob(base + ".aux.p*") if re.search(r"\.aux\.p\d+$", f))
+    if not files:
+        return None
+    groups: Dict[int, Dict[int, tuple]] = {}      # claimed world size -> {rank: (file, shard)}
+    for f in files:
+        z = torch.load(f, map_location="cpu", weights_only=True, mmap=True)
+        groups.setdefault(int(z["__nproc__"]), {})[int(z["__pidx__"])] = (f, z)
+    complete = [n for n, members in groups.items() if set(members) == set(range(n))]
+    if not complete:
+        warnings.warn(f"no complete CV aux shard set next to {base}: leftover files from a "
+                      "different process layout are ignored", RuntimeWarning, stacklevel=2)
+        return None
+    chosen = complete[0]            # at most one: every complete set has a p0
+    stale = [f for n, members in groups.items() if n != chosen
+             for f, _ in members.values()]
+    if stale:
+        warnings.warn(f"ignoring stale CV aux shard files next to {base} (written under a "
+                      f"different process layout): {stale}", RuntimeWarning, stacklevel=2)
+    return {r: z for r, (_, z) in sorted(groups[chosen].items())}
 
 
 def list_checkpoints(ckpt_dir: str, arch: str) -> List[int]:

@@ -94,7 +94,14 @@ beside the step's ``all_reduce`` on one NCCL communicator).  A fetched
 batch lives until the graph's end.  The trajectory is the unpipelined
 one's to the bit (the fetch draws nothing from the dropout generator).
 
-Not ported: multi-device CV-GCN (ROADMAP queue 1 item 7c, step 4).
+Data-parallel CV-GCN (the JAX package's ``make_dp_cv_device_epoch_fn`` and
+``make_edge_cv_device_epoch_fn``): the ``cache`` and ``edge`` epochs above
+(:func:`make_dp_device_epoch_fn`, :func:`make_halo_device_epoch_fn`) given
+``cv``, a :class:`CVDeviceState` a rank over the rank's own partition.  Each step
+reads and writes the rank's histories as on one device, the epoch ends
+with the rank's own refresh, and no collective touches a history: only the
+gradients, the metrics and the ``edge`` exchange's rows cross ranks.  The
+``edge`` CV epoch runs unpipelined only, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -472,13 +479,17 @@ def make_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
 
 def make_dp_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
                             data: DeviceData, *, graph: bool = False,
-                            stream: Optional[torch.cuda.Stream] = None) -> Callable:
+                            stream: Optional[torch.cuda.Stream] = None,
+                            cv: Optional[CVDeviceState] = None) -> Callable:
     """The data-parallel ``scan``: ``acc = epoch_fn()`` trains ``state``
     (its ``grad_sync`` set) for one lockstep epoch over this rank's
     ``inputs`` (:func:`dp_epoch_schedule`) and returns ``inputs.acc``
     all-reduced over the ranks (:meth:`EpochAccumulator.all_reduce_`),
-    without waiting for the device.  ``graph=True`` captures it on
-    ``stream`` as one CUDA graph, the collectives inside (``nccl`` only)."""
+    without waiting for the device.  ``cv``: the rank's CV-GCN histories,
+    read and written each step and refreshed at the epoch's end (the JAX
+    package's ``make_dp_cv_device_epoch_fn``).
+    ``graph=True`` captures it on ``stream`` as one CUDA graph, the
+    collectives (and the refresh) inside (``nccl`` only)."""
     if not cfg.sampler.include_self:
         raise ValueError("on-device sampling requires include_self=True")
     if state.grad_sync is None:
@@ -491,7 +502,9 @@ def make_dp_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
         for i in range(nb):
             device_batch_step(cfg, state, inputs.acc, inputs.seeds_all[i], inputs.mask_all[i],
                               [d[i] for d in inputs.draws], data.labels, data.csr,
-                              data.cache_values, data.dequant_scale)
+                              data.cache_values, data.dequant_scale, cv)
+        if cv is not None:
+            cv.refresh()
         return inputs.acc.all_reduce_()
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
@@ -518,17 +531,22 @@ def fetch_halo_batch(cfg: Config, seeds: torch.Tensor, smask: torch.Tensor,
 
 def make_halo_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
                               data: DeviceData, halo: HaloEpoch, *, graph: bool = False,
-                              stream: Optional[torch.cuda.Stream] = None) -> Callable:
+                              stream: Optional[torch.cuda.Stream] = None,
+                              cv: Optional[CVDeviceState] = None) -> Callable:
     """The halo feature sources' ``scan`` (``ici`` or ``edge``, :class:`HaloEpoch`):
     ``acc = epoch_fn()`` trains ``state`` (its ``grad_sync`` set) for one
     lockstep epoch and returns ``inputs.acc`` all-reduced over the ranks,
     without waiting for the device; with ``halo.pipeline`` one-deep
-    pipelined.  ``graph=True`` captures it on ``stream`` as one CUDA graph,
-    every collective inside (``nccl`` only)."""
+    pipelined.  ``cv``: the rank's CV-GCN histories (``edge`` unpipelined
+    only: the JAX package's ``make_edge_cv_device_epoch_fn``), refreshed at
+    the epoch's end.  ``graph=True`` captures it on
+    ``stream`` as one CUDA graph, every collective inside (``nccl`` only)."""
     if not cfg.sampler.include_self:
         raise ValueError("on-device sampling requires include_self=True")
     if state.grad_sync is None:
         raise ValueError("the data-parallel epoch needs the state's grad_sync")
+    if cv is not None and (halo.ici or halo.pipeline):
+        raise ValueError("CV-GCN's halo epoch is the unpipelined edge source's")
     nb = inputs.num_batches
     fetch_stream = (torch.cuda.Stream(device=inputs.perm.device)
                     if graph and halo.pipeline else None)
@@ -539,7 +557,7 @@ def make_halo_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInput
 
     def train(batch) -> None:
         mb, feats, drops = batch
-        train_batch(state, inputs.acc, mb, feats, drops=drops)
+        train_batch(state, inputs.acc, mb, feats, cv, drops)
 
     def pipelined_on_streams() -> None:
         """Fetch i+1 on ``fetch_stream`` once batch i-1 has trained; train
@@ -583,6 +601,8 @@ def make_halo_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInput
         else:
             for i in range(nb):
                 train(fetch(i))
+        if cv is not None:
+            cv.refresh()
         return inputs.acc.all_reduce_()
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
@@ -700,7 +720,8 @@ class DeviceEpochRunner:
     :func:`make_cv_device_epoch_fn` (``scan`` only: any other mode raises
     ``ValueError``).  ``dp``: a data-parallel rank, whose epoch is
     :func:`make_dp_device_epoch_fn` in every mode the trainer accepts, or
-    with ``halo`` (:class:`HaloEpoch`) :func:`make_halo_device_epoch_fn`.
+    with ``halo`` (:class:`HaloEpoch`) :func:`make_halo_device_epoch_fn`,
+    either given ``cv`` for data-parallel CV-GCN.
     ``graph`` picks the function's form; the graph form of ``pipelined``
     replays each gather on a stream of its own, ``stream`` is where graphs
     are captured.  ``graphs``: the captured graphs (none in the eager
@@ -717,11 +738,11 @@ class DeviceEpochRunner:
         if halo is not None:
             self.mode = "scan"
             fns = make_halo_device_epoch_fn(cfg, state, inputs, data, halo, graph=graph,
-                                            stream=stream)
+                                            stream=stream, cv=cv)
         elif dp:
             self.mode = "scan"
             fns = make_dp_device_epoch_fn(cfg, state, inputs, data, graph=graph,
-                                          stream=stream)
+                                          stream=stream, cv=cv)
         elif cv is not None:
             if self.mode != "scan":
                 raise ValueError(CV_DISPATCH_ERROR.format(self.mode))

@@ -90,8 +90,13 @@ in place, so CUDA graphs captured before it replay the restored state.
 Both read the parameters after the epoch's one sync, which waits for the
 stream that ran the epoch.
 
-Not ported yet, and refused with ``NotImplementedError``: remote
-(isolation-mode) sampling (ROADMAP queue 1 item 8).
+Isolation-mode sampling (``train.remote_sampling``, the host path): the
+batches come from worker processes sampling into shared memory
+(``sampling/service.py`` ``SampleService``, the caps probed first by an
+in-process ``NeighborSampler`` under ``sampler.auto_caps``); the loader
+packs them, and the K-step groups and their CUDA graphs run, as with the
+in-process sampler.  Its checkpoints hold no sampler state, as the JAX
+package's do not; :meth:`Trainer.close` shuts the workers down.
 """
 from __future__ import annotations
 
@@ -160,9 +165,6 @@ class Trainer:
         eval_data: Optional[tuple] = None,
     ):
         t = cfg.train
-        if t.remote_sampling:
-            raise NotImplementedError(
-                "train.remote_sampling is not ported yet (ROADMAP queue 1)")
         if t.eval_every and eval_data is None:
             raise ValueError("cfg.train.eval_every is set but no eval_data was given "
                              "(Trainer.from_dataset wires it)")
@@ -215,6 +217,12 @@ class Trainer:
                                        labels=labels, seed=seed)
         if cfg.sampler.auto_caps:
             self.sampler.calibrate_caps()
+        if t.remote_sampling:
+            # isolation mode: the in-process sampler only probed the caps
+            from ..sampling.service import SampleService
+
+            self.sampler = SampleService(local_graph, train_nids, cfg.sampler, labels=labels,
+                                         seed=seed, caps=self.sampler.caps)
         # CV-GCN takes one unpacked batch a step, as the JAX package's does
         self.loader = PrefetchLoader(self.sampler, self.cache,
                                      prefetch=cfg.sampler.prefetch,
@@ -519,7 +527,19 @@ class Trainer:
         random state (a resumed run draws the uninterrupted run's batches)
         and CV-GCN's histories (the ``.aux`` sidecar)."""
         save_checkpoint(self.cfg.train.ckpt_dir, self.cfg.model.arch, epoch, self.state,
-                        sampler=self.sampler, aux=self._cv_aux())
+                        sampler=self._stateful_sampler(), aux=self._cv_aux())
+
+    def _stateful_sampler(self) -> Optional[NeighborSampler]:
+        """The in-process sampler whose random state a checkpoint holds;
+        ``None`` on the device path and for the sampling service, whose
+        state the JAX package does not save either."""
+        return self.sampler if isinstance(self.sampler, NeighborSampler) else None
+
+    def close(self) -> None:
+        """Shut down the sampling service's workers, if there are any."""
+        close = getattr(self.sampler, "close", None)
+        if close is not None:
+            close()
 
     def _maybe_eval(self, epoch: int) -> None:
         """Validation accuracy by full-graph inference every
@@ -555,15 +575,7 @@ class Trainer:
         the JAX package does."""
         aux = restore_aux(self.cfg.train.ckpt_dir, self.cfg.model.arch, epoch)
         if aux is None:
-            import warnings
-            warnings.warn(
-                f"checkpoint {self.cfg.model.arch}_{epoch} has no .aux CV histories "
-                "(pre-aux checkpoint?): resuming with ZERO hist/agg; the control-variate "
-                "term is wrong until the first post-resume epoch refreshes them",
-                RuntimeWarning, stacklevel=3)
-            aux = self._cv_aux()
-            for t in aux["hist"] + aux["agg"]:
-                t[:] = 0
+            self._zero_cv_aux(epoch)
             return
         if self.cv_state is not None:
             with torch.no_grad():
@@ -573,6 +585,19 @@ class Trainer:
         else:
             self.cv_history.hist = [t.numpy().copy() for t in aux["hist"]]
             self.cv_history.agg = [t.numpy().copy() for t in aux["agg"]]
+
+    def _zero_cv_aux(self, epoch: int) -> None:
+        """Zero the histories of a checkpoint that has none, with the JAX
+        package's ``RuntimeWarning``."""
+        import warnings
+        warnings.warn(
+            f"checkpoint {self.cfg.model.arch}_{epoch} has no .aux CV histories "
+            "(pre-aux checkpoint?): resuming with ZERO hist/agg; the control-variate "
+            "term is wrong until the first post-resume epoch refreshes them",
+            RuntimeWarning, stacklevel=4)
+        aux = self._cv_aux()
+        for t in aux["hist"] + aux["agg"]:
+            t[:] = 0
 
     def resume(self, epoch: Optional[int] = None) -> int:
         """Restore the train state from the newest (or the given) checkpoint
@@ -590,7 +615,7 @@ class Trainer:
         epoch = have[-1] if epoch is None else epoch
         graphs = self.epoch_runner if self._device_mode else self.group_graphs
         restore_checkpoint(tc.ckpt_dir, self.cfg.model.arch, epoch, self.state,
-                           sampler=self.sampler,
+                           sampler=self._stateful_sampler(),
                            in_place_only=bool(graphs is not None and graphs.graphs))
         if self._is_cv:
             self._restore_cv_aux(epoch)

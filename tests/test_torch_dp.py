@@ -29,8 +29,10 @@ dropout 0, on the same partitions.
   reseeded an epoch).
 * ``train.eval_every``: ``val_acc`` equals JAX's.
 * Every refusal raises: the JAX package's own validation of the halo
-  sources (``edge`` off the device, ``halo_pipeline`` off ``edge``) and
-  the paths still to port with their ROADMAP item; a failed rank fails
+  sources (``edge`` off the device, ``halo_pipeline`` off ``edge``), of
+  CV-GCN (on the host path, with ``ici``, with ``halo_pipeline``), of
+  ``one2all`` without ``remote_sampling``, and the per-step dispatch (ROADMAP
+  item 7b); a failed rank fails
   ``spawn_local``, and ``nccl`` with more ranks than GPUs is a
   ``ValueError`` before any process group exists.
 """
@@ -279,11 +281,12 @@ def test_device_checkpoint_resume_equals_uninterrupted(runs):
     (dict(feature_source="edge"), NotImplementedError, "is an on-device mode"),
     (dict(halo_pipeline=True), ValueError, "pipelines the EDGE mode"),
     (dict(feature_source="ici", halo_pipeline=True), ValueError, "pipelines the EDGE mode"),
-    (dict(feature_source="edge", on_device_sampling=True, arch="gcn_cv"), NotImplementedError,
-     "item 7c, step 4"),
-    (dict(arch="gcn_cv"), NotImplementedError, "item 7c"),
-    (dict(remote_sampling=True), NotImplementedError, "item 8"),
-    (dict(dispatch="one2all"), NotImplementedError, "item 8"),
+    (dict(feature_source="edge", on_device_sampling=True, arch="gcn_cv", halo_pipeline=True),
+     NotImplementedError, "halo_pipeline is not implemented for the gcn_cv edge epoch"),
+    (dict(arch="gcn_cv"), NotImplementedError, "needs device-resident per-partition histories"),
+    (dict(feature_source="ici", on_device_sampling=True, arch="gcn_cv"), NotImplementedError,
+     "divergent histories"),
+    (dict(dispatch="one2all"), ValueError, "isolation-mode knob"),
     (dict(epoch_dispatch="steps"), NotImplementedError, "single-chip Trainer mode.*item 7b"),
 ])
 def test_refusals(change, exc, match):

@@ -64,12 +64,32 @@ def test_source_imports_no_jax(path):
             assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
 
 
+def test_sampling_workers_import_no_torch():
+    """The sampling service's workers import only host modules: its module,
+    the native sampler and the slot layout load neither torch (so no
+    worker initialises CUDA) nor JAX, and the package's names still
+    resolve on first use."""
+    code = (
+        "import sys\n"
+        "import pagraph_tpu_torch.sampling.service, pagraph_tpu_torch.sampling.native\n"
+        "import pagraph_tpu_torch.sampling.pack\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {('torch',) + FORBIDDEN!r}]\n"
+        "from pagraph_tpu_torch.sampling import MiniBatch, NeighborSampler, PrefetchLoader\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_scan_covers_the_host_path_modules():
     for m in ("sampling/native.py", "sampling/pack.py", "sampling/sampler.py",
               "storage/feature_store.py", "train/state.py", "train/loop.py",
               "models/inference.py", "train/checkpoint.py", "ops/aggregate.py",
               "parallel/__init__.py", "parallel/dp_trainer.py", "parallel/multihost.py",
-              "parallel/train_step.py", "parallel/halo.py", "utils/sync.py"):
+              "parallel/train_step.py", "parallel/halo.py", "utils/sync.py",
+              "sampling/service.py"):
         assert os.path.join("pagraph_tpu_torch", m) in SOURCES
     assert os.path.join("pagraph_tpu_torch", "csrc", "host_native.cpp") in ALL_SOURCES
 
@@ -134,11 +154,14 @@ def test_dp_trainer_needs_a_card_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("train_kw", [dict(remote_sampling=True),
                                       dict(arch="gcn_cv", preprocess=True)])
 def test_unported_paths_raise(train_kw):
-    """The path still to port (ROADMAP queue 1) raises: remote sampling.
-    CV-GCN is ported (tests/test_torch_cv_gcn.py): it builds, and only its
-    per-step device dispatch modes raise, with the JAX package's
-    ``ValueError``.  (GCN, GIN and GAT are ported too: tests/test_torch_gcn.py,
-    test_torch_gin.py, test_torch_gat.py.)"""
+    """Nothing of the single-device Trainer is left to port: remote
+    sampling builds its sampling service (tests/test_torch_service.py), and
+    CV-GCN builds (tests/test_torch_cv_gcn.py), only its per-step device
+    dispatch modes raising, with the JAX package's ``ValueError``.  (GCN,
+    GIN and GAT are ported too: tests/test_torch_gcn.py, test_torch_gin.py,
+    test_torch_gat.py.)"""
+    from pagraph_tpu_torch.sampling.service import SampleService
+
     ds = synthetic_dataset(num_nodes=60, num_edges=300, feat_dim=8, num_classes=3)
     cfg = _tiny_cfg()
     for k, v in train_kw.items():
@@ -150,5 +173,9 @@ def test_unported_paths_raise(train_kw):
         with pytest.raises(ValueError, match="does not support gcn_cv"):
             Trainer.from_dataset(cfg, ds, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        Trainer.from_dataset(cfg, ds, device="cpu")
+    tr = Trainer.from_dataset(cfg, ds, device="cpu")
+    try:
+        assert isinstance(tr.sampler, SampleService) and tr.sampler.workers
+    finally:
+        tr.close()
+    assert not tr.sampler.workers

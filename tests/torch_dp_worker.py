@@ -9,7 +9,8 @@ A job is a dict: ``name``; ``data``, the keyword arguments of the port's
 a partition directory (``from_partition_dir``), ``"identity"`` (the whole
 graph as one part, its train set cut to ``train_cut``) or ``None``
 (``from_dataset``); ``source``, the ``feature_source`` (default
-``"cache"``); ``halo_width``, a static halo width forced on every rank (in
+``"cache"``); ``dispatch``, the sampler dispatch (default ``"one2one"``);
+``halo_width``, a static halo width forced on every rank (in
 place of ``parallel.halo.halo_width_for``'s); ``params``, a file of a
 ``state_dict`` loaded into every rank (the JAX package's initial
 parameters); ``randomness``, a file of ``{rank: {epoch: (perm, draws)}}``
@@ -17,8 +18,11 @@ replacing each rank's ``epoch_randomness``; ``epochs``; ``resume_from``,
 the epoch whose checkpoint a second trainer resumes from.  Each rank
 writes ``<out>/<name>_rank<r>.pt``: the epoch metrics, the summary, the
 final parameters, the kernel launch counts, the lockstep and own batch
-counts, the gradient all-reduces, the halo exchanges and the warnings
-raised (and a resumed run's, with ``resume_from``).
+counts, the gradient all-reduces, the halo exchanges, the warnings raised,
+CV-GCN's histories and aggregates (``cv``), and for a sampling service the
+seeds of each epoch's batches, whether any worker outlived ``close()`` and
+the shared-memory segments left (and a resumed run's, with
+``resume_from``).
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ def make_config(sections: dict) -> pt.Config:
 
 def build(job: dict, ds) -> DataParallelTrainer:
     cfg = make_config(job["cfg"])
-    kw = dict(seed=job.get("seed", 0), device="cpu", feature_source=job.get("source", "cache"))
+    kw = dict(seed=job.get("seed", 0), device="cpu", feature_source=job.get("source", "cache"),
+              dispatch=job.get("dispatch", "one2one"))
     if job.get("halo_width"):
         from pagraph_tpu_torch.parallel import halo
 
@@ -71,17 +76,56 @@ def build(job: dict, ds) -> DataParallelTrainer:
     return tr
 
 
+def cv_arrays(tr) -> list:
+    """CV-GCN's histories then aggregates, ``[n_local, w]`` CPU tensors
+    (empty for another architecture)."""
+    if tr.cv_state is None:
+        return []
+    return [t.detach().cpu().clone()
+            for t in tr.cv_state.hist_views() + list(tr.cv_state.aggs)]
+
+
+def record_service_seeds(tr) -> list:
+    """Wrap a service-backed trainer's sampler so that each loader epoch's
+    batch seeds are kept: one list of seed arrays an epoch."""
+    epochs, epoch = [], tr.sampler.epoch
+
+    def seeded():
+        seen = []
+        epochs.append(seen)
+        for mb in epoch():
+            seen.append(torch.from_numpy(mb.layer_nids[-1][:int(mb.seed_mask.sum())].copy()))
+            yield mb
+
+    tr.sampler.epoch = seeded
+    return epochs
+
+
+def close_service(tr) -> dict:
+    """Close the trainer; whether any worker is alive afterwards and the
+    shared-memory segments left under ``/dev/shm``."""
+    workers, names = list(tr.sampler.workers), [m.name for m in tr.sampler._registry]
+    tr.close()
+    return {"alive": any(w.is_alive() for w in workers),
+            "shm_left": [n for n in names if os.path.exists(os.path.join("/dev/shm", n))]}
+
+
 def run_jobs(rank: int, world_size: int, jobs: list, out: str) -> None:
     from pagraph_tpu_torch.ops import gather_kernels as gk
+    from pagraph_tpu_torch.sampling.service import SampleService
 
     for job in jobs:
         ds = synthetic_dataset(**job["data"])
         tr = build(job, ds)
+        service = isinstance(tr.sampler, SampleService)
+        seeds = record_service_seeds(tr) if service else None
         gk.reset_launch_counts()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             summary = tr.train(job["epochs"])
-        res = {"warnings": [str(w.message) for w in caught],
+        res = {"warnings": [str(w.message) for w in caught], "cv": cv_arrays(tr),
+               "part_nodes": tr.part.num_nodes, "seeds": seeds,
+               "closed": close_service(tr) if service else None,
                "exchanges": tr.exchange.calls if tr.exchange is not None else 0,"metrics": [dataclasses.asdict(m) for m in tr.epoch_metrics],
                "summary": {k: v for k, v in summary.items() if k != "phase_timers"},
                "params": {k: v.detach().clone() for k, v in tr.state.model.state_dict().items()},
@@ -93,7 +137,7 @@ def run_jobs(rank: int, world_size: int, jobs: list, out: str) -> None:
             again = build(job, ds)
             start = again.resume(job["resume_from"])
             again.train(job["epochs"], start_epoch=start)
-            res["resumed"] = {"start": start,
+            res["resumed"] = {"start": start, "cv": cv_arrays(again),
                               "metrics": [dataclasses.asdict(m) for m in again.epoch_metrics],
                               "params": {k: v.detach().clone()
                                          for k, v in again.state.model.state_dict().items()}}
