@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``pagraph_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
-    python3 chip_smoke.py --dp-gpus 4   # the dp and halo phases' ranks across 4 cards (nccl)
+    python3 chip_smoke.py --dp-gpus 4   # the dp and halo phases' ranks across 4 cards (nccl),
+                                        # then cli.train --partition 4
 
 Phases, each printed as one JSON line:
 
@@ -366,6 +367,28 @@ Phases, each printed as one JSON line:
   host enqueue, wall and device time (CUDA events), CUDA kernels and memory
   operations counted with ``torch.profiler``, and that a step never
   synchronizes with the host (``torch.cuda.set_sync_debug_mode``).
+* ``cli`` (last but one: after its traces, a later ``torch.profiler``
+  trace's ``events()`` held no CUDA activity on the card): the training
+  CLI (``pagraph_tpu_torch.cli.train.main``) over the same graph, saved in
+  the CLIs' layout (``data.formats.save_dataset``), at
+  the bench width (GraphSAGE mean, 2 layers, hidden 16, batch 6000, fan-out
+  2, lr 0.01, 2 epochs, the cache auto-sized) with ``--json --profile-dir``,
+  on the host path and with ``--on-device``: each fails unless its summary
+  and its JSON line carry the JAX package's summary keys, the loss is
+  finite, the launches run are exactly 4 a step on the host path (the
+  assembly, two ``block_gather_fwd_mean``, one ``block_gather_bwd_mean``)
+  and 1 on the device, its one ``torch.profiler`` trace names the kernels
+  (``block_gather_fwd_kernel`` and ``assemble_kernel`` on the host path,
+  ``assemble_kernel`` on the device), and, on the host path, the cache's
+  capacity is what ``utils.platform.free_hbm_bytes`` gave it, which equals
+  the JAX package's arithmetic on ``device_memory_stats`` and the free bytes
+  ``mem_get_info`` reports, less the reserve;
+* ``bench``: ``bench_torch.run`` (the port of ``bench.py``) for its
+  ``full`` phase, with the hit-path probe (one group's step graph replayed
+  17 times), and its ``device`` phase on the teacher-labelled graph, 2
+  epochs each, then ``build_result``: 4 launches a host step (the probe's
+  replays included) and 1 a device step, the line's keys ``bench.py``'s
+  schema plus the card's name and power limit, finite edges/s.
 
 Any failed check exits non-zero without the final line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2774,6 +2797,228 @@ def service_phase(env, root: str):
     return out, bad
 
 
+# -- cli and bench: the training CLI and the port of bench.py ------------------
+# the summary keys of the JAX package's Trainer.summary() (pagraph_tpu/train/loop.py:657)
+# and the ones its DataParallelTrainer adds
+CLI_SUMMARY_KEYS = ("epochs", "mean_epoch_time_s", "final_loss", "final_acc", "miss_rate",
+                    "val_acc", "phase_timers")
+CLI_DP_KEYS = ("num_devices", "num_processes", "edges_per_epoch", "first_loss", "halo_drops")
+# the main path at bench.py's width through the training CLI (the cache auto-sized)
+CLI_ARGV = ["--arch", "graphsage", "--agg", "mean", "--n-layers", "1", "--n-hidden", "16",
+            "--batch-size", "6000", "--num-neighbors", "2", "--lr", "0.01", "--epochs", "2",
+            "--json"]
+CLI_EPOCHS = 2
+# bench.py's build_result schema (bench.py:262-296) with both paths run, plus the card
+BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "detail")
+BENCH_DETAIL_KEYS = ("workload", "epoch_time_s", "epochs_per_hr", "cache_hit_rate",
+                     "host_pipeline_edges_per_s", "on_device_edges_per_s", "device",
+                     "power_limit_w")
+HOST_STEP = {"assemble_f32": 1, "block_gather_fwd_mean": 2, "block_gather_bwd_mean": 1}
+DEVICE_STEP = {"assemble_f32": 1}
+
+
+@contextlib.contextmanager
+def trainers_trained(Trainer):
+    """Every Trainer whose ``train`` runs inside the block, in order (the CLI
+    and the bench build their own)."""
+    made, train = [], Trainer.train
+
+    def recording(self, *a, **kw):
+        made.append(self)
+        return train(self, *a, **kw)
+
+    Trainer.train = recording
+    try:
+        yield made
+    finally:
+        Trainer.train = train
+
+
+@contextlib.contextmanager
+def budget_calls(torch, cache_mod, platform):
+    """Each ``free_hbm_bytes`` call the cache makes inside the block: what it
+    returned, the JAX package's arithmetic on ``device_memory_stats``, and
+    the free bytes ``mem_get_info`` reports, each less the reserve."""
+    calls, real = [], cache_mod.free_hbm_bytes
+
+    def recording(device=None, reserve=1 << 30):
+        s = platform.device_memory_stats(device)
+        free = torch.cuda.mem_get_info(device)[0]
+        got = real(device, reserve=reserve)
+        calls.append({"free_hbm_bytes": got, "reserve": reserve,
+                      "jax_arithmetic": max(0, s["bytes_limit"] - s["bytes_in_use"] - reserve),
+                      "mem_get_info_less_reserve": max(0, free - reserve)})
+        return got
+
+    cache_mod.free_hbm_bytes = recording
+    try:
+        yield calls
+    finally:
+        cache_mod.free_hbm_bytes = real
+
+
+def cli_save_dataset(ds, root: str) -> str:
+    """The dataset in the CLIs' directory layout (``data.formats``)."""
+    from pagraph_tpu_torch.data.formats import save_dataset
+
+    path = os.path.join(root, "cli_dataset")
+    save_dataset(path, ds)
+    return path
+
+
+def trained_launches(gk, tr, per_step: dict, steps: int):
+    """The launches a trainer's run made since the counters' reset (eager ones
+    plus its graphs' replays) and what ``per_step`` over ``steps`` asks."""
+    runner = tr.epoch_runner if tr._device_mode else tr.group_graphs
+    counts = {k: v for k, v in executed_launches(gk.launch_counts(), runner).items() if v}
+    return counts, {k: v * steps for k, v in per_step.items()}
+
+
+def cli_phase(env, root: str):
+    """The ``cli`` phase: the dataset saved in the CLIs' layout, then
+    ``cli.train.main`` at the bench width with ``--profile-dir``, on the host
+    path and with ``--on-device``."""
+    import io
+
+    from pagraph_tpu_torch.cli import train as cli_train
+    from pagraph_tpu_torch.storage import cache as cache_mod
+    from pagraph_tpu_torch.utils import platform
+
+    torch, gk, ds = env.torch, env.gk, env.ds
+    t_phase = time.perf_counter()
+    out, bad = {}, []
+    t0 = time.perf_counter()
+    ds_dir = cli_save_dataset(ds, root)
+    out["save_dataset_s"] = time.perf_counter() - t0
+    for label, extra, per_step, kernels in (
+            ("host", [], HOST_STEP, ("block_gather_fwd_kernel", "assemble_kernel")),
+            ("on_device", ["--on-device"], DEVICE_STEP, ("assemble_kernel",))):
+        prof = os.path.join(root, f"profile_{label}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        buf = io.StringIO()
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with trainers_trained(env.Trainer) as made, \
+                budget_calls(torch, cache_mod, platform) as budgets, \
+                contextlib.redirect_stdout(buf):
+            summary = cli_train.main(CLI_ARGV + ["--dataset", ds_dir, "--profile-dir", prof]
+                                     + extra)
+        wall = time.perf_counter() - t0
+        tr = made[0]
+        steps = sum(m.num_batches for m in tr.epoch_metrics)
+        counts, want = trained_launches(gk, tr, per_step, steps)
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+        line = json.loads(lines[-1]) if lines else {}
+        traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+        text = ""
+        if traces:
+            with open(os.path.join(prof, traces[0])) as f:
+                text = f.read()
+        named = [k for k in ("block_gather_fwd_kernel", "block_gather_bwd_kernel",
+                             "assemble_kernel") if k in text]
+        row_bytes = tr.cache.total_dim * tr.cache.row_dtype.itemsize
+        row = {"seconds": wall, "summary": summary, "line_keys": sorted(line),
+               "steps": steps, "launches": counts, "launches_per_step": sum(counts.values())
+               / max(steps, 1), "trace_files": traces, "trace_bytes": len(text),
+               "trace_names_kernels": named, "cache_capacity": tr.cache.capacity,
+               "budget_calls": budgets,
+               "epochs": epoch_rows(tr.epoch_metrics)}
+        out[label] = row
+        where = f"cli {label}"
+        if set(summary) != set(CLI_SUMMARY_KEYS) or set(line) != set(CLI_SUMMARY_KEYS) - {
+                "phase_timers"}:
+            bad.append(f"{where}: summary keys {sorted(summary)}, line keys {sorted(line)}")
+        if summary["epochs"] != CLI_EPOCHS or not math.isfinite(summary["final_loss"]):
+            bad.append(f"{where}: {summary['epochs']} epochs, final loss "
+                       f"{summary['final_loss']}")
+        if counts != want:
+            bad.append(f"{where}: launches {counts} over {steps} steps, expected "
+                       f"{per_step} a step")
+        if len(traces) != 1 or any(k not in named for k in kernels):
+            bad.append(f"{where}: trace files {traces} name {named}, not all of {kernels}")
+        if label == "host":
+            b = budgets[0] if len(budgets) == 1 else {}
+            sized = min(ds.num_nodes, b.get("free_hbm_bytes", -1) // row_bytes)
+            if not (b and b["free_hbm_bytes"] == b["jax_arithmetic"]
+                    == b["mem_get_info_less_reserve"] and tr.cache.capacity == sized):
+                bad.append(f"{where}: the cache (capacity {tr.cache.capacity}) did not size "
+                           f"itself from free_hbm_bytes: {budgets}")
+        del tr, made
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
+def bench_phase(env):
+    """The ``bench`` phase: ``bench_torch.run`` for ``full`` (with the
+    hit-path probe) and ``device`` on the teacher-labelled graph at 2 epochs
+    each, then ``build_result``."""
+    import importlib.util
+
+    torch, gk = env.torch, env.gk
+    spec = importlib.util.spec_from_file_location("bench_torch",
+                                                  os.path.join(HERE, "bench_torch.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    t_phase = time.perf_counter()
+    out, bad, runs = {}, [], {}
+    for label, kw, per_step in (("full", dict(hit_probe=True), HOST_STEP),
+                                ("device", dict(on_device=True), DEVICE_STEP)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        gk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with trainers_trained(env.Trainer) as made:
+            runs[label] = bench.run(env.ds_nb, cache_enabled=True, epochs=2, **kw)
+        tr = made[0]
+        # the host run's steps include the probe's replays: the train state counts both
+        steps = (sum(m.num_batches for m in tr.epoch_metrics) if tr._device_mode
+                 else tr.state.step)
+        counts, want = trained_launches(gk, tr, per_step, steps)
+        out[label] = {**runs[label], "seconds": time.perf_counter() - t0, "steps": steps,
+                      "launches": counts}
+        if counts != want:
+            bad.append(f"bench {label}: launches {counts} over {steps} steps, expected "
+                       f"{per_step} a step")
+        del tr, made
+    line = bench.build_result(env.ds_nb, None, None, runs["full"], runs["device"],
+                              bench.card_identity())
+    out["line"] = line
+    probe = runs["full"].get("probe", {})
+    if (set(line) != set(BENCH_LINE_KEYS) or set(line["detail"]) != set(BENCH_DETAIL_KEYS)
+            or not (math.isfinite(line["value"]) and line["value"] > 0)):
+        bad.append(f"bench: line keys {sorted(line)} / {sorted(line['detail'])}, value "
+                   f"{line['value']}")
+    for label, r in runs.items():
+        if not (math.isfinite(r["edges_per_s"]) and r["edges_per_s"] > 0):
+            bad.append(f"bench {label}: edges_per_s {r['edges_per_s']}")
+    if not (probe.get("hit_step_ms") or 0) > 0:
+        bad.append(f"bench full: hit-path probe {probe}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
+def cli_partition_ranks(env, root: str, world: int):
+    """``cli.train --partition <world>`` on ``nccl``, one rank a card: rank
+    0's summary, its data-parallel keys, the world size and a finite loss."""
+    import io
+
+    from pagraph_tpu_torch.cli import train as cli_train
+
+    ds_dir = cli_save_dataset(env.ds, root)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = cli_train.main(CLI_ARGV + ["--dataset", ds_dir, "--partition", str(world),
+                                             "--partition-method", "hash"])
+    out = {"seconds": time.perf_counter() - t0, "summary": summary}
+    bad = []
+    if (set(summary) != set(CLI_SUMMARY_KEYS) | set(CLI_DP_KEYS)
+            or summary["num_devices"] != world or not math.isfinite(summary["final_loss"])):
+        bad.append(f"cli --partition {world}: {summary}")
+    return out, bad
+
+
 def dp_gpus_main(world: int) -> None:
     """``python3 chip_smoke.py --dp-gpus N``: the dp phase's ranks across N
     cards on ``nccl``, one rank a card (a measurement of its own; the run
@@ -2781,7 +3026,8 @@ def dp_gpus_main(world: int) -> None:
     :func:`dp_ranks` over an N-way hash partition (host and on-device
     epochs, epoch 1 replayed from CUDA graphs with the NCCL all-reduces
     inside), then :func:`halo_ranks` (the ``ici`` host, ``ici`` device and
-    ``edge`` device runs, their all_to_alls inside the graphs too); its
+    ``edge`` device runs, their all_to_alls inside the graphs too), then the
+    training CLI with ``--partition N`` (:func:`cli_partition_ranks`); its
     ``dp_gpus`` line, then the last line as :func:`main`'s."""
     import torch
     if not torch.cuda.is_available() or torch.cuda.device_count() < world:
@@ -2809,7 +3055,9 @@ def dp_gpus_main(world: int) -> None:
         dp_save_dataset(np, ds, root)
         out, bad = dp_ranks(env, root, world, "nccl", f"({world} cards)")
         halo, more = halo_ranks(env, root, world, "nccl", f"(halo, {world} cards)")
-    out.update(nvidia_smi=smi, build_s=build_s, halo=halo)
+        bad.extend(more)
+        cli, more = cli_partition_ranks(env, root, world)
+    out.update(nvidia_smi=smi, build_s=build_s, halo=halo, cli=cli)
     bad.extend(more)
     emit("dp_gpus", out)
     if bad:
@@ -4868,6 +5116,27 @@ def main() -> None:
     emit("device_breakdown", breakdown_d)
     if sync_free is not True:
         fail(f"a device step synchronized with the host: {sync_free}")
+    free_memory()
+
+    # -- cli: the training CLI at the bench width, traced ------------------------
+    # last: after its traces, a torch.profiler trace's events() held no CUDA
+    # activity on the card (scatter_branches' and device_breakdown's counts read them)
+    with tempfile.TemporaryDirectory() as cli_root:
+        cli_out, bad = cli_phase(types.SimpleNamespace(torch=torch, gk=gk, ds=ds,
+                                                       Trainer=Trainer), cli_root)
+    cli_out["nvidia_smi"] = smi
+    emit("cli", cli_out)
+    if bad:
+        fail("cli: " + "; ".join(bad))
+    free_memory()
+
+    # -- bench: bench_torch.run's full and device phases and its line -----------
+    bench_out, bad = bench_phase(types.SimpleNamespace(torch=torch, gk=gk, ds_nb=ds_nb,
+                                                       Trainer=Trainer))
+    bench_out["nvidia_smi"] = smi
+    emit("bench", bench_out)
+    if bad:
+        fail("bench: " + "; ".join(bad))
 
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

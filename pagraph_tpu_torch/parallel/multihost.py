@@ -17,16 +17,22 @@ than the visible GPUs under ``nccl`` is a ``ValueError`` before any process
 group exists: NCCL refuses two ranks on one GPU.
 
 The rendezvous is a ``file://`` store by default (a fresh file under the
-temporary directory), so no network port is needed.
+temporary directory), so no network port is needed.  Independently started
+processes (``cli.launch``, or one command a host) meet at rank 0's TCP store
+instead: ``init_method="tcp://host:port"``; :func:`spawn_commands` starts
+such processes on this host, on a free loopback port.
 """
 from __future__ import annotations
 
 import multiprocessing
 import multiprocessing.connection
 import os
+import socket
+import subprocess
+import sys
 import tempfile
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -154,3 +160,37 @@ def _wait_all(procs, timeout: Optional[float]) -> None:
             live.remove(p)
             if p.exitcode != 0:
                 return
+
+
+def spawn_commands(worker: Sequence[str], num_processes: int, *,
+                   timeout: Optional[float] = None,
+                   stdout_paths: Optional[Sequence[str]] = None) -> List[int]:
+    """Run ``num_processes`` copies of a command locally (torchrun-style):
+    ``python <worker...> --coordinator 127.0.0.1:<port> --num-processes N
+    --process-id i``, ``port`` a loopback port that was free a moment
+    before (the port of the JAX package's ``spawn_local`` of a command
+    line; :func:`spawn_local` here runs a function).  ``stdout_paths``
+    takes each process's standard output.  Waits ``timeout`` seconds a
+    process, kills the survivors on the way out (a timeout raises
+    ``subprocess.TimeoutExpired``), and returns the exit codes."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    outs = [open(stdout_paths[i], "w") if stdout_paths else None
+            for i in range(num_processes)]
+    procs = []
+    try:
+        for i in range(num_processes):
+            procs.append(subprocess.Popen(
+                [sys.executable, *worker, "--coordinator", coord,
+                 "--num-processes", str(num_processes), "--process-id", str(i)],
+                stdout=outs[i]))
+        return [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in outs:
+            if f:
+                f.close()

@@ -33,6 +33,7 @@ import torch
 from ..graph import CSRGraph
 from ..ops.gather_kernels import assemble
 from ..utils.device import resolve_device
+from ..utils.platform import free_hbm_bytes
 from .feature_store import FeatureStore
 
 ROW_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
@@ -77,14 +78,6 @@ def bucket_size(n: int, cap: int, min_bucket: int = 512) -> int:
     while b < n:
         b *= 2
     return min(b, cap)
-
-
-def free_device_bytes(device: torch.device) -> int:
-    """Free memory of a CUDA device (what ``capacity=None`` sizes from)."""
-    if device.type != "cuda":
-        raise ValueError("capacity=None sizes the cache from free GPU "
-                         "memory: give a capacity on a CPU device")
-    return torch.cuda.mem_get_info(device)[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,9 +183,9 @@ class FeatureCache:
         four times."""
         if reserve_bytes is None:
             reserve_bytes = self.reserve_bytes
-        free = free_device_bytes(self.device)
+        free = free_hbm_bytes(self.device, reserve=reserve_bytes)
         row_bytes = self.total_dim * self.row_dtype.itemsize
-        return int(max(free - reserve_bytes, 0) // row_bytes)
+        return int(free // row_bytes)
 
     def _to_rows(self, rows: np.ndarray) -> torch.Tensor:
         """Host rows -> host tensor in the tier's dtype: int8 rows as they

@@ -415,11 +415,22 @@ class GroupGraphs:
 
     def __call__(self, group: PackedGroup, acc: torch.Tensor) -> None:
         self._check_acc(acc)
+        self.load(group)()
+
+    def load(self, group: PackedGroup) -> CapturedGraph:
+        """Copy a host group into its key's buffers on the current stream
+        and return the key's graph, each call of which replays the group's
+        steps from those buffers (captured now, into the accumulator of the
+        first capture, if the key is new)."""
+        if self.needs_capture(group):
+            if self._acc is None:
+                raise RuntimeError("no host-step graph was captured yet")
+            self.capture(group, self._acc)
         g, static = self._entries[self.key(group)]
         for dst, src in ((static.i32, group.i32), (static.u8, group.u8),
                          (static.miss, group.miss)):
             dst.copy_(src, non_blocking=True)
-        g()
+        return g
 
     def _check_acc(self, acc: torch.Tensor) -> None:
         if acc is not self._acc:

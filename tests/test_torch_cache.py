@@ -140,7 +140,7 @@ def test_auto_capacity_scales_with_tier(pair, monkeypatch, dtype):
     package does: bf16 caches 2x the vertices of f32, int8 4x."""
     ds, jstore, tstore = pair
     reserve, room = 1 << 30, 32 * 4 * 400         # 400 f32 rows of the store's width
-    monkeypatch.setattr(tcache, "free_device_bytes", lambda device: reserve + room)
+    _free_device_bytes(monkeypatch, lambda: reserve + room)
     monkeypatch.setattr(jplatform, "free_hbm_bytes", lambda device=None, reserve=0: room)
     tc = tcache.FeatureCache(tstore, ["features"], _tgraph(ds.graph), device="cpu",
                              dtype=dtype)
@@ -164,8 +164,16 @@ def test_unported_tiers_raise(pair):
                             device="cpu").fill(None)
 
 
+def _free_device_bytes(monkeypatch, free):
+    """The cache sees a card with ``free()`` free bytes: its
+    ``free_hbm_bytes`` (``utils/platform.py``) is that less the reserve, as
+    the JAX package's arithmetic gives it."""
+    monkeypatch.setattr(tcache, "free_hbm_bytes",
+                        lambda device=None, reserve=1 << 30: max(0, free() - reserve))
+
+
 def _charging_live_caches(monkeypatch, total):
-    """``free_device_bytes`` of a device with ``total`` bytes that every
+    """The free bytes of a device with ``total`` bytes that every
     live cache table of a ``FeatureCache.fill`` uses (a table is live while
     anything references it), as ``mem_get_info`` sees a CUDA device."""
     live = weakref.WeakSet()
@@ -176,8 +184,7 @@ def _charging_live_caches(monkeypatch, total):
         live.add(self.cache_values)
 
     monkeypatch.setattr(tcache.FeatureCache, "fill", tracking_fill)
-    monkeypatch.setattr(tcache, "free_device_bytes",
-                        lambda device: total - sum(t.nbytes for t in live))
+    _free_device_bytes(monkeypatch, lambda: total - sum(t.nbytes for t in live))
 
 
 def _host_cfg(**cache):
@@ -221,7 +228,7 @@ def test_hbm_reserve_bytes_sizes_a_none_fill(small_ds, monkeypatch):
     ds = synthetic_dataset(num_nodes=2000, num_edges=16000, feat_dim=32, num_classes=10,
                            seed=3)
     reserve, room = 1 << 20, 32 * 4 * 900
-    monkeypatch.setattr(tcache, "free_device_bytes", lambda device: reserve + room)
+    _free_device_bytes(monkeypatch, lambda: reserve + room)
     tr = Trainer.from_dataset(_host_cfg(capacity=None, hbm_reserve_bytes=reserve), ds,
                               device="cpu")
     tr._maybe_fill_cache()

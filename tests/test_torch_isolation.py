@@ -1,6 +1,7 @@
-"""The port stands alone: ``pagraph_tpu_torch``, ``chip_smoke.py`` and
-``ab_window.py`` import neither JAX nor anything of ``pagraph_tpu``, and its
-entry points refuse to fall back to the CPU silently."""
+"""The port stands alone: ``pagraph_tpu_torch``, ``chip_smoke.py``,
+``ab_window.py`` and ``bench_torch.py`` import neither JAX nor anything of
+``pagraph_tpu``, and its entry points refuse to fall back to the CPU
+silently."""
 import ast
 import os
 import subprocess
@@ -21,14 +22,14 @@ PKG = os.path.join(ROOT, "pagraph_tpu_torch")
 SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, files in os.walk(PKG) for f in files if f.endswith(".py")]
-    + ["chip_smoke.py", "ab_window.py"])
+    + ["chip_smoke.py", "ab_window.py", "bench_torch.py"])
 FORBIDDEN = ("jax", "jaxlib", "pagraph_tpu")
 # every source file of the port, C++ and CUDA included, and the scripts
 ALL_SOURCES = sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, files in os.walk(PKG) for f in files
      if f.endswith((".py", ".cpp", ".cu", ".cuh", ".h"))]
-    + ["chip_smoke.py", "ab_window.py"])
+    + ["chip_smoke.py", "ab_window.py", "bench_torch.py"])
 
 
 def test_import_loads_no_jax():
@@ -89,9 +90,12 @@ def test_scan_covers_the_host_path_modules():
               "models/inference.py", "train/checkpoint.py", "ops/aggregate.py",
               "parallel/__init__.py", "parallel/dp_trainer.py", "parallel/multihost.py",
               "parallel/train_step.py", "parallel/halo.py", "utils/sync.py",
-              "sampling/service.py"):
+              "sampling/service.py", "utils/platform.py", "utils/timers.py",
+              "cli/__init__.py", "cli/common.py", "cli/train.py", "cli/launch.py",
+              "cli/scalebench.py"):
         assert os.path.join("pagraph_tpu_torch", m) in SOURCES
     assert os.path.join("pagraph_tpu_torch", "csrc", "host_native.cpp") in ALL_SOURCES
+    assert "bench_torch.py" in SOURCES
 
 
 @pytest.mark.parametrize("path", ALL_SOURCES)
