@@ -115,7 +115,8 @@ Phases, each printed as one JSON line:
 * ``inference``: ``full_graph_logits`` at ``backend="device"`` (the window
   tables' build, one ``gather_reduce`` launch a bucket) against
   ``"host"`` on the trained parameters, mean (the main path's Trainer) and
-  pool on RMAT-20, lstm on an RMAT-16 graph with the same teacher: seconds
+  pool on RMAT-20 (its hubs and level2 tables), lstm on an RMAT-16 graph
+  with the same teacher: seconds
   of each, logits within 1e-4 of each row's largest, ``evaluate``'s
   validation accuracy, the launches of each backend;
 * ``checkpoint``: save after each epoch, ``resume`` from epoch 0 into a
@@ -367,13 +368,15 @@ Phases, each printed as one JSON line:
   host enqueue, wall and device time (CUDA events), CUDA kernels and memory
   operations counted with ``torch.profiler``, and that a step never
   synchronizes with the host (``torch.cuda.set_sync_debug_mode``).
-* ``cli`` (last but one: after its traces, a later ``torch.profiler``
-  trace's ``events()`` held no CUDA activity on the card): the training
+* ``cli`` (after every phase that reads a trace: after its traces, a
+  later ``torch.profiler`` trace's ``events()`` held no CUDA activity on
+  the card): the training
   CLI (``pagraph_tpu_torch.cli.train.main``) over the same graph, saved in
   the CLIs' layout (``data.formats.save_dataset``), at
   the bench width (GraphSAGE mean, 2 layers, hidden 16, batch 6000, fan-out
   2, lr 0.01, 2 epochs, the cache auto-sized) with ``--json --profile-dir``,
-  on the host path and with ``--on-device``: each fails unless its summary
+  on the host path (with ``--ckpt-dir --ckpt-every 2``: one checkpoint,
+  epoch 1) and with ``--on-device``: each fails unless its summary
   and its JSON line carry the JAX package's summary keys, the loss is
   finite, the launches run are exactly 4 a step on the host path (the
   assembly, two ``block_gather_fwd_mean``, one ``block_gather_bwd_mean``)
@@ -383,6 +386,25 @@ Phases, each printed as one JSON line:
   capacity is what ``utils.platform.free_hbm_bytes`` gave it, which equals
   the JAX package's arithmetic on ``device_memory_stats`` and the free bytes
   ``mem_get_info`` reports, less the reserve;
+* ``cli_tools``: the offline and serving CLIs, each through its
+  ``main(argv)``, with each command's seconds and the kernels' launches
+  counted from 0 around it.  Over the ``cli`` phase's dataset and
+  checkpoint: ``eval`` at its default ``--backend auto`` (RMAT-20's edges
+  take the device: it must launch ``gather_reduce_sum``), one accuracy in
+  [0, 1]; ``infer --save-logits`` with ``--backend device`` and ``host``:
+  the device logits within 1e-4 of each row's largest host logit, the
+  device run launching ``gather_reduce_sum`` and the host run no window
+  reduction, the predictions the logits' argmax and their test accuracy
+  ``eval``'s within 1e-4; ``analyze count-vnum`` and ``cache-oracle``
+  (batch 6000, fan-out 2) and ``load-break`` on the card at
+  ``--cache-capacity`` 0 (miss rate 1.0, ``h2d_ms`` > 0) and 419,430 (40%):
+  its miss rate equal to a numpy replay of its batches against the 40%
+  highest out-degree vertices, printed beside the ``train`` phase's epoch-0
+  miss rate (not equal: that Trainer probes its caps first, drawing 8 batch
+  seeds from the same generator, so its epoch is another permutation); then on an RMAT-16 dataset of its own ``preprocess --gen
+  rmat --scale 16``, a ``convert --from-npz`` round trip (every array
+  equal), ``partition`` (dg, 2 parts, 2 hops, the native assign) and
+  ``verify_partition`` (coverage and every part ``ok``);
 * ``bench``: ``bench_torch.run`` (the port of ``bench.py``) for its
   ``full`` phase, with the hit-path probe (one group's step graph replayed
   17 times), and its ``device`` phase on the teacher-labelled graph, 2
@@ -409,6 +431,7 @@ import types
 import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 
 # bytes per second of device memory, by card
 HBM_BYTES_PER_S = {"sxm": 3.35e12, "pcie": 2.0e12}
@@ -424,6 +447,10 @@ def fail(msg: str) -> None:
 
 
 def emit(key: str, value) -> None:
+    """One phase's JSON line; a dict gains ``script_s``, the seconds since
+    the script started (where the run's time goes)."""
+    if isinstance(value, dict):
+        value = {**value, "script_s": time.perf_counter() - START}
     print(json.dumps({key: value}), flush=True)
 
 
@@ -2808,6 +2835,11 @@ CLI_ARGV = ["--arch", "graphsage", "--agg", "mean", "--n-layers", "1", "--n-hidd
             "--batch-size", "6000", "--num-neighbors", "2", "--lr", "0.01", "--epochs", "2",
             "--json"]
 CLI_EPOCHS = 2
+# where the cli phase saves the dataset and its host run's one checkpoint
+# (epoch 1), which the cli_tools phase reads
+CLI_DATASET, CLI_CKPT = "cli_dataset", "ck"
+# the checkpoint's model flags, for eval and infer
+CLI_MODEL_ARGV = ["--arch", "graphsage", "--agg", "mean", "--n-layers", "1", "--n-hidden", "16"]
 # bench.py's build_result schema (bench.py:262-296) with both paths run, plus the card
 BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "detail")
 BENCH_DETAIL_KEYS = ("workload", "epoch_time_s", "epochs_per_hr", "cache_hit_rate",
@@ -2861,7 +2893,7 @@ def cli_save_dataset(ds, root: str) -> str:
     """The dataset in the CLIs' directory layout (``data.formats``)."""
     from pagraph_tpu_torch.data.formats import save_dataset
 
-    path = os.path.join(root, "cli_dataset")
+    path = os.path.join(root, CLI_DATASET)
     save_dataset(path, ds)
     return path
 
@@ -2877,7 +2909,8 @@ def trained_launches(gk, tr, per_step: dict, steps: int):
 def cli_phase(env, root: str):
     """The ``cli`` phase: the dataset saved in the CLIs' layout, then
     ``cli.train.main`` at the bench width with ``--profile-dir``, on the host
-    path and with ``--on-device``."""
+    path (with one checkpoint, epoch 1, for ``cli_tools``) and with
+    ``--on-device``."""
     import io
 
     from pagraph_tpu_torch.cli import train as cli_train
@@ -2891,7 +2924,9 @@ def cli_phase(env, root: str):
     ds_dir = cli_save_dataset(ds, root)
     out["save_dataset_s"] = time.perf_counter() - t0
     for label, extra, per_step, kernels in (
-            ("host", [], HOST_STEP, ("block_gather_fwd_kernel", "assemble_kernel")),
+            ("host", ["--ckpt-dir", os.path.join(root, CLI_CKPT), "--ckpt-every",
+                      str(CLI_EPOCHS)],
+             HOST_STEP, ("block_gather_fwd_kernel", "assemble_kernel")),
             ("on_device", ["--on-device"], DEVICE_STEP, ("assemble_kernel",))):
         prof = os.path.join(root, f"profile_{label}")
         gc.collect()
@@ -2946,6 +2981,176 @@ def cli_phase(env, root: str):
                            f"itself from free_hbm_bytes: {budgets}")
         del tr, made
     out["seconds"] = time.perf_counter() - t_phase
+    return out, bad
+
+
+def run_cli(torch, gk, main, argv):
+    """``main(argv)`` with its standard output captured and the kernels'
+    launches counted from 0: ``{"ret", "line" (its last JSON line), "code"
+    (a ``SystemExit``'s, else 0), "seconds", "launches"}``."""
+    import io
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gk.reset_launch_counts()
+    buf, ret, code = io.StringIO(), None, 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            ret = main(argv)
+        except SystemExit as e:
+            code = e.code
+    torch.cuda.synchronize()
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    return {"ret": ret, "line": lines[-1] if lines else None, "code": code,
+            "seconds": time.perf_counter() - t0,
+            "launches": {k: v for k, v in gk.launch_counts().items() if v}}
+
+
+def replay_miss_rate(np, ds, sampler_cfg, capacity: int) -> float:
+    """The miss rate of one epoch of a ``NeighborSampler`` over ``ds`` against
+    the ``capacity`` vertices of highest out-degree (the cache's ranking),
+    counted here in numpy."""
+    from pagraph_tpu_torch.sampling.sampler import NeighborSampler
+
+    s = NeighborSampler(ds.graph, ds.train_nids, sampler_cfg, labels=ds.labels)
+    cached = np.zeros(ds.num_nodes, dtype=bool)
+    cached[np.argsort(-ds.graph.out_degrees, kind="stable")[:capacity]] = True
+    tries = misses = 0
+    for mb in s.epoch():
+        ids = np.asarray(mb.input_nids)[np.asarray(mb.input_mask)]
+        tries += len(ids)
+        misses += int((~cached[ids]).sum())
+    return misses / tries
+
+
+def cli_tools_phase(env, root: str):
+    """The ``cli_tools`` phase: ``eval``, ``infer`` and ``analyze`` over the
+    ``cli`` phase's dataset and checkpoint in ``root`` (RMAT-20, the bench
+    width), then ``preprocess``, ``convert``, ``partition`` and
+    ``verify_partition`` on an RMAT-16 dataset of their own."""
+    from pagraph_tpu_torch import SamplerConfig
+    from pagraph_tpu_torch.cli import analyze, convert, infer, partition, preprocess
+    from pagraph_tpu_torch.cli import eval as cli_eval
+    from pagraph_tpu_torch.cli import verify_partition
+    from pagraph_tpu_torch.data.formats import load_dataset
+
+    np, torch, gk, ds = env.np, env.torch, env.gk, env.ds
+    t_phase = time.perf_counter()
+    bad, runs = [], {}
+    ds_dir = os.path.join(root, CLI_DATASET)
+    base = CLI_MODEL_ARGV + ["--dataset", ds_dir, "--ckpt-dir", os.path.join(root, CLI_CKPT)]
+
+    def run(label, main, argv):
+        r = runs[label] = run_cli(torch, gk, main, argv)
+        if r["code"]:
+            bad.append(f"{label}: exit code {r['code']}")
+        return r
+
+    # eval at its default --backend auto: RMAT-20's edges take the device
+    ev = run("eval", cli_eval.main, base)
+    results = ev["ret"] or {}
+    if list(results) != [CLI_EPOCHS - 1] or not 0.0 <= results[CLI_EPOCHS - 1] <= 1.0:
+        bad.append(f"eval: results {results}")
+    if ev["launches"].get("gather_reduce_sum", 0) <= 0:
+        bad.append(f"eval --backend auto ran no window reduction: {ev['launches']}")
+
+    # infer on each backend, the logits saved
+    logits, preds = {}, {}
+    for backend in ("device", "host"):
+        path = os.path.join(root, f"preds_{backend}.npy")
+        r = run(f"infer_{backend}", infer.main,
+                base + ["--backend", backend, "--out", path, "--save-logits"])
+        logits[backend] = np.load(path + ".logits.npy")
+        preds[backend] = np.load(path)
+        # the CLIs read the class count from the labels, as JAX's do
+        want = (ds.num_nodes, ds.num_classes)
+        if not (logits[backend].shape == want and np.isfinite(logits[backend]).all()):
+            bad.append(f"infer {backend}: logits {logits[backend].shape}, not finite or "
+                       f"not {list(want)}")
+        if not np.array_equal(preds[backend], logits[backend].argmax(axis=1)):
+            bad.append(f"infer {backend}: preds are not the logits' argmax")
+    scale = 1.0 + np.abs(logits["host"]).max(axis=1, keepdims=True)
+    row_diff = float((np.abs(logits["device"] - logits["host"]) / scale).max())
+    if not row_diff <= 1e-4:
+        bad.append(f"infer: device logits {row_diff} from the host's (row-max scaled)")
+    dev_launches, host_launches = runs["infer_device"]["launches"], runs["infer_host"]["launches"]
+    if dev_launches.get("gather_reduce_sum", 0) <= 0:
+        bad.append(f"infer --backend device launched no gather_reduce_sum: {dev_launches}")
+    if any(k.startswith("gather_reduce") for k in host_launches):
+        bad.append(f"infer --backend host launched a window reduction: {host_launches}")
+    summary = runs["infer_device"]["ret"] or {}
+    test = np.asarray(ds.test_mask, dtype=bool)
+    test_acc = float((preds["device"][test] == ds.labels[test]).mean())
+    eval_acc = results.get(CLI_EPOCHS - 1, -1.0)
+    if not (summary.get("epoch") == CLI_EPOCHS - 1 and summary.get("test_acc") == test_acc
+            and abs(eval_acc - test_acc) <= 1e-4):
+        bad.append(f"infer device summary {summary}, its preds' test accuracy {test_acc}, "
+                   f"eval's {eval_acc}")
+
+    # analyze: the host commands, then load-break on the card at an empty cache and at 40%
+    capacity = int(ds.num_nodes * 0.4)
+    cv = run("count_vnum", analyze.main, ["count-vnum", "--dataset", ds_dir])["line"] or {}
+    co = run("cache_oracle", analyze.main, ["cache-oracle", "--dataset", ds_dir])["line"] or {}
+    lb = {str(c): run(f"load_break_{c}", analyze.main,
+                      ["load-break", "--dataset", ds_dir, "--cache-capacity", str(c)])["line"]
+          or {} for c in (0, capacity)}
+    batches = -(-len(ds.train_nids) // 6000)
+    if not (cv.get("batches") == batches and cv.get("vertices_per_epoch", 0) > 0
+            and cv.get("edges_per_epoch", 0) > 0):
+        bad.append(f"count-vnum: {cv}")
+    if not 0.0 <= co.get("degree_ranked_hit_rate", -1) <= co.get("oracle_hit_rate", -1) <= 1.0:
+        bad.append(f"cache-oracle: {co}")
+    empty, at40 = lb["0"], lb[str(capacity)]
+    if not (empty.get("miss_rate") == 1.0 and empty.get("h2d_ms", 0) > 0
+            and empty.get("batches") == at40.get("batches") == batches):
+        bad.append(f"load-break at capacity 0: {empty}")
+    # load-break at 40% is held to a numpy replay of its own batches; the
+    # train phase's epoch 0 is printed beside it but is another permutation
+    # (its Trainer probed its caps first, drawing 8 batch seeds from the
+    # sampler's generator)
+    replay = replay_miss_rate(
+        np, ds, SamplerConfig(batch_size=6000, fanout=2, num_hops=2, seed=0), capacity)
+    if at40.get("miss_rate") != replay:
+        bad.append(f"load-break at {capacity}: miss rate {at40.get('miss_rate')}, its "
+                   f"batches' replay {replay}")
+
+    # the offline tools on RMAT-16
+    r16, conv = os.path.join(root, "rmat16"), os.path.join(root, "rmat16_npz")
+    run("preprocess", preprocess.main, ["--out", r16, "--gen", "rmat", "--scale", "16",
+                                        "--feat-size", "100", "--num-classes", "47"])
+    run("convert", convert.main, ["--out", conv, "--from-npz", os.path.join(r16, "adj.npz")])
+    a, b = load_dataset(r16), load_dataset(conv)
+    unequal = [name for name, x, y in (
+        ("indptr", a.graph.indptr, b.graph.indptr), ("indices", a.graph.indices, b.graph.indices),
+        ("features", a.features, b.features), ("labels", a.labels, b.labels),
+        ("train", a.train_mask, b.train_mask), ("val", a.val_mask, b.val_mask),
+        ("test", a.test_mask, b.test_mask)) if not np.array_equal(x, y)]
+    if unequal or a.num_nodes != 1 << 16:
+        bad.append(f"convert --from-npz round trip: {a.num_nodes} vertices, unequal {unequal}")
+    part_argv = ["--dataset", r16, "--method", "dg", "--partition", "2", "--num-hops", "2"]
+    stats = run("partition", partition.main, part_argv + ["--assign-backend", "native"])["line"]
+    verify = run("verify_partition", verify_partition.main, part_argv)["line"] or {}
+    if not (stats or {}).get("num_parts") == 2:
+        bad.append(f"partition: {stats}")
+    if not (verify.get("coverage_ok") and len(verify.get("partitions", [])) == 2
+            and all(p["ok"] for p in verify["partitions"])):
+        bad.append(f"verify_partition: {verify}")
+
+    out = {
+        "seconds": {k: r["seconds"] for k, r in runs.items()},
+        "eval": {"results": results, "launches": ev["launches"]},
+        "infer": {"device_s": runs["infer_device"]["seconds"],
+                  "host_s": runs["infer_host"]["seconds"],
+                  "max_row_rel_diff": row_diff, "device_launches": dev_launches,
+                  "host_launches": host_launches, "device_summary": summary},
+        "analyze": {"count_vnum": cv, "cache_oracle": co, "load_break": lb,
+                    "load_break_replay_miss_rate": replay,
+                    "train_epoch0_miss_rate": env.train_miss_rate},
+        "partition": stats, "verify_partition": verify,
+        "convert_round_trip_equal": not unequal,
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
     return out, bad
 
 
@@ -4083,7 +4288,9 @@ def main() -> None:
     # logits within 1e-4 of each row's largest, seconds, evaluate's accuracy
     # on the validation vertices.  lstm runs on an RMAT scale-16 graph with
     # the same 100-dim features and teacher (its full-neighborhood LSTM takes
-    # a step an in-neighbor: RMAT-20's hubs would take minutes)
+    # a step an in-neighbor: RMAT-20's hubs would take minutes).  pool runs
+    # on RMAT-20, whose window tables must hold a hubs table and its level2
+    # reductions (the max over the hub windows' partials)
     t0 = time.perf_counter()
     bn = _BucketedNeighborhoods(ds.graph, dev)
     torch.cuda.synchronize()
@@ -4095,6 +4302,10 @@ def main() -> None:
                    *synthetic.random_split_masks(g16.num_nodes, seed=11))
     inf_launches = {}
     bad = []
+    levels = {lv for lv, _, _ in bn.tables()}
+    if ds_nb.graph is not ds.graph or not {"hubs", "level2"} <= levels:
+        bad.append(f"pool: RMAT-20's window tables {sorted(levels)} hold no hubs and level2 "
+                   "tables, or pool runs on another graph")
     for agg, t_, data in (("mean", tr, ds), ("pool", agg_tr["pool"], ds_nb),
                           ("lstm", agg_tr["lstm"], ds16)):
         model, mcfg = t_.state.model, t_.cfg.model
@@ -5124,10 +5335,22 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as cli_root:
         cli_out, bad = cli_phase(types.SimpleNamespace(torch=torch, gk=gk, ds=ds,
                                                        Trainer=Trainer), cli_root)
-    cli_out["nvidia_smi"] = smi
-    emit("cli", cli_out)
+        cli_out["nvidia_smi"] = smi
+        emit("cli", cli_out)
+        if bad:
+            fail("cli: " + "; ".join(bad))
+        free_memory()
+
+        # -- cli_tools: eval, infer and analyze over the cli phase's files, and
+        # the offline tools on RMAT-16 -------------------------------------------
+        tools_out, bad = cli_tools_phase(
+            types.SimpleNamespace(np=np, torch=torch, gk=gk, ds=ds,
+                                  train_miss_rate=train_out["epochs"][0]["miss_rate"]),
+            cli_root)
+    tools_out["nvidia_smi"] = smi
+    emit("cli_tools", tools_out)
     if bad:
-        fail("cli: " + "; ".join(bad))
+        fail("cli_tools: " + "; ".join(bad))
     free_memory()
 
     # -- bench: bench_torch.run's full and device phases and its line -----------

@@ -197,6 +197,21 @@ def build_config(args, *, feat_dim: int, n_classes: int) -> Config:
     )
 
 
+def inference_config(args, *, feat_dim: int, n_classes: int) -> Config:
+    """The model flags -> the ``Config`` that ``eval`` and ``infer`` restore
+    a checkpoint into (the sampler's hops follow the model; nothing else is
+    read)."""
+    model = ModelConfig(
+        arch=args.arch, n_layers=args.n_layers, hidden=args.n_hidden,
+        feat_dim=args.feat_size or feat_dim,
+        n_classes=args.n_classes or n_classes,
+        dropout=args.dropout, aggregator=args.agg,
+        num_heads=args.num_heads,
+        preprocess=getattr(args, "preprocess", False),
+    )
+    return Config(model=model, sampler=SamplerConfig(num_hops=model.num_sampled_hops))
+
+
 def add_multihost_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--coordinator", type=str, default=None,
                    help="host:port of process 0; presence makes this process "

@@ -92,7 +92,8 @@ def test_scan_covers_the_host_path_modules():
               "parallel/train_step.py", "parallel/halo.py", "utils/sync.py",
               "sampling/service.py", "utils/platform.py", "utils/timers.py",
               "cli/__init__.py", "cli/common.py", "cli/train.py", "cli/launch.py",
-              "cli/scalebench.py"):
+              "cli/scalebench.py", "cli/preprocess.py", "cli/convert.py", "cli/partition.py",
+              "cli/verify_partition.py", "cli/analyze.py", "cli/eval.py", "cli/infer.py"):
         assert os.path.join("pagraph_tpu_torch", m) in SOURCES
     assert os.path.join("pagraph_tpu_torch", "csrc", "host_native.cpp") in ALL_SOURCES
     assert "bench_torch.py" in SOURCES
