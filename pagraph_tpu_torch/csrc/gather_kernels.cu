@@ -1286,3 +1286,102 @@ int pg_scatter_add_rows(const void* g, const void* ids, int64_t n, void* out, vo
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// phase marks
+// ---------------------------------------------------------------------------
+// One empty kernel a phase of a train step (one thread, no memory touched),
+// launched where the phase starts: a profiler's trace names it verbatim
+// (extern "C", no template), so the kernels between two marks belong to the
+// first one's phase, inside a replayed CUDA graph too.  A graph captured
+// with its marks holds one kernel node each; pg_graph_find_marks finds them
+// once (by the node's function) and pg_graph_enable_nodes enables or
+// disables them in the graph's executable between replays, so an untraced
+// replay runs none.
+
+extern "C" {
+__global__ void pg_mark_epoch() {}
+__global__ void pg_mark_sample() {}
+__global__ void pg_mark_fetch() {}
+__global__ void pg_mark_forward() {}
+__global__ void pg_mark_backward() {}
+__global__ void pg_mark_sync() {}
+__global__ void pg_mark_optimizer() {}
+__global__ void pg_mark_accumulate() {}
+__global__ void pg_mark_epoch_end() {}
+}  // extern "C"
+
+namespace {
+
+// the marker of each phase code: the order of MARK_PHASES in ops/gather_kernels.py
+void (*const kMarks[])() = {pg_mark_epoch,    pg_mark_sample,    pg_mark_fetch,
+                            pg_mark_forward,  pg_mark_backward,  pg_mark_sync,
+                            pg_mark_optimizer, pg_mark_accumulate, pg_mark_epoch_end};
+constexpr int kNumMarks = sizeof(kMarks) / sizeof(kMarks[0]);
+
+bool is_mark(const void* func) {
+  for (auto m : kMarks)
+    if (func == reinterpret_cast<const void*>(m)) return true;
+  return false;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The marker of phase code `phase` on the caller's stream (one launch).
+int pg_mark(int phase, void* stream) {
+  if (phase < 0 || phase >= kNumMarks) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaLaunchKernel(reinterpret_cast<const void*>(kMarks[phase]),
+                                           dim3(1), dim3(1), nullptr, 0,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// *n = the number of nodes of the cudaGraph_t `graph`.
+int pg_graph_num_nodes(void* graph, int64_t* n) {
+  size_t count = 0;
+  const cudaError_t rc = cudaGraphGetNodes(static_cast<cudaGraph_t>(graph), nullptr, &count);
+  *n = static_cast<int64_t>(count);
+  return static_cast<int>(rc);
+}
+
+// The kernel nodes of `graph` whose function is a marker: the first `cap`
+// into nodes, their number into *found.  A kernel node of another library's
+// module may refuse its parameters to this runtime: it is no marker, and the
+// error it leaves is cleared.
+int pg_graph_find_marks(void* graph, void** nodes, int64_t cap, int64_t* found) {
+  const cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  size_t count = 0;
+  cudaError_t rc = cudaGraphGetNodes(g, nullptr, &count);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  cudaGraphNode_t* all = new cudaGraphNode_t[count > 0 ? count : 1];
+  rc = cudaGraphGetNodes(g, all, &count);
+  int64_t k = 0;
+  for (size_t i = 0; rc == cudaSuccess && i < count; ++i) {
+    cudaGraphNodeType type;
+    if (cudaGraphNodeGetType(all[i], &type) != cudaSuccess || type != cudaGraphNodeTypeKernel)
+      continue;
+    cudaKernelNodeParams p;
+    if (cudaGraphKernelNodeGetParams(all[i], &p) != cudaSuccess || !is_mark(p.func)) continue;
+    if (k < cap) nodes[k] = all[i];
+    ++k;
+  }
+  delete[] all;
+  cudaGetLastError();
+  *found = k;
+  return static_cast<int>(rc);
+}
+
+// Enable (enable != 0) or disable the n nodes of the executable graph
+// `exec`, for its launches from now on.
+int pg_graph_enable_nodes(void* exec, void* const* nodes, int64_t n, int enable) {
+  for (int64_t i = 0; i < n; ++i) {
+    const cudaError_t rc = cudaGraphNodeSetEnabled(static_cast<cudaGraphExec_t>(exec),
+                                                   static_cast<cudaGraphNode_t>(nodes[i]),
+                                                   enable ? 1u : 0u);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
+}  // extern "C"

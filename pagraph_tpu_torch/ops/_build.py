@@ -53,6 +53,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                 _I64, _I, _I, _I, _I, _P),
         "pg_window_reduce": (_P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "pg_scatter_add_rows": (_P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I, _P),
+        "pg_mark": (_I, _P),
+        "pg_graph_num_nodes": (_P, _P),
+        "pg_graph_find_marks": (_P, _P, _I64, _P),
+        "pg_graph_enable_nodes": (_P, _P, _I64, _I),
     },
 }
 

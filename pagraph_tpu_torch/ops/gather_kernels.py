@@ -76,11 +76,19 @@ while a graph is captured, and in a backward the stream autograd runs it on
 before a capture: the first, eager, epoch does it.  Indices must be in
 range: the kernels do not bounds-check them (the sampler and the cache plan
 produce them).
+
+Phase marks (:func:`mark`): an empty kernel ``pg_mark_<phase>`` a phase of
+a train step (:data:`MARK_PHASES`), launched where the phase starts, so
+that a profiler's trace splits the step's kernels by phase, inside a
+replayed CUDA graph too.  A graph captures its marks whatever the switch;
+:class:`GraphMarks` finds their nodes once and enables them only for
+traced replays.  They are not counted in :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import ctypes
 import functools
 from typing import Dict, Iterator, NamedTuple, Optional
 
@@ -739,3 +747,58 @@ class BlockGather(torch.autograd.Function):
                     None if g_neigh is None else g_neigh.contiguous(), pos, mask,
                     ctx.num_src, ctx.kind, src)
         return grad_src, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# phase marks
+# ---------------------------------------------------------------------------
+
+# the phases a train step marks, in the order of the marker kernels
+# pg_mark_<phase> (kMarks in csrc/gather_kernels.cu)
+MARK_PHASES = ("epoch", "sample", "fetch", "forward", "backward", "sync", "optimizer",
+               "accumulate", "epoch_end")
+
+
+def mark(phase: str, device: torch.device, traced: bool) -> None:
+    """Mark where ``phase`` starts on ``device``'s current stream with its
+    empty kernel ``pg_mark_<phase>`` (one thread, no memory touched), which
+    a profiler's trace names, inside a replayed CUDA graph too.  On the CPU
+    nothing.  On the card: under CUDA-graph capture always, so that one
+    graph serves traced and untraced replays (:class:`GraphMarks` enables or
+    disables its marker nodes); else only when ``traced``.  Not counted in
+    :data:`LAUNCHES`."""
+    if phase not in MARK_PHASES:
+        raise ValueError(f"phase must be one of {MARK_PHASES}, got {phase!r}")
+    if device.type != "cuda" or not (traced or torch.cuda.is_current_stream_capturing()):
+        return
+    _raise_on(_lib().pg_mark(MARK_PHASES.index(phase), _stream(device)), "pg_mark")
+
+
+class GraphMarks:
+    """The marker kernel nodes of one captured CUDA graph (a
+    ``torch.cuda.CUDAGraph(keep_graph=True)``, instantiated), found once
+    by their function; :meth:`set` enables or disables all of them in the
+    graph's executable, for the replays that follow (not one in flight).
+    As captured they are enabled."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph):
+        lib = _lib()
+        raw = graph.raw_cuda_graph()
+        n, found = ctypes.c_int64(), ctypes.c_int64()
+        _raise_on(lib.pg_graph_num_nodes(raw, ctypes.byref(n)), "pg_graph_num_nodes")
+        nodes = (ctypes.c_void_p * max(n.value, 1))()
+        _raise_on(lib.pg_graph_find_marks(raw, nodes, n.value, ctypes.byref(found)),
+                  "pg_graph_find_marks")
+        self._nodes = (ctypes.c_void_p * found.value)(*nodes[:found.value])
+        self._exec = graph.raw_cuda_graph_exec()
+        self.enabled = True
+
+    def __len__(self) -> int:
+        return len(self._nodes)
+
+    def set(self, enabled: bool) -> None:
+        if enabled == self.enabled:
+            return
+        _raise_on(_lib().pg_graph_enable_nodes(self._exec, self._nodes, len(self._nodes),
+                                               int(enabled)), "pg_graph_enable_nodes")
+        self.enabled = enabled

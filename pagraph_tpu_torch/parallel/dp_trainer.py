@@ -208,9 +208,10 @@ class DataParallelTrainer(Trainer):
         self._is_cv = cfg.model.arch == "gcn_cv"
         self.cv_history = self.cv_state = None
         self.halo_drops = 0
-        self.cache = FeatureCache(store, layer0_fields(cfg), part.graph, part.local2full,
-                                  device=self.device, dtype=cfg.cache.dtype,
-                                  reserve_bytes=cfg.cache.hbm_reserve_bytes)
+        with self.timers.scope("setup.cache"):
+            self.cache = FeatureCache(store, layer0_fields(cfg), part.graph, part.local2full,
+                                      device=self.device, dtype=cfg.cache.dtype,
+                                      reserve_bytes=cfg.cache.hbm_reserve_bytes)
         n_train = len(part.train_nids)
         batch = cfg.sampler.batch_size
         # the figures every rank must agree on: the largest partition, the
@@ -218,9 +219,10 @@ class DataParallelTrainer(Trainer):
         self.max_nodes, self.steps, neg_min_train = self._all_reduce_ints(
             [part.num_nodes, num_batches(n_train, batch), -n_train], dist.ReduceOp.MAX)
         # replicas identical by construction: rank 0's parameters everywhere
-        self.state = create_state(cfg, seed=seed, device=self.device)
-        self._broadcast_state()
-        self.grad_sync = attach_grad_sync(self.state)
+        with self.timers.scope("setup.state"):
+            self.state = create_state(cfg, seed=seed, device=self.device)
+            self._broadcast_state()
+            self.grad_sync = attach_grad_sync(self.state)
         self.exchange = None
         if feature_source != "cache":
             self._shard_features()
@@ -265,7 +267,8 @@ class DataParallelTrainer(Trainer):
         elif cfg.cache.rank_by == "access_freq":
             self.cache.track_access = True
         self.loader = PrefetchLoader(self.sampler, self.cache, prefetch=cfg.sampler.prefetch,
-                                     device=self.device, num_batches=self.steps, halo=planner)
+                                     device=self.device, num_batches=self.steps, halo=planner,
+                                     timers=self.timers)
         self.steps_per_dispatch = max(1, t.steps_per_dispatch)
         # gloo waits for the device on the host: no CUDA graph can hold it
         self.host_graphs = self.device.type == "cuda" and self.backend == "nccl"
@@ -302,15 +305,17 @@ class DataParallelTrainer(Trainer):
             self._make_exchange(cap0)
             self._halo = HaloEpoch(self.exchange, self.rank, self.world_size, l2f,
                                    self.cfg.train.halo_pipeline)
-        self._dev_csr = DeviceCSR.from_graph(part.graph, dev)
-        if self._is_cv:
-            # the rank's histories over its partition, before the cache fill
-            self.cv_state = CVDeviceState.allocate(self.cfg, part.graph, dev)
-        self._dev_train_nids = torch.from_numpy(
-            np.asarray(part.train_nids, dtype=np.int32)).to(dev, copy=True)
-        self._dev_labels = torch.from_numpy(
-            np.asarray(part.labels, dtype=np.int32)).to(dev, copy=True)
-        self.epoch_inputs = EpochInputs.allocate(self.cfg, n_train, dev, steps=self.steps)
+        with self.timers.scope("setup.csr"):
+            self._dev_csr = DeviceCSR.from_graph(part.graph, dev)
+            self._dev_train_nids = torch.from_numpy(
+                np.asarray(part.train_nids, dtype=np.int32)).to(dev, copy=True)
+            self._dev_labels = torch.from_numpy(
+                np.asarray(part.labels, dtype=np.int32)).to(dev, copy=True)
+        with self.timers.scope("setup.state"):
+            if self._is_cv:
+                # the rank's histories over its partition, before the cache fill
+                self.cv_state = CVDeviceState.allocate(self.cfg, part.graph, dev)
+            self.epoch_inputs = EpochInputs.allocate(self.cfg, n_train, dev, steps=self.steps)
         self.device_graphs = self._side_stream is not None and self.backend == "nccl"
         self.epoch_runner = None
         self._device_epochs = 0
@@ -492,7 +497,8 @@ class DataParallelTrainer(Trainer):
             cap = self._all_reduce_ints([self.cache.auto_capacity()], dist.ReduceOp.MIN)[0]
         if not self._device_mode:
             cap = max(0, min(cap, self.max_nodes))
-        self.cache.fill(capacity=min(cap, self.cache.graph.num_nodes), rank_by=c.rank_by)
+        with self.timers.scope("cache.fill"):
+            self.cache.fill(capacity=min(cap, self.cache.graph.num_nodes), rank_by=c.rank_by)
         self._cache_filled = True
         if self.log and self.rank == 0:
             print(f"[cache] per-rank capacity={cap} vertices")
@@ -500,8 +506,9 @@ class DataParallelTrainer(Trainer):
     # -- epochs ---------------------------------------------------------------------
 
     def _reseed_dropout(self, epoch: int) -> None:
-        self.state.generator.manual_seed(
-            rank_epoch_seed(self._seed, epoch, self.rank, _DROPOUT_STREAM))
+        with self.timers.scope("epoch.seed"):
+            self.state.generator.manual_seed(
+                rank_epoch_seed(self._seed, epoch, self.rank, _DROPOUT_STREAM))
 
     def run_epoch(self, epoch: int = 0):
         """One lockstep epoch on every rank (each rank calls it)."""
@@ -517,8 +524,10 @@ class DataParallelTrainer(Trainer):
         (:meth:`_train_on_device`)."""
         tc = self.cfg.train
         if self._device_mode and not tc.eval_every and not (tc.ckpt_dir and tc.ckpt_every):
-            self._train_on_device(epochs or tc.epochs, start_epoch)
-            return self.summary()
+            with self.timers.scope("train"):
+                self._train_on_device(epochs or tc.epochs, start_epoch)
+                with self.timers.scope("epoch.metrics"):
+                    return self.summary()
         return super().train(epochs, start_epoch=start_epoch)
 
     def _train_on_device(self, epochs: int, start_epoch: int = 0) -> None:
@@ -527,7 +536,7 @@ class DataParallelTrainer(Trainer):
         are copied out of its accumulator on the stream (into pinned memory
         on the card) before the next epoch zeroes it; an epoch's ``time_s``
         runs from the previous epoch's metrics being ready to its own, less
-        any capture."""
+        any capture.  The copy-out is timed as ``epoch.metrics``."""
         prev, t_prev = None, time.perf_counter()
         for e in range(start_epoch, epochs):
             self._reseed_dropout(e)
@@ -536,12 +545,13 @@ class DataParallelTrainer(Trainer):
             t_prev += self.timers.total["capture"] - capture_s
             with self.timers.scope("enqueue"):
                 acc = self.enqueue_device_epoch(e)
-            snap = torch.cat([acc.sums.double(), acc.counts.double()])
-            ready = None
-            if self.device.type == "cuda":
-                snap = snap.to("cpu", non_blocking=True)     # pinned by PyTorch
-                ready = torch.cuda.Event()
-                ready.record()
+            with self.timers.scope("epoch.metrics"):
+                snap = torch.cat([acc.sums.double(), acc.counts.double()])
+                ready = None
+                if self.device.type == "cuda":
+                    snap = snap.to("cpu", non_blocking=True)     # pinned by PyTorch
+                    ready = torch.cuda.Event()
+                    ready.record()
             if prev is not None:
                 t_prev = self._finish_epoch(*prev, t_prev)
             prev = (e, snap, ready)
@@ -549,10 +559,13 @@ class DataParallelTrainer(Trainer):
             self._finish_epoch(*prev, t_prev)
 
     def _finish_epoch(self, epoch: int, snap: torch.Tensor, ready, t_prev: float) -> float:
-        if ready is not None:
-            ready.synchronize()
+        with self.timers.scope("epoch.wait"):
+            if ready is not None:
+                ready.synchronize()
         now = time.perf_counter()
-        self._device_epoch_metrics(epoch, dict(zip(METRIC_NAMES, snap.tolist())), now - t_prev)
+        with self.timers.scope("epoch.metrics"):
+            self._device_epoch_metrics(epoch, dict(zip(METRIC_NAMES, snap.tolist())),
+                                       now - t_prev)
         return now
 
     def _device_epoch_metrics(self, epoch: int, vals: Dict[str, float], time_s: float):

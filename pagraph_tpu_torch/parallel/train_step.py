@@ -34,7 +34,8 @@ import torch
 import torch.distributed as dist
 
 from ..sampling.pack import PackedGroup, halo_req, unpack
-from ..train.state import GroupGraphs, TrainState, make_multistep_train_step, train_on_features
+from ..train.state import (GroupGraphs, TrainState, make_multistep_train_step, mark_phase,
+                           train_on_features)
 
 
 class GradSync:
@@ -105,6 +106,7 @@ def make_dp_halo_train_step(state: TrainState, exchange, *, graph: bool = False,
 
     def step(layout, acc: torch.Tensor, i32: torch.Tensor, u8: torch.Tensor) -> None:
         mb, src_row, _ = unpack(layout, i32, u8)
+        mark_phase(state, "fetch")
         feats = exchange(halo_req(layout, i32), src_row, state.dtype)
         m = train_on_features(state, mb, feats)
         acc.add_(torch.stack([m["loss"], m["acc"]]))

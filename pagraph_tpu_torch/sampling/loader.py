@@ -30,6 +30,13 @@ requests dropped past the static halo width are counted in
 (``pack.stack``), in pinned memory for a CUDA device: the only pinned copy
 a batch makes, from which its group crosses in one copy a buffer (the
 Trainer's ``steps_per_dispatch``).
+
+Spans (``timers``, the Trainer's ``PhaseTimers``; ``record_function``
+ranges of the thread that runs them under ``use_scopes``): a producer's
+``load.sample`` (the sampler's next batch, under the iterator's lock),
+``load.pack`` (the fetch plan and the packing) and ``load.put`` (its wait
+on a full queue), one an item; the consumer's ``load.wait`` (on an empty
+queue, one a ``get``) and ``load.stack`` (one a group).
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch
 
 from ..storage.cache import FeatureCache
 from ..utils.device import resolve_device
+from ..utils.timers import PhaseTimers
 from .block import MiniBatch
 from .pack import BatchLayout, PackedGroup, make_layout, pack, stack
 from .sampler import NeighborSampler
@@ -79,12 +87,16 @@ class PrefetchLoader:
     the host ``(mb, plan)`` pairs.  ``device=None`` is the GPU
     (``RuntimeError`` without one).  ``num_batches``: the batches an epoch
     (:func:`lockstep_batches`), ``None`` for the sampler's epoch.
-    ``halo``: a ``HaloPlanner``, whose plan replaces the cache's."""
+    ``halo``: a ``HaloPlanner``, whose plan replaces the cache's.
+    ``timers``: where the loader's spans add up (a fresh ``PhaseTimers``
+    when ``None``)."""
 
     def __init__(self, sampler: NeighborSampler, cache: FeatureCache, *,
                  prefetch: int = 2, device=None, workers: int = 2, packed: bool = True,
-                 num_batches: Optional[int] = None, halo=None):
+                 num_batches: Optional[int] = None, halo=None,
+                 timers: Optional[PhaseTimers] = None):
         self.sampler = sampler
+        self.timers = PhaseTimers() if timers is None else timers
         self.num_batches = num_batches
         self.cache = cache
         self.packed = packed
@@ -107,14 +119,18 @@ class PrefetchLoader:
             while not stop.is_set():
                 with it_lock:
                     try:
-                        mb = next(it)
+                        with self.timers.scope("load.sample"):
+                            mb = next(it)
                     except StopIteration:
                         break
                     seq = done_counter[1]
                     done_counter[1] += 1
                     self.epoch_edges += mb.num_sampled_edges()
                     self.epoch_vertices += mb.num_loaded_vertices()
-                q.put((seq, self._pack(mb)))
+                with self.timers.scope("load.pack"):
+                    item = self._pack(mb)
+                with self.timers.scope("load.put"):
+                    q.put((seq, item))
             with it_lock:
                 done_counter[0] += 1
                 if done_counter[0] == self.workers:
@@ -168,7 +184,8 @@ class PrefetchLoader:
             pending: dict = {}
             expect = 0
             while True:
-                item = q.get()
+                with self.timers.scope("load.wait"):
+                    item = q.get()
                 if item is _END:
                     break
                 if isinstance(item, BaseException):
@@ -201,10 +218,14 @@ class PrefetchLoader:
         for item in self.epoch():
             group.append(item)
             if len(group) == k:
-                yield stack(group, pin_memory=pin)
+                yield self._stack(group, pin)
                 group = []
         if group:
-            yield stack(group, pin_memory=pin)
+            yield self._stack(group, pin)
+
+    def _stack(self, items, pin: bool) -> PackedGroup:
+        with self.timers.scope("load.stack"):
+            return stack(items, pin_memory=pin)
 
     def __iter__(self):
         return self.epoch()

@@ -39,6 +39,15 @@ first epoch's on the card) and the graph form, CUDA graphs captured once
 A graph is captured on a warmed state (Adam's moments exist; the kernels
 are built), after ``zero_grad(set_to_none=True)``, with the dropout
 generator registered, so a replay draws what the eager form draws.
+
+Phase marks (``state.mark_phase``): an epoch marks ``epoch`` first and
+``epoch_end`` last (under ``steps`` and ``pipelined`` the runner marks the
+end, eagerly), and each step ``sample``, ``fetch``, then the train step's
+phases (``forward``, ``backward``, ``sync`` under a ``grad_sync``,
+``optimizer``, ``accumulate``): a traced epoch's kernels read ``epoch
+(sample fetch forward backward [sync] optimizer accumulate) x steps
+epoch_end``.  :meth:`DeviceEpochRunner.set_marks` switches the graphs'
+marks.
 ``train.scan_unroll`` has no meaning for a graph and is ignored.
 
 CV-GCN (:func:`make_cv_device_epoch_fn`, the JAX package's
@@ -119,7 +128,8 @@ from ..ops.gather import take_rows
 from ..sampling.block import MiniBatch
 from ..sampling.device_sampler import (DeviceCSR, draw_width, hop_draws, hop_sizes,
                                        sample_minibatch_device)
-from .state import CapturedGraph, TrainState, capture_train, compute_dtype, train_on_features
+from .state import (CapturedGraph, TrainState, capture_train, compute_dtype, mark_phase,
+                    train_on_features)
 
 METRIC_NAMES = ("loss_sum", "acc_sum", "steps", "edges", "vertices", "halo_drops")
 
@@ -336,13 +346,18 @@ def epoch_draws(generator: torch.Generator, num_batches: int, batch_size: int,
 def fetch_batch(cfg: Config, seeds: torch.Tensor, smask: torch.Tensor,
                 draws: Sequence[torch.Tensor], labels: torch.Tensor, csr: DeviceCSR,
                 cache_values: torch.Tensor,
-                dequant_scale: Optional[torch.Tensor] = None) -> Tuple[MiniBatch, torch.Tensor]:
+                dequant_scale: Optional[torch.Tensor] = None, *,
+                state: Optional[TrainState] = None) -> Tuple[MiniBatch, torch.Tensor]:
     """Sample one batch on the device and fetch its layer-0 features from
     the full cache in the compute dtype (f32, or bf16 at
-    ``train.dtype="bfloat16"``): ``(mb, feats)``."""
+    ``train.dtype="bfloat16"``): ``(mb, feats)``.  ``state``: the train
+    state whose switch marks the ``sample`` and ``fetch`` phases
+    (:func:`state.mark_phase`); ``None``, no marks."""
     s = cfg.sampler
+    mark_phase(state, "sample")
     mb = sample_minibatch_device(csr, seeds, smask, s.num_hops, s.hop_fanouts(), draws,
                                  labels=labels, paired=s.paired_draws)
+    mark_phase(state, "fetch")
     return mb, take_rows(cache_values, mb.input_nids, dequant_scale,
                          out_dtype=compute_dtype(cfg))
 
@@ -436,7 +451,7 @@ def device_batch_step(cfg: Config, state: TrainState, acc: EpochAccumulator,
     ``_make_batch_body``, and with ``cv`` the body of its
     ``make_cv_device_epoch_fn``): sample, fetch, train, accumulate."""
     train_batch(state, acc, *fetch_batch(cfg, seeds, smask, draws, labels, csr,
-                                         cache_values, dequant_scale), cv)
+                                         cache_values, dequant_scale, state=state), cv)
 
 
 def _prepare(cfg: Config, inputs: EpochInputs, data: DeviceData) -> None:
@@ -467,11 +482,13 @@ def make_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
     nb = inputs.num_batches
 
     def epoch_fn() -> EpochAccumulator:
+        mark_phase(state, "epoch")
         _prepare(cfg, inputs, data)
         for i in range(nb):
             device_batch_step(cfg, state, inputs.acc, inputs.seeds_all[i], inputs.mask_all[i],
                               [d[i] for d in inputs.draws], data.labels, data.csr,
                               data.cache_values, data.dequant_scale)
+        mark_phase(state, "epoch_end")
         return inputs.acc
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
@@ -497,6 +514,7 @@ def make_dp_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
     nb = inputs.num_batches
 
     def epoch_fn() -> EpochAccumulator:
+        mark_phase(state, "epoch")
         dp_epoch_schedule(inputs.perm, data.train_nids, out=(inputs.seeds_all, inputs.mask_all))
         inputs.acc.zero_()
         for i in range(nb):
@@ -505,23 +523,29 @@ def make_dp_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
                               data.cache_values, data.dequant_scale, cv)
         if cv is not None:
             cv.refresh()
-        return inputs.acc.all_reduce_()
+        acc = inputs.acc.all_reduce_()
+        mark_phase(state, "epoch_end")
+        return acc
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
 
 
 def fetch_halo_batch(cfg: Config, seeds: torch.Tensor, smask: torch.Tensor,
                      draws: Sequence[torch.Tensor], labels: torch.Tensor, csr: DeviceCSR,
-                     halo: HaloEpoch) -> Tuple[MiniBatch, torch.Tensor, torch.Tensor]:
+                     halo: HaloEpoch, *, state: Optional[TrainState] = None,
+                     ) -> Tuple[MiniBatch, torch.Tensor, torch.Tensor]:
     """Sample one batch on the device and fetch its layer-0 rows from their
     owners (the plan built on the device, one exchange) in the compute
     dtype: ``(mb, feats, drops)``, ``drops`` the valid rows whose request
-    was dropped (int64, 0-d)."""
+    was dropped (int64, 0-d).  ``state`` marks the phases as for
+    :func:`fetch_batch`."""
     from ..parallel.halo import device_halo_plan, src_rows
 
     s = cfg.sampler
+    mark_phase(state, "sample")
     mb = sample_minibatch_device(csr, seeds, smask, s.num_hops, s.hop_fanouts(), draws,
                                  labels=labels, paired=s.paired_draws)
+    mark_phase(state, "fetch")
     ids = mb.input_nids if halo.ici else halo.local2full.index_select(0, mb.input_nids)
     ex = halo.exchange
     plan = device_halo_plan(ids, mb.input_mask, ex.world_size, ex.halo_width)
@@ -553,7 +577,8 @@ def make_halo_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInput
 
     def fetch(i: int):
         return fetch_halo_batch(cfg, inputs.seeds_all[i], inputs.mask_all[i],
-                                [d[i] for d in inputs.draws], data.labels, data.csr, halo)
+                                [d[i] for d in inputs.draws], data.labels, data.csr, halo,
+                                state=state)
 
     def train(batch) -> None:
         mb, feats, drops = batch
@@ -583,6 +608,7 @@ def make_halo_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInput
         main.wait_stream(fetch_stream)
 
     def epoch_fn() -> EpochAccumulator:
+        mark_phase(state, "epoch")
         if halo.ici:
             ici_epoch_schedule(inputs.perm, data.train_nids, halo.rank, halo.world_size,
                                out=(inputs.seeds_all, inputs.mask_all))
@@ -603,7 +629,9 @@ def make_halo_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInput
                 train(fetch(i))
         if cv is not None:
             cv.refresh()
-        return inputs.acc.all_reduce_()
+        acc = inputs.acc.all_reduce_()
+        mark_phase(state, "epoch_end")
+        return acc
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
 
@@ -621,12 +649,14 @@ def make_cv_device_epoch_fn(cfg: Config, state: TrainState, inputs: EpochInputs,
     nb = inputs.num_batches
 
     def epoch_fn() -> EpochAccumulator:
+        mark_phase(state, "epoch")
         _prepare(cfg, inputs, data)
         for i in range(nb):
             device_batch_step(cfg, state, inputs.acc, inputs.seeds_all[i], inputs.mask_all[i],
                               [d[i] for d in inputs.draws], data.labels, data.csr,
                               data.cache_values, data.dequant_scale, cv)
         cv.refresh()
+        mark_phase(state, "epoch_end")
         return inputs.acc
 
     return capture_train(state, epoch_fn, nb, stream=stream) if graph else epoch_fn
@@ -638,12 +668,15 @@ def make_device_step_fns(cfg: Config, state: TrainState, inputs: EpochInputs,
     """``steps``: ``(prepare_fn, step_fn)``; an epoch is ``prepare_fn()``,
     then ``step_fn()`` ``num_batches`` times.  ``step_fn`` trains on batch
     ``state.step_t % num_batches``, indexed on the device: nothing comes
-    from the host a step.  ``graph=True`` captures each as a CUDA graph."""
+    from the host a step.  ``graph=True`` captures each as a CUDA graph.
+    ``prepare_fn`` marks the epoch's start; its end is the caller's
+    (:class:`DeviceEpochRunner`)."""
     if not cfg.sampler.include_self:
         raise ValueError("on-device sampling requires include_self=True")
     nb = inputs.num_batches
 
     def prepare_fn() -> None:
+        mark_phase(state, "epoch")
         _prepare(cfg, inputs, data)
 
     def step_fn() -> None:
@@ -671,20 +704,22 @@ def make_device_pipelined_fns(cfg: Config, state: TrainState, inputs: EpochInput
     gather graph.  A gather may run beside the training of the other slot,
     so each gather graph has a memory pool of its own: in a shared pool one
     gather's scratch could be the other's slot.  The train graphs, which run
-    one after the other, share a pool."""
+    one after the other, share a pool.  ``prepare_fn`` marks the epoch's
+    start; its end is the caller's."""
     if not cfg.sampler.include_self:
         raise ValueError("on-device sampling requires include_self=True")
     nb = inputs.num_batches
     slots: List[Optional[Tuple[MiniBatch, torch.Tensor]]] = [None, None]
 
     def prepare_fn() -> None:
+        mark_phase(state, "epoch")
         _prepare(cfg, inputs, data)
 
     def gather(k: int):
         seeds, smask, draws = _batch_at(inputs, torch.remainder(inputs.counter, nb))
         inputs.counter.add_(1)
         slots[k] = fetch_batch(cfg, seeds, smask, draws, data.labels, data.csr,
-                               data.cache_values, data.dequant_scale)
+                               data.cache_values, data.dequant_scale, state=state)
         return slots[k]
 
     def train(k: int) -> None:
@@ -725,7 +760,8 @@ class DeviceEpochRunner:
     ``graph`` picks the function's form; the graph form of ``pipelined``
     replays each gather on a stream of its own, ``stream`` is where graphs
     are captured.  ``graphs``: the captured graphs (none in the eager
-    form)."""
+    form).  Under ``steps`` and ``pipelined`` the runner marks the epoch's
+    end (``epoch_end``) after the last step."""
 
     def __init__(self, cfg: Config, state: TrainState, inputs: EpochInputs,
                  data: DeviceData, *, graph: bool = False,
@@ -767,16 +803,27 @@ class DeviceEpochRunner:
                 out[k] = out.get(k, 0) + v * g.replays
         return out
 
+    def set_marks(self, enabled: bool) -> None:
+        """The graphs' phase marks on or off for the epochs that follow."""
+        for g in self.graphs:
+            g.marks.set(enabled)
+
     def __call__(self) -> EpochAccumulator:
-        nb = self.inputs.num_batches
         if self.mode == "scan":
             return self.fns[0]()
+        self._per_step_epoch()
+        mark_phase(self.state, "epoch_end")
+        return self.inputs.acc
+
+    def _per_step_epoch(self) -> None:
+        """An epoch of ``steps`` or ``pipelined``."""
+        nb = self.inputs.num_batches
         if self.mode == "steps":
             prepare_fn, step_fn = self.fns
             prepare_fn()
             for _ in range(nb):
                 step_fn()
-            return self.inputs.acc
+            return
         prepare_fn, gathers, trains = self.fns
         gather = self._gather_on_stream if self.graph else (lambda k: gathers[k]())
         prepare_fn()
@@ -792,7 +839,6 @@ class DeviceEpochRunner:
             trains[k]()
             if self.graph:
                 self._trained[k].record()
-        return self.inputs.acc
 
     def _gather_on_stream(self, k: int) -> None:
         """Replay slot k's gather on the fetch stream once the training

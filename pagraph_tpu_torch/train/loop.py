@@ -90,6 +90,18 @@ in place, so CUDA graphs captured before it replay the restored state.
 Both read the parameters after the epoch's one sync, which waits for the
 stream that ran the epoch.
 
+Tracing (``timers``, a ``PhaseTimers``; with ``use_scopes`` each scope is
+a ``torch.profiler`` range, and the steps mark their phases,
+``state.trace_marks``): set-up ``setup.cache``, ``setup.csr`` (on-device
+path), ``setup.state``, ``cache.fill``; ``train`` around a whole
+:meth:`Trainer.train`, and in it an on-device epoch
+``marks.switch`` (the marks set to the switch), ``enqueue`` (around
+``enqueue.randomness`` and ``enqueue.launch``, which holds ``epoch.eager``
+for the eager form), then ``epoch.wait`` (the host blocked on the device)
+and ``epoch.metrics`` (the metrics, the evaluation and checkpoint checks,
+``summary``); ``capture``; the host path's ``step`` and the loader's
+``load.*``.
+
 Isolation-mode sampling (``train.remote_sampling``, the host path): the
 batches come from worker processes sampling into shared memory
 (``sampling/service.py`` ``SampleService``, the caps probed first by an
@@ -177,10 +189,11 @@ class Trainer:
         self.device = resolve_device(device)
         self.log = log
         self._eval_data = eval_data
-        self.cache = FeatureCache(store, layer0_fields(cfg), local_graph, local2full,
-                                  device=self.device, dtype=cfg.cache.dtype,
-                                  reserve_bytes=cfg.cache.hbm_reserve_bytes)
         self.timers = PhaseTimers()
+        with self.timers.scope("setup.cache"):
+            self.cache = FeatureCache(store, layer0_fields(cfg), local_graph, local2full,
+                                      device=self.device, dtype=cfg.cache.dtype,
+                                      reserve_bytes=cfg.cache.hbm_reserve_bytes)
         self._cache_filled = False
         self.epoch_metrics: List[EpochMetrics] = []
         self._device_mode = t.on_device_sampling
@@ -196,13 +209,15 @@ class Trainer:
             # live on the device beside the full cache (filled before epoch 0)
             self.sampler = self.loader = None
             self._seed = seed
-            self._dev_csr = DeviceCSR.from_graph(local_graph, self.device)
-            self._dev_train_nids = torch.from_numpy(
-                np.asarray(train_nids, dtype=np.int32)).to(self.device, copy=True)
-            self._dev_labels = torch.from_numpy(
-                np.asarray(labels, dtype=np.int32)).to(self.device, copy=True)
-            self.state = create_state(cfg, seed=seed, device=self.device)
-            self.epoch_inputs = EpochInputs.allocate(cfg, len(train_nids), self.device)
+            with self.timers.scope("setup.csr"):
+                self._dev_csr = DeviceCSR.from_graph(local_graph, self.device)
+                self._dev_train_nids = torch.from_numpy(
+                    np.asarray(train_nids, dtype=np.int32)).to(self.device, copy=True)
+                self._dev_labels = torch.from_numpy(
+                    np.asarray(labels, dtype=np.int32)).to(self.device, copy=True)
+            with self.timers.scope("setup.state"):
+                self.state = create_state(cfg, seed=seed, device=self.device)
+                self.epoch_inputs = EpochInputs.allocate(cfg, len(train_nids), self.device)
             if self._is_cv:
                 # allocated before the cache fill, which they must not lose to
                 self.cv_state = CVDeviceState.allocate(cfg, local_graph, self.device)
@@ -226,10 +241,12 @@ class Trainer:
         # CV-GCN takes one unpacked batch a step, as the JAX package's does
         self.loader = PrefetchLoader(self.sampler, self.cache,
                                      prefetch=cfg.sampler.prefetch,
-                                     device=self.device, packed=not self._is_cv)
+                                     device=self.device, packed=not self._is_cv,
+                                     timers=self.timers)
         if self._is_cv:
             self.cv_history = CVHistory(cfg.model, local_graph, local_graph.num_nodes)
-        self.state = create_state(cfg, seed=seed, device=self.device)
+        with self.timers.scope("setup.state"):
+            self.state = create_state(cfg, seed=seed, device=self.device)
         self.steps_per_dispatch = max(1, t.steps_per_dispatch)
         self.host_graphs = self.device.type == "cuda"
         self.group_graphs: Optional[GroupGraphs] = None    # made at the second epoch
@@ -267,7 +284,8 @@ class Trainer:
         cap = c.capacity if c.enabled else 0
         if self._device_mode and cap is None:
             cap = self.cache.graph.num_nodes
-        self.cache.fill(capacity=cap, rank_by=c.rank_by)
+        with self.timers.scope("cache.fill"):
+            self.cache.fill(capacity=cap, rank_by=c.rank_by)
         if self._device_mode and not self.cache.fully_cached:
             raise ValueError(
                 f"on_device_sampling needs the full feature set in device memory: "
@@ -333,6 +351,7 @@ class Trainer:
         shipped)``.  The eager form's closure, which holds the cache rows,
         is gone when this returns, before any refill."""
         graphs = self._ready_group_graphs()
+        self.state.trace_marks = self.timers.use_scopes     # each replay applies it
         eager = side = None
         if graphs is None:          # on the card on the side stream (None on the CPU)
             eager = self._group_step(graph=False)
@@ -453,13 +472,18 @@ class Trainer:
     def _ready_device_runner(self) -> None:
         """The eager form before the first epoch; on the card (while
         ``device_graphs``), the graphs captured before the second (timed
-        as ``"capture"``)."""
+        as ``"capture"``).  Then the phase marks follow
+        ``timers.use_scopes`` (``state.trace_marks`` and the graphs' marker
+        nodes, switched under ``"marks.switch"``, outside ``"enqueue"``)."""
         if self.epoch_runner is None:
             self.epoch_runner = self._make_device_runner(graph=False)
         elif self.device_graphs and not self.epoch_runner.graph and self._device_epochs:
             with self.timers.scope("capture"):
                 self.epoch_runner = self._make_device_runner(graph=True)
                 torch.cuda.synchronize(self.device)
+        with self.timers.scope("marks.switch"):
+            self.state.trace_marks = self.timers.use_scopes
+            self.epoch_runner.set_marks(self.state.trace_marks)
 
     def enqueue_device_epoch(self, epoch: int):
         """Load the epoch's randomness and enqueue the epoch; its
@@ -467,9 +491,18 @@ class Trainer:
         the eager form runs on the side stream (PyTorch's warm-up before a
         capture), after the randomness and before what follows."""
         self._ready_device_runner()
-        self.epoch_inputs.load(*self.epoch_randomness(epoch, out=self.epoch_inputs))
+        with self.timers.scope("enqueue.randomness"):
+            self.epoch_inputs.load(*self.epoch_randomness(epoch, out=self.epoch_inputs))
         self._device_epochs += 1
-        if self._side_stream is None or self.epoch_runner.graph:
+        with self.timers.scope("enqueue.launch"):
+            if self.epoch_runner.graph:
+                return self.epoch_runner()
+            with self.timers.scope("epoch.eager"):
+                return self._eager_device_epoch()
+
+    def _eager_device_epoch(self):
+        """The eager form's epoch, on the card on the side stream."""
+        if self._side_stream is None:
             return self.epoch_runner()
         main = torch.cuda.current_stream(self.device)
         self._side_stream.wait_stream(main)
@@ -484,8 +517,10 @@ class Trainer:
         t_epoch = time.perf_counter()
         with self.timers.scope("enqueue"):          # the whole epoch's
             acc = self.enqueue_device_epoch(epoch)
-        vals = acc.values()
-        return self._device_epoch_metrics(epoch, vals, time.perf_counter() - t_epoch)
+        with self.timers.scope("epoch.wait"):
+            vals = acc.values()
+        with self.timers.scope("epoch.metrics"):
+            return self._device_epoch_metrics(epoch, vals, time.perf_counter() - t_epoch)
 
     def _device_epoch_metrics(self, epoch: int, vals: Dict[str, float],
                               time_s: float) -> EpochMetrics:
@@ -512,15 +547,20 @@ class Trainer:
         """Epochs ``start_epoch .. epochs - 1`` (``resume``'s return value is
         the ``start_epoch`` of a resumed run), each followed by the
         evaluation and the checkpoint that ``train.eval_every`` and
-        ``train.ckpt_every`` ask for."""
-        epochs = epochs or self.cfg.train.epochs
-        tc = self.cfg.train
-        for e in range(start_epoch, epochs):
-            self.run_epoch(e)
-            self._maybe_eval(e)
-            if tc.ckpt_dir and tc.ckpt_every and (e + 1) % tc.ckpt_every == 0:
-                self._checkpoint(e)
-        return self.summary()
+        ``train.ckpt_every`` ask for.  The call is the ``train`` span: the
+        host's passage from one inner span to the next is inside it too."""
+        with self.timers.scope("train"):
+            epochs = epochs or self.cfg.train.epochs
+            tc = self.cfg.train
+            for e in range(start_epoch, epochs):
+                self.run_epoch(e)
+                with self.timers.scope("epoch.metrics"):
+                    self._maybe_eval(e)
+                    save = bool(tc.ckpt_dir and tc.ckpt_every and (e + 1) % tc.ckpt_every == 0)
+                if save:
+                    self._checkpoint(e)
+            with self.timers.scope("epoch.metrics"):
+                return self.summary()
 
     def _checkpoint(self, epoch: int) -> None:
         """Save the train state after ``epoch``, with the host path's sampler

@@ -49,6 +49,15 @@ graph form (:class:`GroupGraphs`) captures the K-step body as one CUDA
 graph (:class:`CapturedGraph`) a ``(k, layout)`` key over static device
 buffers, at the key's first group, and replays it for every later group
 with that key, the group copied into its buffers first.
+
+Phase marks (:func:`mark_phase`, ``ops.gather_kernels.mark``): a step
+marks where its phases start, ``fetch`` (the assembly), ``forward`` (with
+the loss), ``backward``, ``sync`` (under a ``grad_sync``), ``optimizer``
+and ``accumulate``; the on-device epoch adds ``epoch``, ``sample`` and
+``epoch_end``.  ``TrainState.trace_marks`` is the switch (the Trainer's
+``PhaseTimers.use_scopes``): eager steps launch the markers only when it is
+on; a captured graph holds them always and enables them for its replays
+only while it is on (``CapturedGraph.marks``).
 """
 from __future__ import annotations
 
@@ -90,6 +99,9 @@ class TrainState:
     # (parallel/train_step.py GradSync), whose flat buffer the .grad views
     # keep: zeroed in place, never set to None
     grad_sync: Optional[object] = None
+    # the phase marks' switch (mark_phase), set from the Trainer's
+    # PhaseTimers.use_scopes at each epoch's enqueue
+    trace_marks: bool = False
 
     def __post_init__(self):
         if self.step_t is None:
@@ -197,6 +209,14 @@ def create_state(cfg: Config, seed: int = 0, device=None) -> TrainState:
                       lr_schedule=make_lr_schedule(cfg))
 
 
+def mark_phase(state: Optional[TrainState], phase: str) -> None:
+    """Mark where ``phase`` of a step starts on the state's device
+    (``gather_kernels.mark``): eagerly when ``state.trace_marks``, always
+    under capture; nothing without a state."""
+    if state is not None:
+        gather_kernels.mark(phase, state.step_t.device, state.trace_marks)
+
+
 def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
                src_row: torch.Tensor, cache_values: torch.Tensor,
                dequant_scale: Optional[torch.Tensor] = None,
@@ -209,6 +229,7 @@ def train_step(state: TrainState, mb: MiniBatch, miss_feats: torch.Tensor,
     dtype.  CV-GCN's step (the JAX package's ``make_cv_train_step``, one
     eager dispatch a batch) also takes the batch's history slices,
     ``hists``, and returns the fresh histories (:func:`train_on_features`)."""
+    mark_phase(state, "fetch")
     feats = assemble_features(cache_values, src_row, miss_feats, dequant_scale,
                               out_dtype=state.dtype)
     return train_on_features(state, mb, feats, hists)
@@ -224,8 +245,12 @@ def train_on_features(state: TrainState, mb: MiniBatch, feats: torch.Tensor,
     through :func:`cast_apply`; ``{"loss", "acc"}`` as device scalars (no
     host sync).  CV-GCN takes ``hists``, its ``(h_hist, agg_hist)`` slices,
     runs through :func:`cast_cv_apply` and adds ``"new_hists"``, the fresh
-    f32 activations a block (the JAX package's ``make_cv_train_step``)."""
+    f32 activations a block (the JAX package's ``make_cv_train_step``).
+    Marks the phases ``forward`` (with the loss), ``backward``, ``sync``
+    (under a ``grad_sync``), ``optimizer`` and ``accumulate`` (the
+    accuracy, and what the caller adds up after it)."""
     m = state.model.cfg
+    mark_phase(state, "forward")
     kw = {}
     if m.arch == "graphsage" and m.preprocess:
         feats, kw["neigh_feats"] = feats[:, :m.feat_dim], feats[:, m.feat_dim:]
@@ -237,15 +262,19 @@ def train_on_features(state: TrainState, mb: MiniBatch, feats: torch.Tensor,
         logits = cast_apply(state.model, state.dtype)(mb, feats, generator=state.generator,
                                                       **kw)
     loss = masked_cross_entropy(logits, mb.labels, mb.seed_mask)
+    mark_phase(state, "backward")
     _zero_grads(state)
     loss.backward()
     if state.grad_sync is not None:
+        mark_phase(state, "sync")
         state.grad_sync.sync()          # the mean over the ranks, before Adam
+    mark_phase(state, "optimizer")
     if state.lr_schedule is not None:
         state.optimizer.param_groups[0]["lr"].copy_(state.lr_schedule(state.step_t))
     state.optimizer.step()
     state.step_t.add_(1)
     state.step += 1
+    mark_phase(state, "accumulate")
     with torch.no_grad():
         acc = masked_accuracy(logits, mb.labels, mb.seed_mask)
     out = {"loss": loss.detach(), "acc": acc}
@@ -279,12 +308,17 @@ class CapturedGraph:
     then, and advances it as far.  ``after`` runs on the host after each
     replay (the host step count).  The capture checks only its own
     thread's CUDA calls (``capture_error_mode="thread_local"``), so other
-    threads (the loader's producers) run on meanwhile."""
+    threads (the loader's producers) run on meanwhile.
+
+    ``marks``: the phase marks ``fn`` captured (``gather_kernels.mark``
+    launches them under capture whatever the switch), found once in the
+    graph (:class:`gather_kernels.GraphMarks`), disabled until its owner
+    enables them for traced replays."""
 
     def __init__(self, fn: Callable, *, generator: Optional[torch.Generator] = None,
                  stream: Optional[torch.cuda.Stream] = None, pool=None,
                  after: Optional[Callable[[], None]] = None):
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         if generator is not None:
             self.graph.register_generator_state(generator)
         before = gather_kernels.launch_counts()
@@ -293,6 +327,9 @@ class CapturedGraph:
             self.out = fn()
         after_capture = gather_kernels.launch_counts()
         self.launches = {k: v - before[k] for k, v in after_capture.items() if v != before[k]}
+        self.graph.instantiate()
+        self.marks = gather_kernels.GraphMarks(self.graph)
+        self.marks.set(False)
         self.replays = 0
         self._after = after
 
@@ -421,7 +458,8 @@ class GroupGraphs:
         """Copy a host group into its key's buffers on the current stream
         and return the key's graph, each call of which replays the group's
         steps from those buffers (captured now, into the accumulator of the
-        first capture, if the key is new)."""
+        first capture, if the key is new), its phase marks switched to
+        ``state.trace_marks``."""
         if self.needs_capture(group):
             if self._acc is None:
                 raise RuntimeError("no host-step graph was captured yet")
@@ -430,6 +468,7 @@ class GroupGraphs:
         for dst, src in ((static.i32, group.i32), (static.u8, group.u8),
                          (static.miss, group.miss)):
             dst.copy_(src, non_blocking=True)
+        g.marks.set(self.state.trace_marks)
         return g
 
     def _check_acc(self, acc: torch.Tensor) -> None:
@@ -444,6 +483,7 @@ class GroupGraphs:
     @property
     def keys(self) -> List[Tuple[int, BatchLayout]]:
         return list(self._entries)
+
 
     def replayed_launches(self) -> Dict[str, int]:
         """Gather-kernel launches made by the replays so far."""

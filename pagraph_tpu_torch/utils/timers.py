@@ -4,12 +4,15 @@ timers, optional ``torch.profiler.record_function`` ranges, and a trace of a
 region with ``torch.profiler``.
 
 A scope measures host time: device work it enqueues may still be running
-when it closes, unless the scope ends in a synchronize.
+when it closes, unless the scope ends in a synchronize.  Scopes of one
+``PhaseTimers`` may run in several threads at once (the loader's producers
+beside the Trainer): the totals are updated under a lock.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
@@ -22,12 +25,14 @@ from .device import resolve_device
 class PhaseTimers:
     """Named accumulating wall-clock timers.  ``use_scopes``: each scope is
     also a ``torch.profiler.record_function`` range under its name (the JAX
-    package's ``use_jax_scopes``), which a :func:`maybe_trace` trace shows."""
+    package's ``use_jax_scopes``), which a :func:`maybe_trace` trace shows.
+    A scope left by an exception adds nothing."""
 
     def __init__(self, use_scopes: bool = False):
         self.total: Dict[str, float] = defaultdict(float)
         self.count: Dict[str, int] = defaultdict(int)
         self.use_scopes = use_scopes
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def scope(self, name: str) -> Iterator[None]:
@@ -36,22 +41,26 @@ class PhaseTimers:
         t0 = time.perf_counter()
         with ctx:
             yield
-        self.total[name] += time.perf_counter() - t0
-        self.count[name] += 1
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.total[name] += dt
+            self.count[name] += 1
 
     def reset(self) -> None:
-        self.total.clear()
-        self.count.clear()
+        with self._lock:
+            self.total.clear()
+            self.count.clear()
 
     def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            k: {
-                "total_s": self.total[k],
-                "count": self.count[k],
-                "mean_ms": 1e3 * self.total[k] / max(self.count[k], 1),
+        with self._lock:
+            return {
+                k: {
+                    "total_s": self.total[k],
+                    "count": self.count[k],
+                    "mean_ms": 1e3 * self.total[k] / max(self.count[k], 1),
+                }
+                for k in sorted(self.total)
             }
-            for k in sorted(self.total)
-        }
 
     def report(self) -> str:
         lines = [f"{'phase':<16}{'total s':>10}{'count':>8}{'mean ms':>10}"]

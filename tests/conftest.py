@@ -28,6 +28,10 @@ from pagraph_tpu.utils.platform import tune_host_allocator
 tune_host_allocator(256 << 20)  # slow-page-fault host: keep heap warm
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skipped without one")
+
+
 @pytest.fixture(scope="session")
 def tiny_ds():
     """Golden tiny dataset: 200 vertices, ~1200 edges, 16-dim features."""
