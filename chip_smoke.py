@@ -4,12 +4,28 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --dp-gpus 4   # the dp and halo phases' ranks across 4 cards (nccl),
                                         # then cli.train --partition 4
+    python3 chip_smoke.py --dropout-block   # device, build and dropout_block only
 
 Phases, each printed as one JSON line:
 
 * ``device``: ``torch.cuda.get_device_name()`` and nvidia-smi's name and
   power limit (the raw nvidia-smi line is printed too);
 * ``build``: nvcc builds the kernels from ``pagraph_tpu_torch/csrc``;
+* ``dropout_block``: the fused dropout and prefix-layout block pair
+  (``dropout_block_fwd``, ``dropout_block_bwd``).  The int16 dropout draw
+  against the int32 one from equal generator states at the benchmark
+  cells' blocks, eagerly and captured in CUDA graphs with the generators
+  registered (two replays): equal less 32768, generator states equal.  Each
+  kernel at those blocks (sage-ogbn-products blocks 0, 1 and 2, gcn-
+  pagraph-reddit block 0), f32 and bf16, against its plain version from the same
+  bits: the self half and the zeros exact, the mean within the sum order's
+  tolerance (bf16's), the backward within it too (reported bit-equal or
+  not); kernel, plain, draw and bound ms.  The branches (scalar and
+  2-element units, an offset table, fan-outs 70 and 0, source rows past
+  the block's, no dropout, both kinds, no self half) against the plain
+  versions; and one device step's launches at each cell's model (small
+  Trainers, 2 epochs): the assembly, a fused forward a block, a backward
+  for each block after the first;
 * ``train``: the main path — cache-backed GraphSAGE at the ``bench.py``
   width (2 layers, hidden 16, 100-dim features, 47 classes, batch 6000,
   fan-out 2, Adam lr 1e-2) on an RMAT scale-20 graph (1,048,576 vertices,
@@ -76,8 +92,9 @@ Phases, each printed as one JSON line:
   layers: not the host path's count), batches, loss, cache and CSR bytes,
   peak device memory, and the launches run (those counted eagerly plus
   each graph's captured launches times its replays): one
-  ``assemble_<tier>`` (at bf16 compute ``assemble_<tier>_to_bf16``) a step
-  and no other gather kernel;
+  ``assemble_<tier>`` (at bf16 compute ``assemble_<tier>_to_bf16``), two
+  ``dropout_block_fwd_mean`` and one ``dropout_block_bwd_mean`` (``_bf16``
+  at bf16 compute) a step, and no other gather kernel;
 * ``dispatch``: every ``epoch_dispatch`` mode (``scan``, ``steps``,
   ``pipelined``) on six runs (f32 generic, f32 paired, the bf16 and int8
   tiers paired, bf16 compute on the bf16 tier, and f32 with the cosine
@@ -105,7 +122,8 @@ Phases, each printed as one JSON line:
   lstm: the assembly, two ``gather_rows`` of a block's self and neighbor
   rows, one ``scatter_add_rows``), at bf16 compute 5 for pool (the
   backward's ``grad_to_bf16``) and 4 for lstm (``scatter_add_rows_bf16``
-  rounds its table in its one launch), 1 on the device;
+  rounds its table in its one launch), 1 on the device (the assembly: the
+  fused dropout block takes mean and sum only);
 * ``preprocess``: GraphSAGE preprocess (``model.preprocess=True``, one hop
   sampled): store build time of the f32 store (``FeatureStore.build``, the
   host library's SpMM) and of the pre-quantized one
@@ -138,7 +156,9 @@ Phases, each printed as one JSON line:
   7 for GAT at either dtype (three ``gather_rows`` of the table ``[z |
   att_s | att_n]``, three ``scatter_add_rows``); the on-device path
   (``steps`` mode) 2 epochs, epoch 1 replayed, bit-equal to a fresh
-  Trainer's eager form, one assembly a step; device inference and
+  Trainer's eager form, one assembly, three ``dropout_block_fwd_<kind>``
+  and two ``dropout_block_bwd_<kind>`` a step (GCN mean, GIN sum; GAT the
+  assembly alone); device inference and
   ``evaluate`` on RMAT-20 (validation accuracy); device logits within 1e-4
   of each row's largest host logit on RMAT-16 (GAT: RMAT-14); the loss
   finite and falling; then ``mlp_val_acc`` on the same labels, and the
@@ -184,8 +204,9 @@ Phases, each printed as one JSON line:
   world size 1 on ``nccl``, the on-device path for 3 epochs, epochs 1-2
   replayed from one CUDA graph with the NCCL all-reduces inside,
   bit-equal to their eager form from epoch 0's checkpoint; each with
-  exactly 4 gather launches a host step (5 at bf16 compute) or 1 a device
-  step and one gradient all-reduce a step; (c) 2 gloo ranks sharing the
+  exactly 4 gather launches a host step (5 at bf16 compute) or 4 a device
+  step (the assembly and the dropout block kernels) and one gradient
+  all-reduce a step; (c) 2 gloo ranks sharing the
   card over RMAT-20's train set hash-partitioned at 2 hops (saved here,
   each rank loading its own part), the cache at 40% of the larger part,
   dropout 0.2, 2 host and 2 on-device epochs: the ranks' parameters
@@ -207,7 +228,8 @@ Phases, each printed as one JSON line:
   ``train.halo_pipeline`` (the fetches on a stream of their own inside the
   graph) and to the ``cache`` source's device epoch; each with exactly the
   gather launches of its path a step (the exchange's one assembly plus the
-  block kernels on the host, the exchange's assembly alone on the device),
+  block kernels on the host, the exchange's assembly and the dropout
+  block kernels on the device),
   1 all-reduce and 2 all_to_all a step and no halo request dropped; (b) 2
   gloo ranks sharing the card: ``ici`` on the host path over the hash
   parts, ``ici`` on the device over the whole graph and ``edge`` on the
@@ -361,8 +383,9 @@ Phases, each printed as one JSON line:
   ids, masks, labels and blocks;
 * ``device_step_parity``: one device-sampled step at each tier through the
   kernel and under ``gather_kernels.plain_versions()`` from the same
-  parameters: loss and every gradient within 1e-5 relative, one assembly
-  launch through the kernel and none under the plain versions;
+  parameters: loss and every gradient within 1e-5 relative, one assembly,
+  two dropout block forwards and one backward through the kernels and
+  none under the plain versions;
 * ``device_breakdown``: one on-device step alone and its parts (sample,
   fetch, train), and one replay of the ``steps`` mode's step graph:
   host enqueue, wall and device time (CUDA events), CUDA kernels and memory
@@ -380,9 +403,11 @@ Phases, each printed as one JSON line:
   and its JSON line carry the JAX package's summary keys, the loss is
   finite, the launches run are exactly 4 a step on the host path (the
   assembly, two ``block_gather_fwd_mean``, one ``block_gather_bwd_mean``)
-  and 1 on the device, its one ``torch.profiler`` trace names the kernels
-  (``block_gather_fwd_kernel`` and ``assemble_kernel`` on the host path,
-  ``assemble_kernel`` on the device), and, on the host path, the cache's
+  and 4 on the device (the assembly, two ``dropout_block_fwd_mean``, one
+  ``dropout_block_bwd_mean``), its one ``torch.profiler`` trace names the
+  kernels (``block_gather_fwd_kernel`` and ``assemble_kernel`` on the host
+  path, ``assemble_kernel``, ``dropout_block_fwd_kernel`` and
+  ``dropout_block_bwd_kernel`` on the device), and, on the host path, the cache's
   capacity is what ``utils.platform.free_hbm_bytes`` gave it, which equals
   the JAX package's arithmetic on ``device_memory_stats`` and the free bytes
   ``mem_get_info`` reports, less the reserve;
@@ -409,7 +434,7 @@ Phases, each printed as one JSON line:
   ``full`` phase, with the hit-path probe (one group's step graph replayed
   17 times), and its ``device`` phase on the teacher-labelled graph, 2
   epochs each, then ``build_result``: 4 launches a host step (the probe's
-  replays included) and 1 a device step, the line's keys ``bench.py``'s
+  replays included) and 4 a device step, the line's keys ``bench.py``'s
   schema plus the card's name and power limit, finite edges/s.
 
 Any failed check exits non-zero without the final line.  The last line is
@@ -688,6 +713,247 @@ def scatter_branches(torch, gk, dev):
     return out
 
 
+# the fused dropout block at the benchmark cells' blocks: (label, n, fan-out,
+# D, self half, rate): gnnbench's sage-ogbn-products blocks 0, 1 and 2 and
+# gcn-pagraph-reddit's block 0
+DROPOUT_BLOCK_SHAPES = (("sage block0", 180_224, 5, 100, True, 0.5),
+                        ("sage block1", 16_384, 10, 256, True, 0.5),
+                        ("sage block2", 1_024, 15, 256, True, 0.5),
+                        ("gcn block0", 18_000, 2, 602, False, 0.2))
+# (D, fan-out, element offset of the tables, source rows past the block's):
+# scalar units, 2-element units, an offset table, a fan-out past the mask
+# word, no slot at all
+DROPOUT_BLOCK_BRANCHES = ((31, 3, 0, 7), (30, 2, 1, 0), (32, 70, 0, 5), (100, 5, 0, 0),
+                          (16, 0, 0, 3))
+
+
+def dropout_draws_agree(torch, dev, rows: int, d: int) -> dict:
+    """The int16 draw in [-32768, 32768) against the int32 draw in [0,
+    65536) from equal generator states: eagerly, and each captured in a CUDA
+    graph with its generator registered and replayed twice.  Equal values
+    less 32768 and equal generator states after each."""
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(7) for _ in range(2)]
+
+    def draw(g, wide):
+        return (torch.randint(0, 1 << 16, (rows, d), generator=g, device=dev,
+                              dtype=torch.int32) if wide else
+                torch.randint(-(1 << 15), 1 << 15, (rows, d), generator=g, device=dev,
+                              dtype=torch.int16))
+
+    g32, g16 = gens()
+    eager = bool(torch.equal(draw(g32, True) - (1 << 15), draw(g16, False).int()))
+    eager_state = bool(torch.equal(g32.get_state(), g16.get_state()))
+    g32, g16 = gens()
+    replays = {}
+    for g, wide in ((g32, True), (g16, False)):
+        graph, buf = torch.cuda.CUDAGraph(), {}
+        graph.register_generator_state(g)
+        with torch.cuda.graph(graph):
+            buf["b"] = draw(g, wide)
+        reps = []
+        for _ in range(2):
+            graph.replay()
+            reps.append(buf["b"].clone())
+        replays[wide] = reps
+        del graph, buf
+    torch.cuda.synchronize()
+    captured = all(torch.equal(a - (1 << 15), b.int())
+                   for a, b in zip(replays[True], replays[False]))
+    advanced = not torch.equal(replays[False][0], replays[False][1])
+    out = {"eager_equal": eager, "eager_generator_states_equal": eager_state,
+           "captured_replays_equal": bool(captured), "replays_differ": bool(advanced),
+           "captured_generator_states_equal": bool(torch.equal(g32.get_state(),
+                                                               g16.get_state()))}
+    out["ok"] = all(out.values())
+    return out
+
+
+def dropout_block_cases(torch, gk, agg, dev, bw, flush) -> list:
+    """``dropout_block_fwd`` and ``dropout_block_bwd`` at
+    :data:`DROPOUT_BLOCK_SHAPES`, f32 and bf16, kind mean, against their
+    plain versions from the same bits (the self half and the zeros exact,
+    the neighbor mean within the sum order's tolerance, the backward within
+    the reduce tolerance and reported bit-equal or not), timed beside the
+    plain versions and the two draws, with each launch's bound: the least
+    bytes (the rows a valid slot or a self row reads, their int16 bits, the
+    mask, the outputs; backward: the incoming gradients, the bits of the
+    rows that get a nonzero gradient's chance, the mask, the gradient
+    table) at the card's bandwidth."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows_out = []
+    for label, n, f, d, with_self, rate in DROPOUT_BLOCK_SHAPES:
+        rows = n * (1 + f)
+        thresh, inv_keep = agg.dropout_threshold(rate)
+        thresh -= 1 << 15
+        mask = torch.rand(n, f, generator=gen, device=dev) > 0.1
+        mask[:64] = False
+        valid = int(mask.sum())
+        bits = torch.randint(-(1 << 15), 1 << 15, (rows, d), generator=gen, device=dev,
+                             dtype=torch.int16)
+        x32 = torch.randn(rows, d, generator=gen, device=dev)
+        g32 = [torch.randn(n, d, generator=gen, device=dev) for _ in range(2)]
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "" if dtype == torch.float32 else " bf16"
+            es = torch.tensor([], dtype=dtype).element_size()
+            x = x32.to(dtype)
+            g_self = g32[0].to(dtype) if with_self else None
+            g_neigh = g32[1].to(dtype)
+
+            def fwd():
+                return gk.dropout_block_fwd(x, bits, thresh, inv_keep, mask, with_self, "mean")
+
+            def bwd():
+                return gk.dropout_block_bwd(g_self, g_neigh, bits, thresh, inv_keep, mask,
+                                            rows, "mean")
+
+            def plain(fn):
+                def run():
+                    with gk.plain_versions():
+                        return fn()
+                return run
+
+            fk, fp = fwd(), plain(fwd)()
+            bk, bp = bwd(), plain(bwd)()
+            outs_k = tuple(t for t in fk if t is not None)
+            outs_p = tuple(t for t in fp if t is not None)
+            red = "reduce" if dtype == torch.float32 else "bf16"
+            tols = (("exact", red) if with_self else (red,))
+            f_err, f_ok, f_text = compare(torch, outs_k, outs_p, tols)
+            zeros = all(torch.equal(a == 0, b == 0) for a, b in zip(outs_k, outs_p))
+            b_err, b_ok, b_text = compare(torch, bk, bp, red)
+            fwd_bytes = ((n if with_self else 0) + valid) * d * (es + 2) + n * f \
+                + n * d * es * (2 if with_self else 1)
+            bwd_bytes = (2 if with_self else 1) * n * d * es \
+                + ((n if with_self else 0) + valid) * d * 2 + n * f + rows * d * es
+            ms = {"fwd": time_ms(torch, fwd, flush, iters=20),
+                  "fwd_plain": time_ms(torch, plain(fwd), flush, iters=10),
+                  "bwd": time_ms(torch, bwd, flush, iters=20),
+                  "bwd_plain": time_ms(torch, plain(bwd), flush, iters=10)}
+            row = {"case": f"{label}{tag}", "n": n, "fanout": f, "d": d,
+                   "self_half": with_self, "rate": rate, "valid_slots": valid,
+                   "fwd_max_abs_err": f_err, "fwd_ok": f_ok, "fwd_tolerance": f_text,
+                   "zeros_equal": zeros, "bwd_max_abs_err": b_err, "bwd_ok": b_ok,
+                   "bwd_bit_equal": bool(torch.equal(bk, bp)), "bwd_tolerance": b_text,
+                   "kernel_ms": ms["fwd"], "plain_ms": ms["fwd_plain"],
+                   "bwd_kernel_ms": ms["bwd"], "bwd_plain_ms": ms["bwd_plain"],
+                   "bound_ms": fwd_bytes / bw * 1e3, "bwd_bound_ms": bwd_bytes / bw * 1e3}
+            row["bound_share"] = row["bound_ms"] / ms["fwd"]
+            row["bwd_bound_share"] = row["bwd_bound_ms"] / ms["bwd"]
+            if dtype == torch.float32:
+                row["draw_int16_ms"] = time_ms(torch, lambda: torch.randint(
+                    -(1 << 15), 1 << 15, (rows, d), generator=gen, device=dev,
+                    dtype=torch.int16), flush, iters=10)
+                row["draw_int32_ms"] = time_ms(torch, lambda: torch.randint(
+                    0, 1 << 16, (rows, d), generator=gen, device=dev, dtype=torch.int32),
+                    flush, iters=10)
+            rows_out.append(row)
+            del fk, fp, bk, bp, x, g_self, g_neigh
+        del bits, x32, g32, mask
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def dropout_block_branches(torch, gk, dev) -> list:
+    """The pair against their plain versions where the cells' blocks do not
+    go (:data:`DROPOUT_BLOCK_BRANCHES`), each with and without dropout, both
+    kinds, with and without the self half, f32 and bf16."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = []
+    for (d, f, off, extra), dtype in ((c, t) for t in (torch.float32, torch.bfloat16)
+                                      for c in DROPOUT_BLOCK_BRANCHES):
+        n = 500
+        rows = n * (1 + f) + extra
+        red = "reduce" if dtype == torch.float32 else "bf16"
+
+        def table(r):
+            flat = torch.randn(r * d + off, generator=gen, device=dev).to(dtype)
+            return flat[off:].view(r, d)
+        x, g_self, g_neigh = table(rows), table(n), table(n)
+        mask = torch.rand(n, f, generator=gen, device=dev) > 0.3
+        mask[:10] = False
+        bits = torch.randint(-(1 << 15), 1 << 15, (rows, d), generator=gen, device=dev,
+                             dtype=torch.int16)
+        for kind in ("mean", "sum"):
+            for with_self in (True, False):
+                for b, thresh, inv in ((bits, 0, 2.0), (None, 0, 1.0)):
+                    args = (b, thresh, inv, mask)
+                    fk = gk.dropout_block_fwd(x, *args, with_self, kind)
+                    gs = g_self if with_self else None
+                    bk = gk.dropout_block_bwd(gs, g_neigh, *args, rows, kind)
+                    with gk.plain_versions():
+                        fp = gk.dropout_block_fwd(x, *args, with_self, kind)
+                        bp = gk.dropout_block_bwd(gs, g_neigh, *args, rows, kind)
+                    tols = ("exact", red) if with_self else (red,)
+                    f_err, f_ok, _ = compare(torch, tuple(t for t in fk if t is not None),
+                                             tuple(t for t in fp if t is not None), tols)
+                    b_err, b_ok, _ = compare(torch, bk, bp, red)
+                    out.append({"case": f"D={d} F={f} offset={off} extra={extra} {kind} "
+                                        f"{'self' if with_self else 'no self'} "
+                                        f"{'dropout' if b is not None else 'no dropout'} "
+                                        f"{dtype}".replace("torch.", ""),
+                                "fwd_max_abs_err": f_err, "bwd_max_abs_err": b_err,
+                                "ok": f_ok and b_ok})
+    return out
+
+
+def dropout_block_step_launches(env) -> dict:
+    """One device step's launches of a small on-device Trainer at each
+    benchmark configuration's model (GraphSAGE mean, 3 blocks, fan-outs 5,
+    10, 15; GCN, 2 blocks, fan-out 2), 2 epochs (epoch 1 replayed): the
+    assembly, a fused dropout block forward a block and a backward for
+    every block but the first."""
+    torch, gk, pt = env.torch, env.gk, env.pt
+    ds = env.synthetic.synthetic_dataset(40_000, 400_000, feat_dim=100, num_classes=47,
+                                         seed=3, learnable=True)
+    gcn_ds = env.synthetic.synthetic_dataset(40_000, 400_000, feat_dim=602, num_classes=41,
+                                             seed=3, learnable=True)
+    out = {}
+    for arch, data, model, sampler, per_step in (
+            ("graphsage", ds,
+             dict(n_layers=2, hidden=256, feat_dim=100, n_classes=47, aggregator="mean",
+                  dropout=0.5, skip_connection=False),
+             dict(batch_size=1024, fanouts=(5, 10, 15), num_hops=3),
+             device_step_launches("assemble_f32", "mean", 3)),
+            ("gcn", gcn_ds, dict(n_layers=1, hidden=32, feat_dim=602, n_classes=41,
+                                 dropout=0.2),
+             dict(batch_size=6000, fanout=2, num_hops=2),
+             device_step_launches("assemble_f32", "mean", 2))):
+        cfg = pt.Config(model=pt.ModelConfig(arch=arch, **model),
+                        sampler=pt.SamplerConfig(seed=0, **sampler),
+                        cache=pt.CacheConfig(capacity=None),
+                        train=pt.TrainConfig(lr=3e-3, on_device_sampling=True))
+        _, row = run_trainer(torch, gk, f"{arch} device step",
+                             lambda: env.Trainer.from_dataset(cfg, data, seed=0), 2, per_step,
+                             must_fall=False)
+        out[arch] = {"launches_per_step": {k: v / sum(e["batches"] for e in row["epochs"])
+                                           for k, v in row["launches"].items()},
+                     "epochs": row["epochs"]}
+    return out
+
+
+def dropout_block_phase(env, bw: float) -> None:
+    """The ``dropout_block`` line: the draws, the kernels at the cells'
+    blocks and their branches, and one device step's launches; fails on a
+    draw that disagrees or a case outside its tolerance."""
+    torch, gk, dev = env.torch, env.gk, env.dev
+    from pagraph_tpu_torch.ops import aggregate as agg
+    t0 = time.perf_counter()
+    out = {"draws": {label: dropout_draws_agree(torch, dev, n * (1 + f), d)
+                     for label, n, f, d, _, _ in DROPOUT_BLOCK_SHAPES}}
+    out["kernels"] = dropout_block_cases(torch, gk, agg, dev, bw, env.flush)
+    out["branches"] = dropout_block_branches(torch, gk, dev)
+    out["device_step"] = dropout_block_step_launches(env)
+    out["seconds"] = time.perf_counter() - t0
+    emit("dropout_block", out)
+    bad = [f"draws at {k}: {v}" for k, v in out["draws"].items() if not v["ok"]]
+    bad += [f"{r['case']}: {r}" for r in out["kernels"]
+            if not (r["fwd_ok"] and r["bwd_ok"] and r["zeros_equal"])]
+    bad += [r["case"] for r in out["branches"] if not r["ok"]]
+    if bad:
+        fail("dropout_block: " + "; ".join(bad))
+
+
 def executed_launches(counted, runner):
     """The launches run since the counters' reset: ``counted`` (which counts
     a launch captured into a graph once, at capture) with each of
@@ -793,6 +1059,29 @@ def family_step_launches(arch: str, compute: str) -> dict:
     return out
 
 
+def device_step_launches(assemble_key: str, kind=None, blocks: int = 0,
+                         grads=None, bf16: bool = False) -> dict:
+    """The gather-kernel launches one on-device step makes: the layer-0
+    fetch (``assemble_key``) and, where the blocks reduce with ``kind``
+    (``mean`` or ``sum``: GraphSAGE mean or gcn, GCN, GIN), one fused dropout
+    block forward a block and one backward a block whose source needs a
+    gradient (``grads``, by default every block but the first: the
+    features take none), ``_bf16`` at bf16 compute.  Pool, lstm, GAT and
+    CV-GCN (``kind`` None) run no block kernel on the device."""
+    out = {assemble_key: 1}
+    if kind is not None:
+        sfx = "_bf16" if bf16 else ""
+        grads = blocks - 1 if grads is None else grads
+        out[f"dropout_block_fwd_{kind}{sfx}"] = blocks
+        if grads:
+            out[f"dropout_block_bwd_{kind}{sfx}"] = grads
+    return out
+
+
+# the main path's on-device step (GraphSAGE mean, 2 blocks)
+DEVICE_STEP = device_step_launches("assemble_f32", "mean", 2)
+
+
 def model_families(env):
     """GCN, GIN and GAT through ``Trainer.from_dataset`` at the leaderboard
     width on the RMAT-20 graph with the 2-hop teacher labels, the train set
@@ -837,7 +1126,8 @@ def model_families(env):
         cfg_d = family_config(pt, arch, n, on_device=True, dispatch="steps")
         t_dev, entry["device_steps"] = run_trainer(
             torch, gk, f"{arch} on-device", lambda: env.Trainer.from_dataset(
-                cfg_d, data, seed=0), 2, {"assemble_f32": 1})
+                cfg_d, data, seed=0), 2,
+            device_step_launches("assemble_f32", {"gcn": "mean", "gin": "sum"}.get(arch), 3))
         replayed = [m["mean_loss"] for m in entry["device_steps"]["epochs"]]
         p_r = {k: p.detach().clone() for k, p in t_dev.state.model.named_parameters()}
         del t_dev
@@ -1417,7 +1707,7 @@ def partition_phase(env):
     cfg_d = env.config("mean", on_device=True)
     t_d, out["part0_device"] = run_trainer(
         torch, gk, "partition on-device", lambda: env.Trainer.from_partition(
-            cfg_d, part, store, seed=0), 2, {"assemble_f32": 1})
+            cfg_d, part, store, seed=0), 2, DEVICE_STEP)
     replayed = [m["mean_loss"] for m in out["part0_device"]["epochs"]]
     t_e = env.Trainer.from_partition(cfg_d, part, store, seed=0)
     runner = env.DeviceEpochRunner(cfg_d, t_e.state, t_e.epoch_inputs, t_e.device_data())
@@ -1710,7 +2000,7 @@ def dp_ranks(env, root: str, world: int, backend: str, label: str):
     ``dp_save_dataset`` wrote there; each rank loads its own part), through
     :func:`dp_rank_shared`: the rows and the failed checks (each prefixed
     ``label``): one lockstep step count, the largest of the ranks' own;
-    exactly 4 gather launches a host step and 1 a device step and one
+    exactly 4 gather launches a host step and 4 a device step and one
     all-reduce a step on every rank; CUDA graphs under ``nccl`` and none
     under gloo; the ranks' parameters bit-equal after every epoch; the host
     loss falling."""
@@ -1733,7 +2023,7 @@ def dp_ranks(env, root: str, world: int, backend: str, label: str):
     out["ranks"] = ranks
     for path, per_step in (("host", {"assemble_f32": 1, "block_gather_fwd_mean": 2,
                                      "block_gather_bwd_mean": 1}),
-                           ("device", {"assemble_f32": 1})):
+                           ("device", DEVICE_STEP)):
         rows = [rk[path] for rk in ranks]
         lock = {rk["lockstep_steps"] for rk in rows}
         if lock != {max(rk["own_batches"] for rk in rows)}:
@@ -1814,7 +2104,8 @@ def dp_phase(env, root: str):
                    f"{DP_F32_LOSS_TOL} and {DP_F32_PARAM_TOL}")
     dev = w1["device"]
     steps = sum(e["batches"] for e in dev["epochs"])
-    if dev["launches"] != {"assemble_f32": steps} or dev["all_reduces_per_step"] != 1:
+    if (dev["launches"] != {k: v * steps for k, v in DEVICE_STEP.items()}
+            or dev["all_reduces_per_step"] != 1):
         bad.append(f"(b) launches {dev['launches']} and {dev['all_reduces_per_step']} "
                    f"all-reduces a step over {steps} steps")
     if dev["graph_replays"] != [DP_DEVICE_EPOCHS - 1]:
@@ -2047,8 +2338,8 @@ def halo_ranks(env, root: str, world: int, backend: str, label: str):
             ranks.append(json.load(f))
     out["ranks"] = ranks
     for run, per_step in (("ici_host", HALO_HOST_STEP["float32"]),
-                          ("ici_device", {"assemble_f32": 1}),
-                          ("edge_device", {"assemble_f32": 1})):
+                          ("ici_device", DEVICE_STEP),
+                          ("edge_device", DEVICE_STEP)):
         rows = [rk[run] for rk in ranks]
         want = (-(-rows[0]["train_vertices"] // (world * rows[0]["batch_size"]))
                 if run == "ici_device" else max(rk["own_batches"] for rk in rows))
@@ -2115,7 +2406,7 @@ def halo_phase(env, root: str):
                    f"max|p|) from the cache source's run, over {DP_F32_LOSS_TOL} and "
                    f"{DP_F32_PARAM_TOL}")
     dev = w1["edge_device_bfloat16"]
-    per_step = {"assemble_f32_to_bf16": 1}
+    per_step = device_step_launches("assemble_f32_to_bf16", "mean", 2, bf16=True)
     halo_check_collectives(dev, "(a) edge device", per_step, bad)
     halo_check_collectives(dev["pipelined"], "(a) edge device pipelined", per_step, bad)
     if dev["graph_replays"] != [HALO_DEVICE_EPOCHS - 1]:
@@ -2846,7 +3137,6 @@ BENCH_DETAIL_KEYS = ("workload", "epoch_time_s", "epochs_per_hr", "cache_hit_rat
                      "host_pipeline_edges_per_s", "on_device_edges_per_s", "device",
                      "power_limit_w")
 HOST_STEP = {"assemble_f32": 1, "block_gather_fwd_mean": 2, "block_gather_bwd_mean": 1}
-DEVICE_STEP = {"assemble_f32": 1}
 
 
 @contextlib.contextmanager
@@ -2927,7 +3217,8 @@ def cli_phase(env, root: str):
             ("host", ["--ckpt-dir", os.path.join(root, CLI_CKPT), "--ckpt-every",
                       str(CLI_EPOCHS)],
              HOST_STEP, ("block_gather_fwd_kernel", "assemble_kernel")),
-            ("on_device", ["--on-device"], DEVICE_STEP, ("assemble_kernel",))):
+            ("on_device", ["--on-device"], DEVICE_STEP,
+             ("assemble_kernel", "dropout_block_fwd_kernel", "dropout_block_bwd_kernel"))):
         prof = os.path.join(root, f"profile_{label}")
         gc.collect()
         torch.cuda.empty_cache()
@@ -2951,7 +3242,8 @@ def cli_phase(env, root: str):
             with open(os.path.join(prof, traces[0])) as f:
                 text = f.read()
         named = [k for k in ("block_gather_fwd_kernel", "block_gather_bwd_kernel",
-                             "assemble_kernel") if k in text]
+                             "assemble_kernel", "dropout_block_fwd_kernel",
+                             "dropout_block_bwd_kernel") if k in text]
         row_bytes = tr.cache.total_dim * tr.cache.row_dtype.itemsize
         row = {"seconds": wall, "summary": summary, "line_keys": sorted(line),
                "steps": steps, "launches": counts, "launches_per_step": sum(counts.values())
@@ -3352,6 +3644,16 @@ def main() -> None:
     _build.load("gather_kernels")
     emit("build", {"seconds": time.perf_counter() - t0,
                    "flags": " ".join(_build.NVCC_FLAGS)})
+
+    # -- dropout_block: the fused dropout block's draws, kernels, launches ----
+    dropout_block_phase(types.SimpleNamespace(
+        torch=torch, gk=gk, pt=pt, dev=dev, synthetic=synthetic, Trainer=Trainer,
+        flush=torch.empty(64 << 20, dtype=torch.uint8, device=dev)), bw)
+    if sys.argv[1:2] == ["--dropout-block"]:
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return
 
     # -- train: the main path -----------------------------------------------
     t0 = time.perf_counter()
@@ -3991,9 +4293,10 @@ def main() -> None:
         what = f"device epoch ({dtype}, paired={paired}, {compute}, {dispatch})"
         if not all(math.isfinite(v) for v in losses):
             fail(f"{what}: non-finite loss {losses}")
-        if counts[key] != steps or sum(counts.values()) != steps:
-            fail(f"{what}: launches {out['launches']} over {steps} steps, expected one "
-                 f"{key} a step and no other gather kernel")
+        want = {k: v * steps for k, v in device_step_launches(
+            key, "mean", 2, bf16=compute == "bfloat16").items()}
+        if out["launches"] != want:
+            fail(f"{what}: launches {out['launches']} over {steps} steps, expected {want}")
         if not (d_tr.epoch_runner.graph and d_tr.epoch_runner.graphs):
             fail(f"{what}: epoch 1 did not replay CUDA graphs")
         return d_tr, out
@@ -4174,9 +4477,11 @@ def main() -> None:
             worst = entry["param_rel_diff"]["replay_vs_eager"]
             if not worst <= 1e-3:
                 bad.append(f"{what}: parameters {worst} of their norm from the eager form's")
-            if entry["replayed_gather_launches_per_step"] != {key: 1.0}:
+            want = {k: float(v) for k, v in device_step_launches(
+                key, "mean", 2, bf16=compute == "bfloat16").items()}
+            if entry["replayed_gather_launches_per_step"] != want:
                 bad.append(f"{what}: replayed gather launches a step "
-                           f"{entry['replayed_gather_launches_per_step']}, expected one {key}")
+                           f"{entry['replayed_gather_launches_per_step']}, expected {want}")
             if not ms[1].mean_loss < ms[0].mean_loss:
                 bad.append(f"{what}: loss did not fall: {ms[0].mean_loss} -> {ms[1].mean_loss}")
             if not all(math.isfinite(m.mean_loss) for m in ms):
@@ -4265,8 +4570,10 @@ def main() -> None:
              {"assemble_f32": 1, "block_gather_fwd_mean": 1, "block_gather_bwd_mean": 1}),
             ("int8_host", store_pre_i8, "int8", False, 1,
              {"assemble_int8": 1, "block_gather_fwd_mean": 1, "block_gather_bwd_mean": 1}),
-            ("f32_device", store_pre, "float32", True, 1, {"assemble_f32": 1}),
-            ("int8_device", store_pre_i8, "int8", True, 1, {"assemble_int8": 1})):
+            ("f32_device", store_pre, "float32", True, 1,
+             device_step_launches("assemble_f32", "mean", 1, grads=1)),
+            ("int8_device", store_pre_i8, "int8", True, 1,
+             device_step_launches("assemble_int8", "mean", 1, grads=1))):
         t_, pre_out[label] = run_trainer(
             torch, gk, f"preprocess {label}", lambda s_=store_, d_=dtype, o_=on_device: Trainer(
                 pre_config(d_, o_), s_, ds.graph, ds.train_nids, ds.labels, seed=0),
@@ -5260,9 +5567,9 @@ def main() -> None:
         if parity["edges"][0] != parity["edges"][1]:
             fail(f"device step parity ({label}): edges {parity['edges']} differ")
         if (parity["kernel_launches"], parity["assemble_launches"],
-                parity["plain_launches"]) != (1, 1, 0):
-            fail(f"device step parity ({label}): launches {parity}, expected one assembly "
-                 "through the kernel and none under the plain versions")
+                parity["plain_launches"]) != (sum(DEVICE_STEP.values()), 1, 0):
+            fail(f"device step parity ({label}): launches {parity}, expected {DEVICE_STEP} "
+                 "through the kernels and none under the plain versions")
 
     # -- device_breakdown: one on-device step alone (f32, generic draws) ------
     s_b, acc_b = clone_state(dtr.state, dcfg), EpochAccumulator.zeros(dev)

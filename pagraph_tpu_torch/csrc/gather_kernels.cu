@@ -38,6 +38,14 @@
 //   * pg_scatter_add_rows: the backward of the self half alone (the lstm
 //     aggregator's row gather), one cooperative launch that zeroes its own
 //     table: no memset, and at bf16 no second launch.
+//   * pg_dropout_block_fwd / pg_dropout_block_bwd replace no Pallas kernel:
+//     on the on-device sampler's prefix-layout blocks (no gather) the JAX
+//     package leaves the model's dropout, the self slice and the masked
+//     mean to XLA, whose fusions the port's eager PyTorch does not make (an
+//     int32 tensor of bits, four full passes, a broadcast mask, padded
+//     slices in the backward).  One forward reads a block's source and its
+//     int16 dropout bits once and writes its two [n, D] outputs; the
+//     backward writes each source row's gradient once.
 //
 // What bounds them: device-memory bytes and latency, not FLOPs.  A row gather
 // does no arithmetic; the reduction does fanout adds per output element.  The
@@ -1140,6 +1148,316 @@ int block_gather_bwd(const void* src, const void* g_self, const void* self_pos,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// dropout and a prefix-layout block's two halves, forward and backward
+// ---------------------------------------------------------------------------
+// A prefix-layout block (the on-device sampler's) holds its n destinations'
+// self rows as source rows [0, n) and destination r's fan-out messages as
+// rows n + r * fanout + k: no gather, each source row feeds one output.  The
+// pair below fuses inverted dropout (keep an element iff its int16 bit is
+// below thresh, then times inv_keep) into the block's self half and masked
+// sum / mean, reading the source and its bits once; the backward is a pure
+// map, each source row's gradient written once (no memset, no atomics).
+//
+// A W-element unit of a row (W = 4, 2 or 1: D % W == 0 and every table
+// aligned to it) in memory, for the rows (float, uint16_t bf16) and the
+// dropout bits (int16_t).
+template <typename T, int W> struct PackOf;
+template <> struct PackOf<float, 4> { using type = float4; };
+template <> struct PackOf<float, 2> { using type = float2; };
+template <> struct PackOf<float, 1> { using type = float; };
+template <> struct PackOf<uint16_t, 4> { using type = uint2; };
+template <> struct PackOf<uint16_t, 2> { using type = unsigned int; };
+template <> struct PackOf<uint16_t, 1> { using type = unsigned short; };
+template <> struct PackOf<int16_t, 4> { using type = uint2; };
+template <> struct PackOf<int16_t, 2> { using type = unsigned int; };
+template <> struct PackOf<int16_t, 1> { using type = short; };
+
+template <typename T, int W>
+union Pack {
+  typename PackOf<T, W>::type u;
+  T e[W];
+};
+
+// unit i of a row, packed as it lies in memory: kept packed in registers
+// until it is used (a bf16 unit of 4 takes 2 registers, not 4)
+template <typename T, int W>
+__device__ __forceinline__ Pack<T, W> load_pack(const T* __restrict__ row, int i) {
+  Pack<T, W> p;
+  p.u = __ldg(reinterpret_cast<const typename PackOf<T, W>::type*>(row) + i);
+  return p;
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void unpack(const Pack<T, W>& p, float (&v)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = widen(p.e[j]);
+}
+
+// values already representable in T (rounded by round_to)
+template <typename T, int W>
+__device__ __forceinline__ void store_unit(T* __restrict__ row, int i, const float (&v)[W]) {
+  Pack<T, W> p;
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if constexpr (std::is_same<T, float>::value) {
+      p.e[j] = v[j];
+    } else {
+      p.e[j] = static_cast<uint16_t>(bf16_bits(v[j]));
+    }
+  }
+  reinterpret_cast<typename PackOf<T, W>::type*>(row)[i] = p.u;
+}
+
+// v rounded to T (bf16: nearest even), as f32: where torch rounds one op's
+// result at bf16, the kernels round the same value
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __uint_as_float(bf16_bits(v) << 16);
+  }
+}
+
+// slots a row's mask word holds; slot k >= kMaskWord is read from memory
+constexpr int kMaskWord = 64;
+// message rows whose loads a lane issues before it adds them
+constexpr int kDropChunk = 8;
+
+__device__ __forceinline__ uint64_t mask_word(const uint8_t* __restrict__ m, int fanout,
+                                              int* count) {
+  uint64_t w = 0;
+  int c = 0;
+  for (int k = 0; k < fanout; ++k) {
+    const bool on = __ldg(m + k) != 0;
+    c += on ? 1 : 0;
+    if (on && k < kMaskWord) w |= uint64_t{1} << k;
+  }
+  *count = c;
+  return w;
+}
+
+__device__ __forceinline__ bool slot_on(uint64_t w, const uint8_t* __restrict__ m, int k) {
+  return k < kMaskWord ? ((w >> k) & 1) != 0 : __ldg(m + k) != 0;
+}
+
+// Forward, one destination row r < n to a group of 1 << lg lanes (at most
+// a warp), each lane its units i = sub, sub + G, ...:
+//   drop(v) = bits < thresh ? round_T(v * inv_keep) : 0    (bits null: v)
+//   out_self[r]  = drop(x[r])                        (out_self null: not written)
+//   out_neigh[r] = sum_k mask[r,k] * drop(x[n + r * fanout + k]), k in order,
+//                  in f32; for mean rounded to T, then divided by the count of
+//                  valid slots and rounded again (a row with none: 0)
+// which is the plain version's arithmetic up to the order of the sum (torch
+// rounds the sum and the quotient at bf16 too).  The row's mask word comes
+// first (one round trip); then a lane issues the self unit's loads and
+// those of kDropChunk valid message rows (values and bits) before its first
+// store or add, and keeps them packed.  Masked slots load nothing.  Loading
+// every slot regardless of the mask (no wait for it), and 64-256 lanes a
+// row at D = 256 and 602, measured no faster (PERF.md).
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+dropout_block_fwd_kernel(const T* __restrict__ x, const int16_t* __restrict__ bits,
+                         int thresh, float inv_keep, const uint8_t* __restrict__ mask,
+                         int64_t n, int fanout, int d, T* __restrict__ out_self,
+                         T* __restrict__ out_neigh, int mean, int lg) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
+  if (r >= n) return;
+  const int group = 1 << lg, sub = threadIdx.x & (group - 1);
+  const uint8_t* m = mask + r * fanout;
+  int count = 0;
+  const uint64_t mw = mask_word(m, fanout, &count);
+  const int64_t msg0 = n + r * fanout;
+  const int units = d / W;
+  const bool drop = bits != nullptr;
+  for (int i = sub; i < units; i += group) {
+    Pack<T, W> sx;
+    Pack<int16_t, W> sb;
+    if (out_self != nullptr) {
+      sx = load_pack<T, W>(x + r * d, i);
+      if (drop) sb = load_pack<int16_t, W>(bits + r * d, i);
+    }
+    float acc[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[j] = 0.f;
+    for (int k0 = 0; k0 == 0 || k0 < fanout; k0 += kDropChunk) {    // once at fanout 0
+      Pack<T, W> vx[kDropChunk];
+      Pack<int16_t, W> vb[kDropChunk];
+      bool on[kDropChunk];
+#pragma unroll
+      for (int c = 0; c < kDropChunk; ++c) {
+        const int k = k0 + c;
+        on[c] = k < fanout && slot_on(mw, m, k);
+        if (on[c]) {
+          vx[c] = load_pack<T, W>(x + (msg0 + k) * d, i);
+          if (drop) vb[c] = load_pack<int16_t, W>(bits + (msg0 + k) * d, i);
+        }
+      }
+      if (k0 == 0 && out_self != nullptr) {
+        float v[W];
+        unpack<T, W>(sx, v);
+        if (drop) {
+#pragma unroll
+          for (int j = 0; j < W; ++j) v[j] = sb.e[j] < thresh ? round_to<T>(v[j] * inv_keep) : 0.f;
+        }
+        store_unit<T, W>(out_self + r * d, i, v);
+      }
+#pragma unroll
+      for (int c = 0; c < kDropChunk; ++c) {
+        if (!on[c]) continue;
+        float v[W];
+        unpack<T, W>(vx[c], v);
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          acc[j] += !drop ? v[j] : vb[c].e[j] < thresh ? round_to<T>(v[j] * inv_keep) : 0.f;
+      }
+    }
+    if (mean && count > 0) {
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        acc[j] = round_to<T>(round_to<T>(acc[j]) / static_cast<float>(count));
+    }
+    store_unit<T, W>(out_neigh + r * d, i, acc);
+  }
+}
+
+// Backward w.r.t. x [num_src, d], one destination row r < n to a group of
+// lanes, writing its self row and its fan-out message rows; groups r >= n
+// zero the rows past the block's n * (1 + fanout), 1 + fanout each:
+//   grad[r]                 = keep ? round_T(g_self[r] * inv_keep) : 0
+//   grad[n + r * fanout + k] = mask[r,k] && keep ? round_T(q * inv_keep) : 0,
+//     q = g_neigh[r], for mean round_T(g_neigh[r] / count)
+// (bits null: keep is true and nothing is multiplied; a null gradient is
+// zero), which is autograd's arithmetic over the plain version exactly.  A
+// lane issues its gradients' and kDropChunk rows' bits loads, packed, before
+// its first store; masked slots and a null g_self load no bits.
+template <typename T, int W>
+__global__ void __launch_bounds__(kThreads)
+dropout_block_bwd_kernel(const T* __restrict__ g_self, const T* __restrict__ g_neigh,
+                         const int16_t* __restrict__ bits, int thresh, float inv_keep,
+                         const uint8_t* __restrict__ mask, int64_t n, int fanout,
+                         int64_t num_src, int d, T* __restrict__ grad, int mean, int lg) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
+  const int64_t span = 1 + fanout, body = n * span;
+  const int64_t groups = n + (num_src > body ? (num_src - body + span - 1) / span : 0);
+  if (r >= groups) return;
+  const int group = 1 << lg, sub = threadIdx.x & (group - 1);
+  const int units = d / W;
+  float zero[W];
+#pragma unroll
+  for (int j = 0; j < W; ++j) zero[j] = 0.f;
+  if (r >= n) {    // rows no destination reads
+    const int64_t first = body + (r - n) * span;
+    const int64_t last = first + span < num_src ? first + span : num_src;
+    for (int64_t row = first; row < last; ++row)
+      for (int i = sub; i < units; i += group) store_unit<T, W>(grad + row * d, i, zero);
+    return;
+  }
+  const uint8_t* m = mask + r * fanout;
+  int count = 0;
+  const uint64_t mw = mask_word(m, fanout, &count);
+  const int64_t msg0 = n + r * fanout;
+  const bool drop = bits != nullptr;
+  for (int i = sub; i < units; i += group) {
+    Pack<T, W> gs, gn;
+    Pack<int16_t, W> sb;
+    if (g_self != nullptr) {
+      gs = load_pack<T, W>(g_self + r * d, i);
+      if (drop) sb = load_pack<int16_t, W>(bits + r * d, i);
+    }
+    if (g_neigh != nullptr) gn = load_pack<T, W>(g_neigh + r * d, i);
+    for (int k0 = 0; k0 == 0 || k0 < fanout; k0 += kDropChunk) {    // once at fanout 0
+      Pack<int16_t, W> vb[kDropChunk];
+      bool on[kDropChunk];
+#pragma unroll
+      for (int c = 0; c < kDropChunk; ++c) {
+        const int k = k0 + c;
+        on[c] = k < fanout && slot_on(mw, m, k);
+        if (on[c] && drop) vb[c] = load_pack<int16_t, W>(bits + (msg0 + k) * d, i);
+      }
+      if (k0 == 0) {
+        float v[W];
+        if (g_self != nullptr) {
+          unpack<T, W>(gs, v);
+          if (drop) {
+#pragma unroll
+            for (int j = 0; j < W; ++j)
+              v[j] = sb.e[j] < thresh ? round_to<T>(v[j] * inv_keep) : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < W; ++j) v[j] = 0.f;
+        }
+        store_unit<T, W>(grad + r * d, i, v);
+      }
+      float q[W];
+      if (g_neigh != nullptr) {
+        unpack<T, W>(gn, q);
+        if (mean && count > 0) {
+#pragma unroll
+          for (int j = 0; j < W; ++j) q[j] = round_to<T>(q[j] / static_cast<float>(count));
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < W; ++j) q[j] = 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < kDropChunk; ++c) {
+        if (k0 + c >= fanout) break;
+        float o[W];
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          o[j] = !on[c] ? 0.f
+                 : !drop ? q[j]
+                 : vb[c].e[j] < thresh ? round_to<T>(q[j] * inv_keep) : 0.f;
+        store_unit<T, W>(grad + (msg0 + k0 + c) * d, i, o);
+      }
+    }
+  }
+}
+
+template <typename T, int W>
+int launch_dropout_block(bool backward, const void* x_or_gself, const void* g_neigh,
+                         const int16_t* bits, int thresh, float inv_keep, const uint8_t* mask,
+                         int64_t n, int fanout, int64_t num_src, int d, void* out_self,
+                         void* out, int mean, cudaStream_t st) {
+  const int lg = lanes_lg(d / W);
+  const int64_t span = 1 + fanout, body = n * span;
+  const int64_t groups =
+      backward ? n + (num_src > body ? ceil_div(num_src - body, span) : 0) : n;
+  if (groups == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned>(ceil_div(groups, kThreads >> lg)));
+  if (backward) {
+    dropout_block_bwd_kernel<T, W><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(x_or_gself), static_cast<const T*>(g_neigh), bits, thresh,
+        inv_keep, mask, n, fanout, num_src, d, static_cast<T*>(out), mean, lg);
+  } else {
+    dropout_block_fwd_kernel<T, W><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(x_or_gself), bits, thresh, inv_keep, mask, n, fanout, d,
+        static_cast<T*>(out_self), static_cast<T*>(out), mean, lg);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dropout_block(bool backward, const void* a, const void* g_neigh, const void* bits,
+                  int thresh, float inv_keep, const void* mask, int64_t n, int fanout,
+                  int64_t num_src, int d, void* out_self, void* out, int mean, int unit,
+                  cudaStream_t st) {
+  const int16_t* b = static_cast<const int16_t*>(bits);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  switch (unit) {
+    case 4: return launch_dropout_block<T, 4>(backward, a, g_neigh, b, thresh, inv_keep, m, n,
+                                              fanout, num_src, d, out_self, out, mean, st);
+    case 2: return launch_dropout_block<T, 2>(backward, a, g_neigh, b, thresh, inv_keep, m, n,
+                                              fanout, num_src, d, out_self, out, mean, st);
+    default: return launch_dropout_block<T, 1>(backward, a, g_neigh, b, thresh, inv_keep, m, n,
+                                               fanout, num_src, d, out_self, out, mean, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1281,6 +1599,55 @@ int pg_scatter_add_rows(const void* g, const void* ids, int64_t n, void* out, vo
       return vec ? launch_scatter<uint16_t, true>(gt, it, n, o, a, num_src, d, grid, st)
                  : launch_scatter<uint16_t, false>(gt, it, n, o, a, num_src, d, grid, st);
     }
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// The fused dropout and prefix-layout block forward in one launch on the
+// caller's stream: x [n * (1 + fanout) or more, d] (its first n rows the
+// destinations' self rows, then fanout message rows each), bits int16 of
+// x's shape (null: no dropout; thresh and inv_keep ignored), mask bool [n,
+// fanout]; out_neigh [n, d] the masked sum (kind 0) or mean (kind 1) of the
+// dropped-out messages, out_self [n, d] the dropped-out self rows (null: not
+// written); rows and outputs at the element type dtype (0 f32, 1 bf16), in
+// units of `unit` elements (4, 2 or 1: d a multiple, every table aligned).
+int pg_dropout_block_fwd(const void* x, const void* bits, int thresh, float inv_keep,
+                         const void* mask, int64_t n, int fanout, int d, void* out_self,
+                         void* out_neigh, int kind, int unit, int dtype, void* stream) {
+  if (kind != kSum && kind != kMean) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
+  if (d % unit != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mean = kind == kMean;
+  switch (dtype) {
+    case 0: return dropout_block<float>(false, x, nullptr, bits, thresh, inv_keep, mask, n,
+                                        fanout, 0, d, out_self, out_neigh, mean, unit, st);
+    case 1: return dropout_block<uint16_t>(false, x, nullptr, bits, thresh, inv_keep, mask, n,
+                                           fanout, 0, d, out_self, out_neigh, mean, unit, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Its backward: grad [num_src, d] (num_src >= n * (1 + fanout)), every row
+// written once, from g_self and g_neigh [n, d] (either null: zero), the
+// forward's bits, mask, thresh, inv_keep, kind, unit and dtype, in one
+// launch on the caller's stream.
+int pg_dropout_block_bwd(const void* g_self, const void* g_neigh, const void* bits, int thresh,
+                         float inv_keep, const void* mask, int64_t n, int fanout,
+                         int64_t num_src, int d, void* grad, int kind, int unit, int dtype,
+                         void* stream) {
+  if (kind != kSum && kind != kMean) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_src < n * (1 + static_cast<int64_t>(fanout))) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_src == 0 || d == 0) return static_cast<int>(cudaGetLastError());
+  if (d % unit != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mean = kind == kMean;
+  switch (dtype) {
+    case 0: return dropout_block<float>(true, g_self, g_neigh, bits, thresh, inv_keep, mask, n,
+                                        fanout, num_src, d, nullptr, grad, mean, unit, st);
+    case 1: return dropout_block<uint16_t>(true, g_self, g_neigh, bits, thresh, inv_keep, mask,
+                                           n, fanout, num_src, d, nullptr, grad, mean, unit, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,10 +7,14 @@ transpose (``convert.py``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+
+from ..ops.aggregate import (DROPOUT_BLOCK_KINDS, block_aggregate, block_gather,
+                             dropout_block_gather, dropout_threshold)
+from ..sampling.block import Block
 
 
 def _uniform(shape, bound: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -62,11 +66,29 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = 1.0 - rate
-    thresh = min(int(round(keep * 65536.0)), 65535)
+    thresh, inv_keep = dropout_threshold(rate)
     bits = torch.randint(0, 1 << 16, x.shape, generator=generator,
                          device=x.device, dtype=torch.int32)
-    return torch.where(bits < thresh, x * (1.0 / keep), 0.0)
+    return torch.where(bits < thresh, x * inv_keep, 0.0)
+
+
+def dropout_gather(h: torch.Tensor, block: Block, kind: str, rate: float,
+                   generator: Optional[torch.Generator], train: bool, *,
+                   with_self: bool = True) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """``(block_self(d), block_aggregate(d, kind))`` of ``d = dropout(h, rate,
+    generator, train)`` (the first ``None`` unless ``with_self``).  A
+    prefix-layout block of kind ``mean`` or ``sum`` takes the fused op
+    (``ops.aggregate.dropout_block_gather``: the same units dropped, the
+    generator advanced as far); any other block, kind or a rate of 1
+    :func:`dropout` and then the block's gathers."""
+    if block.prefix_layout and kind in DROPOUT_BLOCK_KINDS and rate < 1.0:
+        on = train and rate > 0.0 and generator is not None
+        return dropout_block_gather(h, block, kind, rate if on else 0.0,
+                                    generator if on else None, with_self=with_self)
+    h = dropout(h, rate, generator, train)
+    if with_self:
+        return block_gather(h, block, kind)
+    return None, block_aggregate(h, block, kind)
 
 
 def concat_skip(h: torch.Tensor, activation: Callable) -> torch.Tensor:

@@ -4,7 +4,9 @@
 Training aggregates the sampled in-neighbors with ``mean``: the neighbor
 half of the block kernels alone (``ops.aggregate.block_aggregate``, one
 ``gather_reduce`` launch a block forward and one ``gather_reduce_bwd``
-backward where the block's source needs a gradient).  Inference
+backward where the block's source needs a gradient; on the on-device
+sampler's prefix-layout blocks one fused launch of the block's dropout and
+mean each way, ``models.common.dropout_gather``).  Inference
 (``norm_layers`` given) aggregates with ``sum`` and scales by the
 destination's ``norm`` (1/in-degree), the reference's ``GCNInfer`` split.
 The last hidden update applies the width-doubling ``cat((h, relu(h)))``
@@ -21,9 +23,8 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.aggregate import block_aggregate
 from ..sampling.block import MiniBatch
-from .common import Linear, concat_skip, dropout
+from .common import Linear, concat_skip, dropout, dropout_gather
 
 
 class GCN(nn.Module):
@@ -67,9 +68,9 @@ class GCN(nn.Module):
             h = concat_skip(h, torch.relu) if nl == 1 and cfg.skip_connection else torch.relu(h)
         off = 1 if cfg.preprocess else 0
         for bi, (block, upd) in enumerate(zip(mb.blocks, self.updates)):
-            if not infer:
-                h = dropout(h, cfg.dropout, generator, self.training)
-            h_agg = block_aggregate(h, block, "sum" if infer else "mean")
+            _, h_agg = dropout_gather(h, block, "sum" if infer else "mean",
+                                      0.0 if infer else cfg.dropout, generator,
+                                      self.training, with_self=False)
             if infer:
                 h_agg = h_agg * norm_layers[bi + 1][:, None]
             out = upd(h_agg)

@@ -11,8 +11,10 @@ sums over the sampled fan-out, full-graph inference over every in-neighbor
 one ``ops.aggregate.block_gather(h, block, "sum")``: one forward launch a
 block and one backward launch where the block's source needs a gradient
 (the JAX package calls ``block_aggregate`` and ``block_self`` apart; the
-arithmetic is the same).  ``preprocess`` is refused by the config: the
-store's mean pre-aggregation has no ``(1 + eps)`` self term.
+arithmetic is the same); on the on-device sampler's prefix-layout blocks
+the block's dropout joins both launches (``models.common.dropout_gather``).
+``preprocess`` is refused by the config: the store's mean pre-aggregation
+has no ``(1 + eps)`` self term.
 """
 from __future__ import annotations
 
@@ -22,9 +24,8 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.aggregate import block_gather
 from ..sampling.block import MiniBatch
-from .common import Linear, concat_skip, dropout
+from .common import Linear, concat_skip, dropout_gather
 
 
 class GINUpdate(nn.Module):
@@ -66,8 +67,8 @@ class GIN(nn.Module):
                              f"model expects {len(self.updates)}")
         h = feats
         for bi, (block, upd) in enumerate(zip(mb.blocks, self.updates)):
-            h = dropout(h, self.cfg.dropout, generator, self.training)
-            out = upd(*block_gather(h, block, "sum"))
+            out = upd(*dropout_gather(h, block, "sum", self.cfg.dropout, generator,
+                                      self.training))
             if bi == nl - 1 and self.cfg.skip_connection:
                 h = concat_skip(out, torch.relu)
             elif bi == nl:

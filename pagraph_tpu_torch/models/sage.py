@@ -7,7 +7,9 @@ width-doubling ``cat((h, relu(h)))`` skip.  Layer i+1 of a minibatch is
 reachable from layer i through ``self_pos``, so each model layer costs one
 block: one fused forward launch for its self rows and its aggregation, and
 (where the block's source needs a gradient) one fused backward launch for
-both (``ops.aggregate.block_gather``).
+both (``ops.aggregate.block_gather``); on the on-device sampler's
+prefix-layout blocks the layer's dropout joins both launches
+(``models.common.dropout_gather``).
 
 Aggregators: ``mean``, ``gcn`` (sum), ``pool`` (max, the same fused
 launches) and ``lstm`` (one LSTM a block, ``ops.aggregate.lstm_reduce``,
@@ -23,9 +25,9 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.aggregate import block_gather, block_gather_msgs, init_lstm_params, lstm_reduce
+from ..ops.aggregate import block_gather_msgs, init_lstm_params, lstm_reduce
 from ..sampling.block import MiniBatch
-from .common import Linear, concat_skip, dropout
+from .common import Linear, concat_skip, dropout, dropout_gather
 
 _RELU_GAIN = 1.4142135623730951  # sqrt(2), torch's calculate_gain('relu')
 
@@ -102,12 +104,13 @@ class GraphSAGE(nn.Module):
             h = concat_skip(h, torch.relu) if nl == 1 and cfg.skip_connection else torch.relu(h)
         off = 1 if cfg.preprocess else 0
         for bi, (block, upd) in enumerate(zip(mb.blocks, self.updates)):
-            h = dropout(h, cfg.dropout, generator, self.training)
             if cfg.aggregator == "lstm":
+                h = dropout(h, cfg.dropout, generator, self.training)
                 h_self, msgs = block_gather_msgs(h, block)
                 h_neigh = lstm_reduce(msgs, block.neigh_mask, self.lstm[bi].params())
             else:
-                h_self, h_neigh = block_gather(h, block, AGG_KIND[cfg.aggregator])
+                h_self, h_neigh = dropout_gather(h, block, AGG_KIND[cfg.aggregator],
+                                                 cfg.dropout, generator, self.training)
             out = upd["self"](h_self) + upd["neigh"](h_neigh)
             gi = bi + off
             if gi == nl - 1 and cfg.skip_connection:

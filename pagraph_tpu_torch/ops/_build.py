@@ -41,7 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HOST_SRC = os.path.join(CSRC, "host_native.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-fopenmp", "-std=c++17")
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 # C signature of every entry point, by library.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -53,6 +53,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                 _I64, _I, _I, _I, _I, _P),
         "pg_window_reduce": (_P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "pg_scatter_add_rows": (_P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I, _P),
+        "pg_dropout_block_fwd": (_P, _P, _I, _F, _P, _I64, _I, _I, _P, _P, _I, _I, _I, _P),
+        "pg_dropout_block_bwd": (_P, _P, _P, _I, _F, _P, _I64, _I, _I64, _I, _P, _I, _I, _I,
+                                 _P),
         "pg_mark": (_I, _P),
         "pg_graph_num_nodes": (_P, _P),
         "pg_graph_find_marks": (_P, _P, _I64, _P),

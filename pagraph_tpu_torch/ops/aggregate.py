@@ -12,8 +12,12 @@ each (the same forward kernel with the other half absent).  The kinds are
 each gradient equally among tied maxima, as ``jnp.max``'s does).
 Prefix-layout blocks, which the on-device sampler
 (``sampling/device_sampler.py``) produces, need no gather: a block's self
-rows and its neighbor messages are contiguous slices, reduced in plain torch
-(the JAX package reduces them with XLA, not Pallas).  Every function here
+rows and its neighbor messages are contiguous slices (the JAX package
+reduces them with XLA, not Pallas).  There :func:`dropout_block_gather`
+takes the model's dropout and both halves of a ``mean`` or ``sum`` block in
+one CUDA launch, and their gradient in one more
+(``gather_kernels.DropoutBlock``); the other functions reduce the slices in
+plain torch.  Every function here
 computes at its input's dtype: f32, or bf16 under ``train.dtype="bfloat16"``
 (the kernels take both).
 
@@ -31,8 +35,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..sampling.block import Block
-from .gather_kernels import (KINDS, BlockGather, GatherReduce, GatherRows,
-                             reduce_msgs_plain)
+from .gather_kernels import (DROPOUT_BLOCK_KINDS, KINDS, BlockGather, DropoutBlock,
+                             GatherReduce, GatherRows, reduce_msgs_plain)
 
 
 def _check_kind(kind: str) -> None:
@@ -81,6 +85,43 @@ def block_gather(h_src: torch.Tensor, block: Block,
         return block_self(h_src, block), block_aggregate(h_src, block, kind)
     return BlockGather.apply(h_src.contiguous(), block.self_pos, block.neigh_pos,
                              block.neigh_mask, kind)
+
+
+def dropout_threshold(rate: float) -> Tuple[int, float]:
+    """``(thresh, 1 / keep)`` of inverted dropout at ``rate`` < 1: a unit is
+    kept iff a uniform 16-bit draw is below ``thresh = round(keep * 65536)``
+    (at most 65535), the JAX package's uint16-threshold mask."""
+    keep = 1.0 - rate
+    return min(int(round(keep * 65536.0)), 65535), 1.0 / keep
+
+
+def dropout_block_gather(h_src: torch.Tensor, block: Block, kind: str, rate: float,
+                         generator: Optional[torch.Generator], *, with_self: bool = True):
+    """``(block_self(d, block), block_aggregate(d, block, kind))`` of ``d =
+    dropout(h_src, rate, generator)`` on a prefix-layout block, ``kind``
+    ``mean`` or ``sum``; the first is ``None`` unless ``with_self``.  Rate 0
+    or no generator: no dropout.  The bits are one ``torch.randint`` of
+    ``h_src``'s shape from ``generator``, int16 in [-32768, 32768): the draw
+    of ``models.common.dropout`` (int32 in [0, 65536)) moved down by 32768,
+    which keeps the same units and advances the generator as far.  On the
+    card one launch forward and one backward (``gather_kernels.DropoutBlock``);
+    on the CPU the same arithmetic in torch."""
+    if not block.prefix_layout:
+        raise ValueError("dropout_block_gather takes prefix-layout blocks only")
+    if kind not in DROPOUT_BLOCK_KINDS:
+        raise ValueError(f"dropout_block_gather kind must be one of {DROPOUT_BLOCK_KINDS}, "
+                         f"got {kind!r}")
+    bits, thresh, inv_keep = None, 0, 1.0
+    if rate > 0.0 and generator is not None:
+        if rate >= 1.0:
+            raise ValueError(f"dropout rate {rate} keeps nothing")
+        thresh, inv_keep = dropout_threshold(rate)
+        thresh -= 1 << 15
+        bits = torch.randint(-(1 << 15), 1 << 15, h_src.shape, generator=generator,
+                             device=h_src.device, dtype=torch.int16)
+    out = DropoutBlock.apply(h_src.contiguous(), bits, block.neigh_mask, thresh, inv_keep,
+                             kind, with_self)
+    return out if with_self else (None, out)
 
 
 def block_gather_msgs(h_src: torch.Tensor,

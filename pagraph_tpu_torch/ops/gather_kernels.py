@@ -18,6 +18,9 @@ wrapper                computes                                         replaces
 ``scatter_add_rows``   ``grad_src[ids[r]] += grad_out[r]``              backward of K1
 ``gather_reduce_bwd``  ``grad_src[pos[n,k]] += grad_out[n] (/count)``   backward of K2
                        (max: ``/ ties`` at the tied maxima)
+``dropout_block_fwd``  dropout, then a prefix-layout block's self rows  none: XLA's elementwise
+                       and masked ``mean``/``sum`` (no gather)          passes in the JAX package
+``dropout_block_bwd``  its gradient, each source row written once       their autograd
 =====================  ===============================================  ==========================
 
 The ``max`` kind (the pool aggregator's; XLA in the JAX package,
@@ -77,6 +80,21 @@ before a capture: the first, eager, epoch does it.  Indices must be in
 range: the kernels do not bounds-check them (the sampler and the cache plan
 produce them).
 
+The on-device sampler's prefix-layout blocks need no gather: a block's self
+rows are its source's first ``n`` rows and destination ``r``'s messages the
+``fanout`` rows from ``n + r * fanout``.  There the model's dropout and both
+halves of the block are one kernel, ``pg_dropout_block_fwd``, which reads the
+source and its dropout bits once and writes the ``[n, D]`` outputs, and the
+gradient one more, ``pg_dropout_block_bwd``, a pure map that writes each
+source row once (:class:`DropoutBlock`; counted under
+``dropout_block_fwd_<kind>`` and ``dropout_block_bwd_<kind>``, ``_bf16`` for
+bf16 rows).  The bits are one ``torch.randint`` of int16 in [-32768, 32768)
+of the source's shape (the same Philox draw as int32 in [0, 65536), moved
+down by 32768); an element is kept iff its bit is below ``thresh - 32768``.
+An on-device step launches the assembly, one dropout block forward a block
+and one backward a block after the first (the layer-0 features take no
+gradient).
+
 Phase marks (:func:`mark`): an empty kernel ``pg_mark_<phase>`` a phase of
 a train step (:data:`MARK_PHASES`), launched where the phase starts, so
 that a profiler's trace splits the step's kernels by phase, inside a
@@ -103,10 +121,15 @@ ELEMENT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the assembly's output dtypes -> the LAUNCHES key's suffix
 ASSEMBLE_OUT = {torch.float32: "", torch.bfloat16: "_to_bf16"}
 
+# the kinds the fused dropout block reduces with
+DROPOUT_BLOCK_KINDS = ("mean", "sum")
+
 _BLOCK_KEYS = ("gather_rows", "scatter_add_rows",
                *(f"{base}_{kind}" for base in ("block_gather_fwd", "block_gather_bwd",
                                                "gather_reduce", "gather_reduce_bwd")
-                 for kind in KINDS))
+                 for kind in KINDS),
+               *(f"dropout_block_{way}_{kind}" for way in ("fwd", "bwd")
+                 for kind in DROPOUT_BLOCK_KINDS))
 
 LAUNCHES: Dict[str, int] = {
     **{k + sfx: 0 for sfx in ("", "_bf16") for k in _BLOCK_KEYS},
@@ -216,6 +239,40 @@ def block_gather_bwd_plain(g_self, self_pos, g_neigh, pos, mask, num_src: int,
             rows, slots = mask.nonzero(as_tuple=True)
             out.index_add_(0, pos[rows, slots].long(), g[rows])
     return out.to(ref.dtype)
+
+
+def dropout_block_fwd_plain(x, bits, thresh: int, inv_keep: float, mask,
+                            with_self: bool, kind: str):
+    """``(drop(x)[:n], reduce_msgs_plain(drop(x)[n:n + n * f], mask, kind))``
+    with ``drop(x) = where(bits < thresh, x * inv_keep, 0)`` (``bits``
+    ``None``: ``x``) and ``n, f = mask.shape``: the model's dropout followed by
+    a prefix-layout block's two halves, op for op; the first output is
+    ``None`` unless ``with_self``."""
+    n, f = mask.shape
+    xd = x if bits is None else torch.where(bits < thresh, x * inv_keep, 0.0)
+    neigh = reduce_msgs_plain(xd[n:n + n * f].reshape(n, f, *x.shape[1:]), mask, kind)
+    return (xd[:n] if with_self else None), neigh
+
+
+def dropout_block_bwd_plain(g_self, g_neigh, bits, thresh: int, inv_keep: float, mask,
+                            num_src: int, kind: str) -> torch.Tensor:
+    """The gradient of :func:`dropout_block_fwd_plain` w.r.t. ``x`` ``[num_src,
+    D]`` as autograd computes it: ``g_self`` on rows ``[0, n)``, ``g_neigh``
+    (divided by the row's count for ``mean``) on each valid message row, zero
+    elsewhere, then ``where(bits < thresh, ., 0) * inv_keep``.  A ``None``
+    gradient is zero."""
+    n, f = mask.shape
+    ref = g_self if g_self is not None else g_neigh
+    d = ref.shape[1]
+    zeros = functools.partial(torch.zeros, dtype=ref.dtype, device=ref.device)
+    if g_neigh is None:
+        msgs = zeros((n * f, d))
+    else:
+        g = g_neigh / _count(mask, g_neigh.dtype) if kind == "mean" else g_neigh
+        msgs = torch.where(mask[..., None], g[:, None, :], 0.0).reshape(n * f, d)
+    g = torch.cat([zeros((n, d)) if g_self is None else g_self, msgs,
+                   zeros((num_src - n * (1 + f), d))])
+    return g if bits is None else torch.where(bits < thresh, g, 0.0) * inv_keep
 
 
 def scatter_add_rows_plain(grad_out: torch.Tensor, ids: torch.Tensor,
@@ -663,6 +720,96 @@ def gather_reduce_bwd(grad_out: torch.Tensor, pos: torch.Tensor,
                              pos, mask, num_src, kind, src)
 
 
+def _unit(d: int, *tables: torch.Tensor) -> int:
+    """The widest unit, 4, 2 or 1 elements, that divides ``d`` and to which
+    every table's base is aligned."""
+    for u in (4, 2):
+        if d % u == 0 and all(t.data_ptr() % (u * t.element_size()) == 0 for t in tables):
+            return u
+    return 1
+
+
+def _check_dropout_block(shape, bits, mask, kind: str) -> None:
+    """``shape``: the block's source ``[S, D]``, which holds its ``n x (1 +
+    f)`` rows; ``bits`` (if any) int16 of that shape."""
+    if kind not in DROPOUT_BLOCK_KINDS:
+        raise ValueError(f"the dropout block's kind must be one of {DROPOUT_BLOCK_KINDS}, "
+                         f"got {kind!r}")
+    _check(mask, "mask", torch.bool, 2)
+    n, f = mask.shape
+    if len(shape) != 2 or shape[0] < n * (1 + f):
+        raise ValueError(f"a source of shape {tuple(shape)} holds fewer than the block's "
+                         f"{n} x (1 + {f}) rows")
+    if bits is not None:
+        _check(bits, "bits", torch.int16, 2)
+        if tuple(bits.shape) != tuple(shape):
+            raise ValueError(f"bits {tuple(bits.shape)} and the source {tuple(shape)} differ")
+
+
+def dropout_block_fwd(x: torch.Tensor, bits: Optional[torch.Tensor], thresh: int,
+                      inv_keep: float, mask: torch.Tensor, with_self: bool = True,
+                      kind: str = "mean"):
+    """Dropout and a prefix-layout block's two halves from its source ``x``
+    f32 or bf16 ``[S, D]`` (``S >= n * (1 + f)``, ``n, f = mask.shape``):
+    ``(drop(x)[:n], masked kind over drop(x)[n + r * f + k])``, ``drop(x) =
+    where(bits < thresh, x * inv_keep, 0)`` for ``bits`` int16 of ``x``'s
+    shape, or ``x`` for ``bits`` ``None``; the first output ``None`` unless
+    ``with_self``.  On the card: one launch, the sum over a row's slots in
+    f32 in slot order (bf16: the sum and the mean rounded as torch rounds
+    them)."""
+    _check_dropout_block(x.shape, bits, mask, kind)
+    if not _use_kernel(x, mask, *([] if bits is None else [bits])):
+        return dropout_block_fwd_plain(x, bits, thresh, inv_keep, mask, with_self, kind)
+    dtype = _row_dtype(x)
+    _check(x, "x", dtype, 2)
+    n, f = mask.shape
+    d = x.shape[1]
+    out_self = torch.empty((n, d), dtype=dtype, device=x.device) if with_self else None
+    out_neigh = torch.empty((n, d), dtype=dtype, device=x.device)
+    if n and d:
+        tables = [x, out_neigh] + ([] if bits is None else [bits]) + (
+            [out_self] if with_self else [])
+        _raise_on(_lib().pg_dropout_block_fwd(
+            x.data_ptr(), _ptr(bits), thresh, inv_keep, mask.data_ptr(), n, f, d,
+            _ptr(out_self), out_neigh.data_ptr(), KIND_CODES[kind], _unit(d, *tables),
+            ELEMENT_CODES[dtype], _stream(x.device)), "pg_dropout_block_fwd")
+        LAUNCHES[_key("dropout_block_fwd_" + kind, dtype)] += 1
+    return out_self, out_neigh
+
+
+def dropout_block_bwd(g_self: Optional[torch.Tensor], g_neigh: Optional[torch.Tensor],
+                      bits: Optional[torch.Tensor], thresh: int, inv_keep: float,
+                      mask: torch.Tensor, num_src: int, kind: str = "mean") -> torch.Tensor:
+    """Backward of :func:`dropout_block_fwd` w.r.t. ``x`` ``[num_src, D]``
+    from ``g_self`` and ``g_neigh`` ``[n, D]`` (a ``None`` gradient is zero),
+    at their dtype; on the card one launch that writes each row once (no
+    memset, no atomics), with autograd's arithmetic over the plain version."""
+    ref = g_self if g_self is not None else g_neigh
+    if ref is None:
+        raise ValueError("dropout_block_bwd needs at least one incoming gradient")
+    _check_dropout_block((num_src, ref.shape[1]), bits, mask, kind)
+    grads = [t for t in (g_self, g_neigh) if t is not None]
+    if not _use_kernel(mask, *grads, *([] if bits is None else [bits])):
+        return dropout_block_bwd_plain(g_self, g_neigh, bits, thresh, inv_keep, mask,
+                                       num_src, kind)
+    dtype = _row_dtype(*grads)
+    n, f = mask.shape
+    d = ref.shape[1]
+    for t in grads:
+        _check(t, "g", dtype, 2)
+        if tuple(t.shape) != (n, d):
+            raise ValueError(f"a gradient of shape {tuple(t.shape)}, not [{n}, {d}]")
+    grad = torch.empty((num_src, d), dtype=dtype, device=ref.device)
+    if num_src and d:
+        _raise_on(_lib().pg_dropout_block_bwd(
+            _ptr(g_self), _ptr(g_neigh), _ptr(bits), thresh, inv_keep, mask.data_ptr(), n, f,
+            num_src, d, grad.data_ptr(), KIND_CODES[kind],
+            _unit(d, grad, *grads, *([] if bits is None else [bits])), ELEMENT_CODES[dtype],
+            _stream(ref.device)), "pg_dropout_block_bwd")
+        LAUNCHES[_key("dropout_block_bwd_" + kind, dtype)] += 1
+    return grad
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
@@ -747,6 +894,38 @@ class BlockGather(torch.autograd.Function):
                     None if g_neigh is None else g_neigh.contiguous(), pos, mask,
                     ctx.num_src, ctx.kind, src)
         return grad_src, None, None, None, None
+
+
+class DropoutBlock(torch.autograd.Function):
+    """Dropout and a prefix-layout block's halves, :func:`dropout_block_fwd`,
+    whose gradient w.r.t. ``x`` is one :func:`dropout_block_bwd`.  It keeps
+    the bits and the mask for its backward.  Returns ``(self, neigh)``, or
+    ``neigh`` alone without the self half."""
+
+    @staticmethod
+    def forward(ctx, x, bits, mask, thresh, inv_keep, kind, with_self):
+        ctx.save_for_backward(bits, mask)
+        ctx.args = (thresh, inv_keep, x.shape[0], kind, with_self)
+        ctx.plain = _PLAIN_ON_CUDA.get()
+        # an output that nothing uses arrives as None: its gradient is zero
+        ctx.set_materialize_grads(False)
+        out_self, out_neigh = dropout_block_fwd(x, bits, thresh, inv_keep, mask,
+                                                with_self, kind)
+        return (out_self, out_neigh) if with_self else out_neigh
+
+    @staticmethod
+    def backward(ctx, *grads):
+        bits, mask = ctx.saved_tensors
+        thresh, inv_keep, num_src, kind, with_self = ctx.args
+        g_self, g_neigh = grads if with_self else (None, grads[0])
+        grad_x = None
+        if ctx.needs_input_grad[0] and (g_self is not None or g_neigh is not None):
+            with _mode(ctx.plain):
+                grad_x = dropout_block_bwd(
+                    None if g_self is None else g_self.contiguous(),
+                    None if g_neigh is None else g_neigh.contiguous(), bits, thresh,
+                    inv_keep, mask, num_src, kind)
+        return grad_x, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -309,14 +309,15 @@ def test_launch_counters_have_the_fused_forward():
     """The fused forward's keys sit beside every other key (the assembly
     has one a cache tier, and one a tier for its bf16 output; each block
     kernel one for bf16 rows, and the bf16 backward's rounding launch one;
-    and the max kind one a block kernel), and reset_launch_counts zeroes
-    them all."""
+    and the max kind one a block kernel; the fused dropout block one a way
+    and a kind, mean and sum), and reset_launch_counts zeroes them all."""
     block = {"block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
              "scatter_add_rows", "gather_reduce_mean",
              "gather_reduce_sum", "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
              "block_gather_bwd_mean", "block_gather_bwd_sum",
              "block_gather_fwd_max", "block_gather_bwd_max", "gather_reduce_max",
-             "gather_reduce_bwd_max"}
+             "gather_reduce_bwd_max", "dropout_block_fwd_mean", "dropout_block_fwd_sum",
+             "dropout_block_bwd_mean", "dropout_block_bwd_sum"}
     assemble = {"assemble_f32", "assemble_bf16", "assemble_int8"}
     keys = block | {k + "_bf16" for k in block} | assemble | {k + "_to_bf16" for k in assemble}
     assert set(gk.LAUNCHES) == keys | {"grad_to_bf16"}
