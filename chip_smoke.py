@@ -4,13 +4,23 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --dp-gpus 4   # the dp and halo phases' ranks across 4 cards (nccl),
                                         # then cli.train --partition 4
-    python3 chip_smoke.py --dropout-block   # device, build and dropout_block only
+    python3 chip_smoke.py --gat-attention   # device, build and gat_attention only
+    python3 chip_smoke.py --dropout-block   # device, build, gat_attention and dropout_block
 
 Phases, each printed as one JSON line:
 
 * ``device``: ``torch.cuda.get_device_name()`` and nvidia-smi's name and
   power limit (the raw nvidia-smi line is printed too);
 * ``build``: nvcc builds the kernels from ``pagraph_tpu_torch/csrc``;
+* ``gat_attention``: GAT's attention pair on prefix-layout blocks
+  (``gat_attention_fwd``, ``gat_attention_bwd``) at the gat-products.device
+  cell's three blocks against the plain versions (the forward's output and
+  stats, the three gradients, the masked slots' gradient rows exactly 0,
+  the backward bit-equal on a second run), with kernel, plain, autograd
+  chain and bound ms; the branches (head widths 8 to 512, 1 to 8 heads,
+  fan-outs 1 to 70, spare rows); and the cell's model through a small
+  on-device Trainer, 2 epochs, 7 launches a step (the assembly, an
+  attention forward and backward a block);
 * ``dropout_block``: the fused dropout and prefix-layout block pair
   (``dropout_block_fwd``, ``dropout_block_bwd``).  The int16 dropout draw
   against the int32 one from equal generator states at the benchmark
@@ -954,6 +964,155 @@ def dropout_block_phase(env, bw: float) -> None:
         fail("dropout_block: " + "; ".join(bad))
 
 
+# -- gat_attention: GAT's attention kernels at the gat-products.device cell --
+# the cell's blocks (batch 512, fan-outs 10/10/10, 4 heads of 128, 47
+# classes): (label, n, fan-out, heads, head width)
+GAT_BLOCKS = (("block 0", 61_952, 10, 4, 128), ("block 1", 5_632, 10, 4, 128),
+              ("block 2", 512, 10, 4, 47))
+# where the cell's blocks do not go: (n, fan-out, heads, head width, rows past
+# n x (1 + fan-out)): units of 1 and 4 floats, 1-4 units a lane, fan-outs
+# of one chunk, several and more than a mask word
+GAT_BRANCHES = ((300, 3, 2, 8, 0), (300, 7, 1, 64, 5), (200, 15, 3, 47, 0),
+                (100, 70, 2, 100, 3), (64, 1, 8, 256, 0), (50, 9, 4, 126, 2),
+                (40, 2, 1, 512, 0))
+# tolerances against the plain versions, relative to each output's largest
+# value: the scores' and sums' order differs (warp shuffles against einsum),
+# the softmax is online; the attention vectors' gradients sum n x (1 + F)
+# terms in another order
+GAT_TOL_FWD = (1e-5, 1e-5)
+GAT_TOL_BWD = (1e-5, 1e-4, 1e-4)
+
+
+def gat_attention_inputs(torch, dev, gen, n, f, heads, hd, extra=0):
+    """``(z, a_s, a_n, mask, g)`` of a prefix-layout block: ``z`` normal at
+    0.5, the attention vectors at GAT's init bound, 90% of the slots valid
+    and the first 16 rows with none."""
+    rows = n * (1 + f) + extra
+    bound = math.sqrt(6.0 / (hd + 1))
+    z = torch.randn(rows, heads * hd, generator=gen, device=dev) * 0.5
+    a_s, a_n = ((torch.rand(heads, hd, generator=gen, device=dev) * 2 - 1) * bound
+                for _ in range(2))
+    mask = torch.rand(n, f, generator=gen, device=dev) > 0.1
+    mask[:16] = False
+    g = torch.randn(n, heads, hd, generator=gen, device=dev)
+    return z, a_s, a_n, mask, g
+
+
+def gat_attention_case(torch, gk, args, timed=None) -> dict:
+    """The kernels against their plain versions on ``args``
+    (:func:`gat_attention_inputs`): the forward's output and stats, the
+    backward's three gradients (within :data:`GAT_TOL_FWD` and
+    :data:`GAT_TOL_BWD`), the masked slots' and the spare rows' gradient
+    exactly 0, the backward bit-equal on a second run; with ``timed`` (the
+    card's bandwidth and the flush buffer) the times of both and of the
+    plain chain under autograd, beside the least bytes' bound."""
+    z, a_s, a_n, mask, g = args
+    rows, (n, f), (heads, hd) = z.shape[0], mask.shape, a_s.shape
+
+    def fwd():
+        return gk.gat_attention_fwd(z, a_s, a_n, mask)
+
+    fk = fwd()
+    with gk.plain_versions():
+        fp = fwd()
+
+    def bwd(fo):
+        return gk.gat_attention_bwd(g, z, a_s, a_n, mask, fo[0], fo[1], rows)
+
+    bk, bk2 = bwd(fk), bwd(fk)
+    with gk.plain_versions():
+        bp = bwd(fp)
+    f_err, f_ok, _ = compare(torch, fk, fp, GAT_TOL_FWD)
+    b_err, b_ok, _ = compare(torch, bk, bp, GAT_TOL_BWD)
+    dz = bk[0]
+    slots = dz[n:n * (1 + f)].view(n, f, -1)
+    zeros = bool((slots[~mask] == 0).all()) and bool((dz[n * (1 + f):] == 0).all())
+    row = {"n": n, "fanout": f, "heads": heads, "head_dim": hd, "rows": rows,
+           "valid_slots": int(mask.sum()), "fwd_max_abs_err": f_err, "fwd_ok": f_ok,
+           "bwd_max_abs_err": b_err, "bwd_ok": b_ok, "zeros_ok": zeros,
+           "bwd_deterministic": all(torch.equal(a, b) for a, b in zip(bk, bk2))}
+    row["ok"] = f_ok and b_ok and zeros and row["bwd_deterministic"]
+    if timed is not None:
+        bw, flush = timed
+        valid, kh = row["valid_slots"], heads * hd
+        read_z = (n + valid) * kh * 4
+        fwd_bytes = read_z + n * f + n * kh * 4 + 2 * n * heads * 4
+        bwd_bytes = read_z + 2 * n * kh * 4 + 2 * n * heads * 4 + n * f + rows * kh * 4
+
+        def plain(fn):
+            def run():
+                with gk.plain_versions():
+                    return fn()
+            return run
+
+        def chain():
+            zz, s_, n_ = (t.detach().requires_grad_(True) for t in (z, a_s, a_n))
+            out = gk.gat_attention_fwd_plain(zz, s_, n_, mask)[0]
+            torch.autograd.grad(out, (zz, s_, n_), g)
+
+        row.update(kernel_ms=time_ms(torch, fwd, flush, iters=20),
+                   plain_ms=time_ms(torch, plain(fwd), flush, iters=5),
+                   bwd_kernel_ms=time_ms(torch, lambda: bwd(fk), flush, iters=20),
+                   bwd_plain_ms=time_ms(torch, plain(lambda: bwd(fp)), flush, iters=5),
+                   chain_autograd_ms=time_ms(torch, chain, flush, iters=5),
+                   bound_ms=fwd_bytes / bw * 1e3, bwd_bound_ms=bwd_bytes / bw * 1e3)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["bwd_bound_share"] = row["bwd_bound_ms"] / row["bwd_kernel_ms"]
+    return row
+
+
+def gat_cell_config(pt, *, compute: str = "float32", dispatch: str = "scan"):
+    """The gat-products.device cell's model and sampler (PyG's
+    ogbn_products_gat.py) on the on-device path."""
+    return pt.Config(
+        model=pt.ModelConfig(arch="gat", n_layers=2, hidden=128, num_heads=4, feat_dim=100,
+                             n_classes=47, dropout=0.5, residual=True, feature_dropout=False),
+        sampler=pt.SamplerConfig(batch_size=512, fanouts=(10, 10, 10), num_hops=3, seed=0),
+        cache=pt.CacheConfig(capacity=None),
+        train=pt.TrainConfig(lr=1e-3, on_device_sampling=True, dtype=compute,
+                             epoch_dispatch=dispatch))
+
+
+def gat_attention_phase(env, bw: float) -> None:
+    """The ``gat_attention`` line: the kernels at the cell's three blocks
+    (timed) and at :data:`GAT_BRANCHES`, and the cell's model through a
+    small on-device Trainer, 2 epochs (epoch 1 replayed), with exact
+    launches a step: the assembly and one attention forward and one
+    backward a block.  Fails on a case outside its tolerance or another
+    launch count."""
+    torch, gk, dev = env.torch, env.gk, env.dev
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {"blocks": [], "branches": []}
+    for label, n, f, heads, hd in GAT_BLOCKS:
+        args = gat_attention_inputs(torch, dev, gen, n, f, heads, hd)
+        out["blocks"].append({"case": label, **gat_attention_case(torch, gk, args,
+                                                                  (bw, env.flush))})
+        del args
+        torch.cuda.empty_cache()
+    for n, f, heads, hd, extra in GAT_BRANCHES:
+        args = gat_attention_inputs(torch, dev, gen, n, f, heads, hd, extra)
+        out["branches"].append({"case": f"n={n} F={f} K={heads} H={hd} extra={extra}",
+                                **gat_attention_case(torch, gk, args)})
+    for key in ("kernel_ms", "bwd_kernel_ms", "chain_autograd_ms"):
+        out[f"cell_{key}"] = sum(r[key] for r in out["blocks"])
+    ds = env.synthetic.synthetic_dataset(40_000, 400_000, feat_dim=100, num_classes=47,
+                                         seed=3, learnable=True)
+    cfg = gat_cell_config(env.pt)
+    per_step = device_step_launches("assemble_f32", blocks=3, gat=True)
+    t_, row = run_trainer(torch, gk, "gat device step",
+                          lambda: env.Trainer.from_dataset(cfg, ds, seed=0), 2, per_step,
+                          must_fall=False)
+    out["device_step"] = {"launches_per_step": per_step, "epochs": row["epochs"],
+                          "peak_device_bytes": row["peak_device_bytes"]}
+    del t_
+    out["seconds"] = time.perf_counter() - t0
+    emit("gat_attention", out)
+    bad = [f"{r['case']}: {r}" for r in out["blocks"] + out["branches"] if not r["ok"]]
+    if bad:
+        fail("gat_attention: " + "; ".join(bad))
+
+
 def executed_launches(counted, runner):
     """The launches run since the counters' reset: ``counted`` (which counts
     a launch captured into a graph once, at capture) with each of
@@ -1048,7 +1207,9 @@ def family_step_launches(arch: str, compute: str) -> dict:
     backward for blocks 1 and 2; GAT a gather_rows a block and a
     scatter_add_rows a block (block 0's too: z depends on w).  At bf16
     compute every key has its _bf16 twin and each block backward a
-    grad_to_bf16; scatter_add_rows rounds inside its one launch."""
+    grad_to_bf16; scatter_add_rows rounds inside its one launch.  (GAT's
+    on-device step launches its attention pair instead:
+    :func:`device_step_launches` with ``gat``.)"""
     sfx = "_bf16" if compute == "bfloat16" else ""
     fwd, bwd, n_bwd = {"gcn": ("gather_reduce_mean", "gather_reduce_bwd_mean", 2),
                        "gin": ("block_gather_fwd_sum", "block_gather_bwd_sum", 2),
@@ -1060,15 +1221,19 @@ def family_step_launches(arch: str, compute: str) -> dict:
 
 
 def device_step_launches(assemble_key: str, kind=None, blocks: int = 0,
-                         grads=None, bf16: bool = False) -> dict:
+                         grads=None, bf16: bool = False, gat: bool = False) -> dict:
     """The gather-kernel launches one on-device step makes: the layer-0
     fetch (``assemble_key``) and, where the blocks reduce with ``kind``
     (``mean`` or ``sum``: GraphSAGE mean or gcn, GCN, GIN), one fused dropout
     block forward a block and one backward a block whose source needs a
     gradient (``grads``, by default every block but the first: the
-    features take none), ``_bf16`` at bf16 compute.  Pool, lstm, GAT and
-    CV-GCN (``kind`` None) run no block kernel on the device."""
+    features take none), ``_bf16`` at bf16 compute.  GAT at f32 (``gat``)
+    one attention forward and one backward a block (block 0's too: ``z``
+    depends on ``w``); at bf16, pool, lstm and CV-GCN (``kind`` None) no
+    block kernel runs on the device."""
     out = {assemble_key: 1}
+    if gat and not bf16:
+        out.update(gat_attention_fwd=blocks, gat_attention_bwd=blocks)
     if kind is not None:
         sfx = "_bf16" if bf16 else ""
         grads = blocks - 1 if grads is None else grads
@@ -1127,7 +1292,8 @@ def model_families(env):
         t_dev, entry["device_steps"] = run_trainer(
             torch, gk, f"{arch} on-device", lambda: env.Trainer.from_dataset(
                 cfg_d, data, seed=0), 2,
-            device_step_launches("assemble_f32", {"gcn": "mean", "gin": "sum"}.get(arch), 3))
+            device_step_launches("assemble_f32", {"gcn": "mean", "gin": "sum"}.get(arch), 3,
+                                 gat=arch == "gat"))
         replayed = [m["mean_loss"] for m in entry["device_steps"]["epochs"]]
         p_r = {k: p.detach().clone() for k, p in t_dev.state.model.named_parameters()}
         del t_dev
@@ -3645,10 +3811,19 @@ def main() -> None:
     emit("build", {"seconds": time.perf_counter() - t0,
                    "flags": " ".join(_build.NVCC_FLAGS)})
 
-    # -- dropout_block: the fused dropout block's draws, kernels, launches ----
-    dropout_block_phase(types.SimpleNamespace(
+    kernel_env = types.SimpleNamespace(
         torch=torch, gk=gk, pt=pt, dev=dev, synthetic=synthetic, Trainer=Trainer,
-        flush=torch.empty(64 << 20, dtype=torch.uint8, device=dev)), bw)
+        flush=torch.empty(64 << 20, dtype=torch.uint8, device=dev))
+    # -- gat_attention: GAT's attention kernels, the cell's model's launches --
+    gat_attention_phase(kernel_env, bw)
+    if sys.argv[1:2] == ["--gat-attention"]:
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return
+
+    # -- dropout_block: the fused dropout block's draws, kernels, launches ----
+    dropout_block_phase(kernel_env, bw)
     if sys.argv[1:2] == ["--dropout-block"]:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}),

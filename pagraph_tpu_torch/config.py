@@ -1,7 +1,12 @@
 """Single validated configuration shared by every phase.
 
 A copy of ``pagraph_tpu/config.py``: the same five dataclasses, fields,
-defaults and ``validate`` rules, so one JSON config drives either package.
+defaults and ``validate`` rules, so one JSON config drives either package,
+plus two fields of the port's own, which only GAT reads
+(:data:`PORT_MODEL_FIELDS`; at their defaults the model is the JAX
+package's): ``model.residual`` gives each GAT layer a bias and a linear
+skip of its destination rows (PyG's ``examples/ogbn_products_gat.py``),
+and ``model.feature_dropout=False`` leaves layer 0's input undropped.
 ``scan_unroll`` is kept for parity and not read (a CUDA graph has nothing
 to unroll); ``halo_slack`` and ``halo_pipeline`` are read by the
 data-parallel trainer's halo feature sources (``parallel/halo.py``).  The
@@ -27,6 +32,8 @@ class ModelConfig:
     num_heads: int = 4                # gat: attention heads per layer
     preprocess: bool = False          # layer-0 pre-aggregated server-side
     skip_connection: bool = True      # cat((h, act(h))) on the last hidden layer
+    residual: bool = False            # gat: + bias + skip Linear of the destination rows
+    feature_dropout: bool = True      # gat: dropout on layer 0's input (the features)
 
     @property
     def num_gnn_layers(self) -> int:
@@ -36,6 +43,10 @@ class ModelConfig:
     def num_sampled_hops(self) -> int:
         """Hops the sampler must expand: one less under preprocess."""
         return self.num_gnn_layers - (1 if self.preprocess else 0)
+
+
+# ModelConfig's fields that the JAX package lacks, at their defaults
+PORT_MODEL_FIELDS = {"residual": False, "feature_dropout": True}
 
 
 @dataclasses.dataclass
@@ -162,6 +173,12 @@ class Config:
                 )
             if m.num_heads < 1:
                 raise ValueError("gat needs num_heads >= 1")
+        if m.arch != "gat":
+            changed = [k for k, v in PORT_MODEL_FIELDS.items() if getattr(m, k) != v]
+            if changed:
+                raise ValueError(
+                    f"model.{', model.'.join(changed)} only applies to arch 'gat', "
+                    f"not {m.arch!r}")
         if m.arch == "gin" and m.preprocess:
             raise ValueError(
                 "gin needs the raw (1+eps)*self + sum update: the store's "

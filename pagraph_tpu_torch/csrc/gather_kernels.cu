@@ -46,6 +46,13 @@
 //     slices in the backward).  One forward reads a block's source and its
 //     int16 dropout bits once and writes its two [n, D] outputs; the
 //     backward writes each source row's gradient once.
+//   * pg_gat_attention_fwd / pg_gat_attention_bwd replace no Pallas kernel
+//     either: GAT's attention over a prefix-layout block (the JAX package's
+//     XLA einsums, masked softmax and weighted sum, models/gat.py).  The
+//     forward reads each row of z once, the scores computed from the rows it
+//     holds, and writes [n, heads, hd] with each row's max and denominator;
+//     the backward writes each row of z's gradient once and the gradients of
+//     the two attention vectors (section "GAT attention" below).
 //
 // What bounds them: device-memory bytes and latency, not FLOPs.  A row gather
 // does no arithmetic; the reduction does fanout adds per output element.  The
@@ -1650,6 +1657,411 @@ int pg_dropout_block_bwd(const void* g_self, const void* g_neigh, const void* bi
                                            n, fanout, num_src, d, nullptr, grad, mean, unit, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // extern "C"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// GAT attention on prefix-layout blocks
+// ---------------------------------------------------------------------------
+// One destination row r < n and one head k (blockIdx.y) to a warp: the warp
+// reads the head's slice of the self row z[r] and of each valid neighbor row
+// z[n + r * fanout + j], each once.  Lane l holds units l, l + 32, ... of the
+// slice (NU of them, W = 4 or 1 floats each; hd % W == 0, so no unit crosses
+// a head),
+// and a score is a dot product summed over the warp by xor shuffles, after
+// which every lane holds it.
+//
+// Forward, per (r, k), with s = a_s . z_r and t_j = a_n . z_j:
+//   e_self = lrelu(s + t_r), e_j = lrelu(s + t_j) for the valid slots j,
+//   m = max(e_self, e_j), den = exp(e_self - m) + sum_j exp(e_j - m),
+//   out[r, k] = (exp(e_self - m) z_r + sum_j exp(e_j - m) z_j) / den,
+// the masked two-part softmax of models/gat.py, in one pass over the slots:
+// kGatChunk slots' loads are issued before their first shuffle, and the
+// running max, denominator and sum are rescaled when a chunk raises the max
+// (an online softmax).  stats[0, r, k] = m and stats[1, r, k] = den are kept
+// for the backward.
+//
+// Backward, per (r, k), from g = dL/dout[r, k], the forward's output and
+// stats: alpha_j = exp(e_j - m) / den, S = g . out[r, k] (= sum_j alpha_j
+// g . z_j), and for each edge (the self edge alike)
+//   dpre_j = alpha_j (g . z_j - S) lrelu'(pre_j)
+//   dz_j   = alpha_j g + dpre_j a_n                 (0 for a masked slot)
+//   dz_r   = alpha_self g + (sum of all dpre) a_s + dpre_self a_n
+//   da_s  += (sum of all dpre) z_r,  da_n += sum over the edges of dpre_j z_j
+// in one pass: every z row of the block is read once and its gradient row
+// written once (the self rows and the slots tile z: no memset, no atomics;
+// rows past n * (1 + fanout), which no destination reads, are zeroed by a
+// memset).  The warps of a head walk its rows with a stride, keeping their
+// da partials in registers; a CTA sums its warps' in shared memory in warp
+// order into partial[k, blockIdx.x], and a second kernel in the same call
+// sums those in CTA order: a replay gives the same bits.
+//
+// What bounds them: bytes.  At the cell's block 0 (681,472 rows of 512 f32)
+// the forward reads z once (1.40 GB) and the backward reads z and writes its
+// gradient (2.79 GB); a score is 2 FLOPs an element.
+
+constexpr int kGatChunk = 8;
+
+template <int W, int NU>
+__device__ __forceinline__ void load_head(const float* __restrict__ p, int uh, int lane,
+                                          float (&v)[NU][W]) {
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int i = lane + u * kWarp;
+    if (i < uh) {
+      const Pack<float, W> q = load_pack<float, W>(p, i);
+#pragma unroll
+      for (int j = 0; j < W; ++j) v[u][j] = q.e[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; ++j) v[u][j] = 0.f;
+    }
+  }
+}
+
+template <int W, int NU>
+__device__ __forceinline__ void store_head(float* __restrict__ p, int uh, int lane,
+                                           const float (&v)[NU][W]) {
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int i = lane + u * kWarp;
+    if (i < uh) {
+      Pack<float, W> q;
+#pragma unroll
+      for (int j = 0; j < W; ++j) q.e[j] = v[u][j];
+      reinterpret_cast<typename PackOf<float, W>::type*>(p)[i] = q.u;
+    }
+  }
+}
+
+template <int W, int NU>
+__device__ __forceinline__ float dot_head(const float (&a)[NU][W], const float (&b)[NU][W]) {
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int j = 0; j < W; ++j) s = fmaf(a[u][j], b[u][j], s);
+  return s;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float lrelu(float x) { return x > 0.f ? x : 0.2f * x; }
+__device__ __forceinline__ float lrelu_grad(float x) { return x > 0.f ? 1.f : 0.2f; }
+
+template <int W, int NU>
+__global__ void __launch_bounds__(kThreads)
+gat_attention_fwd_kernel(const float* __restrict__ z, const float* __restrict__ a_s,
+                         const float* __restrict__ a_n, const uint8_t* __restrict__ mask,
+                         int64_t n, int fanout, int heads, int hd, float* __restrict__ out,
+                         float* __restrict__ stats) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= n) return;
+  const int lane = threadIdx.x & (kWarp - 1), k = blockIdx.y, uh = hd / W;
+  const int64_t kh = static_cast<int64_t>(heads) * hd, col = static_cast<int64_t>(k) * hd;
+  const uint8_t* m = mask + r * fanout;
+  int count = 0;
+  const uint64_t mw = mask_word(m, fanout, &count);
+  float as[NU][W], an[NU][W], acc[NU][W];
+  load_head<W, NU>(a_s + col, uh, lane, as);
+  load_head<W, NU>(a_n + col, uh, lane, an);
+  load_head<W, NU>(z + r * kh + col, uh, lane, acc);
+  const float s = warp_sum(dot_head<W, NU>(acc, as));
+  float mx = lrelu(s + warp_sum(dot_head<W, NU>(acc, an)));
+  float den = 1.f;    // the self edge's exp(e_self - m) at m = e_self; acc = its z
+  const int64_t msg0 = n + r * fanout;
+  for (int k0 = 0; k0 < fanout; k0 += kGatChunk) {
+    float v[kGatChunk][NU][W];
+    bool on[kGatChunk];
+#pragma unroll
+    for (int c = 0; c < kGatChunk; ++c) {
+      on[c] = k0 + c < fanout && slot_on(mw, m, k0 + c);
+      if (on[c]) load_head<W, NU>(z + (msg0 + k0 + c) * kh + col, uh, lane, v[c]);
+    }
+    float e[kGatChunk];
+    float cmax = mx;
+#pragma unroll
+    for (int c = 0; c < kGatChunk; ++c) {    // on[c] is the same for the whole warp
+      e[c] = on[c] ? lrelu(s + warp_sum(dot_head<W, NU>(v[c], an))) : 0.f;
+      if (on[c]) cmax = fmaxf(cmax, e[c]);
+    }
+    if (cmax > mx) {
+      const float sc = expf(mx - cmax);
+      den *= sc;
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc[u][j] *= sc;
+      mx = cmax;
+    }
+#pragma unroll
+    for (int c = 0; c < kGatChunk; ++c) {
+      if (!on[c]) continue;
+      const float w = expf(e[c] - mx);
+      den += w;
+#pragma unroll
+      for (int u = 0; u < NU; ++u)
+#pragma unroll
+        for (int j = 0; j < W; ++j) acc[u][j] = fmaf(w, v[c][u][j], acc[u][j]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[u][j] /= den;
+  store_head<W, NU>(out + r * kh + col, uh, lane, acc);
+  if (lane == 0) {
+    stats[r * heads + k] = mx;
+    stats[(n + r) * heads + k] = den;
+  }
+}
+
+template <int W, int NU>
+__global__ void __launch_bounds__(kThreads)
+gat_attention_bwd_kernel(const float* __restrict__ z, const float* __restrict__ a_s,
+                         const float* __restrict__ a_n, const uint8_t* __restrict__ mask,
+                         const float* __restrict__ out, const float* __restrict__ stats,
+                         const float* __restrict__ g, int64_t n, int fanout, int heads, int hd,
+                         float* __restrict__ dz, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);    // [kWarpsPerBlock][2][hd]
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x >> 5;
+  const int k = blockIdx.y, uh = hd / W;
+  const int64_t kh = static_cast<int64_t>(heads) * hd, col = static_cast<int64_t>(k) * hd;
+  float as[NU][W], an[NU][W], das[NU][W], dan[NU][W];
+  load_head<W, NU>(a_s + col, uh, lane, as);
+  load_head<W, NU>(a_n + col, uh, lane, an);
+#pragma unroll
+  for (int u = 0; u < NU; ++u)
+#pragma unroll
+    for (int j = 0; j < W; ++j) das[u][j] = dan[u][j] = 0.f;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarpsPerBlock;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp; r < n;
+       r += stride) {
+    const uint8_t* m = mask + r * fanout;
+    int count = 0;
+    const uint64_t mw = mask_word(m, fanout, &count);
+    float zs[NU][W], gg[NU][W], oo[NU][W];
+    load_head<W, NU>(z + r * kh + col, uh, lane, zs);
+    load_head<W, NU>(g + r * kh + col, uh, lane, gg);
+    load_head<W, NU>(out + r * kh + col, uh, lane, oo);
+    const float mx = stats[r * heads + k], den = stats[(n + r) * heads + k];
+    const float s = warp_sum(dot_head<W, NU>(zs, as));
+    const float pre_s = s + warp_sum(dot_head<W, NU>(zs, an));
+    const float big_s = warp_sum(dot_head<W, NU>(gg, oo));
+    const float al_s = expf(lrelu(pre_s) - mx) / den;
+    const float dp_s = al_s * (warp_sum(dot_head<W, NU>(gg, zs)) - big_s) * lrelu_grad(pre_s);
+    float dsum = dp_s;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int j = 0; j < W; ++j) dan[u][j] = fmaf(dp_s, zs[u][j], dan[u][j]);
+    const int64_t msg0 = n + r * fanout;
+    for (int k0 = 0; k0 < fanout; k0 += kGatChunk) {
+      float v[kGatChunk][NU][W];
+      bool on[kGatChunk];
+#pragma unroll
+      for (int c = 0; c < kGatChunk; ++c) {
+        on[c] = k0 + c < fanout && slot_on(mw, m, k0 + c);
+        if (on[c]) load_head<W, NU>(z + (msg0 + k0 + c) * kh + col, uh, lane, v[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < kGatChunk; ++c) {
+        if (k0 + c >= fanout) break;
+        float o[NU][W];
+        if (on[c]) {    // the same for the whole warp
+          const float pre = s + warp_sum(dot_head<W, NU>(v[c], an));
+          const float gz = warp_sum(dot_head<W, NU>(gg, v[c]));
+          const float al = expf(lrelu(pre) - mx) / den;
+          const float dp = al * (gz - big_s) * lrelu_grad(pre);
+          dsum += dp;
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int j = 0; j < W; ++j) {
+              o[u][j] = fmaf(dp, an[u][j], al * gg[u][j]);
+              dan[u][j] = fmaf(dp, v[c][u][j], dan[u][j]);
+            }
+        } else {
+#pragma unroll
+          for (int u = 0; u < NU; ++u)
+#pragma unroll
+            for (int j = 0; j < W; ++j) o[u][j] = 0.f;
+        }
+        store_head<W, NU>(dz + (msg0 + k0 + c) * kh + col, uh, lane, o);
+      }
+    }
+    float o[NU][W];
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        o[u][j] = fmaf(dp_s, an[u][j], fmaf(dsum, as[u][j], al_s * gg[u][j]));
+        das[u][j] = fmaf(dsum, zs[u][j], das[u][j]);
+      }
+    store_head<W, NU>(dz + r * kh + col, uh, lane, o);
+  }
+  // the CTA's partial of da_s and da_n: its warps' summed in warp order
+#pragma unroll
+  for (int u = 0; u < NU; ++u) {
+    const int i = lane + u * kWarp;
+    if (i >= uh) continue;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      red[(warp * 2) * hd + i * W + j] = das[u][j];
+      red[(warp * 2 + 1) * hd + i * W + j] = dan[u][j];
+    }
+  }
+  __syncthreads();
+  float* part = partial + (static_cast<int64_t>(k) * gridDim.x + blockIdx.x) * 2 * hd;
+  for (int t = threadIdx.x; t < 2 * hd; t += kThreads) {
+    float sum = 0.f;
+    for (int w = 0; w < kWarpsPerBlock; ++w) sum += red[w * 2 * hd + t];
+    part[t] = sum;
+  }
+}
+
+// da [2, heads, hd] (da_s, then da_n): partial [heads, ctas, 2, hd] summed
+// over the CTAs, a warp an entry: lane l adds CTAs l, l + 32, ... in order,
+// then the warp's fixed shuffle tree.
+__global__ void __launch_bounds__(kThreads)
+gat_attention_bwd_reduce_kernel(const float* __restrict__ partial, int ctas, int heads, int hd,
+                                float* __restrict__ da) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (e >= 2LL * heads * hd) return;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int k = static_cast<int>(e / (2 * hd)), t = static_cast<int>(e % (2 * hd));
+  float sum = 0.f;
+  for (int c = lane; c < ctas; c += kWarp)
+    sum += partial[(static_cast<int64_t>(k) * ctas + c) * 2 * hd + t];
+  sum = warp_sum(sum);
+  if (lane == 0) da[(static_cast<int64_t>(t / hd) * heads + k) * hd + t % hd] = sum;
+}
+
+struct GatArgs {
+  const float *z, *a_s, *a_n, *out, *stats, *g;
+  const uint8_t* mask;
+  int64_t n, num_src;
+  int fanout, heads, hd, ctas;
+  float *res, *res_stats, *dz, *da, *partial;
+};
+
+template <int W, int NU>
+int launch_gat_attention(bool backward, const GatArgs& a, cudaStream_t st) {
+  if (!backward) {
+    const dim3 grid(static_cast<unsigned>(ceil_div(a.n, kWarpsPerBlock)),
+                    static_cast<unsigned>(a.heads));
+    gat_attention_fwd_kernel<W, NU><<<grid, kThreads, 0, st>>>(
+        a.z, a.a_s, a.a_n, a.mask, a.n, a.fanout, a.heads, a.hd, a.res, a.res_stats);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t kh = static_cast<int64_t>(a.heads) * a.hd;
+  const int64_t body = a.n * (1 + static_cast<int64_t>(a.fanout));
+  if (a.num_src > body) {
+    const cudaError_t rc = cudaMemsetAsync(a.dz + body * kh, 0,
+                                           (a.num_src - body) * kh * sizeof(float), st);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  const size_t smem = sizeof(float) * kWarpsPerBlock * 2 * a.hd;
+  gat_attention_bwd_kernel<W, NU>
+      <<<dim3(static_cast<unsigned>(a.ctas), static_cast<unsigned>(a.heads)), kThreads, smem,
+         st>>>(a.z, a.a_s, a.a_n, a.mask, a.out, a.stats, a.g, a.n, a.fanout, a.heads, a.hd,
+               a.dz, a.partial);
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int64_t entries = 2LL * a.heads * a.hd;
+  gat_attention_bwd_reduce_kernel<<<static_cast<unsigned>(ceil_div(entries, kWarpsPerBlock)),
+                                    kThreads, 0, st>>>(a.partial, a.ctas, a.heads, a.hd, a.da);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W>
+int gat_attention_nu(bool backward, const GatArgs& a, cudaStream_t st) {
+  switch (ceil_div(a.hd / W, kWarp)) {
+    case 1: return launch_gat_attention<W, 1>(backward, a, st);
+    case 2: return launch_gat_attention<W, 2>(backward, a, st);
+    case 3:
+    case 4: return launch_gat_attention<W, 4>(backward, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int gat_attention(bool backward, const GatArgs& a, int unit, void* stream) {
+  if (a.hd <= 0 || a.heads <= 0 || a.hd % unit != 0 || a.fanout < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!backward && a.n == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (unit) {
+    case 4: return gat_attention_nu<4>(backward, a, st);
+    case 1: return gat_attention_nu<1>(backward, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// GAT's attention over a prefix-layout block in one launch on the caller's
+// stream: z f32 [n * (1 + fanout) or more, heads * hd] (its first n rows the
+// destinations' own, then fanout slot rows each), a_s and a_n f32 [heads,
+// hd], mask bool [n, fanout]; out f32 [n, heads, hd] and stats f32 [2, n,
+// heads] (each row and head's max logit, then its softmax denominator), in
+// units of `unit` floats (4 or 1: hd a multiple, every table aligned; at
+// most 4 units a lane, hd <= 128 * unit).
+int pg_gat_attention_fwd(const void* z, const void* a_s, const void* a_n, const void* mask,
+                         int64_t n, int fanout, int heads, int hd, void* out, void* stats,
+                         int unit, void* stream) {
+  GatArgs a{};
+  a.z = static_cast<const float*>(z);
+  a.a_s = static_cast<const float*>(a_s);
+  a.a_n = static_cast<const float*>(a_n);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.n = n;
+  a.fanout = fanout;
+  a.heads = heads;
+  a.hd = hd;
+  a.res = static_cast<float*>(out);
+  a.res_stats = static_cast<float*>(stats);
+  return gat_attention(false, a, unit, stream);
+}
+
+// Its backward from g f32 [n, heads, hd] and the forward's out and stats:
+// dz f32 [num_src, heads * hd] (every row written once), da f32 [2, heads,
+// hd] (the gradients of a_s, then a_n), in two launches and, where num_src >
+// n * (1 + fanout), a memset of the rows past them, on the caller's stream;
+// partial f32 [heads, ctas, 2, hd] is scratch, ctas the CTAs a head.
+int pg_gat_attention_bwd(const void* z, const void* a_s, const void* a_n, const void* mask,
+                         const void* out, const void* stats, const void* g, int64_t n,
+                         int fanout, int64_t num_src, int heads, int hd, void* dz, void* da,
+                         void* partial, int ctas, int unit, void* stream) {
+  if (ctas < 1 || num_src < n * (1 + static_cast<int64_t>(fanout)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GatArgs a{};
+  a.z = static_cast<const float*>(z);
+  a.a_s = static_cast<const float*>(a_s);
+  a.a_n = static_cast<const float*>(a_n);
+  a.mask = static_cast<const uint8_t*>(mask);
+  a.out = static_cast<const float*>(out);
+  a.stats = static_cast<const float*>(stats);
+  a.g = static_cast<const float*>(g);
+  a.n = n;
+  a.num_src = num_src;
+  a.fanout = fanout;
+  a.heads = heads;
+  a.hd = hd;
+  a.ctas = ctas;
+  a.dz = static_cast<float*>(dz);
+  a.da = static_cast<float*>(da);
+  a.partial = static_cast<float*>(partial);
+  return gat_attention(true, a, unit, stream);
 }
 
 }  // extern "C"

@@ -22,7 +22,9 @@ same semantics, as in the JAX package:
     their masks are built once a graph.  GAT's per-edge softmax needs the
     edges themselves: three chunked scans of the edge list on the device
     (:func:`_gat_device_layer`, library scatters, as the JAX package's XLA
-    scatters; the JAX package has no Pallas kernel there).
+    scatters; the JAX package has no Pallas kernel there).  GAT's residual
+    form (``model.residual``) adds each layer's bias and skip on both
+    backends, as training does.
 
 Per architecture: GraphSAGE ``fc_self(h) + fc_neigh(agg(h))`` with mean,
 gcn (sum), pool (max) or lstm over every in-neighbor, and under preprocess
@@ -280,7 +282,8 @@ def _leaky(x):
 
 def _gat_full_graph_host(model: nn.Module, graph: CSRGraph, h: np.ndarray) -> np.ndarray:
     """Exact full-neighborhood GAT in numpy, as the JAX package's: per
-    destination a softmax over all its in-edges and the self edge."""
+    destination a softmax over all its in-edges and the self edge; the
+    residual form adds each layer's bias and skip before the ELU."""
     n = graph.num_nodes
     indptr, indices = graph.indptr, graph.indices
     dst_e = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
@@ -302,11 +305,12 @@ def _gat_full_graph_host(model: nn.Module, graph: CSRGraph, h: np.ndarray) -> np
         np.add.at(den, dst_e, w_e)
         out = (w_s / den)[:, :, None] * z
         np.add.at(out, dst_e, (w_e / den[dst_e])[:, :, None] * z[indices])
-        if li == last:
-            h = out.mean(axis=1)
-        else:
-            o = out.reshape(n, -1)
-            h = np.where(o > 0, o, np.expm1(np.minimum(o, 0.0)))   # elu
+        o = out.mean(axis=1) if li == last else out.reshape(n, -1)
+        if hasattr(layer, "skip"):          # the residual form
+            b, sw, sb = (t.detach().cpu().numpy() for t in (layer.b, layer.skip.w,
+                                                             layer.skip.b))
+            o = o + b + h @ sw + sb
+        h = o if li == last else np.where(o > 0, o, np.expm1(np.minimum(o, 0.0)))   # elu
     return h
 
 
@@ -363,7 +367,10 @@ def _gat_full_graph_device(model: nn.Module, graph: CSRGraph, features: np.ndarr
     last = len(model.layers) - 1
     for li, layer in enumerate(model.layers):
         out = _gat_device_layer(layer, h, edges)
-        h = out.mean(dim=1) if li == last else F.elu(out.flatten(1))
+        out = out.mean(dim=1) if li == last else out.flatten(1)
+        if hasattr(layer, "skip"):          # the residual form
+            out = out + layer.b + layer.skip(h)
+        h = out if li == last else F.elu(out)
     return h
 
 

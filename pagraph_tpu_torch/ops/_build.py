@@ -56,6 +56,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "pg_dropout_block_fwd": (_P, _P, _I, _F, _P, _I64, _I, _I, _P, _P, _I, _I, _I, _P),
         "pg_dropout_block_bwd": (_P, _P, _P, _I, _F, _P, _I64, _I, _I64, _I, _P, _I, _I, _I,
                                  _P),
+        "pg_gat_attention_fwd": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _P),
+        "pg_gat_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P, _P,
+                                 _P, _I, _I, _P),
         "pg_mark": (_I, _P),
         "pg_graph_num_nodes": (_P, _P),
         "pg_graph_find_marks": (_P, _P, _I64, _P),

@@ -16,8 +16,9 @@ rows and its neighbor messages are contiguous slices (the JAX package
 reduces them with XLA, not Pallas).  There :func:`dropout_block_gather`
 takes the model's dropout and both halves of a ``mean`` or ``sum`` block in
 one CUDA launch, and their gradient in one more
-(``gather_kernels.DropoutBlock``); the other functions reduce the slices in
-plain torch.  Every function here
+(``gather_kernels.DropoutBlock``), and :func:`gat_attention` takes GAT's
+attention in one more pair (``gather_kernels.GatAttention``); the other
+functions reduce the slices in plain torch.  Every function here
 computes at its input's dtype: f32, or bf16 under ``train.dtype="bfloat16"``
 (the kernels take both).
 
@@ -36,7 +37,7 @@ import torch
 
 from ..sampling.block import Block
 from .gather_kernels import (DROPOUT_BLOCK_KINDS, KINDS, BlockGather, DropoutBlock,
-                             GatherReduce, GatherRows, reduce_msgs_plain)
+                             GatAttention, GatherReduce, GatherRows, reduce_msgs_plain)
 
 
 def _check_kind(kind: str) -> None:
@@ -122,6 +123,20 @@ def dropout_block_gather(h_src: torch.Tensor, block: Block, kind: str, rate: flo
     out = DropoutBlock.apply(h_src.contiguous(), bits, block.neigh_mask, thresh, inv_keep,
                              kind, with_self)
     return out if with_self else (None, out)
+
+
+def gat_attention(z: torch.Tensor, a_self: torch.Tensor, a_neigh: torch.Tensor,
+                  block: Block) -> torch.Tensor:
+    """GAT's attention over a prefix-layout block, ``[cap_dst, K, H]``, from
+    ``z [cap_src, K*H]`` and the attention vectors ``[K, H]``: the masked
+    softmax of each destination's self edge and valid slots, and the
+    weighted sum of their ``z`` rows (``models/gat.py``).  On the card, at
+    f32, one launch forward and one C call backward
+    (``gather_kernels.GatAttention``); on the CPU the plain chain."""
+    if not block.prefix_layout:
+        raise ValueError("gat_attention takes prefix-layout blocks only")
+    return GatAttention.apply(z.contiguous(), a_self.contiguous(), a_neigh.contiguous(),
+                              block.neigh_mask)
 
 
 def block_gather_msgs(h_src: torch.Tensor,

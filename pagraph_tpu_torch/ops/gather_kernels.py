@@ -21,6 +21,11 @@ wrapper                computes                                         replaces
 ``dropout_block_fwd``  dropout, then a prefix-layout block's self rows  none: XLA's elementwise
                        and masked ``mean``/``sum`` (no gather)          passes in the JAX package
 ``dropout_block_bwd``  its gradient, each source row written once       their autograd
+``gat_attention_fwd``  GAT's masked softmax over a prefix-layout        none: XLA's einsums and
+                       block's self edge and slots, and the weighted    softmax in the JAX
+                       sum of ``z`` (reading each row once)             package
+``gat_attention_bwd``  its gradient, each row of ``z`` written once,    their autograd
+                       and those of the two attention vectors
 =====================  ===============================================  ==========================
 
 The ``max`` kind (the pool aggregator's; XLA in the JAX package,
@@ -95,6 +100,20 @@ An on-device step launches the assembly, one dropout block forward a block
 and one backward a block after the first (the layer-0 features take no
 gradient).
 
+GAT's attention over a prefix-layout block is one kernel forward,
+``pg_gat_attention_fwd``, a warp a destination row and head, which reads
+the head's slice of the self row and of each valid slot's row of ``z``
+once, computes both scores from them and the masked softmax in one pass,
+and writes ``[n, K, H]`` with each row and head's max and denominator; and
+one C call backward, ``pg_gat_attention_bwd`` (:class:`GatAttention`,
+counted under ``gat_attention_fwd`` and ``gat_attention_bwd``), which
+writes each row of ``z``'s gradient once and the two attention vectors'
+gradients through per-CTA partials summed in a fixed order (a second
+launch in the same call).  Float32 only: bf16 compute keeps the plain
+chain.  An on-device GAT step launches the assembly and, for each block,
+one attention forward and one backward (block 0's too: ``z`` depends on
+``w``).
+
 Phase marks (:func:`mark`): an empty kernel ``pg_mark_<phase>`` a phase of
 a train step (:data:`MARK_PHASES`), launched where the phase starts, so
 that a profiler's trace splits the step's kernels by phase, inside a
@@ -136,6 +155,8 @@ LAUNCHES: Dict[str, int] = {
     **{f"assemble_{tier}{sfx}": 0 for sfx in ASSEMBLE_OUT.values()
        for tier in ("f32", "bf16", "int8")},
     "grad_to_bf16": 0,
+    "gat_attention_fwd": 0,
+    "gat_attention_bwd": 0,
 }
 
 _PLAIN_ON_CUDA = contextvars.ContextVar("pagraph_plain_on_cuda", default=False)
@@ -283,6 +304,91 @@ def scatter_add_rows_plain(grad_out: torch.Tensor, ids: torch.Tensor,
 def gather_reduce_bwd_plain(grad_out, pos, mask, num_src: int,
                             kind: str, src=None) -> torch.Tensor:
     return block_gather_bwd_plain(None, None, grad_out, pos, mask, num_src, kind, src)
+
+
+GAT_SLOPE = 0.2         # LeakyReLU's slope on GAT's attention logits
+_GAT_NEG = -1e30        # a masked slot's logit: its exp is exactly 0 in f32 and bf16
+
+
+def gat_softmax_plain(z_self, z_neigh, as_dst, an_dst, an_nbr, mask):
+    """GAT's two-part stable softmax and weighted sum (the JAX package's):
+    ``z_self [n, K, H]``, ``z_neigh [n, F, K, H]``, the destinations' two
+    scores ``as_dst``, ``an_dst [n, K]``, the slots' ``an_nbr [n, F, K]``,
+    ``mask [n, F]``.  The self edge stays out of the ``[n, F, K]`` tensors,
+    masked slots hold ``-1e30``.  ``(out [n, K, H], max [n, K], denominator
+    [n, K])``."""
+    e_n = torch.nn.functional.leaky_relu(as_dst[:, None, :] + an_nbr, GAT_SLOPE)
+    e_s = torch.nn.functional.leaky_relu(as_dst + an_dst, GAT_SLOPE)
+    e_n = torch.where(mask[..., None], e_n, _GAT_NEG)
+    m = torch.maximum(e_n.amax(dim=1), e_s)              # [n, K]
+    w_n = torch.exp(e_n - m[:, None, :])
+    w_s = torch.exp(e_s - m)
+    denom = w_n.sum(dim=1) + w_s
+    alpha_n = w_n / denom[:, None, :]
+    alpha_s = w_s / denom
+    out = torch.einsum("nfk,nfkh->nkh", alpha_n, z_neigh) + alpha_s[..., None] * z_self
+    return out, m, denom
+
+
+def _gat_split(z, heads: int, hd: int, n: int, f: int):
+    """``(z3 [S, K, H], its self rows [n, K, H], its slot rows [n, F, K, H])``
+    of a prefix-layout block's ``z``."""
+    z3 = z.unflatten(1, (heads, hd))
+    return z3, z3[:n], z3[n:n + n * f].unflatten(0, (n, f))
+
+
+def gat_attention_fwd_plain(z, a_s, a_n, mask):
+    """GAT's attention over a prefix-layout block as ``models/gat.py`` chains
+    it, op for op: both scores of every row of ``z [S, K*H]`` (``a_s``,
+    ``a_n`` ``[K, H]``), then :func:`gat_softmax_plain` over the self rows
+    ``[0, n)`` and the slots ``n + r * F + k`` (``n, F = mask.shape``).
+    ``(out [n, K, H], stats [2, n, K])``: ``stats`` the max and the
+    denominator."""
+    heads, hd = a_s.shape
+    n, f = mask.shape
+    z3, z_self, z_neigh = _gat_split(z, heads, hd, n, f)
+    att_s = torch.einsum("nkh,kh->nk", z3, a_s)
+    att_n = torch.einsum("nkh,kh->nk", z3, a_n)
+    out, m, denom = gat_softmax_plain(z_self, z_neigh, att_s[:n], att_n[:n],
+                                      att_n[n:n + n * f].unflatten(0, (n, f)), mask)
+    return out, torch.stack([m, denom])
+
+
+def gat_attention_bwd_plain(g, z, a_s, a_n, mask, out, stats, num_src: int):
+    """The gradient of :func:`gat_attention_fwd_plain` from ``g [n, K, H]``,
+    its ``out`` and ``stats``, by the kernel's formulas: ``alpha = exp(e -
+    max) / den``, ``S = g . out``, for each edge ``dpre = alpha (g . z_j -
+    S) lrelu'(pre)``, ``dz_j = alpha g + dpre a_n``, ``dz_r = alpha_self g
+    + sum(dpre) a_s + dpre_self a_n``, zero on masked slots and on rows past
+    ``n * (1 + F)``.  ``(dz [num_src, K*H], d a_s, d a_n)``."""
+    heads, hd = a_s.shape
+    n, f = mask.shape
+    _, zs, zn = _gat_split(z, heads, hd, n, f)
+    m, den = stats[0], stats[1]
+
+    def lrelu(x):
+        return torch.where(x > 0, x, GAT_SLOPE * x)
+
+    def slope(x):
+        return torch.where(x > 0, torch.ones_like(x), torch.full_like(x, GAT_SLOPE))
+
+    s = torch.einsum("nkh,kh->nk", zs, a_s)
+    pre_s = s + torch.einsum("nkh,kh->nk", zs, a_n)
+    pre_n = s[:, None, :] + torch.einsum("nfkh,kh->nfk", zn, a_n)
+    big_s = (g * out).sum(-1)                                    # [n, K]
+    al_s = torch.exp(lrelu(pre_s) - m) / den
+    al_n = torch.where(mask[..., None], torch.exp(lrelu(pre_n) - m[:, None]) / den[:, None],
+                       0.0)
+    dp_s = al_s * ((g * zs).sum(-1) - big_s) * slope(pre_s)
+    dp_n = al_n * (torch.einsum("nkh,nfkh->nfk", g, zn) - big_s[:, None]) * slope(pre_n)
+    dsum = dp_s + dp_n.sum(1)
+    dz_s = al_s[..., None] * g + dsum[..., None] * a_s + dp_s[..., None] * a_n
+    dz_n = al_n[..., None] * g[:, None] + dp_n[..., None] * a_n
+    dz = torch.cat([dz_s.flatten(1), dz_n.reshape(n * f, heads * hd),
+                    z.new_zeros((num_src - n * (1 + f), heads * hd))])
+    da_s = torch.einsum("nk,nkh->kh", dsum, zs)
+    da_n = torch.einsum("nk,nkh->kh", dp_s, zs) + torch.einsum("nfk,nfkh->kh", dp_n, zn)
+    return dz, da_s, da_n
 
 
 # ---------------------------------------------------------------------------
@@ -810,6 +916,92 @@ def dropout_block_bwd(g_self: Optional[torch.Tensor], g_neigh: Optional[torch.Te
     return grad
 
 
+# the backward's CTAs a head and SM: its warps walk the head's rows with a
+# stride, so few CTAs keep few partials of the attention vectors' gradients
+GAT_BWD_CTAS_PER_SM = 2
+# the widest head the kernels take, in units (a lane holds at most 4 of a head)
+GAT_MAX_UNITS = 4 * 32
+
+
+def _check_gat(z, a_s, a_n, mask) -> None:
+    _check(mask, "mask", torch.bool, 2)
+    if a_s.dim() != 2 or a_s.shape != a_n.shape:
+        raise ValueError(f"a_s {tuple(a_s.shape)} and a_n {tuple(a_n.shape)} must be one "
+                         "[heads, head_dim] shape")
+    n, f = mask.shape
+    if z.dim() != 2 or z.shape[1] != a_s.numel() or z.shape[0] < n * (1 + f):
+        raise ValueError(f"z {tuple(z.shape)} is not [>= {n} x (1 + {f}), "
+                         f"{a_s.shape[0]} x {a_s.shape[1]}]")
+
+
+def _gat_unit(hd: int, *tables: torch.Tensor) -> int:
+    """4 where :func:`_unit` finds 4-float units, else 1 (the kernels'
+    two widths)."""
+    unit = 4 if _unit(hd, *tables) == 4 else 1
+    if -(-hd // unit) > GAT_MAX_UNITS:
+        raise ValueError(f"heads of {hd} floats in units of {unit}: more than the "
+                         f"kernels' {GAT_MAX_UNITS}")
+    return unit
+
+
+def gat_attention_fwd(z: torch.Tensor, a_s: torch.Tensor, a_n: torch.Tensor,
+                      mask: torch.Tensor):
+    """GAT's attention over a prefix-layout block from ``z`` f32 ``[S,
+    K*H]`` (``S >= n * (1 + F)``, ``n, F = mask.shape``), ``a_s`` and
+    ``a_n`` f32 ``[K, H]``: ``(out [n, K, H], stats [2, n, K])``, as
+    :func:`gat_attention_fwd_plain`; on the card one launch (the softmax
+    online, the sums in f32 in another order)."""
+    _check_gat(z, a_s, a_n, mask)
+    if not _use_kernel(z, a_s, a_n, mask):
+        return gat_attention_fwd_plain(z, a_s, a_n, mask)
+    for t, name in ((z, "z"), (a_s, "a_s"), (a_n, "a_n")):
+        _check(t, name, torch.float32, 2)
+    heads, hd = a_s.shape
+    n, f = mask.shape
+    out = torch.empty((n, heads, hd), dtype=torch.float32, device=z.device)
+    stats = torch.empty((2, n, heads), dtype=torch.float32, device=z.device)
+    if n:
+        _raise_on(_lib().pg_gat_attention_fwd(
+            z.data_ptr(), a_s.data_ptr(), a_n.data_ptr(), mask.data_ptr(), n, f, heads, hd,
+            out.data_ptr(), stats.data_ptr(), _gat_unit(hd, z, a_s, a_n, out),
+            _stream(z.device)), "pg_gat_attention_fwd")
+        LAUNCHES["gat_attention_fwd"] += 1
+    return out, stats
+
+
+def gat_attention_bwd(g: torch.Tensor, z: torch.Tensor, a_s: torch.Tensor, a_n: torch.Tensor,
+                      mask: torch.Tensor, out: torch.Tensor, stats: torch.Tensor,
+                      num_src: int):
+    """Backward of :func:`gat_attention_fwd` from ``g [n, K, H]`` and its
+    ``out`` and ``stats``: ``(dz [num_src, K*H], d a_s, d a_n)``, as
+    :func:`gat_attention_bwd_plain`; on the card one C call (each row of
+    ``dz`` written once; the attention vectors' gradients from per-CTA
+    partials summed in a fixed order, so the same inputs give the same
+    bits)."""
+    _check_gat(z, a_s, a_n, mask)
+    if num_src < z.shape[0]:
+        raise ValueError(f"num_src {num_src} is below z's {z.shape[0]} rows")
+    if not _use_kernel(g, z, a_s, a_n, mask, out, stats):
+        return gat_attention_bwd_plain(g, z, a_s, a_n, mask, out, stats, num_src)
+    for t, name, ndim in ((g, "g", 3), (z, "z", 2), (a_s, "a_s", 2), (a_n, "a_n", 2),
+                          (out, "out", 3), (stats, "stats", 3)):
+        _check(t, name, torch.float32, ndim)
+    heads, hd = a_s.shape
+    n, f = mask.shape
+    dz = torch.empty((num_src, heads * hd), dtype=torch.float32, device=z.device)
+    da = torch.empty((2, heads, hd), dtype=torch.float32, device=z.device)
+    ctas = max(1, min(-(-n // WARPS),
+                      _sm_count(z.device) * GAT_BWD_CTAS_PER_SM // heads))
+    partial = torch.empty((heads, ctas, 2, hd), dtype=torch.float32, device=z.device)
+    _raise_on(_lib().pg_gat_attention_bwd(
+        z.data_ptr(), a_s.data_ptr(), a_n.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        stats.data_ptr(), g.data_ptr(), n, f, num_src, heads, hd, dz.data_ptr(),
+        da.data_ptr(), partial.data_ptr(), ctas, _gat_unit(hd, g, z, a_s, a_n, out, dz),
+        _stream(z.device)), "pg_gat_attention_bwd")
+    LAUNCHES["gat_attention_bwd"] += 1
+    return dz, da[0], da[1]
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
@@ -926,6 +1118,28 @@ class DropoutBlock(torch.autograd.Function):
                     None if g_neigh is None else g_neigh.contiguous(), bits, thresh,
                     inv_keep, mask, num_src, kind)
         return grad_x, None, None, None, None, None, None
+
+
+class GatAttention(torch.autograd.Function):
+    """GAT's attention over a prefix-layout block, :func:`gat_attention_fwd`
+    (``out [n, K, H]``), whose gradients w.r.t. ``z``, ``a_s`` and ``a_n``
+    are one :func:`gat_attention_bwd`.  It keeps ``z``, the attention
+    vectors, the mask, its output and the stats for its backward."""
+
+    @staticmethod
+    def forward(ctx, z, a_s, a_n, mask):
+        out, stats = gat_attention_fwd(z, a_s, a_n, mask)
+        ctx.save_for_backward(z, a_s, a_n, mask, out, stats)
+        ctx.plain = _PLAIN_ON_CUDA.get()
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        z, a_s, a_n, mask, out, stats = ctx.saved_tensors
+        with _mode(ctx.plain):
+            dz, da_s, da_n = gat_attention_bwd(g.contiguous(), z, a_s, a_n, mask, out, stats,
+                                               z.shape[0])
+        return dz, da_s, da_n, None
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import torch
 
 from pagraph_tpu.cli import common as jcommon
 from pagraph_tpu_torch.cli import common as tcommon
+from tests.test_torch_sampler import jax_fields
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUMMARY_KEYS = {"epochs", "mean_epoch_time_s", "final_loss", "final_acc", "miss_rate",
@@ -80,7 +81,7 @@ def test_build_config_equals_jax(argv):
     t_args, j_args = _parser(tcommon).parse_args(argv), _parser(jcommon).parse_args(argv)
     t = tcommon.build_config(t_args, feat_dim=16, n_classes=5)
     j = jcommon.build_config(j_args, feat_dim=16, n_classes=5)
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert jax_fields(dataclasses.asdict(t)) == dataclasses.asdict(j)
     t.validate()
 
 

@@ -51,6 +51,7 @@ from pagraph_tpu_torch.cli import partition as tpartition
 from pagraph_tpu_torch.cli import preprocess as tpreprocess
 from pagraph_tpu_torch.cli import verify_partition as tverify
 from pagraph_tpu_torch.data.formats import load_dataset as tload
+from tests.test_torch_sampler import jax_model_fields
 
 PAIRS = {"preprocess": (jpreprocess, tpreprocess), "convert": (jconvert, tconvert),
          "partition": (jpartition, tpartition), "verify_partition": (jverify, tverify),
@@ -421,7 +422,7 @@ def checkpoints(request, ds_dir, tmp_path_factory):
     args = p.parse_args(model)
     ds = jload(ds_dir)
     tcfg = tcommon.inference_config(args, feat_dim=ds.feat_dim, n_classes=ds.num_classes)
-    jcfg = pg.Config(model=pg.ModelConfig(**vars(tcfg.model)),
+    jcfg = pg.Config(model=pg.ModelConfig(**jax_model_fields(vars(tcfg.model))),
                      sampler=pg.SamplerConfig(num_hops=tcfg.model.num_sampled_hops))
     template, _ = jcreate(jcfg)
     state = tcreate(tcfg, device="cpu")

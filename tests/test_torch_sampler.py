@@ -1,6 +1,7 @@
 """The port's host sampler, synthetic data and config against
 ``pagraph_tpu``: the same seed must give identical arrays."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -9,6 +10,7 @@ import pagraph_tpu as pg
 import pagraph_tpu_torch as pt
 from pagraph_tpu.data import synthetic as jsyn
 from pagraph_tpu.sampling.sampler import NeighborSampler as JSampler
+from pagraph_tpu_torch.config import PORT_MODEL_FIELDS
 from pagraph_tpu_torch.data import synthetic as tsyn
 from pagraph_tpu_torch.sampling.sampler import NeighborSampler as TSampler
 
@@ -42,18 +44,30 @@ def test_synthetic_dataset_identical(kind, learnable):
     np.testing.assert_array_equal(pt.gcn_norm(td.graph), pg.gcn_norm(jd.graph))
 
 
+def jax_model_fields(model: dict) -> dict:
+    """A port model config's fields less those of the port's own, which
+    must hold their defaults (at which GAT is the JAX package's)."""
+    model = dict(model)
+    assert {k: model.pop(k) for k in PORT_MODEL_FIELDS} == PORT_MODEL_FIELDS
+    return model
+
+
+def jax_fields(cfg: dict) -> dict:
+    """A port config's dict with :func:`jax_model_fields`."""
+    return {**cfg, "model": jax_model_fields(cfg["model"])}
+
+
 def test_config_matches():
     for cfg in (pg.SamplerConfig(), pg.SamplerConfig(fanouts=(5, 3), cap_factor=0.5)):
         tcfg = pt.SamplerConfig(**dataclasses.asdict(cfg))
         assert tcfg.layer_capacities(5000) == cfg.layer_capacities(5000)
         assert tcfg.block_fanouts() == cfg.block_fanouts()
-    assert (dataclasses.asdict(pt.Config())
-            == dataclasses.asdict(pg.Config()))
+    assert jax_fields(dataclasses.asdict(pt.Config())) == dataclasses.asdict(pg.Config())
     # one JSON config drives either package
     jcfg = pg.Config(model=pg.ModelConfig(arch="graphsage", n_layers=2),
                      sampler=pg.SamplerConfig(num_hops=3, fanouts=(4, 3, 2)))
     tcfg = pt.Config.from_json(jcfg.to_json())
-    assert tcfg.to_json() == jcfg.to_json()
+    assert jax_fields(json.loads(tcfg.to_json())) == json.loads(jcfg.to_json())
     tcfg.partition.num_hops = 1
     assert tcfg.sync_hops().partition.num_hops == jcfg.sync_hops().partition.num_hops == 3
     for bad in (dict(model=pt.ModelConfig(n_layers=2)),
