@@ -5,7 +5,9 @@
     python3 chip_smoke.py --dp-gpus 4   # the dp and halo phases' ranks across 4 cards (nccl),
                                         # then cli.train --partition 4
     python3 chip_smoke.py --gat-attention   # device, build and gat_attention only
-    python3 chip_smoke.py --dropout-block   # device, build, gat_attention and dropout_block
+    python3 chip_smoke.py --dropout-block   # device, build, gat_attention, dropout_block
+                                            # and dropout_bits
+    python3 chip_smoke.py --dropout-bits    # device, build and dropout_bits
 
 Phases, each printed as one JSON line:
 
@@ -28,14 +30,26 @@ Phases, each printed as one JSON line:
   registered (two replays): equal less 32768, generator states equal.  Each
   kernel at those blocks (sage-ogbn-products blocks 0, 1 and 2, gcn-
   pagraph-reddit block 0), f32 and bf16, against its plain version from the same
-  bits: the self half and the zeros exact, the mean within the sum order's
-  tolerance (bf16's), the backward within it too (reported bit-equal or
-  not); kernel, plain, draw and bound ms.  The branches (scalar and
+  packed keep-mask: the self half and the zeros exact, the mean within the
+  sum order's tolerance (bf16's), the backward within it too (reported
+  bit-equal or not); kernel, plain, draw and bound ms.  The branches (scalar and
   2-element units, an offset table, fan-outs 70 and 0, source rows past
   the block's, no dropout, both kinds, no self half) against the plain
   versions; and one device step's launches at each cell's model (small
-  Trainers, 2 epochs): the assembly, a fused forward a block, a backward
-  for each block after the first;
+  Trainers, 2 epochs): the assembly, a keep-mask and a fused forward a
+  block, a backward for each block after the first;
+* ``dropout_bits``: the keep-mask kernel (``dropout_bits``) against
+  ``torch.randint``'s decisions (``dropout_bits_plain``) bit for bit at the
+  sources of the cells' blocks (sage-ogbn-products 0, 1 and 2,
+  gcn-pagraph-reddit 0 and 1), eagerly from three generator offsets and in
+  a ``CapturedGraph`` replayed three times, the generators' offsets equal
+  after each; a graph that draws through both refused at its replay; the
+  kernel's, the plain version's and ``torch.randint``'s ms beside the bound
+  (Philox's multiplies at the card's integer rate, or the mask's bytes);
+  and two small on-device Trainers, 2 epochs replayed against 2 eager ones,
+  bit-equal with equal generator offsets: the sage-ogbn-products model (a
+  keep-mask launch a block, the units it drew) and a preprocess GraphSAGE
+  (no keep-mask launch: its blocks draw through ``torch.randint``);
 * ``train``: the main path — cache-backed GraphSAGE at the ``bench.py``
   width (2 layers, hidden 16, 100-dim features, 47 classes, batch 6000,
   fan-out 2, Adam lr 1e-2) on an RMAT scale-20 graph (1,048,576 vertices,
@@ -103,8 +117,9 @@ Phases, each printed as one JSON line:
   peak device memory, and the launches run (those counted eagerly plus
   each graph's captured launches times its replays): one
   ``assemble_<tier>`` (at bf16 compute ``assemble_<tier>_to_bf16``), two
-  ``dropout_block_fwd_mean`` and one ``dropout_block_bwd_mean`` (``_bf16``
-  at bf16 compute) a step, and no other gather kernel;
+  ``dropout_bits``, two ``dropout_block_fwd_mean`` and one
+  ``dropout_block_bwd_mean`` (``_bf16`` at bf16 compute) a step, and no
+  other gather kernel;
 * ``dispatch``: every ``epoch_dispatch`` mode (``scan``, ``steps``,
   ``pipelined``) on six runs (f32 generic, f32 paired, the bf16 and int8
   tiers paired, bf16 compute on the bf16 tier, and f32 with the cosine
@@ -166,9 +181,9 @@ Phases, each printed as one JSON line:
   7 for GAT at either dtype (three ``gather_rows`` of the table ``[z |
   att_s | att_n]``, three ``scatter_add_rows``); the on-device path
   (``steps`` mode) 2 epochs, epoch 1 replayed, bit-equal to a fresh
-  Trainer's eager form, one assembly, three ``dropout_block_fwd_<kind>``
-  and two ``dropout_block_bwd_<kind>`` a step (GCN mean, GIN sum; GAT the
-  assembly alone); device inference and
+  Trainer's eager form, one assembly, three ``dropout_bits``, three
+  ``dropout_block_fwd_<kind>`` and two ``dropout_block_bwd_<kind>`` a step
+  (GCN mean, GIN sum; GAT its attention pair a block); device inference and
   ``evaluate`` on RMAT-20 (validation accuracy); device logits within 1e-4
   of each row's largest host logit on RMAT-16 (GAT: RMAT-14); the loss
   finite and falling; then ``mlp_val_acc`` on the same labels, and the
@@ -394,8 +409,8 @@ Phases, each printed as one JSON line:
 * ``device_step_parity``: one device-sampled step at each tier through the
   kernel and under ``gather_kernels.plain_versions()`` from the same
   parameters: loss and every gradient within 1e-5 relative, one assembly,
-  two dropout block forwards and one backward through the kernels and
-  none under the plain versions;
+  two keep-masks, two dropout block forwards and one backward through the
+  kernels and none under the plain versions;
 * ``device_breakdown``: one on-device step alone and its parts (sample,
   fetch, train), and one replay of the ``steps`` mode's step graph:
   host enqueue, wall and device time (CUDA events), CUDA kernels and memory
@@ -413,8 +428,9 @@ Phases, each printed as one JSON line:
   and its JSON line carry the JAX package's summary keys, the loss is
   finite, the launches run are exactly 4 a step on the host path (the
   assembly, two ``block_gather_fwd_mean``, one ``block_gather_bwd_mean``)
-  and 4 on the device (the assembly, two ``dropout_block_fwd_mean``, one
-  ``dropout_block_bwd_mean``), its one ``torch.profiler`` trace names the
+  and 6 on the device (the assembly, two ``dropout_bits``, two
+  ``dropout_block_fwd_mean``, one ``dropout_block_bwd_mean``), its one
+  ``torch.profiler`` trace names the
   kernels (``block_gather_fwd_kernel`` and ``assemble_kernel`` on the host
   path, ``assemble_kernel``, ``dropout_block_fwd_kernel`` and
   ``dropout_block_bwd_kernel`` on the device), and, on the host path, the cache's
@@ -786,21 +802,19 @@ def dropout_block_cases(torch, gk, agg, dev, bw, flush) -> list:
     the neighbor mean within the sum order's tolerance, the backward within
     the reduce tolerance and reported bit-equal or not), timed beside the
     plain versions and the two draws, with each launch's bound: the least
-    bytes (the rows a valid slot or a self row reads, their int16 bits, the
-    mask, the outputs; backward: the incoming gradients, the bits of the
-    rows that get a nonzero gradient's chance, the mask, the gradient
+    bytes (the rows a valid slot or a self row reads, their keep bits, the
+    mask, the outputs; backward: the incoming gradients, the keep bits of
+    the rows that get a nonzero gradient's chance, the mask, the gradient
     table) at the card's bandwidth."""
     gen = torch.Generator(device=dev).manual_seed(23)
     rows_out = []
     for label, n, f, d, with_self, rate in DROPOUT_BLOCK_SHAPES:
         rows = n * (1 + f)
         thresh, inv_keep = agg.dropout_threshold(rate)
-        thresh -= 1 << 15
         mask = torch.rand(n, f, generator=gen, device=dev) > 0.1
         mask[:64] = False
         valid = int(mask.sum())
-        bits = torch.randint(-(1 << 15), 1 << 15, (rows, d), generator=gen, device=dev,
-                             dtype=torch.int16)
+        keep = gk.dropout_bits_plain((rows, d), thresh, gen, dev)
         x32 = torch.randn(rows, d, generator=gen, device=dev)
         g32 = [torch.randn(n, d, generator=gen, device=dev) for _ in range(2)]
         for dtype in (torch.float32, torch.bfloat16):
@@ -811,11 +825,10 @@ def dropout_block_cases(torch, gk, agg, dev, bw, flush) -> list:
             g_neigh = g32[1].to(dtype)
 
             def fwd():
-                return gk.dropout_block_fwd(x, bits, thresh, inv_keep, mask, with_self, "mean")
+                return gk.dropout_block_fwd(x, keep, inv_keep, mask, with_self, "mean")
 
             def bwd():
-                return gk.dropout_block_bwd(g_self, g_neigh, bits, thresh, inv_keep, mask,
-                                            rows, "mean")
+                return gk.dropout_block_bwd(g_self, g_neigh, keep, inv_keep, mask, rows, "mean")
 
             def plain(fn):
                 def run():
@@ -832,10 +845,10 @@ def dropout_block_cases(torch, gk, agg, dev, bw, flush) -> list:
             f_err, f_ok, f_text = compare(torch, outs_k, outs_p, tols)
             zeros = all(torch.equal(a == 0, b == 0) for a, b in zip(outs_k, outs_p))
             b_err, b_ok, b_text = compare(torch, bk, bp, red)
-            fwd_bytes = ((n if with_self else 0) + valid) * d * (es + 2) + n * f \
+            fwd_bytes = ((n if with_self else 0) + valid) * d * (es + 1 / 8) + n * f \
                 + n * d * es * (2 if with_self else 1)
             bwd_bytes = (2 if with_self else 1) * n * d * es \
-                + ((n if with_self else 0) + valid) * d * 2 + n * f + rows * d * es
+                + ((n if with_self else 0) + valid) * d / 8 + n * f + rows * d * es
             ms = {"fwd": time_ms(torch, fwd, flush, iters=20),
                   "fwd_plain": time_ms(torch, plain(fwd), flush, iters=10),
                   "bwd": time_ms(torch, bwd, flush, iters=20),
@@ -859,7 +872,7 @@ def dropout_block_cases(torch, gk, agg, dev, bw, flush) -> list:
                     flush, iters=10)
             rows_out.append(row)
             del fk, fp, bk, bp, x, g_self, g_neigh
-        del bits, x32, g32, mask
+        del keep, x32, g32, mask
         torch.cuda.empty_cache()
     return rows_out
 
@@ -882,12 +895,11 @@ def dropout_block_branches(torch, gk, dev) -> list:
         x, g_self, g_neigh = table(rows), table(n), table(n)
         mask = torch.rand(n, f, generator=gen, device=dev) > 0.3
         mask[:10] = False
-        bits = torch.randint(-(1 << 15), 1 << 15, (rows, d), generator=gen, device=dev,
-                             dtype=torch.int16)
+        keep = gk.dropout_bits_plain((rows, d), 1 << 15, gen, dev)
         for kind in ("mean", "sum"):
             for with_self in (True, False):
-                for b, thresh, inv in ((bits, 0, 2.0), (None, 0, 1.0)):
-                    args = (b, thresh, inv, mask)
+                for b, inv in ((keep, 2.0), (None, 1.0)):
+                    args = (b, inv, mask)
                     fk = gk.dropout_block_fwd(x, *args, with_self, kind)
                     gs = g_self if with_self else None
                     bk = gk.dropout_block_bwd(gs, g_neigh, *args, rows, kind)
@@ -962,6 +974,192 @@ def dropout_block_phase(env, bw: float) -> None:
     bad += [r["case"] for r in out["branches"] if not r["ok"]]
     if bad:
         fail("dropout_block: " + "; ".join(bad))
+
+
+# -- dropout_bits: the keep-mask kernel against torch.randint ----------------
+# the sources of the blocks whose dropout the kernel draws in the benchmark
+# cells: (label, rows, D, rate): sage-ogbn-products blocks 0, 1 and 2 and
+# gcn-pagraph-reddit blocks 0 and 1 (its skip concat doubles hidden 32)
+DROPOUT_BITS_SHAPES = (("sage block0", 1_081_344, 100, 0.5), ("sage block1", 180_224, 256, 0.5),
+                       ("sage block2", 16_384, 256, 0.5), ("gcn block0", 54_000, 602, 0.2),
+                       ("gcn block1", 18_000, 64, 0.2))
+# the generator's Philox offsets each shape is drawn from (multiples of 4)
+DROPOUT_BITS_OFFSETS = (0, 4 * 12_345, (1 << 36) + 4 * 7)
+# a draw's replays in a captured graph
+DROPOUT_BITS_REPLAYS = 3
+# the H100 SXM's boost clock and int32 multiplies a SM and clock, for the
+# Philox bound: 40 multiplies (20 low and 20 high halves) a counter of 4 units
+SM_CLOCK_HZ, IMUL_PER_SM_CLOCK = 1.98e9, 64
+
+
+def dropout_bits_agree(torch, gk, CapturedGraph, dev, rows: int, d: int, rate: float) -> dict:
+    """``gk.dropout_bits`` against ``torch.randint``'s decisions, bit for
+    bit, at ``[rows, d]``: eagerly from each of :data:`DROPOUT_BITS_OFFSETS`,
+    and in one ``CapturedGraph`` replayed :data:`DROPOUT_BITS_REPLAYS` times
+    from the second; the generators' offsets equal after each draw."""
+    from pagraph_tpu_torch.ops.aggregate import dropout_threshold
+    thresh, _ = dropout_threshold(rate)
+    shape = (rows, d)
+
+    def gens(seed):
+        return [torch.Generator(device=dev).manual_seed(seed) for _ in range(2)]
+
+    def same(a, b, g_k, g_t):
+        return bool(torch.equal(a, b)) and g_k.get_offset() == g_t.get_offset()
+
+    g_k, g_t = gens(31)
+    eager = []
+    for off in DROPOUT_BITS_OFFSETS:
+        g_k.set_offset(off)
+        g_t.set_offset(off)
+        eager.append(same(gk.dropout_bits(shape, thresh, g_k, dev),
+                          gk.dropout_bits_plain(shape, thresh, g_t, dev), g_k, g_t))
+    g_k, g_t = gens(37)
+    graph = CapturedGraph(lambda: gk.dropout_bits(shape, thresh, g_k, dev), generator=g_k)
+    captured_offset = g_k.get_offset()
+    for g in (g_k, g_t):
+        g.set_offset(DROPOUT_BITS_OFFSETS[1])
+    replays = []
+    for _ in range(DROPOUT_BITS_REPLAYS):
+        out = graph()
+        replays.append(same(out, gk.dropout_bits_plain(shape, thresh, g_t, dev), g_k, g_t))
+    kept = float(gk.unpack_bits(graph.out, shape).float().mean())
+    row = {"rows": rows, "d": d, "rate": rate, "thresh": thresh, "eager_equal": eager,
+           "replays_equal": replays, "capture_left_offset": captured_offset == 0,
+           "graph_units": graph.units, "graph_launches": graph.launches,
+           "increment": g_t.get_offset() - DROPOUT_BITS_OFFSETS[1], "kept_share": kept}
+    row["ok"] = all(eager) and all(replays) and row["capture_left_offset"]
+    del graph
+    return row
+
+
+def dropout_bits_mixed_refused(torch, gk, CapturedGraph, dev) -> bool:
+    """A graph that draws from one generator through torch and through the
+    kernel: its replay raises ``RuntimeError`` (their offsets would
+    overlap)."""
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    def mixed():
+        torch.randint(0, 1 << 16, (1000,), generator=g, device=dev, dtype=torch.int32)
+        return gk.dropout_bits((1000,), 32768, g, dev)
+
+    graph = CapturedGraph(mixed, generator=g)
+    try:
+        graph()
+    except RuntimeError:
+        return True
+    return False
+
+
+def dropout_bits_cases(torch, gk, dev, bw, flush) -> list:
+    """The kernel at :data:`DROPOUT_BITS_SHAPES` timed beside the plain
+    version (``torch.randint``, the compare, the packing), ``torch.randint``
+    alone (``library_ms``, the draw the kernel replaces) and the bound: the
+    larger of the Philox multiplies at the card's integer rate and the
+    mask's bytes written once."""
+    from pagraph_tpu_torch.ops.aggregate import dropout_threshold
+    gen = torch.Generator(device=dev).manual_seed(43)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for label, rows, d, rate in DROPOUT_BITS_SHAPES:
+        thresh, _ = dropout_threshold(rate)
+        n = rows * d
+        ms = {"kernel_ms": time_ms(torch, lambda: gk.dropout_bits((rows, d), thresh, gen, dev),
+                                   flush, iters=20),
+              "plain_ms": time_ms(torch, lambda: gk.dropout_bits_plain((rows, d), thresh, gen,
+                                                                       dev), flush, iters=10),
+              "library_ms": time_ms(torch, lambda: torch.randint(
+                  -(1 << 15), 1 << 15, (rows, d), generator=gen, device=dev,
+                  dtype=torch.int16), flush, iters=10)}
+        philox_ms = n / 4 * 40 / (sms * IMUL_PER_SM_CLOCK * SM_CLOCK_HZ) * 1e3
+        bytes_ms = 4 * -(-n // 32) / bw * 1e3
+        row = {"case": label, "units": n, "grid": gk.draw_grid(n, *gk._draw_props(dev)), **ms,
+               "philox_bound_ms": philox_ms, "bytes_bound_ms": bytes_ms,
+               "bound_ms": max(philox_ms, bytes_ms)}
+        row["bound_share"] = row["bound_ms"] / ms["kernel_ms"]
+        out.append(row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def dropout_bits_trainers(env) -> dict:
+    """Small on-device Trainers (2 epochs, epoch 1 replayed) against a fresh
+    Trainer's 2 eager epochs, bit-equal losses, parameters and generator
+    offsets: the sage-ogbn-products model (3 blocks, a keep-mask launch a
+    block) and a preprocess GraphSAGE (its layer-0 dropout is torch's, so
+    its blocks draw through ``torch.randint`` too: no keep-mask launch)."""
+    torch, pt = env.torch, env.pt
+    from pagraph_tpu_torch.train.device_epoch import DeviceEpochRunner
+    ds = env.synthetic.synthetic_dataset(40_000, 400_000, feat_dim=100, num_classes=47,
+                                         seed=3, learnable=True)
+    out = {}
+    for label, preprocess, sampler, per_step in (
+            ("sage", False, dict(batch_size=1024, fanouts=(5, 10, 15), num_hops=3),
+             device_step_launches("assemble_f32", "mean", 3)),
+            ("sage preprocess", True, dict(batch_size=1024, fanouts=(10, 15), num_hops=2),
+             device_step_launches("assemble_f32", "mean", 2, grads=2, kernel_draws=False))):
+        cfg = pt.Config(model=pt.ModelConfig(arch="graphsage", n_layers=2, hidden=256,
+                                             feat_dim=100, n_classes=47, aggregator="mean",
+                                             dropout=0.5, skip_connection=False,
+                                             preprocess=preprocess),
+                        sampler=pt.SamplerConfig(seed=0, **sampler),
+                        cache=pt.CacheConfig(capacity=None),
+                        train=pt.TrainConfig(lr=3e-3, on_device_sampling=True))
+        cfg.validate()
+        t_, row = run_trainer(torch, env.gk, f"{label} device", lambda: env.Trainer.from_dataset(
+            cfg, ds, seed=0), 2, per_step, must_fall=False)
+        replayed = [m["mean_loss"] for m in row["epochs"]]
+        params = {k: p.detach().clone() for k, p in t_.state.model.named_parameters()}
+        offset = t_.state.generator.get_offset()
+        units = executed_units(env.gk.DRAWN_UNITS["dropout_bits"], t_.epoch_runner)
+        del t_
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_e = env.Trainer.from_dataset(cfg, ds, seed=0)
+        runner = DeviceEpochRunner(cfg, t_e.state, t_e.epoch_inputs, t_e.device_data())
+        eager = []
+        for e in range(2):
+            t_e.epoch_inputs.load(*t_e.epoch_randomness(e, out=t_e.epoch_inputs))
+            v = runner().values()
+            eager.append(v["loss_sum"] / max(v["steps"], 1))
+        equal = replayed == eager and all(torch.equal(params[k], p) for k, p in
+                                          t_e.state.model.named_parameters())
+        out[label] = {"launches_per_step": per_step, "epochs": row["epochs"],
+                      "units_drawn_by_kernel": units, "eager_losses": eager,
+                      "replay_bit_equal_to_eager": equal,
+                      "generator_offsets": [offset, t_e.state.generator.get_offset()]}
+        out[label]["ok"] = equal and offset == t_e.state.generator.get_offset() and (
+            (units > 0) != preprocess)
+        del t_e, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dropout_bits_phase(env, bw: float) -> None:
+    """The ``dropout_bits`` line: the keep-mask against ``torch.randint`` at
+    the cells' blocks, eagerly and replayed, a mixed graph refused, the
+    kernel's times, and the Trainers' launches and replays; fails on any
+    mask, offset or replay that disagrees."""
+    torch, gk, dev = env.torch, env.gk, env.dev
+    from pagraph_tpu_torch.train.state import CapturedGraph
+    t0 = time.perf_counter()
+    out = {"sms": gk._draw_props(dev)[0], "max_threads_per_sm": gk._draw_props(dev)[1],
+           "draws": {label: dropout_bits_agree(torch, gk, CapturedGraph, dev, rows, d, rate)
+                     for label, rows, d, rate in DROPOUT_BITS_SHAPES}}
+    torch.cuda.empty_cache()
+    print(json.dumps({"dropout_bits_draws": out["draws"]}), flush=True)
+    out["mixed_graph_refused"] = dropout_bits_mixed_refused(torch, gk, CapturedGraph, dev)
+    out["kernels"] = dropout_bits_cases(torch, gk, dev, bw, env.flush)
+    out["trainers"] = dropout_bits_trainers(env)
+    out["seconds"] = time.perf_counter() - t0
+    emit("dropout_bits", out)
+    bad = [f"draws at {k}: {v}" for k, v in out["draws"].items() if not v["ok"]]
+    bad += [f"{k}: {v}" for k, v in out["trainers"].items() if not v["ok"]]
+    if not out["mixed_graph_refused"]:
+        bad.append("a graph mixing torch's draws with the kernel's replayed without an error")
+    if bad:
+        fail("dropout_bits: " + "; ".join(bad))
 
 
 # -- gat_attention: GAT's attention kernels at the gat-products.device cell --
@@ -1113,6 +1311,15 @@ def gat_attention_phase(env, bw: float) -> None:
         fail("gat_attention: " + "; ".join(bad))
 
 
+def executed_units(counted: int, runner) -> int:
+    """The units the keep-mask kernel drew since the counters' reset:
+    ``counted`` (``gk.DRAWN_UNITS["dropout_bits"]``, a captured draw once)
+    with each of ``runner``'s graphs' units times its replays in place of
+    that once."""
+    return counted + sum(g.units * (g.replays - 1)
+                         for g in (runner.graphs if runner is not None else ()))
+
+
 def executed_launches(counted, runner):
     """The launches run since the counters' reset: ``counted`` (which counts
     a launch captured into a graph once, at capture) with each of
@@ -1221,30 +1428,36 @@ def family_step_launches(arch: str, compute: str) -> dict:
 
 
 def device_step_launches(assemble_key: str, kind=None, blocks: int = 0,
-                         grads=None, bf16: bool = False, gat: bool = False) -> dict:
+                         grads=None, bf16: bool = False, gat: bool = False,
+                         kernel_draws: bool = True) -> dict:
     """The gather-kernel launches one on-device step makes: the layer-0
     fetch (``assemble_key``) and, where the blocks reduce with ``kind``
     (``mean`` or ``sum``: GraphSAGE mean or gcn, GCN, GIN), one fused dropout
     block forward a block and one backward a block whose source needs a
     gradient (``grads``, by default every block but the first: the
-    features take none), ``_bf16`` at bf16 compute.  GAT at f32 (``gat``)
-    one attention forward and one backward a block (block 0's too: ``z``
-    depends on ``w``); at bf16, pool, lstm and CV-GCN (``kind`` None) no
-    block kernel runs on the device."""
+    features take none), ``_bf16`` at bf16 compute, and one keep-mask
+    (``dropout_bits``) a block where the model drops out (``kernel_draws``:
+    false at dropout 0, and under preprocess, whose blocks draw through
+    ``torch.randint``).  GAT at f32 (``gat``) one attention forward and one
+    backward a block (block 0's too: ``z`` depends on ``w``); at bf16, pool,
+    lstm and CV-GCN (``kind`` None) no block kernel runs on the device."""
     out = {assemble_key: 1}
     if gat and not bf16:
         out.update(gat_attention_fwd=blocks, gat_attention_bwd=blocks)
     if kind is not None:
         sfx = "_bf16" if bf16 else ""
         grads = blocks - 1 if grads is None else grads
+        if kernel_draws:
+            out["dropout_bits"] = blocks
         out[f"dropout_block_fwd_{kind}{sfx}"] = blocks
         if grads:
             out[f"dropout_block_bwd_{kind}{sfx}"] = grads
     return out
 
 
-# the main path's on-device step (GraphSAGE mean, 2 blocks)
+# the main path's on-device step (GraphSAGE mean, 2 blocks), and at dropout 0
 DEVICE_STEP = device_step_launches("assemble_f32", "mean", 2)
+DEVICE_STEP_NO_DROPOUT = device_step_launches("assemble_f32", "mean", 2, kernel_draws=False)
 
 
 def model_families(env):
@@ -2270,7 +2483,7 @@ def dp_phase(env, root: str):
                    f"{DP_F32_LOSS_TOL} and {DP_F32_PARAM_TOL}")
     dev = w1["device"]
     steps = sum(e["batches"] for e in dev["epochs"])
-    if (dev["launches"] != {k: v * steps for k, v in DEVICE_STEP.items()}
+    if (dev["launches"] != {k: v * steps for k, v in DEVICE_STEP_NO_DROPOUT.items()}
             or dev["all_reduces_per_step"] != 1):
         bad.append(f"(b) launches {dev['launches']} and {dev['all_reduces_per_step']} "
                    f"all-reduces a step over {steps} steps")
@@ -2572,7 +2785,8 @@ def halo_phase(env, root: str):
                    f"max|p|) from the cache source's run, over {DP_F32_LOSS_TOL} and "
                    f"{DP_F32_PARAM_TOL}")
     dev = w1["edge_device_bfloat16"]
-    per_step = device_step_launches("assemble_f32_to_bf16", "mean", 2, bf16=True)
+    per_step = device_step_launches("assemble_f32_to_bf16", "mean", 2, bf16=True,
+                                    kernel_draws=False)
     halo_check_collectives(dev, "(a) edge device", per_step, bad)
     halo_check_collectives(dev["pipelined"], "(a) edge device pipelined", per_step, bad)
     if dev["graph_replays"] != [HALO_DEVICE_EPOCHS - 1]:
@@ -3815,7 +4029,8 @@ def main() -> None:
         torch=torch, gk=gk, pt=pt, dev=dev, synthetic=synthetic, Trainer=Trainer,
         flush=torch.empty(64 << 20, dtype=torch.uint8, device=dev))
     # -- gat_attention: GAT's attention kernels, the cell's model's launches --
-    gat_attention_phase(kernel_env, bw)
+    if sys.argv[1:2] != ["--dropout-bits"]:
+        gat_attention_phase(kernel_env, bw)
     if sys.argv[1:2] == ["--gat-attention"]:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}),
@@ -3823,8 +4038,11 @@ def main() -> None:
         return
 
     # -- dropout_block: the fused dropout block's draws, kernels, launches ----
-    dropout_block_phase(kernel_env, bw)
-    if sys.argv[1:2] == ["--dropout-block"]:
+    if sys.argv[1:2] != ["--dropout-bits"]:
+        dropout_block_phase(kernel_env, bw)
+    # -- dropout_bits: the keep-mask kernel against torch.randint --------------
+    dropout_bits_phase(kernel_env, bw)
+    if sys.argv[1:2] in (["--dropout-block"], ["--dropout-bits"]):
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}),
               flush=True)
@@ -4746,9 +4964,9 @@ def main() -> None:
             ("int8_host", store_pre_i8, "int8", False, 1,
              {"assemble_int8": 1, "block_gather_fwd_mean": 1, "block_gather_bwd_mean": 1}),
             ("f32_device", store_pre, "float32", True, 1,
-             device_step_launches("assemble_f32", "mean", 1, grads=1)),
+             device_step_launches("assemble_f32", "mean", 1, grads=1, kernel_draws=False)),
             ("int8_device", store_pre_i8, "int8", True, 1,
-             device_step_launches("assemble_int8", "mean", 1, grads=1))):
+             device_step_launches("assemble_int8", "mean", 1, grads=1, kernel_draws=False))):
         t_, pre_out[label] = run_trainer(
             torch, gk, f"preprocess {label}", lambda s_=store_, d_=dtype, o_=on_device: Trainer(
                 pre_config(d_, o_), s_, ds.graph, ds.train_nids, ds.labels, seed=0),

@@ -44,8 +44,12 @@
 //     mean to XLA, whose fusions the port's eager PyTorch does not make (an
 //     int32 tensor of bits, four full passes, a broadcast mask, padded
 //     slices in the backward).  One forward reads a block's source and its
-//     int16 dropout bits once and writes its two [n, D] outputs; the
-//     backward writes each source row's gradient once.
+//     packed keep-mask (a bit an element) once and writes its two [n, D]
+//     outputs; the backward writes each source row's gradient once.
+//   * pg_dropout_bits replaces no Pallas kernel either: the JAX package
+//     draws its dropout bits with jax.random in XLA.  It writes that mask
+//     from the units torch.randint would draw from the same generator, one
+//     bit a unit (section "the dropout keep-mask" below).
 //   * pg_gat_attention_fwd / pg_gat_attention_bwd replace no Pallas kernel
 //     either: GAT's attention over a prefix-layout block (the JAX package's
 //     XLA einsums, masked softmax and weighted sum, models/gat.py).  The
@@ -132,6 +136,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -1162,14 +1167,15 @@ int block_gather_bwd(const void* src, const void* g_self, const void* self_pos,
 // A prefix-layout block (the on-device sampler's) holds its n destinations'
 // self rows as source rows [0, n) and destination r's fan-out messages as
 // rows n + r * fanout + k: no gather, each source row feeds one output.  The
-// pair below fuses inverted dropout (keep an element iff its int16 bit is
-// below thresh, then times inv_keep) into the block's self half and masked
-// sum / mean, reading the source and its bits once; the backward is a pure
-// map, each source row's gradient written once (no memset, no atomics).
+// pair below fuses inverted dropout (keep an element iff its bit of the
+// packed keep-mask is set, then times inv_keep) into the block's self half
+// and masked sum / mean, reading the source and its mask once; the backward
+// is a pure map, each source row's gradient written once (no memset, no
+// atomics).  Element e = row * D + col of the source is bit e % 32 of mask
+// word e / 32 (pg_dropout_bits writes it).
 //
 // A W-element unit of a row (W = 4, 2 or 1: D % W == 0 and every table
-// aligned to it) in memory, for the rows (float, uint16_t bf16) and the
-// dropout bits (int16_t).
+// aligned to it) in memory, for the rows (float, uint16_t bf16).
 template <typename T, int W> struct PackOf;
 template <> struct PackOf<float, 4> { using type = float4; };
 template <> struct PackOf<float, 2> { using type = float2; };
@@ -1177,9 +1183,18 @@ template <> struct PackOf<float, 1> { using type = float; };
 template <> struct PackOf<uint16_t, 4> { using type = uint2; };
 template <> struct PackOf<uint16_t, 2> { using type = unsigned int; };
 template <> struct PackOf<uint16_t, 1> { using type = unsigned short; };
-template <> struct PackOf<int16_t, 4> { using type = uint2; };
-template <> struct PackOf<int16_t, 2> { using type = unsigned int; };
-template <> struct PackOf<int16_t, 1> { using type = short; };
+
+// The mask word that holds element e's bit.  The W elements of a unit from
+// e (a multiple of W) share one word; a unit keeps its word in one register
+// until use, when kept() picks element e + j's bit by e's low bits alone
+// (e32: e modulo 2^32, recomputed then, not held).
+__device__ __forceinline__ uint32_t keep_word(const uint32_t* __restrict__ keep, int64_t e) {
+  return __ldg(keep + (e >> 5));
+}
+
+__device__ __forceinline__ bool kept(uint32_t word, uint32_t e32, int j) {
+  return ((word >> ((e32 + j) & 31)) & 1u) != 0;
+}
 
 template <typename T, int W>
 union Pack {
@@ -1252,7 +1267,7 @@ __device__ __forceinline__ bool slot_on(uint64_t w, const uint8_t* __restrict__ 
 
 // Forward, one destination row r < n to a group of 1 << lg lanes (at most
 // a warp), each lane its units i = sub, sub + G, ...:
-//   drop(v) = bits < thresh ? round_T(v * inv_keep) : 0    (bits null: v)
+//   drop(v) = kept ? round_T(v * inv_keep) : 0    (keep null: v)
 //   out_self[r]  = drop(x[r])                        (out_self null: not written)
 //   out_neigh[r] = sum_k mask[r,k] * drop(x[n + r * fanout + k]), k in order,
 //                  in f32; for mean rounded to T, then divided by the count of
@@ -1260,15 +1275,19 @@ __device__ __forceinline__ bool slot_on(uint64_t w, const uint8_t* __restrict__ 
 // which is the plain version's arithmetic up to the order of the sum (torch
 // rounds the sum and the quotient at bf16 too).  The row's mask word comes
 // first (one round trip); then a lane issues the self unit's loads and
-// those of kDropChunk valid message rows (values and bits) before its first
+// those of kDropChunk valid message rows (values and mask words) before its first
 // store or add, and keeps them packed.  Masked slots load nothing.  Loading
 // every slot regardless of the mask (no wait for it), and 64-256 lanes a
-// row at D = 256 and 602, measured no faster (PERF.md).
+// row at D = 256 and 602, measured no faster (PERF.md).  f32 rows of
+// 2-element units (D % 4 == 2: GCN's 602-wide block 0) ask for 4 blocks a
+// SM, which holds them to 64 registers: unbounded they took 72 (3 blocks)
+// and ran 12% slower there; the other units ran 1-26% slower under that
+// cap (PERF.md).
 template <typename T, int W>
-__global__ void __launch_bounds__(kThreads)
-dropout_block_fwd_kernel(const T* __restrict__ x, const int16_t* __restrict__ bits,
-                         int thresh, float inv_keep, const uint8_t* __restrict__ mask,
-                         int64_t n, int fanout, int d, T* __restrict__ out_self,
+__global__ void __launch_bounds__(kThreads, (sizeof(T) == 4 && W == 2) ? 4 : 1)
+dropout_block_fwd_kernel(const T* __restrict__ x, const uint32_t* __restrict__ keep,
+                         float inv_keep, const uint8_t* __restrict__ mask, int64_t n,
+                         int fanout, int d, T* __restrict__ out_self,
                          T* __restrict__ out_neigh, int mean, int lg) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
   if (r >= n) return;
@@ -1278,28 +1297,31 @@ dropout_block_fwd_kernel(const T* __restrict__ x, const int16_t* __restrict__ bi
   const uint64_t mw = mask_word(m, fanout, &count);
   const int64_t msg0 = n + r * fanout;
   const int units = d / W;
-  const bool drop = bits != nullptr;
+  const bool drop = keep != nullptr;
+  // the low 32 bits of the first message row's and the self row's first elements
+  const uint32_t msg_e32 = static_cast<uint32_t>(msg0 * d), self_e32 = static_cast<uint32_t>(r * d);
   for (int i = sub; i < units; i += group) {
     Pack<T, W> sx;
-    Pack<int16_t, W> sb;
+    uint32_t sb = 0;
     if (out_self != nullptr) {
       sx = load_pack<T, W>(x + r * d, i);
-      if (drop) sb = load_pack<int16_t, W>(bits + r * d, i);
+      if (drop) sb = keep_word(keep, r * d + i * W);
     }
     float acc[W];
 #pragma unroll
     for (int j = 0; j < W; ++j) acc[j] = 0.f;
     for (int k0 = 0; k0 == 0 || k0 < fanout; k0 += kDropChunk) {    // once at fanout 0
       Pack<T, W> vx[kDropChunk];
-      Pack<int16_t, W> vb[kDropChunk];
+      uint32_t vb[kDropChunk];
       bool on[kDropChunk];
 #pragma unroll
       for (int c = 0; c < kDropChunk; ++c) {
         const int k = k0 + c;
         on[c] = k < fanout && slot_on(mw, m, k);
+        vb[c] = 0;
         if (on[c]) {
           vx[c] = load_pack<T, W>(x + (msg0 + k) * d, i);
-          if (drop) vb[c] = load_pack<int16_t, W>(bits + (msg0 + k) * d, i);
+          if (drop) vb[c] = keep_word(keep, (msg0 + k) * d + i * W);
         }
       }
       if (k0 == 0 && out_self != nullptr) {
@@ -1307,7 +1329,8 @@ dropout_block_fwd_kernel(const T* __restrict__ x, const int16_t* __restrict__ bi
         unpack<T, W>(sx, v);
         if (drop) {
 #pragma unroll
-          for (int j = 0; j < W; ++j) v[j] = sb.e[j] < thresh ? round_to<T>(v[j] * inv_keep) : 0.f;
+          for (int j = 0; j < W; ++j)
+            v[j] = kept(sb, self_e32 + i * W, j) ? round_to<T>(v[j] * inv_keep) : 0.f;
         }
         store_unit<T, W>(out_self + r * d, i, v);
       }
@@ -1316,9 +1339,10 @@ dropout_block_fwd_kernel(const T* __restrict__ x, const int16_t* __restrict__ bi
         if (!on[c]) continue;
         float v[W];
         unpack<T, W>(vx[c], v);
+        const uint32_t e32 = msg_e32 + static_cast<uint32_t>((k0 + c) * d + i * W);
 #pragma unroll
         for (int j = 0; j < W; ++j)
-          acc[j] += !drop ? v[j] : vb[c].e[j] < thresh ? round_to<T>(v[j] * inv_keep) : 0.f;
+          acc[j] += !drop ? v[j] : kept(vb[c], e32, j) ? round_to<T>(v[j] * inv_keep) : 0.f;
       }
     }
     if (mean && count > 0) {
@@ -1333,17 +1357,17 @@ dropout_block_fwd_kernel(const T* __restrict__ x, const int16_t* __restrict__ bi
 // Backward w.r.t. x [num_src, d], one destination row r < n to a group of
 // lanes, writing its self row and its fan-out message rows; groups r >= n
 // zero the rows past the block's n * (1 + fanout), 1 + fanout each:
-//   grad[r]                 = keep ? round_T(g_self[r] * inv_keep) : 0
-//   grad[n + r * fanout + k] = mask[r,k] && keep ? round_T(q * inv_keep) : 0,
+//   grad[r]                 = kept ? round_T(g_self[r] * inv_keep) : 0
+//   grad[n + r * fanout + k] = mask[r,k] && kept ? round_T(q * inv_keep) : 0,
 //     q = g_neigh[r], for mean round_T(g_neigh[r] / count)
-// (bits null: keep is true and nothing is multiplied; a null gradient is
-// zero), which is autograd's arithmetic over the plain version exactly.  A
-// lane issues its gradients' and kDropChunk rows' bits loads, packed, before
-// its first store; masked slots and a null g_self load no bits.
+// (keep null: every element is kept and nothing is multiplied; a null
+// gradient is zero), which is autograd's arithmetic over the plain version
+// exactly.  A lane issues its gradients' and kDropChunk rows' mask-word
+// loads before its first store; masked slots and a null g_self load none.
 template <typename T, int W>
 __global__ void __launch_bounds__(kThreads)
 dropout_block_bwd_kernel(const T* __restrict__ g_self, const T* __restrict__ g_neigh,
-                         const int16_t* __restrict__ bits, int thresh, float inv_keep,
+                         const uint32_t* __restrict__ keep, float inv_keep,
                          const uint8_t* __restrict__ mask, int64_t n, int fanout,
                          int64_t num_src, int d, T* __restrict__ grad, int mean, int lg) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * (kThreads >> lg) + (threadIdx.x >> lg);
@@ -1366,23 +1390,24 @@ dropout_block_bwd_kernel(const T* __restrict__ g_self, const T* __restrict__ g_n
   int count = 0;
   const uint64_t mw = mask_word(m, fanout, &count);
   const int64_t msg0 = n + r * fanout;
-  const bool drop = bits != nullptr;
+  const bool drop = keep != nullptr;
+  const uint32_t msg_e32 = static_cast<uint32_t>(msg0 * d), self_e32 = static_cast<uint32_t>(r * d);
   for (int i = sub; i < units; i += group) {
     Pack<T, W> gs, gn;
-    Pack<int16_t, W> sb;
+    uint32_t sb = 0;
     if (g_self != nullptr) {
       gs = load_pack<T, W>(g_self + r * d, i);
-      if (drop) sb = load_pack<int16_t, W>(bits + r * d, i);
+      if (drop) sb = keep_word(keep, r * d + i * W);
     }
     if (g_neigh != nullptr) gn = load_pack<T, W>(g_neigh + r * d, i);
     for (int k0 = 0; k0 == 0 || k0 < fanout; k0 += kDropChunk) {    // once at fanout 0
-      Pack<int16_t, W> vb[kDropChunk];
+      uint32_t vb[kDropChunk];
       bool on[kDropChunk];
 #pragma unroll
       for (int c = 0; c < kDropChunk; ++c) {
         const int k = k0 + c;
         on[c] = k < fanout && slot_on(mw, m, k);
-        if (on[c] && drop) vb[c] = load_pack<int16_t, W>(bits + (msg0 + k) * d, i);
+        vb[c] = on[c] && drop ? keep_word(keep, (msg0 + k) * d + i * W) : 0u;
       }
       if (k0 == 0) {
         float v[W];
@@ -1391,7 +1416,7 @@ dropout_block_bwd_kernel(const T* __restrict__ g_self, const T* __restrict__ g_n
           if (drop) {
 #pragma unroll
             for (int j = 0; j < W; ++j)
-              v[j] = sb.e[j] < thresh ? round_to<T>(v[j] * inv_keep) : 0.f;
+              v[j] = kept(sb, self_e32 + i * W, j) ? round_to<T>(v[j] * inv_keep) : 0.f;
           }
         } else {
 #pragma unroll
@@ -1414,11 +1439,12 @@ dropout_block_bwd_kernel(const T* __restrict__ g_self, const T* __restrict__ g_n
       for (int c = 0; c < kDropChunk; ++c) {
         if (k0 + c >= fanout) break;
         float o[W];
+        const uint32_t e32 = msg_e32 + static_cast<uint32_t>((k0 + c) * d + i * W);
 #pragma unroll
         for (int j = 0; j < W; ++j)
           o[j] = !on[c] ? 0.f
                  : !drop ? q[j]
-                 : vb[c].e[j] < thresh ? round_to<T>(q[j] * inv_keep) : 0.f;
+                 : kept(vb[c], e32, j) ? round_to<T>(q[j] * inv_keep) : 0.f;
         store_unit<T, W>(grad + (msg0 + k0 + c) * d, i, o);
       }
     }
@@ -1427,7 +1453,7 @@ dropout_block_bwd_kernel(const T* __restrict__ g_self, const T* __restrict__ g_n
 
 template <typename T, int W>
 int launch_dropout_block(bool backward, const void* x_or_gself, const void* g_neigh,
-                         const int16_t* bits, int thresh, float inv_keep, const uint8_t* mask,
+                         const uint32_t* keep, float inv_keep, const uint8_t* mask,
                          int64_t n, int fanout, int64_t num_src, int d, void* out_self,
                          void* out, int mean, cudaStream_t st) {
   const int lg = lanes_lg(d / W);
@@ -1438,31 +1464,154 @@ int launch_dropout_block(bool backward, const void* x_or_gself, const void* g_ne
   const dim3 grid(static_cast<unsigned>(ceil_div(groups, kThreads >> lg)));
   if (backward) {
     dropout_block_bwd_kernel<T, W><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(x_or_gself), static_cast<const T*>(g_neigh), bits, thresh,
-        inv_keep, mask, n, fanout, num_src, d, static_cast<T*>(out), mean, lg);
+        static_cast<const T*>(x_or_gself), static_cast<const T*>(g_neigh), keep, inv_keep,
+        mask, n, fanout, num_src, d, static_cast<T*>(out), mean, lg);
   } else {
     dropout_block_fwd_kernel<T, W><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(x_or_gself), bits, thresh, inv_keep, mask, n, fanout, d,
+        static_cast<const T*>(x_or_gself), keep, inv_keep, mask, n, fanout, d,
         static_cast<T*>(out_self), static_cast<T*>(out), mean, lg);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dropout_block(bool backward, const void* a, const void* g_neigh, const void* bits,
-                  int thresh, float inv_keep, const void* mask, int64_t n, int fanout,
-                  int64_t num_src, int d, void* out_self, void* out, int mean, int unit,
-                  cudaStream_t st) {
-  const int16_t* b = static_cast<const int16_t*>(bits);
+int dropout_block(bool backward, const void* a, const void* g_neigh, const void* keep,
+                  float inv_keep, const void* mask, int64_t n, int fanout, int64_t num_src,
+                  int d, void* out_self, void* out, int mean, int unit, cudaStream_t st) {
+  const uint32_t* b = static_cast<const uint32_t*>(keep);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   switch (unit) {
-    case 4: return launch_dropout_block<T, 4>(backward, a, g_neigh, b, thresh, inv_keep, m, n,
-                                              fanout, num_src, d, out_self, out, mean, st);
-    case 2: return launch_dropout_block<T, 2>(backward, a, g_neigh, b, thresh, inv_keep, m, n,
-                                              fanout, num_src, d, out_self, out, mean, st);
-    default: return launch_dropout_block<T, 1>(backward, a, g_neigh, b, thresh, inv_keep, m, n,
-                                               fanout, num_src, d, out_self, out, mean, st);
+    case 4: return launch_dropout_block<T, 4>(backward, a, g_neigh, b, inv_keep, m, n, fanout,
+                                              num_src, d, out_self, out, mean, st);
+    case 2: return launch_dropout_block<T, 2>(backward, a, g_neigh, b, inv_keep, m, n, fanout,
+                                              num_src, d, out_self, out, mean, st);
+    default: return launch_dropout_block<T, 1>(backward, a, g_neigh, b, inv_keep, m, n, fanout,
+                                               num_src, d, out_self, out, mean, st);
   }
+}
+
+// ---------------------------------------------------------------------------
+// the dropout keep-mask: torch.randint's Philox units, one bit each
+// ---------------------------------------------------------------------------
+// The block pair above reads a keep-mask of a bit an element: element li is
+// kept iff unit li of torch.randint(-2^15, 2^15, shape, int16) from the
+// model's generator is below thresh - 2^15, the units the benchmark's
+// reference redraws.  ATen's own draw (DistributionTemplates.h, the 32-bit
+// path of random_from_to_kernel) pays a 64-bit modulo a unit and a
+// __syncthreads() an iteration and writes two bytes a unit.
+// pg_dropout_bits writes the same decisions, a bit a unit, from the same
+// Philox units:
+//
+//   * which Philox output a unit takes must be torch's, or the units
+//     differ.  ATen launches grid = min(ceil(n / 256), SMs *
+//     maxThreadsPerSM / 256) blocks of 256 (the wrapper reads both from the
+//     device as ATen does); with stride = 256 * grid, thread t = li mod
+//     stride calls curand_init(seed, t, offset) and its k-th curand4
+//     (k = li / (4 * stride)) gives unit li = t + stride * (4k + ii) in
+//     component ii < 4.  That curand4 is Philox4x32-10 of the 128-bit
+//     counter t * 2^64 + offset / 4 + k under the key (seed low, seed high)
+//     (skipahead_sequence adds t to the counter's upper half, skipahead
+//     offset / 4 to its lower; torch's offsets are multiples of 4), so the
+//     kernel computes it directly, once a counter, with curand's rounds and
+//     constants;
+//   * the unit is the output's low 16 bits moved down by 2^15 (65,536
+//     divides 2^32: the modulo is a mask), kept iff below thresh - 2^15, so
+//     kept iff low16 < thresh (the JAX package's uint16 threshold);
+//   * which thread computes a counter is free.  Units t = 32g .. 32g + 31
+//     of one (k, ii) are mask word g + stride / 32 * (4k + ii), bit t - 32g,
+//     so one thread takes the item (g, k): the 32 counters of subsequences
+//     32g .. 32g + 31 at k, whose four outputs fill four words in its
+//     registers, one bit a counter each, with no vote and no barrier; the
+//     threads of a warp take consecutive g and store their words
+//     coalesced.  Where there are few items (small draws) P = 2..32 lanes
+//     share one, 32 / P counters each, their words OR-ed by shuffles.
+//     ATen's own thread mapping with a __ballot_sync a word measured 0.180
+//     ms at the SAGE cell's block 0 (108 M units), against 0.093 this way
+//     (PERF.md);
+//   * the counters of one item share their lower half (offset / 4 + k), so
+//     round 1's product of it is taken once an item;
+//   * seed and offset: kernel arguments for an eager draw; under CUDA-graph
+//     capture `state` (two uint64 words on the device, the generator's seed
+//     and offset, written before each replay by pg_dropout_bits_state) plus
+//     the draw's offset within the graph, so a replay draws what the eager
+//     form would from the generator's state at that replay.
+//
+// What bounds it: Philox's integer multiplies, ten rounds of two 32 x 32 ->
+// 64-bit products (a low and a high half each) for four units; the write is
+// n / 8 bytes.  At most 32 registers a thread (8 blocks of 256 a SM).
+
+constexpr int kDrawThreads = 256;    // ATen's block: the stride's unit
+constexpr int kBitsThreads = 256;    // this kernel's block
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+
+// keep[w] for w < ceil(n / 32): item = (g, k) over `groups` = stride / 32
+// word groups and k < iters, `items` of them, 1 << LG lanes an item
+template <int LG>
+__global__ void __launch_bounds__(kBitsThreads, 8)
+dropout_bits_kernel(uint32_t* __restrict__ keep, int64_t n, uint32_t thresh,
+                    const uint64_t* __restrict__ state, uint64_t seed, uint64_t offset,
+                    uint32_t groups, uint32_t items) {
+  constexpr int P = 1 << LG, J = kWarp >> LG;
+  if (state != nullptr) {
+    seed = state[0];
+    offset += state[1];
+  }
+  const uint2 key = make_uint2(static_cast<uint32_t>(seed), static_cast<uint32_t>(seed >> 32));
+  const uint64_t base = offset >> 2;
+  const int64_t words = (n + 31) >> 5;
+  const int lane = threadIdx.x & (kWarp - 1), part = lane & (P - 1);
+  const unsigned mates = P == kWarp ? 0xffffffffu : ((1u << P) - 1u) << (lane & ~(P - 1));
+  const uint32_t step = gridDim.x * (kBitsThreads / P);
+  for (uint32_t item = (blockIdx.x * kBitsThreads + threadIdx.x) / P; item < items;
+       item += step) {
+    const uint32_t k = item / groups, g = item - k * groups;
+    const uint64_t lo = base + k;
+    const uint32_t x = static_cast<uint32_t>(lo), y = static_cast<uint32_t>(lo >> 32);
+    const uint32_t lo0 = kPhiloxM0 * x, hi0 = __umulhi(kPhiloxM0, x);
+    // the subsequence, plus the counter's carry (t < 2^32: its upper word 0)
+    const uint32_t t0 = kWarp * g + J * part + (lo < base ? 1u : 0u);
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll 4
+    for (int j = 0; j < J; ++j) {
+      const uint32_t t = t0 + j;
+      uint4 c = make_uint4(__umulhi(kPhiloxM1, t) ^ y ^ key.x, kPhiloxM1 * t, hi0 ^ key.y, lo0);
+      uint2 kk = key;
+#pragma unroll
+      for (int round = 1; round < 10; ++round) {
+        kk.x += kPhiloxW0;
+        kk.y += kPhiloxW1;
+        const uint32_t a0 = kPhiloxM0 * c.x, b0 = __umulhi(kPhiloxM0, c.x);
+        const uint32_t a1 = kPhiloxM1 * c.z, b1 = __umulhi(kPhiloxM1, c.z);
+        c = make_uint4(b1 ^ c.y ^ kk.x, a1, b0 ^ c.w ^ kk.y, a0);
+      }
+      const uint32_t bit = 1u << (J * part + j);
+      if ((c.x & 0xffffu) < thresh) w[0] |= bit;
+      if ((c.y & 0xffffu) < thresh) w[1] |= bit;
+      if ((c.z & 0xffffu) < thresh) w[2] |= bit;
+      if ((c.w & 0xffffu) < thresh) w[3] |= bit;
+    }
+#pragma unroll
+    for (int s = 1; s < P; s <<= 1) {
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) w[ii] |= __shfl_xor_sync(mates, w[ii], s);
+    }
+    if (part == 0) {
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int64_t word = g + static_cast<int64_t>(groups) * (4 * k + ii);
+        if (word >= words) break;
+        const int64_t left = n - 32 * word;    // this word's units below n
+        keep[word] = left < 32 ? w[ii] & ((1u << left) - 1u) : w[ii];
+      }
+    }
+  }
+}
+
+__global__ void dropout_bits_state_kernel(uint64_t* __restrict__ state, uint64_t seed,
+                                          uint64_t offset) {
+  state[0] = seed;
+  state[1] = offset;
 }
 
 }  // namespace
@@ -1613,34 +1762,35 @@ int pg_scatter_add_rows(const void* g, const void* ids, int64_t n, void* out, vo
 
 // The fused dropout and prefix-layout block forward in one launch on the
 // caller's stream: x [n * (1 + fanout) or more, d] (its first n rows the
-// destinations' self rows, then fanout message rows each), bits int16 of
-// x's shape (null: no dropout; thresh and inv_keep ignored), mask bool [n,
-// fanout]; out_neigh [n, d] the masked sum (kind 0) or mean (kind 1) of the
-// dropped-out messages, out_self [n, d] the dropped-out self rows (null: not
-// written); rows and outputs at the element type dtype (0 f32, 1 bf16), in
-// units of `unit` elements (4, 2 or 1: d a multiple, every table aligned).
-int pg_dropout_block_fwd(const void* x, const void* bits, int thresh, float inv_keep,
-                         const void* mask, int64_t n, int fanout, int d, void* out_self,
-                         void* out_neigh, int kind, int unit, int dtype, void* stream) {
+// destinations' self rows, then fanout message rows each), keep the packed
+// keep-mask of x's elements, ceil(numel / 32) uint32 words (null: no
+// dropout; inv_keep ignored), mask bool [n, fanout]; out_neigh [n, d] the
+// masked sum (kind 0) or mean (kind 1) of the dropped-out messages,
+// out_self [n, d] the dropped-out self rows (null: not written); rows and
+// outputs at the element type dtype (0 f32, 1 bf16), in units of `unit`
+// elements (4, 2 or 1: d a multiple, every table aligned).
+int pg_dropout_block_fwd(const void* x, const void* keep, float inv_keep, const void* mask,
+                         int64_t n, int fanout, int d, void* out_self, void* out_neigh,
+                         int kind, int unit, int dtype, void* stream) {
   if (kind != kSum && kind != kMean) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || d == 0) return static_cast<int>(cudaGetLastError());
   if (d % unit != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mean = kind == kMean;
   switch (dtype) {
-    case 0: return dropout_block<float>(false, x, nullptr, bits, thresh, inv_keep, mask, n,
-                                        fanout, 0, d, out_self, out_neigh, mean, unit, st);
-    case 1: return dropout_block<uint16_t>(false, x, nullptr, bits, thresh, inv_keep, mask, n,
-                                           fanout, 0, d, out_self, out_neigh, mean, unit, st);
+    case 0: return dropout_block<float>(false, x, nullptr, keep, inv_keep, mask, n, fanout, 0,
+                                        d, out_self, out_neigh, mean, unit, st);
+    case 1: return dropout_block<uint16_t>(false, x, nullptr, keep, inv_keep, mask, n, fanout,
+                                           0, d, out_self, out_neigh, mean, unit, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // Its backward: grad [num_src, d] (num_src >= n * (1 + fanout)), every row
 // written once, from g_self and g_neigh [n, d] (either null: zero), the
-// forward's bits, mask, thresh, inv_keep, kind, unit and dtype, in one
-// launch on the caller's stream.
-int pg_dropout_block_bwd(const void* g_self, const void* g_neigh, const void* bits, int thresh,
+// forward's keep-mask, mask, inv_keep, kind, unit and dtype, in one launch
+// on the caller's stream.
+int pg_dropout_block_bwd(const void* g_self, const void* g_neigh, const void* keep,
                          float inv_keep, const void* mask, int64_t n, int fanout,
                          int64_t num_src, int d, void* grad, int kind, int unit, int dtype,
                          void* stream) {
@@ -1651,12 +1801,59 @@ int pg_dropout_block_bwd(const void* g_self, const void* g_neigh, const void* bi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mean = kind == kMean;
   switch (dtype) {
-    case 0: return dropout_block<float>(true, g_self, g_neigh, bits, thresh, inv_keep, mask, n,
-                                        fanout, num_src, d, nullptr, grad, mean, unit, st);
-    case 1: return dropout_block<uint16_t>(true, g_self, g_neigh, bits, thresh, inv_keep, mask,
-                                           n, fanout, num_src, d, nullptr, grad, mean, unit, st);
+    case 0: return dropout_block<float>(true, g_self, g_neigh, keep, inv_keep, mask, n, fanout,
+                                        num_src, d, nullptr, grad, mean, unit, st);
+    case 1: return dropout_block<uint16_t>(true, g_self, g_neigh, keep, inv_keep, mask, n,
+                                           fanout, num_src, d, nullptr, grad, mean, unit, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The packed keep-mask of an n-unit dropout draw on the caller's stream:
+// keep [ceil(n / 32)] uint32, bit li % 32 of word li / 32 set iff unit li of
+// torch.randint's draw from (seed, offset) with ATen's grid of `grid` blocks
+// of 256 is kept (its low 16 bits below thresh, 1..65535).  With `state`
+// (uint64 [2] on the device: seed, base offset) the kernel reads the seed
+// from it and adds its base to `offset`.  offset must be a multiple of 4,
+// grid at least 1, n at most 2^30; `sms` (the card's SMs) sizes the launch.
+int pg_dropout_bits(void* keep, int64_t n, int thresh, const void* state, uint64_t seed,
+                    uint64_t offset, int grid, int sms, void* stream) {
+  if (n < 0 || n > (int64_t{1} << 30) || grid < 1 || sms < 1 || thresh < 1 || thresh > 65535 ||
+      offset % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const int64_t stride = static_cast<int64_t>(grid) * kDrawThreads;
+  const int64_t iters = (n - 1) / (stride * 4) + 1;
+  const int64_t groups = stride / kWarp, items = groups * iters;
+  // lanes an item: the fewest that give a draw at least 2 blocks a SM
+  int lg = 0;
+  while (lg < 5 && (items << lg) < static_cast<int64_t>(sms) * 2 * kBitsThreads) ++lg;
+  const int64_t blocks = std::min<int64_t>(((items << lg) + kBitsThreads - 1) / kBitsThreads,
+                                           static_cast<int64_t>(sms) * 32);
+  uint32_t* k = static_cast<uint32_t*>(keep);
+  const uint64_t* st = static_cast<const uint64_t*>(state);
+  const uint32_t th = static_cast<uint32_t>(thresh);
+  const uint32_t gr = static_cast<uint32_t>(groups), it = static_cast<uint32_t>(items);
+  const dim3 b(static_cast<unsigned>(blocks));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lg) {
+    case 0: dropout_bits_kernel<0><<<b, kBitsThreads, 0, s>>>(k, n, th, st, seed, offset, gr, it); break;
+    case 1: dropout_bits_kernel<1><<<b, kBitsThreads, 0, s>>>(k, n, th, st, seed, offset, gr, it); break;
+    case 2: dropout_bits_kernel<2><<<b, kBitsThreads, 0, s>>>(k, n, th, st, seed, offset, gr, it); break;
+    case 3: dropout_bits_kernel<3><<<b, kBitsThreads, 0, s>>>(k, n, th, st, seed, offset, gr, it); break;
+    case 4: dropout_bits_kernel<4><<<b, kBitsThreads, 0, s>>>(k, n, th, st, seed, offset, gr, it); break;
+    default: dropout_bits_kernel<5><<<b, kBitsThreads, 0, s>>>(k, n, th, st, seed, offset, gr, it); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// state[0] = seed, state[1] = offset (uint64 [2] on the device), one
+// one-thread launch on the caller's stream: what a replay of a graph whose
+// dropout_bits_kernel nodes read `state` draws from.
+int pg_dropout_bits_state(void* state, uint64_t seed, uint64_t offset, void* stream) {
+  dropout_bits_state_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint64_t*>(state), seed, offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

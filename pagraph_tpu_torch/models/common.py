@@ -74,17 +74,20 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 
 def dropout_gather(h: torch.Tensor, block: Block, kind: str, rate: float,
                    generator: Optional[torch.Generator], train: bool, *,
-                   with_self: bool = True) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+                   with_self: bool = True,
+                   kernel_draw: bool = True) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """``(block_self(d), block_aggregate(d, kind))`` of ``d = dropout(h, rate,
     generator, train)`` (the first ``None`` unless ``with_self``).  A
     prefix-layout block of kind ``mean`` or ``sum`` takes the fused op
     (``ops.aggregate.dropout_block_gather``: the same units dropped, the
-    generator advanced as far); any other block, kind or a rate of 1
-    :func:`dropout` and then the block's gathers."""
+    generator advanced as far; ``kernel_draw`` False for a model that also
+    draws through :func:`dropout` from the same generator); any other block,
+    kind or a rate of 1 :func:`dropout` and then the block's gathers."""
     if block.prefix_layout and kind in DROPOUT_BLOCK_KINDS and rate < 1.0:
         on = train and rate > 0.0 and generator is not None
         return dropout_block_gather(h, block, kind, rate if on else 0.0,
-                                    generator if on else None, with_self=with_self)
+                                    generator if on else None, with_self=with_self,
+                                    kernel_draw=kernel_draw)
     h = dropout(h, rate, generator, train)
     if with_self:
         return block_gather(h, block, kind)

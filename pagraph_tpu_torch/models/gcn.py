@@ -6,7 +6,9 @@ half of the block kernels alone (``ops.aggregate.block_aggregate``, one
 ``gather_reduce`` launch a block forward and one ``gather_reduce_bwd``
 backward where the block's source needs a gradient; on the on-device
 sampler's prefix-layout blocks one fused launch of the block's dropout and
-mean each way, ``models.common.dropout_gather``).  Inference
+mean each way, ``models.common.dropout_gather``, and one that draws its
+keep-mask; under ``preprocess`` ``torch.randint`` draws it, as it draws the
+dense layer's dropout).  Inference
 (``norm_layers`` given) aggregates with ``sum`` and scales by the
 destination's ``norm`` (1/in-degree), the reference's ``GCNInfer`` split.
 The last hidden update applies the width-doubling ``cat((h, relu(h)))``
@@ -35,6 +37,9 @@ class GCN(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
+        # preprocess draws layer 0's dropout through torch: a CUDA graph must
+        # not mix that with the blocks' keep-mask kernel (ops.aggregate)
+        self.kernel_draws = not cfg.preprocess
         nl, hid = cfg.n_layers, cfg.hidden
         # the JAX package's layout: the linear from the features (``dense``
         # under preprocess, else block 0's), the hidden ones, the output
@@ -70,7 +75,8 @@ class GCN(nn.Module):
         for bi, (block, upd) in enumerate(zip(mb.blocks, self.updates)):
             _, h_agg = dropout_gather(h, block, "sum" if infer else "mean",
                                       0.0 if infer else cfg.dropout, generator,
-                                      self.training, with_self=False)
+                                      self.training, with_self=False,
+                                      kernel_draw=self.kernel_draws)
             if infer:
                 h_agg = h_agg * norm_layers[bi + 1][:, None]
             out = upd(h_agg)

@@ -9,7 +9,8 @@ block: one fused forward launch for its self rows and its aggregation, and
 (where the block's source needs a gradient) one fused backward launch for
 both (``ops.aggregate.block_gather``); on the on-device sampler's
 prefix-layout blocks the layer's dropout joins both launches
-(``models.common.dropout_gather``).
+(``models.common.dropout_gather``), its keep-mask drawn by one more; under
+``preprocess`` by ``torch.randint``, as layer 0's dropout is.
 
 Aggregators: ``mean``, ``gcn`` (sum), ``pool`` (max, the same fused
 launches) and ``lstm`` (one LSTM a block, ``ops.aggregate.lstm_reduce``,
@@ -65,6 +66,9 @@ class GraphSAGE(nn.Module):
         if cfg.aggregator not in (*AGG_KIND, "lstm"):
             raise ValueError(f"unknown GraphSAGE aggregator {cfg.aggregator!r}")
         self.cfg = cfg
+        # preprocess draws layer 0's dropout through torch: a CUDA graph must
+        # not mix that with the blocks' keep-mask kernel (ops.aggregate)
+        self.kernel_draws = not cfg.preprocess
         nl, hid = cfg.n_layers, cfg.hidden
         # input dim of each block, as the JAX package's init_params lays
         # them out; the output layer consumes the concat-widened reps unless
@@ -110,7 +114,8 @@ class GraphSAGE(nn.Module):
                 h_neigh = lstm_reduce(msgs, block.neigh_mask, self.lstm[bi].params())
             else:
                 h_self, h_neigh = dropout_gather(h, block, AGG_KIND[cfg.aggregator],
-                                                 cfg.dropout, generator, self.training)
+                                                 cfg.dropout, generator, self.training,
+                                                 kernel_draw=self.kernel_draws)
             out = upd["self"](h_self) + upd["neigh"](h_neigh)
             gi = bi + off
             if gi == nl - 1 and cfg.skip_connection:

@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 HOST_SRC = os.path.join(CSRC, "host_native.cpp")
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-fopenmp", "-std=c++17")
 
-_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_P, _I, _I64, _U64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64,
+                          ctypes.c_float)
 
 # C signature of every entry point, by library.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -53,9 +54,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                 _I64, _I, _I, _I, _I, _P),
         "pg_window_reduce": (_P, _P, _P, _I64, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "pg_scatter_add_rows": (_P, _P, _I64, _P, _P, _I64, _I, _I, _I, _I, _P),
-        "pg_dropout_block_fwd": (_P, _P, _I, _F, _P, _I64, _I, _I, _P, _P, _I, _I, _I, _P),
-        "pg_dropout_block_bwd": (_P, _P, _P, _I, _F, _P, _I64, _I, _I64, _I, _P, _I, _I, _I,
-                                 _P),
+        "pg_dropout_block_fwd": (_P, _P, _F, _P, _I64, _I, _I, _P, _P, _I, _I, _I, _P),
+        "pg_dropout_block_bwd": (_P, _P, _P, _F, _P, _I64, _I, _I64, _I, _P, _I, _I, _I, _P),
+        "pg_dropout_bits": (_P, _I64, _I, _P, _U64, _U64, _I, _I, _P),
+        "pg_dropout_bits_state": (_P, _U64, _U64, _P),
         "pg_gat_attention_fwd": (_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P, _I, _P),
         "pg_gat_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P, _P,
                                  _P, _I, _I, _P),

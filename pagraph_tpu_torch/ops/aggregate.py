@@ -14,9 +14,10 @@ Prefix-layout blocks, which the on-device sampler
 (``sampling/device_sampler.py``) produces, need no gather: a block's self
 rows and its neighbor messages are contiguous slices (the JAX package
 reduces them with XLA, not Pallas).  There :func:`dropout_block_gather`
-takes the model's dropout and both halves of a ``mean`` or ``sum`` block in
-one CUDA launch, and their gradient in one more
-(``gather_kernels.DropoutBlock``), and :func:`gat_attention` takes GAT's
+draws the model's dropout as a keep-mask of a bit an element in one CUDA
+launch, takes it and both halves of a ``mean`` or ``sum`` block in one
+more, and their gradient in one more (``gather_kernels.dropout_bits``,
+``DropoutBlock``), and :func:`gat_attention` takes GAT's
 attention in one more pair (``gather_kernels.GatAttention``); the other
 functions reduce the slices in plain torch.  Every function here
 computes at its input's dtype: f32, or bf16 under ``train.dtype="bfloat16"``
@@ -37,7 +38,8 @@ import torch
 
 from ..sampling.block import Block
 from .gather_kernels import (DROPOUT_BLOCK_KINDS, KINDS, BlockGather, DropoutBlock,
-                             GatAttention, GatherReduce, GatherRows, reduce_msgs_plain)
+                             GatAttention, GatherReduce, GatherRows, dropout_bits,
+                             dropout_bits_plain, reduce_msgs_plain)
 
 
 def _check_kind(kind: str) -> None:
@@ -97,31 +99,36 @@ def dropout_threshold(rate: float) -> Tuple[int, float]:
 
 
 def dropout_block_gather(h_src: torch.Tensor, block: Block, kind: str, rate: float,
-                         generator: Optional[torch.Generator], *, with_self: bool = True):
+                         generator: Optional[torch.Generator], *, with_self: bool = True,
+                         kernel_draw: bool = True):
     """``(block_self(d, block), block_aggregate(d, block, kind))`` of ``d =
     dropout(h_src, rate, generator)`` on a prefix-layout block, ``kind``
     ``mean`` or ``sum``; the first is ``None`` unless ``with_self``.  Rate 0
-    or no generator: no dropout.  The bits are one ``torch.randint`` of
-    ``h_src``'s shape from ``generator``, int16 in [-32768, 32768): the draw
-    of ``models.common.dropout`` (int32 in [0, 65536)) moved down by 32768,
-    which keeps the same units and advances the generator as far.  On the
-    card one launch forward and one backward (``gather_kernels.DropoutBlock``);
-    on the CPU the same arithmetic in torch."""
+    or no generator: no dropout.  The units are those of one
+    ``torch.randint`` of ``h_src``'s shape from ``generator``, int16 in
+    [-32768, 32768): the draw of ``models.common.dropout`` (int32 in [0,
+    65536)) moved down by 32768, which keeps the same units and advances the
+    generator as far; they reach the block as a keep-mask of a bit an
+    element.  On the card one launch draws it (``gather_kernels.
+    dropout_bits``), one more forward and one backward
+    (``gather_kernels.DropoutBlock``); on the CPU the same arithmetic in
+    torch.  ``kernel_draw`` False draws the units with ``torch.randint``
+    on the card too (``gather_kernels.dropout_bits_plain``), for a model
+    whose CUDA graph also holds torch's own draws from ``generator``."""
     if not block.prefix_layout:
         raise ValueError("dropout_block_gather takes prefix-layout blocks only")
     if kind not in DROPOUT_BLOCK_KINDS:
         raise ValueError(f"dropout_block_gather kind must be one of {DROPOUT_BLOCK_KINDS}, "
                          f"got {kind!r}")
-    bits, thresh, inv_keep = None, 0, 1.0
+    keep, inv_keep = None, 1.0
     if rate > 0.0 and generator is not None:
         if rate >= 1.0:
             raise ValueError(f"dropout rate {rate} keeps nothing")
         thresh, inv_keep = dropout_threshold(rate)
-        thresh -= 1 << 15
-        bits = torch.randint(-(1 << 15), 1 << 15, h_src.shape, generator=generator,
-                             device=h_src.device, dtype=torch.int16)
-    out = DropoutBlock.apply(h_src.contiguous(), bits, block.neigh_mask, thresh, inv_keep,
-                             kind, with_self)
+        draw = dropout_bits if kernel_draw else dropout_bits_plain
+        keep = draw(h_src.shape, thresh, generator, h_src.device)
+    out = DropoutBlock.apply(h_src.contiguous(), keep, block.neigh_mask, inv_keep, kind,
+                             with_self)
     return out if with_self else (None, out)
 
 

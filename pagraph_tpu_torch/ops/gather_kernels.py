@@ -21,6 +21,9 @@ wrapper                computes                                         replaces
 ``dropout_block_fwd``  dropout, then a prefix-layout block's self rows  none: XLA's elementwise
                        and masked ``mean``/``sum`` (no gather)          passes in the JAX package
 ``dropout_block_bwd``  its gradient, each source row written once       their autograd
+``dropout_bits``       the packed keep-mask of a dropout draw: bit li   none: ``jax.random``'s
+                       set iff unit li of ``torch.randint``'s int16     bits in XLA
+                       draw from the generator is kept
 ``gat_attention_fwd``  GAT's masked softmax over a prefix-layout        none: XLA's einsums and
                        block's self edge and slots, and the weighted    softmax in the JAX
                        sum of ``z`` (reading each row once)             package
@@ -89,16 +92,22 @@ The on-device sampler's prefix-layout blocks need no gather: a block's self
 rows are its source's first ``n`` rows and destination ``r``'s messages the
 ``fanout`` rows from ``n + r * fanout``.  There the model's dropout and both
 halves of the block are one kernel, ``pg_dropout_block_fwd``, which reads the
-source and its dropout bits once and writes the ``[n, D]`` outputs, and the
-gradient one more, ``pg_dropout_block_bwd``, a pure map that writes each
+source and its packed keep-mask once and writes the ``[n, D]`` outputs, and
+the gradient one more, ``pg_dropout_block_bwd``, a pure map that writes each
 source row once (:class:`DropoutBlock`; counted under
 ``dropout_block_fwd_<kind>`` and ``dropout_block_bwd_<kind>``, ``_bf16`` for
-bf16 rows).  The bits are one ``torch.randint`` of int16 in [-32768, 32768)
-of the source's shape (the same Philox draw as int32 in [0, 65536), moved
-down by 32768); an element is kept iff its bit is below ``thresh - 32768``.
-An on-device step launches the assembly, one dropout block forward a block
-and one backward a block after the first (the layer-0 features take no
-gradient).
+bf16 rows).  The keep-mask (:func:`dropout_bits`: ``pg_dropout_bits``,
+counted under ``dropout_bits``, its units in :data:`DRAWN_UNITS`) holds one
+bit an element of the source, set iff that unit of one ``torch.randint`` of
+int16 in [-32768, 32768) of the source's shape from the generator (the same
+Philox draw as int32 in [0, 65536), moved down by 32768) is below ``thresh -
+32768``; the kernel computes torch's Philox units itself and advances the
+generator as far as torch would.  Under CUDA-graph capture it reads the
+generator's seed and offset from a device word that the capturing
+``train.state.CapturedGraph`` writes before each replay (:class:`GraphDraws`).
+An on-device step launches the assembly, one keep-mask and one dropout block
+forward a block, and one backward a block after the first (the layer-0
+features take no gradient).
 
 GAT's attention over a prefix-layout block is one kernel forward,
 ``pg_gat_attention_fwd``, a warp a destination row and head, which reads
@@ -127,7 +136,8 @@ import contextlib
 import contextvars
 import ctypes
 import functools
-from typing import Dict, Iterator, NamedTuple, Optional
+import math
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -157,14 +167,19 @@ LAUNCHES: Dict[str, int] = {
     "grad_to_bf16": 0,
     "gat_attention_fwd": 0,
     "gat_attention_bwd": 0,
+    "dropout_bits": 0,
 }
+# the units each kernel that draws has drawn, counted as LAUNCHES counts its
+# launches (a captured draw once, at capture)
+DRAWN_UNITS: Dict[str, int] = {"dropout_bits": 0}
 
 _PLAIN_ON_CUDA = contextvars.ContextVar("pagraph_plain_on_cuda", default=False)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, DRAWN_UNITS):
+        for k in counts:
+            counts[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -262,26 +277,60 @@ def block_gather_bwd_plain(g_self, self_pos, g_neigh, pos, mask, num_src: int,
     return out.to(ref.dtype)
 
 
-def dropout_block_fwd_plain(x, bits, thresh: int, inv_keep: float, mask,
-                            with_self: bool, kind: str):
+def pack_bits(kept: torch.Tensor) -> torch.Tensor:
+    """A bool tensor's elements, in order, as one bit each: int32
+    ``[ceil(numel / 32)]``, element ``li`` bit ``li % 32`` of word ``li //
+    32`` (unset past the last element)."""
+    flat = kept.reshape(-1)
+    pad = -flat.numel() % 32
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    # made on the device: a copy from the host would break a CUDA-graph capture
+    weights = torch.ones(8, dtype=torch.uint8, device=flat.device) << torch.arange(
+        8, dtype=torch.uint8, device=flat.device)
+    return (flat.view(-1, 8).to(torch.uint8) * weights).sum(1, dtype=torch.uint8).view(
+        torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """The bool tensor of ``shape`` that :func:`pack_bits` packed into
+    ``words``."""
+    n = math.prod(shape)
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    bits = (words.view(torch.uint8)[:, None] >> shifts) & 1
+    return bits.reshape(-1)[:n].view(*shape).bool()
+
+
+def dropout_bits_plain(shape: Sequence[int], thresh: int, generator: torch.Generator,
+                       device) -> torch.Tensor:
+    """:func:`dropout_bits` in torch: one ``torch.randint`` of int16 in
+    [-32768, 32768) of ``shape`` from ``generator``, each unit kept iff it is
+    below ``thresh - 32768``, packed by :func:`pack_bits`."""
+    bits = torch.randint(-(1 << 15), 1 << 15, tuple(shape), generator=generator,
+                         device=device, dtype=torch.int16)
+    return pack_bits(bits < thresh - (1 << 15))
+
+
+def dropout_block_fwd_plain(x, keep, inv_keep: float, mask, with_self: bool, kind: str):
     """``(drop(x)[:n], reduce_msgs_plain(drop(x)[n:n + n * f], mask, kind))``
-    with ``drop(x) = where(bits < thresh, x * inv_keep, 0)`` (``bits``
-    ``None``: ``x``) and ``n, f = mask.shape``: the model's dropout followed by
-    a prefix-layout block's two halves, op for op; the first output is
+    with ``drop(x) = where(kept, x * inv_keep, 0)``, ``kept`` the packed
+    keep-mask ``keep`` unpacked to ``x``'s shape (``keep`` ``None``: ``x``),
+    and ``n, f = mask.shape``: the model's dropout followed by a
+    prefix-layout block's two halves, op for op; the first output is
     ``None`` unless ``with_self``."""
     n, f = mask.shape
-    xd = x if bits is None else torch.where(bits < thresh, x * inv_keep, 0.0)
+    xd = x if keep is None else torch.where(unpack_bits(keep, x.shape), x * inv_keep, 0.0)
     neigh = reduce_msgs_plain(xd[n:n + n * f].reshape(n, f, *x.shape[1:]), mask, kind)
     return (xd[:n] if with_self else None), neigh
 
 
-def dropout_block_bwd_plain(g_self, g_neigh, bits, thresh: int, inv_keep: float, mask,
-                            num_src: int, kind: str) -> torch.Tensor:
+def dropout_block_bwd_plain(g_self, g_neigh, keep, inv_keep: float, mask, num_src: int,
+                            kind: str) -> torch.Tensor:
     """The gradient of :func:`dropout_block_fwd_plain` w.r.t. ``x`` ``[num_src,
     D]`` as autograd computes it: ``g_self`` on rows ``[0, n)``, ``g_neigh``
     (divided by the row's count for ``mean``) on each valid message row, zero
-    elsewhere, then ``where(bits < thresh, ., 0) * inv_keep``.  A ``None``
-    gradient is zero."""
+    elsewhere, then ``where(kept, ., 0) * inv_keep``.  A ``None`` gradient
+    is zero."""
     n, f = mask.shape
     ref = g_self if g_self is not None else g_neigh
     d = ref.shape[1]
@@ -293,7 +342,7 @@ def dropout_block_bwd_plain(g_self, g_neigh, bits, thresh: int, inv_keep: float,
         msgs = torch.where(mask[..., None], g[:, None, :], 0.0).reshape(n * f, d)
     g = torch.cat([zeros((n, d)) if g_self is None else g_self, msgs,
                    zeros((num_src - n * (1 + f), d))])
-    return g if bits is None else torch.where(bits < thresh, g, 0.0) * inv_keep
+    return g if keep is None else torch.where(unpack_bits(keep, g.shape), g, 0.0) * inv_keep
 
 
 def scatter_add_rows_plain(grad_out: torch.Tensor, ids: torch.Tensor,
@@ -835,9 +884,10 @@ def _unit(d: int, *tables: torch.Tensor) -> int:
     return 1
 
 
-def _check_dropout_block(shape, bits, mask, kind: str) -> None:
+def _check_dropout_block(shape, keep, mask, kind: str) -> None:
     """``shape``: the block's source ``[S, D]``, which holds its ``n x (1 +
-    f)`` rows; ``bits`` (if any) int16 of that shape."""
+    f)`` rows; ``keep`` (if any) its packed keep-mask, int32 ``[ceil(S * D /
+    32)]``."""
     if kind not in DROPOUT_BLOCK_KINDS:
         raise ValueError(f"the dropout block's kind must be one of {DROPOUT_BLOCK_KINDS}, "
                          f"got {kind!r}")
@@ -846,26 +896,27 @@ def _check_dropout_block(shape, bits, mask, kind: str) -> None:
     if len(shape) != 2 or shape[0] < n * (1 + f):
         raise ValueError(f"a source of shape {tuple(shape)} holds fewer than the block's "
                          f"{n} x (1 + {f}) rows")
-    if bits is not None:
-        _check(bits, "bits", torch.int16, 2)
-        if tuple(bits.shape) != tuple(shape):
-            raise ValueError(f"bits {tuple(bits.shape)} and the source {tuple(shape)} differ")
+    if keep is not None:
+        _check(keep, "keep", torch.int32, 1)
+        words = -(-math.prod(shape) // 32)
+        if keep.shape[0] != words:
+            raise ValueError(f"a keep-mask of {keep.shape[0]} words for a source of shape "
+                             f"{tuple(shape)}, not {words}")
 
 
-def dropout_block_fwd(x: torch.Tensor, bits: Optional[torch.Tensor], thresh: int,
-                      inv_keep: float, mask: torch.Tensor, with_self: bool = True,
-                      kind: str = "mean"):
+def dropout_block_fwd(x: torch.Tensor, keep: Optional[torch.Tensor], inv_keep: float,
+                      mask: torch.Tensor, with_self: bool = True, kind: str = "mean"):
     """Dropout and a prefix-layout block's two halves from its source ``x``
     f32 or bf16 ``[S, D]`` (``S >= n * (1 + f)``, ``n, f = mask.shape``):
     ``(drop(x)[:n], masked kind over drop(x)[n + r * f + k])``, ``drop(x) =
-    where(bits < thresh, x * inv_keep, 0)`` for ``bits`` int16 of ``x``'s
-    shape, or ``x`` for ``bits`` ``None``; the first output ``None`` unless
-    ``with_self``.  On the card: one launch, the sum over a row's slots in
-    f32 in slot order (bf16: the sum and the mean rounded as torch rounds
-    them)."""
-    _check_dropout_block(x.shape, bits, mask, kind)
-    if not _use_kernel(x, mask, *([] if bits is None else [bits])):
-        return dropout_block_fwd_plain(x, bits, thresh, inv_keep, mask, with_self, kind)
+    where(kept, x * inv_keep, 0)`` for ``keep`` the packed keep-mask of
+    ``x``'s elements (:func:`dropout_bits`), or ``x`` for ``keep`` ``None``;
+    the first output ``None`` unless ``with_self``.  On the card: one
+    launch, the sum over a row's slots in f32 in slot order (bf16: the sum
+    and the mean rounded as torch rounds them)."""
+    _check_dropout_block(x.shape, keep, mask, kind)
+    if not _use_kernel(x, mask, *([] if keep is None else [keep])):
+        return dropout_block_fwd_plain(x, keep, inv_keep, mask, with_self, kind)
     dtype = _row_dtype(x)
     _check(x, "x", dtype, 2)
     n, f = mask.shape
@@ -873,19 +924,18 @@ def dropout_block_fwd(x: torch.Tensor, bits: Optional[torch.Tensor], thresh: int
     out_self = torch.empty((n, d), dtype=dtype, device=x.device) if with_self else None
     out_neigh = torch.empty((n, d), dtype=dtype, device=x.device)
     if n and d:
-        tables = [x, out_neigh] + ([] if bits is None else [bits]) + (
-            [out_self] if with_self else [])
+        tables = [x, out_neigh] + ([out_self] if with_self else [])
         _raise_on(_lib().pg_dropout_block_fwd(
-            x.data_ptr(), _ptr(bits), thresh, inv_keep, mask.data_ptr(), n, f, d,
-            _ptr(out_self), out_neigh.data_ptr(), KIND_CODES[kind], _unit(d, *tables),
-            ELEMENT_CODES[dtype], _stream(x.device)), "pg_dropout_block_fwd")
+            x.data_ptr(), _ptr(keep), inv_keep, mask.data_ptr(), n, f, d, _ptr(out_self),
+            out_neigh.data_ptr(), KIND_CODES[kind], _unit(d, *tables), ELEMENT_CODES[dtype],
+            _stream(x.device)), "pg_dropout_block_fwd")
         LAUNCHES[_key("dropout_block_fwd_" + kind, dtype)] += 1
     return out_self, out_neigh
 
 
 def dropout_block_bwd(g_self: Optional[torch.Tensor], g_neigh: Optional[torch.Tensor],
-                      bits: Optional[torch.Tensor], thresh: int, inv_keep: float,
-                      mask: torch.Tensor, num_src: int, kind: str = "mean") -> torch.Tensor:
+                      keep: Optional[torch.Tensor], inv_keep: float, mask: torch.Tensor,
+                      num_src: int, kind: str = "mean") -> torch.Tensor:
     """Backward of :func:`dropout_block_fwd` w.r.t. ``x`` ``[num_src, D]``
     from ``g_self`` and ``g_neigh`` ``[n, D]`` (a ``None`` gradient is zero),
     at their dtype; on the card one launch that writes each row once (no
@@ -893,11 +943,10 @@ def dropout_block_bwd(g_self: Optional[torch.Tensor], g_neigh: Optional[torch.Te
     ref = g_self if g_self is not None else g_neigh
     if ref is None:
         raise ValueError("dropout_block_bwd needs at least one incoming gradient")
-    _check_dropout_block((num_src, ref.shape[1]), bits, mask, kind)
+    _check_dropout_block((num_src, ref.shape[1]), keep, mask, kind)
     grads = [t for t in (g_self, g_neigh) if t is not None]
-    if not _use_kernel(mask, *grads, *([] if bits is None else [bits])):
-        return dropout_block_bwd_plain(g_self, g_neigh, bits, thresh, inv_keep, mask,
-                                       num_src, kind)
+    if not _use_kernel(mask, *grads, *([] if keep is None else [keep])):
+        return dropout_block_bwd_plain(g_self, g_neigh, keep, inv_keep, mask, num_src, kind)
     dtype = _row_dtype(*grads)
     n, f = mask.shape
     d = ref.shape[1]
@@ -908,12 +957,154 @@ def dropout_block_bwd(g_self: Optional[torch.Tensor], g_neigh: Optional[torch.Te
     grad = torch.empty((num_src, d), dtype=dtype, device=ref.device)
     if num_src and d:
         _raise_on(_lib().pg_dropout_block_bwd(
-            _ptr(g_self), _ptr(g_neigh), _ptr(bits), thresh, inv_keep, mask.data_ptr(), n, f,
-            num_src, d, grad.data_ptr(), KIND_CODES[kind],
-            _unit(d, grad, *grads, *([] if bits is None else [bits])), ELEMENT_CODES[dtype],
+            _ptr(g_self), _ptr(g_neigh), _ptr(keep), inv_keep, mask.data_ptr(), n, f, num_src,
+            d, grad.data_ptr(), KIND_CODES[kind], _unit(d, grad, *grads), ELEMENT_CODES[dtype],
             _stream(ref.device)), "pg_dropout_block_bwd")
         LAUNCHES[_key("dropout_block_bwd_" + kind, dtype)] += 1
     return grad
+
+
+# -- the dropout keep-mask -------------------------------------------------------
+
+# torch's threads a block for a random draw, and the kernel's (ATen's
+# DistributionTemplates.h block_size_bound)
+DRAW_THREADS = 256
+# Philox units a thread takes from one curand4 (ATen's curand4_engine_calls)
+DRAW_UNROLL = 4
+# the most units torch.randint draws as one int16 launch (32-bit indexing of
+# its bytes); a larger draw is split, with other Philox counters
+MAX_DRAW_UNITS = 1 << 30
+
+
+def draw_grid(n: int, sms: int, max_threads_per_sm: int) -> int:
+    """The blocks of ATen's launch for an ``n``-unit draw (``n`` > 0) on a
+    card of ``sms`` SMs: ``min(ceil(n / 256), sms * max_threads_per_sm /
+    256)`` (``calc_execution_policy``)."""
+    return min(-(-n // DRAW_THREADS), sms * (max_threads_per_sm // DRAW_THREADS))
+
+
+def draw_increment(n: int, grid: int) -> int:
+    """How far an ``n``-unit draw of ``grid`` blocks advances the
+    generator's Philox offset: 4 a counter each thread takes, 0 for no unit."""
+    if n == 0:
+        return 0
+    return ((n - 1) // (DRAW_THREADS * grid * DRAW_UNROLL) + 1) * DRAW_UNROLL
+
+
+@functools.lru_cache(maxsize=None)
+def _draw_props(device: torch.device):
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.max_threads_per_multi_processor
+
+
+class GraphDraws:
+    """The keep-mask draws (:func:`dropout_bits`) that one captured CUDA
+    graph makes from ``generator``.  ``state`` (int64 ``[2]`` on the
+    generator's device) holds the generator's seed and Philox offset for a
+    replay; each draw captured reads it and adds its own offset within the
+    graph (``increment`` so far), as torch offsets the draws of a registered
+    generator.  Around a replay :meth:`before_replay` writes the state on
+    the current stream and :meth:`after_replay` advances the generator by
+    ``increment``, what the eager draws would advance it.  A graph must not
+    also hold torch's own draws from ``generator``: torch's offsets within
+    the graph do not count these, so :meth:`after_replay` raises if torch
+    moved the generator."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.state = torch.zeros(2, dtype=torch.int64, device=generator.device)
+        self.increment = 0
+        self.units = 0
+
+    def add(self, n: int, increment: int) -> int:
+        """Record a captured draw of ``n`` units; its offset in the graph."""
+        offset = self.increment
+        self.increment += increment
+        self.units += n
+        return offset
+
+    def before_replay(self) -> Optional[int]:
+        """The generator's offset for the replay that follows (``None``: no
+        draw to feed), its seed and offset written into ``state``."""
+        if not self.increment:
+            return None
+        seed, offset = self.generator.initial_seed(), self.generator.get_offset()
+        dev = self.state.device
+        _raise_on(_lib().pg_dropout_bits_state(self.state.data_ptr(), seed, offset,
+                                               _stream(dev)), "pg_dropout_bits_state")
+        return offset
+
+    def after_replay(self, offset: Optional[int]) -> None:
+        if offset is None:
+            return
+        if self.generator.get_offset() != offset:
+            raise RuntimeError("a captured graph drew from the dropout generator through torch "
+                               "beside dropout_bits: their Philox offsets overlap")
+        self.generator.set_offset(offset + self.increment)
+
+
+_GRAPH_DRAWS: contextvars.ContextVar = contextvars.ContextVar("pagraph_graph_draws",
+                                                              default=None)
+
+
+@contextlib.contextmanager
+def capturing_draws(draws: Optional[GraphDraws]) -> Iterator[None]:
+    """Inside this block, under capture, :func:`dropout_bits` records its
+    draws in ``draws`` (the capturing graph's)."""
+    token = _GRAPH_DRAWS.set(draws)
+    try:
+        yield
+    finally:
+        _GRAPH_DRAWS.reset(token)
+
+
+def dropout_bits(shape: Sequence[int], thresh: int, generator: torch.Generator,
+                 device) -> torch.Tensor:
+    """The packed keep-mask of one dropout draw over a tensor of ``shape``:
+    int32 ``[ceil(n / 32)]`` (``n`` its elements), bit ``li % 32`` of word
+    ``li // 32`` set iff unit ``li`` of ``torch.randint(-32768, 32768, shape,
+    generator=generator, dtype=torch.int16)`` is below ``thresh - 32768``
+    (``thresh`` in 1..65535), with ``generator`` advanced as far as that
+    call advances it.  On CPU tensors and under :func:`plain_versions` that
+    call itself (:func:`dropout_bits_plain`); on the card one launch of
+    ``pg_dropout_bits``, which computes the same Philox units, counted under
+    ``LAUNCHES["dropout_bits"]`` and ``DRAWN_UNITS["dropout_bits"]``.  Under
+    CUDA-graph capture the draw reads the generator's state at each replay,
+    which needs the capture to be a ``train.state.CapturedGraph`` registered
+    with ``generator``."""
+    device = torch.device(device)
+    if device.type == "cpu" or (device.type == "cuda" and _PLAIN_ON_CUDA.get()):
+        return dropout_bits_plain(shape, thresh, generator, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if not 0 < thresh < 1 << 16:
+        raise ValueError(f"thresh must be in 1..65535, got {thresh}")
+    n = math.prod(shape)
+    if n > MAX_DRAW_UNITS:
+        raise ValueError(f"a draw of {n} units: torch.randint splits draws of more than "
+                         f"{MAX_DRAW_UNITS} int16 units, so dropout_bits takes none")
+    keep = torch.empty(-(-n // 32), dtype=torch.int32, device=device)
+    if n == 0:
+        return keep
+    sms, threads = _draw_props(device)
+    grid = draw_grid(n, sms, threads)
+    inc = draw_increment(n, grid)
+    state, seed = None, 0
+    if torch.cuda.is_current_stream_capturing():
+        draws = _GRAPH_DRAWS.get()
+        if draws is None or draws.generator is not generator:
+            raise RuntimeError("dropout_bits under CUDA-graph capture needs a "
+                               "train.state.CapturedGraph registered with its generator")
+        offset = draws.add(n, inc)
+        state = draws.state.data_ptr()
+    else:
+        seed, offset = generator.initial_seed(), generator.get_offset()
+        generator.set_offset(offset + inc)
+    _raise_on(_lib().pg_dropout_bits(keep.data_ptr(), n, thresh, state, seed, offset, grid,
+                                     sms, _stream(device)), "pg_dropout_bits")
+    LAUNCHES["dropout_bits"] += 1
+    DRAWN_UNITS["dropout_bits"] += n
+    return keep
 
 
 # the backward's CTAs a head and SM: its warps walk the head's rows with a
@@ -1091,33 +1282,32 @@ class BlockGather(torch.autograd.Function):
 class DropoutBlock(torch.autograd.Function):
     """Dropout and a prefix-layout block's halves, :func:`dropout_block_fwd`,
     whose gradient w.r.t. ``x`` is one :func:`dropout_block_bwd`.  It keeps
-    the bits and the mask for its backward.  Returns ``(self, neigh)``, or
-    ``neigh`` alone without the self half."""
+    the packed keep-mask and the block's mask for its backward.  Returns
+    ``(self, neigh)``, or ``neigh`` alone without the self half."""
 
     @staticmethod
-    def forward(ctx, x, bits, mask, thresh, inv_keep, kind, with_self):
-        ctx.save_for_backward(bits, mask)
-        ctx.args = (thresh, inv_keep, x.shape[0], kind, with_self)
+    def forward(ctx, x, keep, mask, inv_keep, kind, with_self):
+        ctx.save_for_backward(keep, mask)
+        ctx.args = (inv_keep, x.shape[0], kind, with_self)
         ctx.plain = _PLAIN_ON_CUDA.get()
         # an output that nothing uses arrives as None: its gradient is zero
         ctx.set_materialize_grads(False)
-        out_self, out_neigh = dropout_block_fwd(x, bits, thresh, inv_keep, mask,
-                                                with_self, kind)
+        out_self, out_neigh = dropout_block_fwd(x, keep, inv_keep, mask, with_self, kind)
         return (out_self, out_neigh) if with_self else out_neigh
 
     @staticmethod
     def backward(ctx, *grads):
-        bits, mask = ctx.saved_tensors
-        thresh, inv_keep, num_src, kind, with_self = ctx.args
+        keep, mask = ctx.saved_tensors
+        inv_keep, num_src, kind, with_self = ctx.args
         g_self, g_neigh = grads if with_self else (None, grads[0])
         grad_x = None
         if ctx.needs_input_grad[0] and (g_self is not None or g_neigh is not None):
             with _mode(ctx.plain):
                 grad_x = dropout_block_bwd(
                     None if g_self is None else g_self.contiguous(),
-                    None if g_neigh is None else g_neigh.contiguous(), bits, thresh,
-                    inv_keep, mask, num_src, kind)
-        return grad_x, None, None, None, None, None, None
+                    None if g_neigh is None else g_neigh.contiguous(), keep, inv_keep, mask,
+                    num_src, kind)
+        return grad_x, None, None, None, None, None
 
 
 class GatAttention(torch.autograd.Function):

@@ -302,13 +302,19 @@ class CapturedGraph:
     counts a launch (``gather_kernels.LAUNCHES``) when it enqueues it, which
     under capture is once, into the graph; a replay runs the kernels again
     and counts nothing, so a run's launches are those counted eagerly plus
-    ``launches`` times ``replays`` for each graph.  ``generator``, a CUDA
-    generator that ``fn`` draws from, is registered with the graph: each
-    replay draws what ``fn`` would draw eagerly from the generator's state
-    then, and advances it as far.  ``after`` runs on the host after each
-    replay (the host step count).  The capture checks only its own
-    thread's CUDA calls (``capture_error_mode="thread_local"``), so other
-    threads (the loader's producers) run on meanwhile.
+    ``launches`` times ``replays`` for each graph; ``units`` likewise the
+    units a replay draws (``gather_kernels.DRAWN_UNITS``).  ``generator``, a
+    CUDA generator that ``fn`` draws from, is registered with the graph:
+    each replay draws what ``fn`` would draw eagerly from the generator's
+    state then, and advances it as far.  That holds for torch's draws and
+    for the keep-mask kernel's (``gather_kernels.dropout_bits``), which read
+    the generator's seed and offset from ``draws.state``: written on the
+    current stream before each replay, the generator advanced after it
+    (:class:`gather_kernels.GraphDraws`; one graph holds one kind of draw).
+    ``after`` runs on the host after each replay (the host step count).
+    The capture checks only its own thread's CUDA calls
+    (``capture_error_mode="thread_local"``), so other threads (the loader's
+    producers) run on meanwhile.
 
     ``marks``: the phase marks ``fn`` captured (``gather_kernels.mark``
     launches them under capture whatever the switch), found once in the
@@ -319,14 +325,18 @@ class CapturedGraph:
                  stream: Optional[torch.cuda.Stream] = None, pool=None,
                  after: Optional[Callable[[], None]] = None):
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.draws = None
         if generator is not None:
             self.graph.register_generator_state(generator)
+            self.draws = gather_kernels.GraphDraws(generator)
         before = gather_kernels.launch_counts()
         with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
+                              capture_error_mode="thread_local"), \
+                gather_kernels.capturing_draws(self.draws):
             self.out = fn()
         after_capture = gather_kernels.launch_counts()
         self.launches = {k: v - before[k] for k, v in after_capture.items() if v != before[k]}
+        self.units = 0 if self.draws is None else self.draws.units
         self.graph.instantiate()
         self.marks = gather_kernels.GraphMarks(self.graph)
         self.marks.set(False)
@@ -334,7 +344,10 @@ class CapturedGraph:
         self._after = after
 
     def __call__(self):
+        offset = None if self.draws is None else self.draws.before_replay()
         self.graph.replay()
+        if self.draws is not None:
+            self.draws.after_replay(offset)
         self.replays += 1
         if self._after is not None:
             self._after()

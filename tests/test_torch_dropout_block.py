@@ -184,7 +184,7 @@ def test_models_on_prefix_blocks_equal_the_chain(op_calls, monkeypatch, arch, ag
     logits, grads, state = run()
     assert op_calls == MODELS[(arch, aggregator)]
 
-    def chain(h, block, kind, rate, generator, train, *, with_self=True):
+    def chain(h, block, kind, rate, generator, train, *, with_self=True, kernel_draw=True):
         d = common.dropout(h, rate, generator, train)
         return agg.block_gather(d, block, kind) if with_self else (
             None, agg.block_aggregate(d, block, kind))

@@ -310,8 +310,9 @@ def test_launch_counters_have_the_fused_forward():
     has one a cache tier, and one a tier for its bf16 output; each block
     kernel one for bf16 rows, and the bf16 backward's rounding launch one;
     and the max kind one a block kernel; the fused dropout block one a way
-    and a kind, mean and sum; GAT's attention pair one a way, f32 only),
-    and reset_launch_counts zeroes them all."""
+    and a kind, mean and sum; GAT's attention pair one a way, f32 only; the
+    dropout keep-mask one, its units counted beside the launches), and
+    reset_launch_counts zeroes them all."""
     block = {"block_gather_fwd_mean", "block_gather_fwd_sum", "gather_rows",
              "scatter_add_rows", "gather_reduce_mean",
              "gather_reduce_sum", "gather_reduce_bwd_mean", "gather_reduce_bwd_sum",
@@ -322,10 +323,13 @@ def test_launch_counters_have_the_fused_forward():
     assemble = {"assemble_f32", "assemble_bf16", "assemble_int8"}
     keys = block | {k + "_bf16" for k in block} | assemble | {k + "_to_bf16" for k in assemble}
     assert set(gk.LAUNCHES) == keys | {"grad_to_bf16", "gat_attention_fwd",
-                                       "gat_attention_bwd"}
+                                       "gat_attention_bwd", "dropout_bits"}
+    assert set(gk.DRAWN_UNITS) == {"dropout_bits"}
     gk.LAUNCHES["block_gather_fwd_mean"] += 1
+    gk.DRAWN_UNITS["dropout_bits"] += 64
     gk.reset_launch_counts()
     assert set(gk.launch_counts().values()) == {0}
+    assert set(gk.DRAWN_UNITS.values()) == {0}
 
 
 @pytest.mark.parametrize("kind", ["mean", "sum"])
